@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+
+1. Prints the card's name and power limit (nvidia-smi), builds the CUDA
+   kernels from ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
+   and prints the build seconds and each kernel's registers.
+2. Holds each kernel against its plain PyTorch version on the card at the
+   shapes the serving path gives it (paged attention: the Llama-3.2-3B and
+   -1B head geometries, Q in {1, 5, 127}, block size 16, ragged rows with a
+   row on the NULL block, fp32 and bf16; argmax: [20, 128256] fp32 with
+   planted ties), one JSON line per case with the error, the tolerance and
+   the kernel / plain / library / bound times in ms.
+3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
+   drafter = the target's first L-1 layers, so some drafts are rejected)
+   served speculatively, served with AR rounds only, and served on the CPU
+   from the same weights must give identical tokens, with at least one
+   round that accepted part of its draft.
+4. The main path at full width: the paper's pair, Llama-3.2-3B target and
+   Llama-3.2-1B drafter (bf16, seeded random weights), serves 8 ragged
+   requests through ``PagedSpecServer`` with gamma pinned to 4. The kernel
+   launch counts are set to 0 just before and read just after, and must
+   equal what the path implies. The same serve then runs once more under
+   ``torch.profiler``: device busy time, idle share, launches per round
+   and device time by kernel.
+5. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
+   ``{"ok": true, "device": {...}}``.
+
+Nothing is caught: any failure exits non-zero before the last line. With no
+CUDA device it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+FLOPS_PER_S = {torch.float32: 67e12,    # H100 SXM peak for the input type:
+               torch.bfloat16: 989e12}  # fp32 CUDA cores, bf16 tensor cores
+TOL = {torch.float32: (1e-4, 1e-4),   # (atol, rtol): summation order differs
+       torch.bfloat16: (1e-2, 1e-2)}  # plus one bf16 output rounding (2^-8)
+GAMMA = 4
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+class Timer:
+    """Median device time of one call, by CUDA events, with the 50 MB L2
+    flushed before every call (the serving path finds each layer's KV and
+    the logits cold)."""
+
+    def __init__(self):
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, iters=20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+# --------------------------------------------------------------- kernels
+def attention_case(timer, name, H, Kv, D, Q, dtype, headline=False):
+    from repro_torch.kernels import paged_attention as pa
+    BS, MB, NB = 16, 16, 256
+    g = torch.Generator(device="cuda").manual_seed(H * 1000 + Q)
+    if Q == 127:                       # bucketed prefill: one row from 0
+        index = [0]
+    else:                              # draft / verify: ragged, row 2 NULL
+        index = [37, 150, 11, 200]
+    B = len(index)
+    q = torch.randn((B, Q, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    table = perm[:B * MB].reshape(B, MB).to(torch.int32)
+    if B > 1:
+        table[2] = 0                   # a frozen slot on the NULL block
+    idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+    max_live = None if Q == 127 else (idx.max() + Q).to(torch.int32)
+    args = (q, k, v, table, idx)
+
+    out = pa.paged_flash_attention(*args, max_live=max_live)
+    ref = pa.plain(*args, max_live=max_live)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+
+    # library yardstick: SDPA over a gathered, head-expanded view
+    live = [min(i + Q, int(max_live) if max_live is not None else 1 << 30)
+            for i in index]
+    S = max(live)
+    cols = torch.arange(S, device="cuda")
+    blk = table.long()[:, cols // BS]                          # [B, S]
+    kg = k[blk, cols % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = v[blk, cols % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    qg = q.permute(0, 2, 1, 3)
+    qpos = idx[:, None] + torch.arange(Q, device="cuda")
+    mask = (qpos[:, :, None] >= cols[None, None, :])[:, None]  # [B,1,Q,S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    ms = timer(lambda: pa.paged_flash_attention(*args, max_live=max_live))
+    plain_ms = timer(lambda: pa.plain(*args, max_live=max_live), iters=5)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask))
+
+    # least work the function needs on these inputs: each visible KV token
+    # read once per kv-head, q read and out written once; 4 flops per
+    # (query head, visible key, d), at the card's peak for the input type
+    esz = q.element_size()
+    visible = sum(min(i + qi + 1, n) for i, n in zip(index, live)
+                  for qi in range(Q))
+    nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
+              + table.numel() * 4 + B * 4)
+    flops = 4 * H * D * visible
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[dtype] * 1e3
+    case = {"case": "paged_attention", "geometry": name, "Q": Q, "B": B,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+            "atol": atol, "rtol": rtol, "ok": ok, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "headline": headline}
+    emit(case)
+    if not ok:
+        raise SystemExit(f"paged attention disagrees with its plain version: {case}")
+    return case
+
+
+def argmax_case(timer):
+    from repro_torch.kernels import spec_verify as sv
+    R, V = 5 * GAMMA, 128256
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn((R, V), generator=g, device="cuda")
+    top = float(logits.max()) + 1.0
+    for r in range(R):                 # planted ties: first maximum must win
+        a = (r * 977) % (V - 9000)
+        logits[r, a] = top
+        logits[r, a + 3] = top         # same kernel chunk
+        logits[r, a + 8000] = top      # another chunk
+    out = sv.blockwise_argmax(logits)[:, 0]
+    ref = sv.plain(logits)[:, 0]
+    torch.cuda.synchronize()
+    err = float((out.long() - ref.long()).abs().max())
+    first = torch.tensor([(r * 977) % (V - 9000) for r in range(R)],
+                         dtype=torch.int32, device="cuda")
+    ok = err == 0 and bool((out == first).all())
+    ms = timer(lambda: sv.blockwise_argmax(logits))
+    plain_ms = timer(lambda: sv.plain(logits))
+    library_ms = timer(lambda: torch.argmax(logits, dim=-1))
+    nbytes = logits.numel() * 4 + R * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = R * V / FLOPS_PER_S[torch.float32] * 1e3
+    case = {"case": "blockwise_argmax", "shape": [R, V], "dtype": "float32",
+            "max_abs_err": err, "atol": 0, "rtol": 0, "ok": ok,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(case)
+    if not ok:
+        raise SystemExit(f"argmax kernel disagrees with torch.argmax: {case}")
+    return case
+
+
+# --------------------------------------------------------------- serving
+def serve(mt, md, pt, pd, reqs, scfg, gamma, device):
+    from repro_torch.serving import PagedSpecServer, ServeRequest
+    srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=gamma, device=device)
+    for i, (prompt, new) in enumerate(reqs):
+        srv.submit(ServeRequest(i, prompt, new))
+    done = {r.rid: r.tokens for r in srv.run()}
+    return srv, done
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def smoke_exactness():
+    """The drafter is the target's own first L-1 layers (shared embedding
+    and head), and the embedding is drawn at std d**-0.5 rather than 1.0
+    (at std 1.0 both models echo the last token and every draft is
+    accepted). So the pair disagrees in some rounds, and the run goes
+    through partial accepts, per-row rollback of KV slots the kernel has
+    written, and correction tokens."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SchedulerConfig
+    gamma = 3
+    cfg = registry.smoke_config("llama3.2-1b")
+    cfg = cfg.replace(embed_init_scale=cfg.d_model ** -0.5)
+    mt = build_model(cfg)
+    md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
+    pt = mt.init(0, "cuda")
+    pd = {**pt, "layers": pt["layers"][:-1]}
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 30))).astype(np.int32),
+             int(rng.integers(4, 24))) for _ in range(6)]
+    scfg = SchedulerConfig(max_batch=3)
+    spec, out_spec = serve(mt, md, pt, pd, reqs, scfg, gamma, "cuda")
+    ar, out_ar = serve(mt, md, pt, pd, reqs, scfg, 0, "cuda")
+    cpu, out_cpu = serve(mt, md, to_cpu(pt), to_cpu(pd), reqs, scfg, gamma, "cpu")
+    hist = spec.metrics.summary()["accept_hist"][:gamma + 1]
+    same_ar = all(np.array_equal(out_spec[i], out_ar[i]) for i in range(len(reqs)))
+    same_cpu = all(np.array_equal(out_spec[i], out_cpu[i]) for i in range(len(reqs)))
+    info = {"phase": "smoke_exactness", "requests": len(reqs),
+            "completed": len(out_spec), "spec_rounds": spec.total_rounds,
+            "ar_rounds": ar.total_rounds, "accept_hist": hist.tolist(),
+            "spec_equals_ar": same_ar, "gpu_equals_cpu": same_cpu}
+    emit(info)
+    if hist[1:gamma].sum() == 0:
+        raise SystemExit(f"no round accepted part of its draft: {info}")
+    if len(out_spec) != len(reqs) or not (same_ar and same_cpu):
+        raise SystemExit(f"smoke-width exactness failed: {info}")
+
+
+def full_width(card):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import spec_verify as sv
+    from repro_torch.launch.cli_args import build_pair
+    from repro_torch.obs import clock
+    from repro_torch.serving import SchedulerConfig
+    mt, md, pt, pd, cfg = build_pair("llama3.2-3b", smoke=False, device="cuda")
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 121))).astype(np.int32),
+             int(rng.integers(32, 65))) for _ in range(8)]
+    # warm-up (cuBLAS handles, allocator), not counted
+    serve(mt, md, pt, pd, [(reqs[0][0][:16], 8)], scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    pa.paged_flash_attention.launches = 0
+    sv.blockwise_argmax.launches = 0
+    t0 = clock.perf()
+    srv, done = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    wall = clock.perf() - t0
+    launches = {"paged_attention": pa.paged_flash_attention.launches,
+                "blockwise_argmax": sv.blockwise_argmax.launches}
+
+    rounds, prefills = srv.total_rounds, srv.n_prefills
+    expect = {"paged_attention": rounds * (L_t + GAMMA * L_d) + prefills * (L_t + L_d),
+              "blockwise_argmax": rounds}
+    s = srv.metrics.summary()
+    complete = (len(done) == len(reqs) and s["requests_failed"] == 0 and all(
+        len(done[i]) == len(p) + new
+        and ((done[i] >= 0) & (done[i] < cfg.vocab_size)).all()
+        and np.array_equal(done[i][:len(p)], p)
+        for i, (p, new) in enumerate(reqs)))
+    hist = s["accept_hist"][:GAMMA + 1]
+    info = {"phase": "full_width", "target": mt.cfg.name, "drafter": md.cfg.name,
+            "dtype": mt.cfg.dtype, "card": card, "requests": len(reqs),
+            "completed": len(done), "generated_tokens": s["total_generated_tokens"],
+            "wall_s": wall, "tokens_per_s": s["total_generated_tokens"] / wall,
+            "rounds": rounds, "ms_per_round": wall / rounds * 1e3,
+            "prefills": prefills, "gamma": GAMMA, "alpha_hat": s["alpha_hat"],
+            "mean_accepted_per_round": float((hist * np.arange(len(hist))).sum()
+                                             / max(hist.sum(), 1)),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "expected_launches": expect,
+            "all_complete_in_vocab": bool(complete)}
+    emit(info)
+    if not complete:
+        raise SystemExit(f"full-width serving did not complete cleanly: {info}")
+    if launches != expect:
+        raise SystemExit(f"kernel launches {launches} != expected {expect}")
+    profile(mt, md, pt, pd, reqs, scfg, card)
+    return launches
+
+
+def _union(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def streamed_bytes(params) -> int:
+    """Weight bytes one forward step must read: every layer tensor, the
+    final norm and the table the unembedding reads (the fp32 copy when
+    tied); the embedding lookup reads only a few rows and is left out."""
+    def size(tree):
+        if isinstance(tree, dict):
+            return sum(size(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(size(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    emb = params["embed"]
+    head = params.get("lm_head", {"t": emb.get("table_f32", emb["table"])})
+    return size(params["layers"]) + size(params["final_norm"]) + size(head)
+
+
+def profile(mt, md, pt, pd, reqs, scfg, card):
+    """The same serve once more under torch.profiler: the device's busy
+    time (the union of the CUDA kernels' intervals), its idle share of the
+    wall time, kernel launches per round and the device time by kernel,
+    largest first. The profiler slows the host, so this run's wall time is
+    not the throughput."""
+    from repro_torch.obs import clock
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = clock.perf()
+        srv, _ = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+        torch.cuda.synchronize()
+        wall = clock.perf() - t0
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            s, e = ev.time_range.start, ev.time_range.end
+            spans.append((s, e))
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + e - s
+    busy_s = _union(spans) / 1e6 if spans else None   # None: not measured
+    round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
+    emit({"phase": "profile", "card": card, "rounds": srv.total_rounds,
+          "prefills": srv.n_prefills, "wall_s": wall, "device_busy_s": busy_s,
+          "device_idle_share": None if busy_s is None else 1 - busy_s / wall,
+          "kernel_launches": len(spans),
+          "kernel_launches_per_round": len(spans) / srv.total_rounds,
+          "weight_bytes_per_round": round_bytes,
+          "weight_floor_ms_per_round": round_bytes / HBM_BYTES_PER_S * 1e3,
+          "top_kernels_s": [[n[:90], us / 1e6] for n, us in
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.obs import clock
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = clock.perf()
+    paths = build.build_all()
+    for name in paths:
+        build.load(name)
+    print(f"build: {clock.perf() - t0:.3f} s wall for {sorted(paths)}", flush=True)
+    for name, log in sorted(build.build_log.items()):
+        regs = [ln.strip() for ln in log["ptxas"].splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        print(f"build {name}: {log['seconds']:.3f} s; " + " | ".join(regs), flush=True)
+
+    timer = Timer()
+    att = []
+    for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)):
+        for Q in (1, GAMMA + 1, 127):
+            for dtype in (torch.float32, torch.bfloat16):
+                att.append(attention_case(
+                    timer, geom, H, Kv, D, Q, dtype,
+                    headline=(geom == "llama3.2-1b" and Q == 1
+                              and dtype == torch.bfloat16)))
+    arg = argmax_case(timer)
+    del timer
+
+    smoke_exactness()
+    launches = full_width(card)
+
+    head = next(c for c in att if c["headline"])
+    kernels = [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:87",
+         "launches": launches["paged_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in att),
+         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+         "library_ms": head["library_ms"]},
+        {"name": "blockwise_argmax", "route": "cuda",
+         "source": "src/repro_torch/csrc/spec_verify.cu",
+         "replaces": "src/repro/kernels/spec_verify.py:42",
+         "launches": launches["blockwise_argmax"],
+         "max_abs_err": arg["max_abs_err"], "ms": arg["kernel_ms"],
+         "plain_ms": arg["plain_ms"], "bound_ms": arg["bound_ms"],
+         "bound_by": arg["bound_by"], "library_ms": arg["library_ms"]},
+    ]
+    emit({"kernels": kernels})
+    print(card_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

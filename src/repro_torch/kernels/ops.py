@@ -1,0 +1,26 @@
+"""Public wrappers around the CUDA kernels (port of ``repro/kernels/ops.py``).
+
+Model code calls these, never the C entry points. The kernel wrappers
+decide by the tensor's device: the plain version for a CPU tensor, the
+kernel for a CUDA tensor. Where the JAX wrappers send an explicit ``scale``
+or an int8 KV pool to the jnp oracle, the kernel wrapper raises for a CUDA
+tensor instead: the kernel takes neither, and neither occurs on the ported
+path.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import spec_verify as _sv
+
+
+def verify_greedy(draft_tokens, p_logits):
+    """Fused greedy verification (see repro_torch.core.acceptance)."""
+    return _sv.verify_greedy_fused(draft_tokens, p_logits)
+
+
+def paged_attention(q, k_pool, v_pool, block_table, index, *, window=None,
+                    scale=None, max_live=None):
+    """Block-table-native paged attention (prefill, draft and verify)."""
+    return _pa.paged_flash_attention(q, k_pool, v_pool, block_table, index,
+                                     window=window, scale=scale,
+                                     max_live=max_live)

@@ -1,0 +1,20 @@
+"""Plain PyTorch versions of the ported kernels (port of
+``repro/kernels/ref.py``): what a CPU tensor runs, and what the CUDA
+kernels are held against on the card."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import attn_paged
+
+
+def blockwise_argmax_ref(logits):
+    """[R, V] -> int32 [R, 1]; the first maximum wins, as in the kernel."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, index, *,
+                        window=None, scale=None, max_live=None):
+    """The model-level block-scan paged attention."""
+    return attn_paged(q, k_pool, v_pool, block_table, index, window=window,
+                      scale=scale, max_live=max_live)

@@ -1,0 +1,118 @@
+"""Paged GQA attention with causal / sliding-window masking
+(port of the paged read path of ``repro/models/attention.py``).
+
+``attn_paged`` is the plain PyTorch version: a loop over KV *blocks*
+fetched through the block table with an online softmax, stopping at the
+batch-max live block. It is what runs on the CPU, and what the CUDA kernel
+(``repro_torch.kernels.paged_attention``) is held against on the card.
+``attention_paged`` is the dispatch the model calls: the tensor's device
+decides — a CPU tensor takes ``attn_paged``, a CUDA tensor the kernel.
+
+The no-cache paths (``attn_dense``, ``attn_chunked``, ``attention``) and the
+tree paths wait for later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.cache.kv_cache import _from_buf
+
+NEG_INF = -1e30  # large-but-finite; avoids NaNs from (-inf) - (-inf)
+
+
+def _mask(q_pos, kv_pos, window):
+    """Boolean mask [Q,S] (shared positions) or [B,Q,S] (per-row positions):
+    causal + optional sliding window."""
+    qp = q_pos[..., :, None]
+    kp = kv_pos[..., None, :]
+    m = qp >= kp
+    if window is not None:
+        m = m & (torch.abs(qp - kp) < window)
+    m = m & (kp >= 0)  # invalid cache slots carry position -1
+    return m
+
+
+def _expand_mask(m):
+    """[Q,S] -> [1,1,1,Q,S]; [B,Q,S] -> [B,1,1,Q,S] (scores are [B,Kv,G,Q,S])."""
+    if m.ndim == 2:
+        return m[None, None, None]
+    return m[:, None, None]
+
+
+def _online_carry(B, Kv, G, Q, D, device):
+    return (torch.zeros((B, Kv, G, Q, D), dtype=torch.float32, device=device),
+            torch.full((B, Kv, G, Q), NEG_INF, dtype=torch.float32, device=device),
+            torch.zeros((B, Kv, G, Q), dtype=torch.float32, device=device))
+
+
+def _online_step(carry, qf, k_i, v_i, q_pos, kv_pos, window, scale):
+    """One online-softmax update over a KV slab (the recurrence the CUDA
+    kernel implements in shared memory)."""
+    acc, mx, den = carry
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_i.float()) * scale
+    m = _mask(q_pos, kv_pos, window)
+    s = torch.where(_expand_mask(m), s, torch.full_like(s, NEG_INF))
+    mx_new = torch.maximum(mx, s.amax(dim=-1))
+    alpha = torch.exp(mx - mx_new)
+    p = torch.exp(s - mx_new[..., None])
+    den = den * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                v_i.float())
+    return acc, mx_new, den
+
+
+def _online_emit(acc, den, B, Q, H, D, dtype):
+    o = acc / torch.clamp(den, min=1e-30)[..., None]          # [B,Kv,G,Q,D]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Q, H, D).to(dtype)
+
+
+def attn_paged(q, k_pool, v_pool, block_table, index, *, window=None,
+               scale=None, max_live=None):
+    """Block-table-native attention over a paged KV pool (plain version).
+
+    q:            [B, Q, H, D] queries at absolute positions index..index+Q-1
+                  (already written into the pool by ``paged_kv.write``).
+    k_pool/v_pool:[NB, BS, Kv, D] this layer's block pool, post-write.
+    block_table:  [B, MB] int32 row -> pool block ids (NULL block = 0).
+    index:        [B] (or scalar) committed tokens per row BEFORE this write.
+    max_live:     optional live-token bound (max over rows of index+Q); when
+                  None it is computed from ``index``.
+
+    The loop runs ``ceil(max_live / BS)`` block steps, not ``MB``. The loop
+    count is read on the host, so on a CUDA tensor this version syncs once
+    per call; it runs on the card only to be compared with the kernel.
+    """
+    B, Q, H, D = q.shape
+    BS, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_table.shape[1]
+    G = H // Kv
+    scale = scale if scale is not None else D ** -0.5
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
+    if idx.ndim == 0:
+        idx = idx.expand(B)
+    ar = torch.arange(Q, dtype=torch.int32, device=q.device)
+    q_pos = idx[:, None] + ar                                      # [B, Q]
+    live = int(idx.max()) + Q if max_live is None else int(max_live)
+    n_blocks = min(max((live + BS - 1) // BS, 1), MB)
+
+    qf = q.reshape(B, Q, Kv, G, D).float()
+    carry = _online_carry(B, Kv, G, Q, D, q.device)
+    table = block_table.long()
+    for j in range(n_blocks):
+        blk = table[:, j]                                          # [B]
+        k_j = _from_buf(k_pool[blk], q.dtype)                     # [B, BS, Kv, D]
+        v_j = _from_buf(v_pool[blk], q.dtype)
+        kv_pos = j * BS + torch.arange(BS, dtype=torch.int32, device=q.device)
+        carry = _online_step(carry, qf, k_j, v_j, q_pos, kv_pos, window, scale)
+    acc, _, den = carry
+    return _online_emit(acc, den, B, Q, H, D, q.dtype)
+
+
+def attention_paged(q, k_pool, v_pool, block_table, index, *, window=None,
+                    scale=None, max_live=None):
+    """Paged-attention dispatch: the tensor's device decides — the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA tensor (see
+    ``repro_torch.kernels.ops.paged_attention``)."""
+    from repro_torch.kernels import ops
+    return ops.paged_attention(q, k_pool, v_pool, block_table, index,
+                               window=window, scale=scale, max_live=max_live)

@@ -1,0 +1,60 @@
+"""Model API (port of ``repro/models/model.py``, dense family only).
+
+  model = build_model(cfg)
+  params = model.init(seed, device)
+  logits, cache, aux = model.apply(params, tokens, cache, **kw)
+  cache = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
+
+``init`` and ``init_paged_cache`` allocate on ``cuda`` unless the caller
+passes ``device="cpu"``. The other families, the ring cache and the
+no-cache forward wait for later slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch import device as devices
+from repro_torch.cache import paged_kv
+from repro_torch.models import dense
+
+
+class Model:
+    def __init__(self, cfg):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (dense only)")
+        self.cfg = cfg
+        self.family = cfg.family
+
+    def init(self, seed: Union[int, torch.Generator], device=None):
+        """Seeded random weights. ``seed`` is an int or a torch.Generator
+        on ``device``."""
+        dev = devices.resolve(device)
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return dense.init(self.cfg, gen, dev)
+
+    def apply(self, params, tokens, cache=None, *, logits_slice=None,
+              max_live=None):
+        logits, new_cache = dense.forward(self.cfg, params, tokens, cache,
+                                          logits_slice=logits_slice,
+                                          max_live=max_live)
+        return logits, new_cache, {}
+
+    def init_paged_cache(self, batch, num_blocks, block_size,
+                         max_blocks_per_row, dtype: Optional[torch.dtype] = None,
+                         device=None):
+        """Block-pool KV cache for ragged continuous batching."""
+        cfg = self.cfg
+        return paged_kv.init_cache(cfg.num_layers, batch, num_blocks,
+                                   block_size, max_blocks_per_row,
+                                   cfg.num_kv_heads, cfg.head_dim,
+                                   dtype or cfg.act_dtype,
+                                   devices.resolve(device))
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)
