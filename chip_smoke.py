@@ -5,18 +5,26 @@
 
 1. Prints the card's name and power limit (nvidia-smi), builds the CUDA
    kernels from ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
-   and prints the build seconds and each kernel's registers.
+   and prints the build seconds and each kernel's registers and spills.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it (paged attention: the Llama-3.2-3B and
    -1B head geometries, Q in {1, 5, 127}, block size 16, ragged rows with a
    row on the NULL block, fp32 and bf16; argmax: [20, 128256] fp32 with
-   planted ties), one JSON line per case with the error, the tolerance and
+   planted ties; tree attention: the 3B geometry, B=4, block size 16,
+   ragged rows, the main path's chain_tree(2, 4) (span 9), chain_tree(5, 6)
+   (span 31), a non-chain tree, fp32 and bf16, and one fp32 case with a
+   window of 8), one JSON line per case with the error, the tolerance and
    the kernel / plain / library / bound times in ms.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
    from the same weights must give identical tokens, with at least one
-   round that accepted part of its draft.
+   round that accepted part of its draft. Then the same for paged tree
+   rounds (``PagedTreeRound``, width 2, depth 3; the weights drawn on the
+   CPU and copied to the card): tree on the card == tree on the CPU == AR
+   on the card, with at least one partial accept and one round won by a
+   chain other than 0, and both block allocators audited after every
+   round.
 4. The main path at full width: the paper's pair, Llama-3.2-3B target and
    Llama-3.2-1B drafter (bf16, seeded random weights), serves 8 ragged
    requests through ``PagedSpecServer`` with gamma pinned to 4. The kernel
@@ -24,7 +32,12 @@
    equal what the path implies. The same serve then runs once more under
    ``torch.profiler``: device busy time, idle share, launches per round
    and device time by kernel.
-5. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
+5. Full-width tree rounds: the same pair runs ``PagedTreeRound`` (width 2,
+   depth 4) over 4 ragged prompts until each row has 32 new tokens; the
+   launch counts (set to 0 just before the tree prefills, read just after
+   the last round) must equal what the path implies, and the tokens must
+   equal the same prompts served with AR rounds.
+6. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits non-zero before the last line. With no
@@ -49,6 +62,7 @@ FLOPS_PER_S = {torch.float32: 67e12,    # H100 SXM peak for the input type:
 TOL = {torch.float32: (1e-4, 1e-4),   # (atol, rtol): summation order differs
        torch.bfloat16: (1e-2, 1e-2)}  # plus one bf16 output rounding (2^-8)
 GAMMA = 4
+TREE_W, TREE_D = 2, 4          # full-width tree rounds: chain_tree(2, 4)
 
 
 def card_line() -> str:
@@ -190,6 +204,76 @@ def argmax_case(timer):
     return case
 
 
+def tree_attention_case(timer, name, shape, dtype, window=None,
+                        headline=False):
+    """Tree attention at the Llama-3.2-3B head geometry: B=4 ragged rows
+    (row 2 on the NULL block), block size 16, the verify round's live
+    bound max(index) + span as a device tensor."""
+    from repro_torch.kernels import tree_attention as ta
+    from repro_torch.models.attention import _tree_mask
+    H, Kv, D, BS, MB, NB = 24, 8, 128, 16, 16, 256
+    span = shape.span
+    g = torch.Generator(device="cuda").manual_seed(1000 + span)
+    index = [37, 150, 11, 200]
+    B = len(index)
+    q = torch.randn((B, span, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    table = perm[:B * MB].reshape(B, MB).to(torch.int32)
+    table[2] = 0
+    idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+    depths = torch.from_numpy(shape.depths).cuda()
+    bits = torch.from_numpy(shape.bits).cuda()
+    max_live = (idx.max() + span).to(torch.int32)
+    args = (q, k, v, table, idx, depths, bits)
+    kw = dict(window=window, max_live=max_live)
+
+    out = ta.tree_flash_attention(*args, **kw)
+    ref = ta.plain(*args, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+
+    # library yardstick: SDPA over a gathered, head-expanded view with the
+    # tree mask as attn_mask
+    S = max(index) + span
+    cols = torch.arange(S, dtype=torch.int32, device="cuda")
+    blk = table.long()[:, cols.long() // BS]
+    kg = k[blk, cols.long() % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = v[blk, cols.long() % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    qg = q.permute(0, 2, 1, 3)
+    mask = _tree_mask(idx, cols, depths, bits, window)        # [B, span, S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    ms = timer(lambda: ta.tree_flash_attention(*args, **kw))
+    plain_ms = timer(lambda: ta.plain(*args, **kw), iters=5)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask[:, None]))
+
+    # least work: each row's live KV (index + span tokens) read once per
+    # kv-head, q read and out written once, the table and the tree arrays;
+    # 4 flops per (query head, visible key, d) over the mask's visible pairs
+    esz = q.element_size()
+    live = [i + span for i in index]
+    nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
+              + table.numel() * 4 + B * 4 + 2 * span * 4)
+    flops = 4 * H * D * int(mask.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[dtype] * 1e3
+    case = {"case": "tree_attention", "tree": name, "span": span, "B": B,
+            "window": window, "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "headline": headline}
+    emit(case)
+    if not ok:
+        raise SystemExit(f"tree attention disagrees with its plain version: {case}")
+    return case
+
+
 # --------------------------------------------------------------- serving
 def serve(mt, md, pt, pd, reqs, scfg, gamma, device):
     from repro_torch.serving import PagedSpecServer, ServeRequest
@@ -206,6 +290,14 @@ def to_cpu(tree):
     if isinstance(tree, list):
         return [to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+def to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cuda(v) for v in tree]
+    return tree.cuda()
 
 
 def smoke_exactness():
@@ -246,13 +338,183 @@ def smoke_exactness():
         raise SystemExit(f"smoke-width exactness failed: {info}")
 
 
-def full_width(card):
+def tree_serve(mt, md, pt, pd, reqs, width, depth, device, *, audit=False,
+               before_prefill=None):
+    """Paged tree rounds over ``reqs`` [(prompt, new)], one row each, until
+    every row holds prompt + new tokens. Each row's first P-1 tokens are
+    prefilled through a one-row view of each cache (its own table row,
+    index 0, the pools shared in place, as the server's prefill does); the
+    first round consumes the last prompt token. ``before_prefill`` runs
+    just before the prefills. Returns (tokens per row, per-round log,
+    rounds seconds, total seconds)."""
+    from repro_torch.cache.ops import PAGED
+    from repro_torch.cache.paged_kv import BlockAllocator
+    from repro_torch.core import rounds
+    from repro_torch.obs import clock
+    BS, MB, NB = 16, 24, 256
+    B = len(reqs)
+    plen = np.asarray([len(p) for p, _ in reqs], np.int32)
+    want = plen + np.asarray([n for _, n in reqs], np.int32)
+    geom = dict(num_blocks=NB, block_size=BS, max_blocks_per_row=MB)
+    at, ad = BlockAllocator(NB, BS, MB, B), BlockAllocator(NB, BS, MB, B)
+    tokens = np.zeros((B, MB * BS), np.int32)
+    for b, (prompt, _) in enumerate(reqs):
+        tokens[b, :len(prompt)] = prompt
+        if not (at.ensure(b, len(prompt)) and ad.ensure(b, len(prompt))):
+            raise SystemExit(f"tree serve: no room for row {b}")
+    tcache = {**PAGED.init(mt, B, device=device, **geom),
+              "block_table": at.device_table(device)}
+    dcache = {**PAGED.init(md, B, device=device, **geom),
+              "block_table": ad.device_table(device)}
+    if before_prefill is not None:
+        before_prefill()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = clock.perf()
+    zero = torch.zeros((1,), dtype=torch.int32, device=device)
+    for b, (prompt, _) in enumerate(reqs):
+        toks = torch.from_numpy(prompt[None, :-1]).to(device)
+        mt.apply(pt, toks, {**tcache, "block_table": tcache["block_table"][b:b + 1],
+                            "index": zero})
+        md.apply(pd, toks, {**dcache, "block_table": dcache["block_table"][b:b + 1],
+                            "index": zero}, logits_slice="last")
+    length = torch.from_numpy(plen).to(device)
+    state = rounds.RoundState(
+        tokens=torch.from_numpy(tokens).to(device), length=length,
+        dcache={**dcache, "index": length - 1},
+        tcache={**tcache, "index": length - 1},
+        active=torch.ones((B,), dtype=torch.bool, device=device),
+        n_rounds=torch.zeros((), dtype=torch.int32, device=device),
+        n_accepted=torch.zeros((B,), dtype=torch.int32, device=device),
+        n_drafted=torch.zeros((), dtype=torch.int32, device=device))
+    spec = rounds.RoundSpec(gamma=depth, policy=rounds.make_policy("tree", width))
+    rnd = rounds.PagedTreeRound(mt, md, spec, at, ad)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = clock.perf()
+    log, host_len = [], plen.copy()
+    while (host_len < want).any():
+        state = rnd(pt, pd, state)
+        log.append({"accepted": (rnd.last_length - host_len - 1).tolist(),
+                    "winner": rnd.last_winner.tolist()})
+        host_len = rnd.last_length
+        if audit:
+            at.audit()
+            ad.audit()
+    out = state.tokens.cpu().numpy()
+    t2 = clock.perf()
+    return [out[b, :want[b]] for b in range(B)], log, t2 - t1, t2 - t0
+
+
+def smoke_tree_exactness():
+    """Paged tree rounds on the smoke pair of ``smoke_exactness`` (weights
+    drawn with the CPU generator and copied to the card, so a CPU run
+    predicts the card's): tree on the card, tree on the CPU and AR on the
+    card must give identical tokens. The phase fails unless some round
+    accepted part of a draft and some round's winner was not chain 0 —
+    the adoption of a non-first branch and a compaction from scattered
+    slots."""
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SchedulerConfig
+    W, D = 2, 3
+    cfg = registry.smoke_config("llama3.2-1b")
+    cfg = cfg.replace(embed_init_scale=cfg.d_model ** -0.5)
+    mt = build_model(cfg)
+    md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
+    pt_cpu = mt.init(0, "cpu")
+    pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
+    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(4, 30))).astype(np.int32),
+             int(rng.integers(8, 24))) for _ in range(4)]
+    gpu, log, _, _ = tree_serve(mt, md, pt, pd, reqs, W, D, "cuda", audit=True)
+    cpu, _, _, _ = tree_serve(mt, md, pt_cpu, pd_cpu, reqs, W, D, "cpu", audit=True)
+    _, out_ar = serve(mt, md, pt, pd, reqs, SchedulerConfig(max_batch=4), 0, "cuda")
+    acc = [a for r in log for a in r["accepted"]]
+    partial = sum(0 < a < D for a in acc)
+    not_first = sum(w != 0 for r in log for w in r["winner"])
+    same_cpu = all(np.array_equal(gpu[i], cpu[i]) for i in range(len(reqs)))
+    same_ar = all(np.array_equal(gpu[i], out_ar[i]) for i in range(len(reqs)))
+    info = {"phase": "smoke_tree_exactness", "width": W, "depth": D,
+            "weights_sum": float(sum(t.double().sum() for t in (
+                pt_cpu["embed"]["table"], pt_cpu["layers"][0]["attn"]["q"]["w"]))),
+            "requests": len(reqs), "rounds": len(log),
+            "accepted_per_round": [r["accepted"] for r in log],
+            "winners": [r["winner"] for r in log],
+            "partial_accepts": partial, "non_first_winners": not_first,
+            "tree_gpu_equals_cpu": same_cpu, "tree_equals_ar": same_ar}
+    emit(info)
+    if partial == 0 or not_first == 0:
+        raise SystemExit(f"tree exactness saw no partial accept or no "
+                         f"non-first winner: {info}")
+    if not (same_cpu and same_ar):
+        raise SystemExit(f"smoke-width tree exactness failed: {info}")
+
+
+def full_width_tree(mt, md, pt, pd, cfg, card):
+    """The tree path at full width: ``PagedTreeRound`` (width 2, depth 4)
+    over 4 ragged prompts, 32 new tokens each. Launch counts are set to 0
+    just before the tree prefills and read just after the last round; the
+    tokens must equal AR rounds' on the same prompts."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import spec_verify as sv
-    from repro_torch.launch.cli_args import build_pair
+    from repro_torch.kernels import tree_attention as ta
+    from repro_torch.serving import SchedulerConfig
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 121))).astype(np.int32),
+             32) for _ in range(4)]
+    # warm-up (cuBLAS handles for the verify shapes, the sort), not counted
+    tree_serve(mt, md, pt, pd, [(reqs[0][0][:16], 8)], TREE_W, TREE_D, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def zero_counts():
+        pa.paged_flash_attention.launches = 0
+        ta.tree_flash_attention.launches = 0
+        sv.blockwise_argmax.launches = 0
+
+    out, log, rounds_s, wall = tree_serve(mt, md, pt, pd, reqs, TREE_W, TREE_D,
+                                          "cuda", before_prefill=zero_counts)
+    launches = {"tree_attention": ta.tree_flash_attention.launches,
+                "paged_attention": pa.paged_flash_attention.launches,
+                "blockwise_argmax": sv.blockwise_argmax.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds, prefills = len(log), len(reqs)
+    expect = {"tree_attention": rounds * L_t,
+              "paged_attention": rounds * TREE_D * L_d + prefills * (L_t + L_d),
+              "blockwise_argmax": rounds}
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+    _, out_ar = serve(mt, md, pt, pd, reqs, scfg, 0, "cuda")
+    same_ar = all(np.array_equal(out[i], out_ar[i]) for i in range(len(reqs)))
+    acc = [a for r in log for a in r["accepted"]]
+    generated = sum(n for _, n in reqs)
+    info = {"phase": "full_width_tree", "target": mt.cfg.name,
+            "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
+            "width": TREE_W, "depth": TREE_D, "requests": len(reqs),
+            "prompt_lens": [len(p) for p, _ in reqs], "new_tokens": 32,
+            "rounds": rounds, "prefills": prefills, "wall_s": wall,
+            "rounds_s": rounds_s, "ms_per_round": rounds_s / rounds * 1e3,
+            "tokens_per_s": generated / wall,
+            "mean_accepted_per_round": float(np.mean(acc)),
+            "winners": [r["winner"] for r in log],
+            "peak_memory_gib": peak, "launches": launches,
+            "expected_launches": expect, "tree_equals_ar": same_ar}
+    emit(info)
+    if launches != expect:
+        raise SystemExit(f"tree kernel launches {launches} != expected {expect}")
+    if not same_ar:
+        raise SystemExit(f"full-width tree tokens differ from AR: {info}")
+    return launches
+
+
+def full_width(mt, md, pt, pd, cfg, card):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import spec_verify as sv
     from repro_torch.obs import clock
     from repro_torch.serving import SchedulerConfig
-    mt, md, pt, pd, cfg = build_pair("llama3.2-3b", smoke=False, device="cuda")
     L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
     scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
                            max_blocks_per_row=16)
@@ -382,7 +644,7 @@ def main() -> int:
     print(f"build: {clock.perf() - t0:.3f} s wall for {sorted(paths)}", flush=True)
     for name, log in sorted(build.build_log.items()):
         regs = [ln.strip() for ln in log["ptxas"].splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         print(f"build {name}: {log['seconds']:.3f} s; " + " | ".join(regs), flush=True)
 
     timer = Timer()
@@ -395,12 +657,30 @@ def main() -> int:
                     headline=(geom == "llama3.2-1b" and Q == 1
                               and dtype == torch.bfloat16)))
     arg = argmax_case(timer)
+    from repro_torch.core.tree import TreeShape, chain_tree
+    trees = [("chain_tree(2,4)", chain_tree(TREE_W, TREE_D), None),
+             ("chain_tree(5,6)", chain_tree(5, 6), None),
+             # root -> {1, 2}; 1 -> {3, 4}; 2 -> {5}; 4 -> {6}
+             ("irregular", TreeShape(parents=(0, 0, 1, 1, 2, 4)), None)]
+    tree_cases = [tree_attention_case(timer, name, shape, dtype, window,
+                                      headline=(name == "chain_tree(2,4)"
+                                                and dtype == torch.bfloat16))
+                  for name, shape, window in trees
+                  for dtype in (torch.float32, torch.bfloat16)]
+    tree_cases.append(tree_attention_case(timer, "chain_tree(2,4)",
+                                          chain_tree(TREE_W, TREE_D),
+                                          torch.float32, window=8))
     del timer
 
     smoke_exactness()
-    launches = full_width(card)
+    smoke_tree_exactness()
+    from repro_torch.launch.cli_args import build_pair
+    pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
+    launches = full_width(*pair, card)
+    tree_launches = full_width_tree(*pair, card)
 
     head = next(c for c in att if c["headline"])
+    tree_head = next(c for c in tree_cases if c["headline"])
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -417,6 +697,14 @@ def main() -> int:
          "max_abs_err": arg["max_abs_err"], "ms": arg["kernel_ms"],
          "plain_ms": arg["plain_ms"], "bound_ms": arg["bound_ms"],
          "bound_by": arg["bound_by"], "library_ms": arg["library_ms"]},
+        {"name": "tree_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/tree_attention.py:95",
+         "launches": tree_launches["tree_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in tree_cases),
+         "ms": tree_head["kernel_ms"], "plain_ms": tree_head["plain_ms"],
+         "bound_ms": tree_head["bound_ms"], "bound_by": tree_head["bound_by"],
+         "library_ms": tree_head["library_ms"]},
     ]
     emit({"kernels": kernels})
     print(card_line(), flush=True)

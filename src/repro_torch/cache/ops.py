@@ -3,10 +3,11 @@
 
 Only the paged layout is ported so far: ``init`` allocates a model's block
 pools, ``write`` is the layer-level append the attention stack calls,
-``rollback`` is the O(1) speculative rollback, and ``live_bound`` is the
-round-level live-token bound threaded into the block-scan reads. The ring
-layout, ``spec`` (shape-only allocation) and ``compact`` (tree commits)
-wait for the slices that need them.
+``rollback`` is the O(1) speculative rollback, ``live_bound`` is the
+round-level live-token bound threaded into the block-scan reads, and
+``compact`` moves a tree round's winner path into the committed tail. The
+ring layout and ``spec`` (shape-only allocation) wait for the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ class _PagedOps:
         if active is not None:
             return torch.max(torch.where(active, length, torch.ones_like(length)))
         return torch.max(length)
+
+    @staticmethod
+    def compact(cache, src_pos, dst_pos):
+        return paged_kv.compact_positions(cache, cache["block_table"],
+                                          src_pos, dst_pos)
 
 
 PAGED = _PagedOps()

@@ -20,11 +20,12 @@ the model shares its pools with the dict it was given. Speculative rollback
 is O(1) as in JAX: attention masks on positions recovered from ``index``,
 so ``rollback`` only replaces the index.
 
-Of ``BlockAllocator`` this slice ports what the default server uses
+Of ``BlockAllocator`` the port has what the default server uses
 (``ensure``, ``free_tail``, ``free_row``, ``num_free``, ``blocks_for``,
-``can_allocate``, ``version``, ``table``, ``audit``). Copy-on-write forks,
-branches, prefix attach and fault seizure wait for the slices that need
-them.
+``can_allocate``, ``version``, ``table``, ``audit``) and the copy-on-write
+branch forks of paged tree rounds (``fork_row``, ``ensure_branch``,
+``branch_tables``, ``adopt_branch``, ``release_branches``). Prefix attach
+and fault seizure wait for the slices that need them.
 """
 from __future__ import annotations
 
@@ -90,6 +91,42 @@ def write(layer_cache, k_new, v_new, block_table, index):
     return layer_cache
 
 
+def copy_blocks(cache, pairs):
+    """Device-side half of a copy-on-write fork: copy whole pool blocks
+    ``src -> dst`` across every layer, in place. ``pairs`` is the
+    (src, dst) list returned by ``BlockAllocator.fork_row`` — the partial
+    tail block of a forked row is duplicated so each branch can append
+    without clobbering its siblings; full prefix blocks are shared
+    (refcounted), never copied."""
+    if not pairs:
+        return cache
+    dev = cache["k"].device
+    src = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
+    dst = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
+    for name in ("k", "v"):
+        cache[name][:, dst] = cache[name][:, src]
+    return cache
+
+
+def compact_positions(cache, block_table, src_pos, dst_pos):
+    """Tree-verify commit-by-compaction, in place: gather KV at scattered
+    ``src_pos`` and rewrite it at ``dst_pos`` (both [B, P] absolute
+    positions), all layers at once. The gather (advanced indexing, which
+    copies) completes before the scatter, so overlapping src/dst are safe;
+    an in-place move would not be, since a winner slot may be another
+    level's destination."""
+    BS = cache["k"].shape[2]
+    MB = block_table.shape[1]
+    table = block_table.long()
+    src_pos, dst_pos = src_pos.long(), dst_pos.long()
+    sblk = torch.gather(table, 1, torch.clamp(src_pos // BS, max=MB - 1))
+    dblk = torch.gather(table, 1, torch.clamp(dst_pos // BS, max=MB - 1))
+    for name in ("k", "v"):
+        moved = cache[name][:, sblk, src_pos % BS]          # [L, B, P, Kv, D]
+        cache[name][:, dblk, dst_pos % BS] = moved
+    return cache
+
+
 def rollback(cache, accepted_index):
     """O(1) speculative rollback: drop everything after ``accepted_index``
     ([B] or scalar). Physical blocks stay resident (the next round rewrites
@@ -121,9 +158,12 @@ class BlockAllocator:
         self.n_alloc = np.zeros((batch,), np.int64)      # allocated blocks/row
         self.peak_in_use = 0                             # residency high-water
         self.version = 0     # bumped on every table mutation
-        # refcnt[b] counts table references to block b; without forks every
-        # live block has exactly one
+        # copy-on-write state: refcnt[b] counts table references to block b
+        # (main tables + branch tables); a block returns to the free list
+        # only when its last reference drops. Without forks every count is 1.
         self.refcnt = np.zeros((num_blocks,), np.int64)
+        self._branches: Dict[int, np.ndarray] = {}       # row -> [n_br, MB]
+        self._branch_alloc: Dict[int, np.ndarray] = {}   # row -> [n_br]
 
     # ------------------------------------------------------------- queries
     @property
@@ -153,28 +193,37 @@ class BlockAllocator:
         if need - have > len(self.free):
             return False
         for j in range(have, need):
-            blk = self.free.popleft()
-            self.refcnt[blk] = 1
-            self.table[row, j] = blk
+            self.table[row, j] = self._take_fresh()
         self.n_alloc[row] = need
         self.peak_in_use = max(self.peak_in_use, int(self.n_alloc.sum()))
         self.version += 1
         return True
 
+    def _take_fresh(self) -> int:
+        blk = self.free.popleft()
+        self.refcnt[blk] = 1
+        return blk
+
+    def _release_ref(self, blk: int) -> int:
+        """Drop one table reference; returns 1 if the block went back to the
+        free list (its refcount hit zero), else 0."""
+        self.refcnt[blk] -= 1
+        if self.refcnt[blk] < 0:
+            raise AssertionError(f"refcount underflow on block {blk}")
+        if self.refcnt[blk] == 0:
+            self.free.append(blk)
+            return 1
+        return 0
+
     def free_tail(self, row: int, n_tokens: int) -> int:
         """Release blocks beyond the one holding token ``n_tokens - 1``.
-        Returns the number of blocks returned to the free list."""
+        Returns the number of blocks returned to the free list (blocks
+        shared with a branch stay until their last reference drops)."""
         keep = self.blocks_for(n_tokens)
         have = int(self.n_alloc[row])
         freed = 0
         for j in range(keep, have):
-            blk = int(self.table[row, j])
-            self.refcnt[blk] -= 1
-            if self.refcnt[blk] < 0:
-                raise AssertionError(f"refcount underflow on block {blk}")
-            if self.refcnt[blk] == 0:
-                self.free.append(blk)
-                freed += 1
+            freed += self._release_ref(int(self.table[row, j]))
             self.table[row, j] = NULL_BLOCK
         self.n_alloc[row] = min(keep, have)
         if have > keep:
@@ -182,29 +231,141 @@ class BlockAllocator:
         return freed
 
     def free_row(self, row: int) -> int:
-        return self.free_tail(row, 0)
+        return self.release_branches(row) + self.free_tail(row, 0)
+
+    # -------------------------------------------- copy-on-write branch forks
+    def fork_row(self, row: int, n_tokens: int, n_branches: int):
+        """Fork ``row`` (committed length ``n_tokens``) into ``n_branches``
+        copy-on-write branch tables for tree drafting. Full prefix blocks
+        are shared (refcount bumped per branch); the partial tail block, if
+        any, is duplicated per branch so branches can append independently.
+
+        Returns the (src, dst) pool-copy pairs the caller must apply with
+        ``copy_blocks``, or None if the pool cannot supply the tail copies.
+        The parent row's own table is left untouched, so dropping every
+        branch is a no-op rollback."""
+        if row in self._branches:
+            raise AssertionError(f"row {row} already forked")
+        BS = self.block_size
+        full = max(n_tokens, 0) // BS
+        tail = 1 if n_tokens % BS else 0
+        if full + tail > int(self.n_alloc[row]):
+            raise AssertionError(f"fork of row {row} beyond its allocation")
+        if tail * n_branches > len(self.free):
+            return None
+        tables = np.full((n_branches, self.max_blocks_per_row), NULL_BLOCK,
+                         np.int32)
+        alloc = np.zeros((n_branches,), np.int64)
+        pairs = []
+        for w in range(n_branches):
+            for j in range(full):
+                blk = int(self.table[row, j])
+                tables[w, j] = blk
+                self.refcnt[blk] += 1
+            if tail:
+                dst = self._take_fresh()
+                tables[w, full] = dst
+                pairs.append((int(self.table[row, full]), dst))
+            alloc[w] = full + tail
+        self._branches[row] = tables
+        self._branch_alloc[row] = alloc
+        self.peak_in_use = max(self.peak_in_use,
+                               int(self.n_alloc.sum()) + tail * n_branches)
+        self.version += 1
+        return pairs
+
+    def ensure_branch(self, row: int, branch: int, n_tokens: int) -> bool:
+        """Grow one branch's allocation to cover ``n_tokens`` positions
+        (fresh blocks only — the shared prefix never regrows)."""
+        tables = self._branches[row]
+        alloc = self._branch_alloc[row]
+        need = self.blocks_for(n_tokens)
+        if need > self.max_blocks_per_row:
+            return False
+        have = int(alloc[branch])
+        if need <= have:
+            return True
+        if need - have > len(self.free):
+            return False
+        for j in range(have, need):
+            tables[branch, j] = self._take_fresh()
+        alloc[branch] = need
+        self.version += 1
+        return True
+
+    def branch_tables(self, row: int) -> np.ndarray:
+        """Host-side [n_branches, MB] table stack of a forked row."""
+        return self._branches[row]
+
+    def adopt_branch(self, row: int, branch: int) -> int:
+        """Commit the winning branch: the row's main table becomes the
+        branch's table; every other branch reference and the old main-table
+        references are dropped. Returns #blocks returned to the free list."""
+        tables = self._branches.pop(row)
+        alloc = self._branch_alloc.pop(row)
+        freed = 0
+        for w in range(tables.shape[0]):
+            if w == branch:
+                continue
+            for j in range(int(alloc[w])):
+                freed += self._release_ref(int(tables[w, j]))
+        for j in range(int(self.n_alloc[row])):
+            freed += self._release_ref(int(self.table[row, j]))
+        self.table[row, :] = NULL_BLOCK
+        n = int(alloc[branch])
+        self.table[row, :n] = tables[branch, :n]
+        self.n_alloc[row] = n
+        self.version += 1
+        return freed
+
+    def release_branches(self, row: int) -> int:
+        """Drop every branch of a forked row (tree-round rollback / abort);
+        the parent row's own table is untouched. Returns #blocks freed."""
+        if row not in self._branches:
+            return 0
+        tables = self._branches.pop(row)
+        alloc = self._branch_alloc.pop(row)
+        freed = 0
+        for w in range(tables.shape[0]):
+            for j in range(int(alloc[w])):
+                freed += self._release_ref(int(tables[w, j]))
+        self.version += 1
+        return freed
 
     # ------------------------------------------------------------ auditing
     def audit(self) -> Dict[str, int]:
         """Full block census; raises AssertionError on any inconsistency.
 
         Invariants: free + live == num_blocks - 1 (block 0 is the null
-        block), every refcount equals its number of table references, no
-        free block is referenced, table entries beyond each row's
-        allocation are NULL, and no block is shared between rows."""
-        refs: Dict[int, int] = {}
-        for b in range(self.batch):
-            n = int(self.n_alloc[b])
-            for x in self.table[b, :n]:
+        block; 'live' = DISTINCT blocks referenced by any main or branch
+        table), every refcount equals its number of table references, no
+        free block is referenced, table entries beyond each row's or
+        branch's allocation are NULL, and copy-on-write sharing never
+        crosses row families (a block referenced by row b's tables, main
+        or branch, is referenced by no other row's)."""
+        refs: Dict[int, int] = {}        # block -> #table references
+        families: Dict[int, int] = {}    # block -> owning row
+
+        def count(row, tbl, n, what):
+            for x in tbl[:n]:
                 x = int(x)
                 if x == NULL_BLOCK:
-                    raise AssertionError(f"null block handed out to row {b}")
-                if x in refs:
-                    raise AssertionError(f"block {x} shared across rows")
+                    raise AssertionError(f"null block handed out to {what}")
                 refs[x] = refs.get(x, 0) + 1
-            if not (self.table[b, n:] == NULL_BLOCK).all():
+                if families.setdefault(x, row) != row:
+                    raise AssertionError(
+                        f"block {x} shared across row families "
+                        f"{families[x]} and {row}")
+            if not (tbl[n:] == NULL_BLOCK).all():
                 raise AssertionError(
-                    f"row {b}: non-NULL table entries beyond allocation {n}")
+                    f"{what}: non-NULL table entries beyond allocation {n}")
+
+        for b in range(self.batch):
+            count(b, self.table[b], int(self.n_alloc[b]), f"row {b}")
+        for b, tables in self._branches.items():
+            alloc = self._branch_alloc[b]
+            for w in range(tables.shape[0]):
+                count(b, tables[w], int(alloc[w]), f"row {b} branch {w}")
         for blk, n in refs.items():
             if int(self.refcnt[blk]) != n:
                 raise AssertionError(

@@ -1,6 +1,6 @@
 """The speculative round core: draft -> verify -> commit -> rollback
-(port of the linear, cached, per-row, greedy subset of
-``repro/core/rounds.py``).
+(port of the cached, per-row, greedy subset of ``repro/core/rounds.py``:
+linear rounds and paged tree rounds).
 
 Every round of the paged server runs ``spec_round`` (or ``ar_round`` when
 the cost model says drafting does not pay). A round drafts gamma tokens per
@@ -8,6 +8,12 @@ row with the drafter's cached single-token steps, verifies them in ONE
 target pass over ``[t_last, d_1..d_gamma]``, commits each row's own
 accepted prefix plus the correction/bonus token (``per_row`` commits) and
 rolls both caches back by index.
+
+A tree round (``TreeDraftPolicy``, driven by ``PagedTreeRound``) drafts
+``width`` chains branching once at the root against copy-on-write forks of
+the drafter's block tables, verifies the whole tree in ONE stacked target
+pass through tree attention (``Model.apply(tree=...)``), commits the
+winning chain's KV by compaction and adopts the winning drafter branch.
 
 Greedy verification dispatches by device: the fused CUDA argmax kernel
 (``kernels.spec_verify``) for a CUDA tensor, the plain version
@@ -17,19 +23,24 @@ from the kernel, is left out.
 
 Everything stays on the device: the round-level live bound (``_live0``)
 is a 0-dim device tensor handed to the attention kernel, so a round issues
-no host sync. Batch-synchronized commits, sampled acceptance, stateful
-drafters, multi-draft and tree policies, and the placed and traced round
-runners wait for later slices.
+no host sync (a paged tree round reads the lengths before its forks and
+the winners and new lengths after its commit, as in JAX). Batch-
+synchronized commits, sampled acceptance and sampled tree drafting,
+stateful drafters, ring-cache tree rounds, multi-draft, and the placed
+and traced round runners wait for later slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.cache import ops as cache_ops
+from repro_torch.cache import paged_kv
 from repro_torch.core import acceptance
+from repro_torch.core.tree import chain_tree
 
 
 # ==================================================================== state
@@ -48,15 +59,16 @@ class RoundState(NamedTuple):
 
 
 class DraftOut(NamedTuple):
-    """Draft-phase output: one chain of gamma tokens per row."""
-    drafts: torch.Tensor           # [B, 1, G] drafted tokens
+    """Draft-phase output: K candidate chains of gamma tokens per row
+    (K = 1 for linear rounds, the tree width for tree rounds)."""
+    drafts: torch.Tensor           # [B, K, G] drafted tokens
     t_last: torch.Tensor           # [B] last committed token
     dcache: Any = None
 
 
 class VerifyOut(NamedTuple):
     """Verify-phase output: per-row acceptance + the commit base buffer."""
-    res: acceptance.VerifyResult
+    res: Any                       # VerifyResult or TreeVerifyResult
     base_tokens: torch.Tensor      # [B, T] buffer the commit scatters into
     tcache: Any = None
 
@@ -65,6 +77,21 @@ def _gather_last(tokens, length):
     """tokens[b, length[b]-1] per row."""
     lvec = length.expand(tokens.shape[0]) if length.ndim == 0 else length
     return torch.gather(tokens, 1, (lvec - 1)[:, None].long())[:, 0]
+
+
+def _is_paged_branched(dcache, B):
+    """A paged drafter cache whose table has B*W rows was pre-branched by
+    the host (``PagedTreeRound``'s copy-on-write forks)."""
+    return (isinstance(dcache, dict) and "block_table" in dcache
+            and dcache["block_table"].shape[0] != B)
+
+
+def _top_k(x, k):
+    """[B, V] -> int32 [B, k]: the k largest entries per row, largest first
+    and the lower index first among ties, as ``jax.lax.top_k`` orders them.
+    ``torch.topk`` promises no order among ties; a stable sort does."""
+    return torch.sort(x, dim=-1, descending=True,
+                      stable=True).indices[:, :k].to(torch.int32)
 
 
 # ================================================================= policies
@@ -89,18 +116,78 @@ class LinearDraftPolicy:
         return DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=cache)
 
 
+@dataclass(frozen=True)
+class TreeDraftPolicy:
+    """Tree drafting (greedy): ``width`` chains branching once at the root,
+    drafted against branch caches and verified in ONE stacked cached target
+    pass through tree attention (``Model.apply(tree=...)``).
+
+    Draft: a root step consumes t_last on every branch row of the
+    pre-branched [B*W]-row drafter cache (each branch's private tail block
+    gets t_last's KV; the branch logits are identical, so row 0 of each
+    group is the root distribution q0); the W chain heads are q0's top-W;
+    each head then continues as a LINEAR chain of greedy steps against its
+    own branch, so the drafter itself never needs tree attention. Width 1
+    runs on the unbranched cache and drafts exactly what the linear policy
+    drafts.
+    """
+    name: str = "tree"
+    width: int = 2
+
+    def draft_cached(self, drafter, params_d, state: RoundState, spec,
+                     live0) -> DraftOut:
+        W, D = self.width, spec.gamma
+        t_last = _gather_last(state.tokens, state.length)
+        B = t_last.shape[0]
+        if W > 1 and not _is_paged_branched(state.dcache, B):
+            raise NotImplementedError(
+                "tree drafting needs the drafter's paged cache forked into "
+                "width branch rows (PagedTreeRound); ring-cache tree rounds "
+                "are not ported")
+        logits, cache, _ = drafter.apply(
+            params_d, torch.repeat_interleave(t_last, W)[:, None],
+            state.dcache, logits_slice="last", max_live=live0)
+        q0 = logits[:, -1].reshape(B, W, -1)[:, 0]             # [B, V]
+        tok = _top_k(q0, W).reshape(B * W)
+        chain = [tok]
+        for i in range(D - 1):
+            ml = None if live0 is None else live0 + 1 + i
+            lg, cache, _ = drafter.apply(params_d, tok[:, None], cache,
+                                         logits_slice="last", max_live=ml)
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+            chain.append(tok)
+        drafts = torch.stack(chain, dim=1).reshape(B, W, D)
+        return DraftOut(drafts=drafts, t_last=t_last, dcache=cache)
+
+
+def make_policy(name: str, k: int = 2):
+    if name == "linear":
+        return LinearDraftPolicy()
+    if name == "tree":
+        if k < 1:
+            raise ValueError(f"tree draft needs width >= 1, got {k}")
+        return TreeDraftPolicy(width=k)
+    raise ValueError(f"unknown draft policy {name!r} "
+                     f"(expected 'linear' or 'tree')")
+
+
 # ===================================================================== spec
 @dataclass(frozen=True)
 class RoundSpec:
-    """Static parameterization of one round: cached, greedy, per-row."""
+    """Static parameterization of one round: cached, greedy, per-row.
+    ``gamma`` is the chain depth of a tree policy."""
     gamma: int = 4
     policy: Any = field(default_factory=LinearDraftPolicy)
 
     def __post_init__(self):
         if self.gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {self.gamma}")
-        if getattr(self.policy, "name", "") != "linear":
-            raise NotImplementedError("only linear drafting is ported")
+        name = getattr(self.policy, "name", "")
+        if name not in ("linear", "tree"):
+            raise NotImplementedError("only linear and tree drafting are ported")
+        if name == "tree":
+            # validates span = 1 + width*gamma <= MAX_SPAN up front
+            chain_tree(self.policy.width, self.gamma)
 
     @property
     def drafted_per_round(self) -> int:
@@ -130,7 +217,22 @@ def _greedy_verify(drafts, p_logits):
 
 def verify_phase(target, params_t, state: RoundState, d: DraftOut,
                  spec: RoundSpec) -> VerifyOut:
-    """Phase 2: one cached target pass over [t_last, d_1..d_G] + acceptance."""
+    """Phase 2: one cached target pass over [t_last, d_1..d_G] (a tree:
+    over [t_last, level-major nodes]) + acceptance."""
+    if getattr(spec.policy, "name", "") == "tree":
+        # ONE stacked cached pass over the whole tree; the chain tree's
+        # (depths, bits) select tree attention in the target's layers
+        B, W = d.drafts.shape[:2]
+        tree = chain_tree(W, spec.gamma)
+        level_major = d.drafts.transpose(1, 2).reshape(B, W * spec.gamma)
+        verify_in = torch.cat([d.t_last[:, None], level_major], dim=1)
+        ml = _live0(state) + tree.span - 1
+        p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
+                                           max_live=ml,
+                                           tree=(tree.depths, tree.bits))
+        res = acceptance.verify_tree_greedy(d.drafts, p_logits,
+                                            tree.chain_slots)
+        return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
     drafts = d.drafts[:, 0]
     verify_in = torch.cat([d.t_last[:, None], drafts], dim=1)
     ml = _live0(state) + spec.gamma
@@ -156,9 +258,33 @@ def _scatter_commit(tokens, length, out_tokens, n_eff, gamma):
     return tokens
 
 
-def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
+def _tree_commit(state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
-    """Phase 3: commit each row's accepted prefix + roll both caches back."""
+    """Tree-round commit (per row): compact the winner path's scattered KV
+    into the committed tail, then the ordinary per-row commit. The winner
+    chain's level-l token sits at cache position (length-1) +
+    chain_slots[winner][l-1]; its committed home is length + l - 1 —
+    src >= dst always, and ``compact`` gathers before it scatters, so the
+    move is overlap-safe. Compacting all G levels is fine: rollback masks
+    everything past the accepted length. The drafter side needs no
+    compaction: the winner's branch already holds the committed chain
+    contiguously, and ``PagedTreeRound`` adopts it."""
+    G = spec.gamma
+    B, W = d.drafts.shape[:2]
+    dev = state.tokens.device
+    cs = torch.as_tensor(chain_tree(W, G).chain_slots, device=dev)   # [W, G]
+    src = (state.length - 1)[:, None] + cs[v.res.winner.long()]
+    dst = state.length[:, None] + torch.arange(G, dtype=torch.int32,
+                                               device=dev)
+    tcache = cache_ops.ops_for(v.tcache).compact(v.tcache, src, dst)
+    return _commit_rows(state, d, v._replace(tcache=tcache), spec)
+
+
+def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
+                 spec: RoundSpec) -> RoundState:
+    """Commit each row's accepted prefix + roll both caches back. A drafter
+    cache pre-branched for a tree round is left to ``PagedTreeRound``,
+    which adopts each row's winning branch."""
     res = v.res
     B = state.tokens.shape[0]
     active = (state.active if state.active is not None
@@ -169,12 +295,22 @@ def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
                              n_eff, spec.gamma)
     new_len = state.length + n_eff                           # PER ROW
     tcache = cache_ops.ops_for(v.tcache).rollback(v.tcache, new_len - 1)
-    dcache = cache_ops.ops_for(d.dcache).rollback(d.dcache, new_len - 1)
+    dcache = d.dcache
+    if not _is_paged_branched(dcache, B):
+        dcache = cache_ops.ops_for(dcache).rollback(dcache, new_len - 1)
     return state._replace(
         tokens=tokens, length=new_len, dcache=dcache, tcache=tcache,
         n_rounds=state.n_rounds + 1,
         n_accepted=state.n_accepted + torch.where(active, res.n_accepted, zero),
         n_drafted=state.n_drafted + spec.drafted_per_round)
+
+
+def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
+                 spec: RoundSpec) -> RoundState:
+    """Phase 3: commit each row's accepted prefix + roll both caches back."""
+    if getattr(spec.policy, "name", "") == "tree":
+        return _tree_commit(state, d, v, spec)
+    return _commit_rows(state, d, v, spec)
 
 
 # ==================================================================== rounds
@@ -208,3 +344,87 @@ def ar_round(target, params_t, state: RoundState) -> RoundState:
     tcache = ops_t.rollback(tcache, new_len - 1)
     return state._replace(tokens=tokens, length=new_len, tcache=tcache,
                           n_rounds=state.n_rounds + 1)
+
+
+class PagedTreeRound:
+    """ONE paged tree round driven from the host: copy-on-write fork each
+    row's drafter block table (one branch per chain, shared prefix blocks
+    refcounted, partial tail copied — ``BlockAllocator.fork_row``), run the
+    three phases ``spec_round`` composes against the pre-branched
+    [B*W]-row drafter cache, then adopt each row's winning branch and free
+    the losers (``adopt_branch``). The target cache needs no forks: the
+    stacked verify writes every tree slot to its own position past the
+    committed tail and ``_tree_commit`` compacts the winner path in place.
+
+    Two host reads per round: the lengths before the forks, and the winners
+    with the new lengths after the commit; the latter stay readable as
+    ``last_winner`` / ``last_length`` (numpy), so a caller's bookkeeping
+    needs no sync of its own. Scope: a fully-live batch; serving
+    admission, preemption and capacity degradation stay with the
+    scheduler.
+    """
+
+    def __init__(self, target, drafter, spec: RoundSpec, alloc_t, alloc_d):
+        if getattr(spec.policy, "name", "") != "tree":
+            raise ValueError("PagedTreeRound needs a TreeDraftPolicy spec")
+        self.target, self.drafter = target, drafter
+        self.spec = spec
+        self.W = spec.policy.width
+        self.alloc_t, self.alloc_d = alloc_t, alloc_d
+        self.last_winner = self.last_length = None
+
+    def _fork(self, state: RoundState) -> RoundState:
+        W, D = self.W, self.spec.gamma
+        span = 1 + W * D
+        B = state.tokens.shape[0]
+        dev = state.tokens.device
+        lengths = state.length.cpu().numpy()
+        pairs = []
+        for b in range(B):
+            L = int(lengths[b])
+            if not self.alloc_t.ensure(b, L - 1 + span):
+                raise RuntimeError(f"target pool exhausted growing row {b} "
+                                   f"to {L - 1 + span} tokens")
+            # the adopted branch was only ever grown to last round's draft
+            # horizon — a fully-accepted round can commit past it, so the
+            # row must be re-ensured to its new tail before forking
+            if not self.alloc_d.ensure(b, L - 1):
+                raise RuntimeError(f"drafter pool exhausted growing row {b} "
+                                   f"to {L - 1} tokens")
+            p = self.alloc_d.fork_row(b, L - 1, W)
+            if p is None:
+                raise RuntimeError(f"drafter pool exhausted forking row {b} "
+                                   f"into {W} branches")
+            pairs += p
+            for w in range(W):
+                if not self.alloc_d.ensure_branch(b, w, L - 1 + D):
+                    raise RuntimeError(f"drafter pool exhausted growing "
+                                       f"branch {w} of row {b}")
+        dcache = paged_kv.copy_blocks(state.dcache, pairs)
+        tbl = np.stack([self.alloc_d.branch_tables(b) for b in range(B)])
+        dcache = {**dcache,
+                  "block_table": torch.from_numpy(tbl.reshape(B * W, -1)).to(dev),
+                  "index": torch.repeat_interleave(state.dcache["index"], W)}
+        tcache = {**state.tcache, "block_table": self.alloc_t.device_table(dev)}
+        return state._replace(dcache=dcache, tcache=tcache)
+
+    def __call__(self, params_t, params_d, state: RoundState) -> RoundState:
+        B = state.tokens.shape[0]
+        dev = state.tokens.device
+        state = self._fork(state)
+        d = draft_phase(self.drafter, params_d, state, self.spec)
+        v = verify_phase(self.target, params_t, state, d, self.spec)
+        new = commit_phase(self.target, state, d, v, self.spec)
+        winner, new_len = torch.stack(
+            [v.res.winner, new.length.to(torch.int32)]).cpu().numpy()
+        self.last_winner, self.last_length = winner, new_len
+        for b in range(B):
+            self.alloc_d.adopt_branch(b, int(winner[b]))
+            keep = max(int(new_len[b]) - 1, 1)
+            self.alloc_d.free_tail(b, keep)
+            self.alloc_t.free_tail(b, keep)
+        dcache = {**new.dcache,
+                  "block_table": self.alloc_d.device_table(dev),
+                  "index": torch.from_numpy(new_len - 1).to(dev)}
+        tcache = {**new.tcache, "block_table": self.alloc_t.device_table(dev)}
+        return new._replace(dcache=dcache, tcache=tcache)

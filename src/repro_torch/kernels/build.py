@@ -32,6 +32,9 @@ SIGNATURES = {
         "paged_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _F, _I, _P]),
+        "tree_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _I, _P]),
     },
     "spec_verify": {
         "row_argmax_chunks": (_I, [_I]),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import spec_verify as _sv
+from repro_torch.kernels import tree_attention as _ta
 
 
 def verify_greedy(draft_tokens, p_logits):
@@ -24,3 +25,12 @@ def paged_attention(q, k_pool, v_pool, block_table, index, *, window=None,
     return _pa.paged_flash_attention(q, k_pool, v_pool, block_table, index,
                                      window=window, scale=scale,
                                      max_live=max_live)
+
+
+def tree_attention(q, k_pool, v_pool, block_table, index, depths, bits, *,
+                   window=None, scale=None, max_live=None):
+    """Block-table-native tree-verify attention: one stacked pass scores all
+    root-to-leaf paths of a speculation tree (depths/bits from core/tree.py)."""
+    return _ta.tree_flash_attention(q, k_pool, v_pool, block_table, index,
+                                    depths, bits, window=window, scale=scale,
+                                    max_live=max_live)

@@ -18,12 +18,37 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attention_ref as plain
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C entry points' codes
 
 
-def _as_int32(x, shape, device):
+def as_int32(x, shape, device):
     t = torch.as_tensor(x, dtype=torch.int32, device=device)
     return t.expand(shape).contiguous() if t.shape != shape else t.contiguous()
+
+
+def check_args(what, q, k_pool, v_pool, scale, window):
+    """The checks every launch of ``paged_attention.cu`` (either mask
+    policy) makes on the card: raises on what the kernel does not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if scale is not None:
+        raise ValueError(f"the {what} kernel uses scale D**-0.5; "
+                         "an explicit scale is not supported on the GPU")
+    D, Kv = q.shape[3], k_pool.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"{what} kernel needs pools of q's dtype "
+                        f"{q.dtype}, got {k_pool.dtype}/{v_pool.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
+    if q.shape[2] % Kv or tuple(v_pool.shape) != tuple(k_pool.shape) \
+            or k_pool.shape[3] != D:
+        raise ValueError(f"bad shapes q={tuple(q.shape)} pool={tuple(k_pool.shape)}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError(f"{what} kernel needs contiguous pools")
+    if window is not None and int(window) <= 0:
+        raise ValueError(f"window must be positive, got {window}")
 
 
 def paged_flash_attention(q, k_pool, v_pool, block_table, index, *,
@@ -37,39 +62,22 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, index, *,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_table, index, window=window,
                      scale=scale, max_live=max_live)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged attention: unsupported device {q.device}")
-    if scale is not None:
-        raise ValueError("the paged attention kernel uses scale D**-0.5; "
-                         "an explicit scale is not supported on the GPU")
+    check_args("paged attention", q, k_pool, v_pool, scale, window)
     B, Q, H, D = q.shape
     NB, BS, Kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     MB = block_table.shape[1]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"paged attention kernel takes fp32/bf16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"paged attention kernel needs pools of q's dtype "
-                        f"{q.dtype}, got {k_pool.dtype}/{v_pool.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"paged attention kernel takes head_dim 64 or 128, got {D}")
-    if H % Kv or tuple(v_pool.shape) != tuple(k_pool.shape) or k_pool.shape[3] != D:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} pool={tuple(k_pool.shape)}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("paged attention kernel needs contiguous pools")
-    if window is not None and int(window) <= 0:
-        raise ValueError(f"window must be positive, got {window}")
     dev = q.device
     q = q.contiguous()
     table = block_table.to(torch.int32).contiguous()
-    idx = _as_int32(index, (B,), dev)
-    ml = None if max_live is None else _as_int32(max_live, (), dev)
+    idx = as_int32(index, (B,), dev)
+    ml = None if max_live is None else as_int32(max_live, (), dev)
     out = torch.empty_like(q)
     lib = build.load("paged_attention")
     err = lib.paged_attention_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         idx.data_ptr(), None if ml is None else ml.data_ptr(), out.data_ptr(),
         B, Q, H, Kv, D, NB, BS, MB, 0 if window is None else int(window),
-        float(D ** -0.5), _DTYPES[q.dtype],
+        float(D ** -0.5), DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_attention_fwd")
     paged_flash_attention.launches += 1

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import attn_paged
+from repro_torch.models.attention import attn_paged, attn_tree
 
 
 def blockwise_argmax_ref(logits):
@@ -18,3 +18,10 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, index, *,
     """The model-level block-scan paged attention."""
     return attn_paged(q, k_pool, v_pool, block_table, index, window=window,
                       scale=scale, max_live=max_live)
+
+
+def tree_attention_ref(q, k_pool, v_pool, block_table, index, depths, bits,
+                       *, window=None, scale=None, max_live=None):
+    """The model-level block-scan tree attention."""
+    return attn_tree(q, k_pool, v_pool, block_table, index, depths, bits,
+                     window=window, scale=scale, max_live=max_live)

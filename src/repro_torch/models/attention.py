@@ -1,5 +1,6 @@
-"""Paged GQA attention with causal / sliding-window masking
-(port of the paged read path of ``repro/models/attention.py``).
+"""Paged GQA attention with causal / sliding-window masking, and its
+tree-verify variant (port of the paged read paths of
+``repro/models/attention.py``).
 
 ``attn_paged`` is the plain PyTorch version: a loop over KV *blocks*
 fetched through the block table with an online softmax, stopping at the
@@ -7,9 +8,11 @@ batch-max live block. It is what runs on the CPU, and what the CUDA kernel
 (``repro_torch.kernels.paged_attention``) is held against on the card.
 ``attention_paged`` is the dispatch the model calls: the tensor's device
 decides — a CPU tensor takes ``attn_paged``, a CUDA tensor the kernel.
+``attn_tree`` / ``attention_tree`` are the same pair for a stacked
+tree-verify span, with the causal mask replaced by ``_tree_mask``.
 
 The no-cache paths (``attn_dense``, ``attn_chunked``, ``attention``) and the
-tree paths wait for later slices.
+ring-cache tree path (``attn_tree_ring``) wait for later slices.
 """
 from __future__ import annotations
 
@@ -45,12 +48,14 @@ def _online_carry(B, Kv, G, Q, D, device):
             torch.zeros((B, Kv, G, Q), dtype=torch.float32, device=device))
 
 
-def _online_step(carry, qf, k_i, v_i, q_pos, kv_pos, window, scale):
+def _online_step(carry, qf, k_i, v_i, q_pos, kv_pos, window, scale,
+                 mask=None):
     """One online-softmax update over a KV slab (the recurrence the CUDA
-    kernel implements in shared memory)."""
+    kernel implements in shared memory). ``mask`` overrides the
+    causal/window mask (tree-speculation visibility)."""
     acc, mx, den = carry
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_i.float()) * scale
-    m = _mask(q_pos, kv_pos, window)
+    m = mask if mask is not None else _mask(q_pos, kv_pos, window)
     s = torch.where(_expand_mask(m), s, torch.full_like(s, NEG_INF))
     mx_new = torch.maximum(mx, s.amax(dim=-1))
     alpha = torch.exp(mx - mx_new)
@@ -116,3 +121,85 @@ def attention_paged(q, k_pool, v_pool, block_table, index, *, window=None,
     from repro_torch.kernels import ops
     return ops.paged_attention(q, k_pool, v_pool, block_table, index,
                                window=window, scale=scale, max_live=max_live)
+
+
+# -------------------------------------------------------------- tree read path
+def _tree_mask(idx, kv_pos, depths, bits, window):
+    """[B, span, S] visibility for one stacked tree-verify pass.
+
+    Query slot ``s`` sits at RoPE position ``idx + depths[s]``; its KV row is
+    physically written at cache slot ``idx + s``. Visibility:
+
+      * committed prefix (kv_pos < idx): ordinary causal (+ window vs the
+        query's RoPE position);
+      * in-span slot t (idx <= kv_pos < idx + span): visible iff bit t of the
+        query's ancestor mask is set — i.e. only along the query's own
+        root path (+ window over the depth gap);
+      * beyond the span: stale slots, never visible.
+    """
+    span = depths.shape[0]
+    if kv_pos.ndim == 1:                                         # [S] shared
+        kv_pos = kv_pos[None, :].expand(idx.shape[0], kv_pos.shape[0])
+    rel = kv_pos - idx[:, None]                                  # [B, S]
+    ar = torch.arange(span, dtype=torch.int32, device=idx.device)
+    span_vis = ((bits[:, None] >> ar[None, :]) & 1) > 0          # [span, span]
+    if window is not None:
+        span_vis = span_vis & ((depths[:, None] - depths[None, :]) < window)
+    prefix = (rel < 0)[:, None, :] & (kv_pos >= 0)[:, None, :]
+    if window is not None:
+        q_pos = idx[:, None] + depths[None, :]
+        prefix = prefix & ((q_pos[:, :, None] - kv_pos[:, None, :]) < window)
+    relc = torch.clamp(rel, 0, span - 1).long()
+    # span_vis[:, relc]: [span, B, S] -> [B, span, S]
+    inspan = span_vis[:, relc].permute(1, 0, 2)
+    inspan = inspan & ((rel >= 0) & (rel < span))[:, None, :]
+    return prefix | inspan
+
+
+def attn_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
+              window=None, scale=None, max_live=None):
+    """Tree-verify attention over a paged block pool (plain version).
+
+    Same block-bounded online-softmax loop as ``attn_paged``, with the
+    causal mask replaced by ``_tree_mask``: the span slots written at
+    index..index+span-1 are only visible along each query's root path.
+    q: [B, span, H, D]; depths/bits: int32 [span] (``core.tree``). Like
+    ``attn_paged``, it reads its loop count on the host."""
+    B, S, H, D = q.shape                                        # S = span
+    BS, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_table.shape[1]
+    G = H // Kv
+    scale = scale if scale is not None else D ** -0.5
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
+    if idx.ndim == 0:
+        idx = idx.expand(B)
+    live = int(idx.max()) + S if max_live is None else int(max_live)
+    n_blocks = min(max((live + BS - 1) // BS, 1), MB)
+    depths = torch.as_tensor(depths, dtype=torch.int32, device=q.device)
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=q.device)
+    q_pos = idx[:, None] + depths[None, :]
+
+    qf = q.reshape(B, S, Kv, G, D).float()
+    carry = _online_carry(B, Kv, G, S, D, q.device)
+    table = block_table.long()
+    for j in range(n_blocks):
+        blk = table[:, j]
+        k_j = _from_buf(k_pool[blk], q.dtype)
+        v_j = _from_buf(v_pool[blk], q.dtype)
+        kv_pos = j * BS + torch.arange(BS, dtype=torch.int32, device=q.device)
+        m = _tree_mask(idx, kv_pos, depths, bits, window)
+        carry = _online_step(carry, qf, k_j, v_j, q_pos, kv_pos, window,
+                             scale, mask=m)
+    acc, _, den = carry
+    return _online_emit(acc, den, B, S, H, D, q.dtype)
+
+
+def attention_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
+                   window=None, scale=None, max_live=None):
+    """Tree-attention dispatch: the tensor's device decides — the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA tensor (see
+    ``repro_torch.kernels.ops.tree_attention``)."""
+    from repro_torch.kernels import ops
+    return ops.tree_attention(q, k_pool, v_pool, block_table, index, depths,
+                              bits, window=window, scale=scale,
+                              max_live=max_live)

@@ -4,7 +4,8 @@
 The JAX package stacks layer params on axis 0 and runs ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts and a Python loop runs
 them, each layer reading and writing its slice ``cache["k"][l]`` of the
-stacked pools in place. Only the paged-cache forward is ported; the
+stacked pools in place. Only the paged-cache forward is ported (plain
+and tree-verify passes); the
 no-cache (training / paper no-cache mode) and ring-cache branches wait for
 later slices.
 
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.cache.ops import PAGED
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_paged
+from repro_torch.models.attention import attention_paged, attention_tree
 
 
 # ---------------------------------------------------------------------- init
@@ -60,9 +61,13 @@ def init(cfg, gen: torch.Generator, device):
 
 # ------------------------------------------------------------------- forward
 def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
-               max_live=None):
+               max_live=None, tree=None):
     """Self-attention sub-block over a paged pool: write this step's K/V
-    into the pool (in place), then read it through the block table."""
+    into the pool (in place), then read it through the block table.
+    ``tree`` = (depths, bits) int32 [Q] device tensors marks a stacked
+    tree-verify pass (core/tree.py): q_pos already carries the depth
+    offsets, the KV lands at contiguous slots index..index+Q-1, and
+    visibility follows each slot's ancestor bitmask."""
     B, Q, _ = x.shape
     hd = cfg.head_dim
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
@@ -72,38 +77,54 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
     q = L.apply_rope(q, q_pos, cfg.rope_theta)
     k = L.apply_rope(k, q_pos, cfg.rope_theta)
     layer_cache = PAGED.write(layer_cache, k, v, block_table, index)
-    o = attention_paged(q, layer_cache["k"], layer_cache["v"], block_table,
-                        index, window=window, max_live=max_live)
+    if tree is not None:
+        o = attention_tree(q, layer_cache["k"], layer_cache["v"], block_table,
+                           index, tree[0], tree[1], window=window,
+                           max_live=max_live)
+    else:
+        o = attention_paged(q, layer_cache["k"], layer_cache["v"],
+                            block_table, index, window=window,
+                            max_live=max_live)
     return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
 
 
 def dense_layer(cfg, p, x, q_pos, layer_cache, index, block_table,
-                max_live=None):
+                max_live=None, tree=None):
     x = x + attn_block(cfg, p["attn"], x, q_pos, layer_cache, index,
-                       cfg.sliding_window, block_table, max_live)
+                       cfg.sliding_window, block_table, max_live, tree)
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
 
 
-def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None):
+def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
+            tree=None):
     """tokens: [B, Q] int. cache: a paged cache dict; Q new tokens are written
     at ``cache["index"]`` and the returned cache (same pools) has index + Q.
     logits_slice: "last" unembeds only the final position (decode fast-path).
     max_live: live-token bound for the block-scan read (None derives it
     from the index); a 0-dim device tensor keeps the round free of host
-    syncs."""
+    syncs.
+    tree: (depths, bits) int32 [Q] — a stacked tree-verify pass
+    (core/tree.py): RoPE positions become index + depths and attention
+    follows the ancestor bitmasks. They become device tensors once here,
+    not once per layer."""
     if cache is None or "block_table" not in cache:
         raise NotImplementedError("only the paged-cache forward is ported")
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
     Q = x.shape[1]
     index = cache["index"]
     block_table = cache["block_table"]
-    offs = torch.arange(Q, dtype=torch.int32, device=x.device)
+    if tree is not None:
+        tree = tuple(torch.as_tensor(t, dtype=torch.int32, device=x.device)
+                     for t in tree)
+        offs = tree[0]
+    else:
+        offs = torch.arange(Q, dtype=torch.int32, device=x.device)
     # index: scalar (shared) or [B] (per-row batched speculation)
     q_pos = index[..., None] + offs if index.ndim else index + offs
     for l, lp in enumerate(params["layers"]):
         layer_cache = {"k": cache["k"][l], "v": cache["v"][l]}
         x = dense_layer(cfg, lp, x, q_pos, layer_cache, index, block_table,
-                        max_live)
+                        max_live, tree)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]

@@ -38,10 +38,12 @@ class Model:
         return dense.init(self.cfg, gen, dev)
 
     def apply(self, params, tokens, cache=None, *, logits_slice=None,
-              max_live=None):
+              max_live=None, tree=None):
+        """``tree`` = (depths, bits) int32 [Q] runs a stacked tree-verify
+        pass (``core.tree``; dense family, paged cache)."""
         logits, new_cache = dense.forward(self.cfg, params, tokens, cache,
                                           logits_slice=logits_slice,
-                                          max_live=max_live)
+                                          max_live=max_live, tree=tree)
         return logits, new_cache, {}
 
     def init_paged_cache(self, batch, num_blocks, block_size,
