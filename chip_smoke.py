@@ -37,7 +37,22 @@
    launch counts (set to 0 just before the tree prefills, read just after
    the last round) must equal what the path implies, and the tokens must
    equal the same prompts served with AR rounds.
-6. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
+6. The no-cache flash-attention kernel against its plain version: the
+   Llama-3.2-3B and -1B head geometries at the main-path shape (B=2,
+   S=134), fp32 and bf16; S in {1, 17, 1100, 2048}; a window of 8;
+   non-causal; keys masked past s_valid < S. One JSON line per case, with
+   the same fields as in step 2 (library: SDPA with the same mask).
+7. The paper's no-cache engine (``SpecEngine(use_cache=False)``): on the
+   smoke pair of step 3, linear gamma 4 and multi-draft k=2 at B=2 must
+   give identical tokens on the card, on the CPU and from no-cache AR on
+   the card, with at least one round that accepted part of its draft; at
+   full width (the paper's pair, bf16) ``launch.serve`` serves 4 requests
+   of 64 + 64 tokens in two waves of 2 (T = 134) with gamma 4, with exact
+   flash / argmax launch counts and no paged or tree launch, and its
+   tokens must equal no-cache AR's on the card; then the same spec serve
+   runs once more under ``torch.profiler`` (its ``"phase":
+   "profile_nocache"`` line, as in step 4).
+8. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits non-zero before the last line. With no
@@ -63,6 +78,7 @@ TOL = {torch.float32: (1e-4, 1e-4),   # (atol, rtol): summation order differs
        torch.bfloat16: (1e-2, 1e-2)}  # plus one bf16 output rounding (2^-8)
 GAMMA = 4
 TREE_W, TREE_D = 2, 4          # full-width tree rounds: chain_tree(2, 4)
+NOCACHE_PROMPT, NOCACHE_NEW = 64, 64   # full-width no-cache requests
 
 
 def card_line() -> str:
@@ -74,6 +90,25 @@ def card_line() -> str:
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def agreement(out, ref, dtype) -> dict:
+    """A kernel's output against its plain version: max |err| and whether
+    every element lies within TOL[dtype]."""
+    atol, rtol = TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    return {"max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
+            "ok": bool((diff <= atol + rtol * ref.float().abs()).all())}
+
+
+def bound(nbytes, flops, dtype) -> dict:
+    """The least time the card could take for the work: the bytes over the
+    memory rate or the operations over the peak rate for the input type,
+    whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 class Timer:
@@ -124,10 +159,7 @@ def attention_case(timer, name, H, Kv, D, Q, dtype, headline=False):
     out = pa.paged_flash_attention(*args, max_live=max_live)
     ref = pa.plain(*args, max_live=max_live)
     torch.cuda.synchronize()
-    atol, rtol = TOL[dtype]
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    agree = agreement(out, ref, dtype)
 
     # library yardstick: SDPA over a gathered, head-expanded view
     live = [min(i + Q, int(max_live) if max_live is not None else 1 << 30)
@@ -155,16 +187,12 @@ def attention_case(timer, name, H, Kv, D, Q, dtype, headline=False):
     nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
               + table.numel() * 4 + B * 4)
     flops = 4 * H * D * visible
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[dtype] * 1e3
     case = {"case": "paged_attention", "geometry": name, "Q": Q, "B": B,
-            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-            "atol": atol, "rtol": rtol, "ok": ok, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "headline": headline}
+            "dtype": str(dtype).replace("torch.", ""), **agree,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound(nbytes, flops, dtype), "headline": headline}
     emit(case)
-    if not ok:
+    if not agree["ok"]:
         raise SystemExit(f"paged attention disagrees with its plain version: {case}")
     return case
 
@@ -190,14 +218,10 @@ def argmax_case(timer):
     ms = timer(lambda: sv.blockwise_argmax(logits))
     plain_ms = timer(lambda: sv.plain(logits))
     library_ms = timer(lambda: torch.argmax(logits, dim=-1))
-    nbytes = logits.numel() * 4 + R * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = R * V / FLOPS_PER_S[torch.float32] * 1e3
     case = {"case": "blockwise_argmax", "shape": [R, V], "dtype": "float32",
             "max_abs_err": err, "atol": 0, "rtol": 0, "ok": ok,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            **bound(logits.numel() * 4 + R * 4, R * V, torch.float32)}
     emit(case)
     if not ok:
         raise SystemExit(f"argmax kernel disagrees with torch.argmax: {case}")
@@ -232,10 +256,7 @@ def tree_attention_case(timer, name, shape, dtype, window=None,
     out = ta.tree_flash_attention(*args, **kw)
     ref = ta.plain(*args, **kw)
     torch.cuda.synchronize()
-    atol, rtol = TOL[dtype]
-    diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    agree = agreement(out, ref, dtype)
 
     # library yardstick: SDPA over a gathered, head-expanded view with the
     # tree mask as attn_mask
@@ -260,18 +281,89 @@ def tree_attention_case(timer, name, shape, dtype, window=None,
     nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
               + table.numel() * 4 + B * 4 + 2 * span * 4)
     flops = 4 * H * D * int(mask.sum())
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FLOPS_PER_S[dtype] * 1e3
     case = {"case": "tree_attention", "tree": name, "span": span, "B": B,
             "window": window, "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
-            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **agree, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, flops, dtype),
             "headline": headline}
     emit(case)
-    if not ok:
+    if not agree["ok"]:
         raise SystemExit(f"tree attention disagrees with its plain version: {case}")
     return case
+
+
+def flash_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
+               causal=True, s_valid=None, headline=False):
+    """No-cache flash attention at [B, S] queries and keys (positions from
+    0 on both sides), against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(H * 10000 + S)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, Kv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, Kv, D), generator=g, device="cuda").to(dtype)
+    kw = dict(window=window, causal=causal, s_valid=s_valid)
+
+    out = fa.flash_attention(q, k, v, **kw)
+    ref = fa.plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype)
+
+    # library yardstick: SDPA over head-expanded K/V with the same mask
+    # (is_causal where the mask is plain causal, so SDPA may pick its
+    # flash backend)
+    pos = torch.arange(S, device="cuda")
+    n_valid = S if s_valid is None else s_valid
+    mask = (pos[None, :] < n_valid).expand(S, S)
+    if causal:
+        mask = mask & (pos[:, None] >= pos[None, :])
+    if window is not None:
+        mask = mask & ((pos[:, None] - pos[None, :]).abs() < window)
+    qg = q.permute(0, 2, 1, 3)
+    kg = k.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = v.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    plain_causal = causal and window is None and n_valid == S
+    if plain_causal:
+        def library():
+            return sdpa(qg, kg, vg, is_causal=True)
+    else:
+        def library():
+            return sdpa(qg, kg, vg, attn_mask=mask)
+
+    ms = timer(lambda: fa.flash_attention(q, k, v, **kw))
+    plain_ms = timer(lambda: fa.plain(q, k, v, **kw), iters=5)
+    library_ms = timer(library)
+
+    # least work: q read and out written once, the s_valid keys and values
+    # read once per kv-head; 4 flops per (query head, visible pair, d)
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + 2 * B * n_valid * Kv * D * esz
+    flops = 4 * B * H * D * int(mask.sum())
+    case = {"case": "flash_attention", "geometry": name, "B": B, "S": S,
+            "window": window, "causal": causal, "s_valid": s_valid,
+            "dtype": str(dtype).replace("torch.", ""), **agree,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "sdpa(is_causal)" if plain_causal else "sdpa(attn_mask)",
+            **bound(nbytes, flops, dtype), "headline": headline}
+    emit(case)
+    if not agree["ok"]:
+        raise SystemExit(f"flash attention disagrees with its plain version: {case}")
+    return case
+
+
+def flash_cases(timer):
+    """The main path's shapes first (T = 64 + 64 + GAMMA + 2 = 134), then
+    other lengths, a window, non-causal and a masked KV tail."""
+    g3, g1 = ("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)
+    T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
+    cases = [flash_case(timer, *geom, T, dtype,
+                        headline=(geom is g3 and dtype == torch.bfloat16))
+             for geom in (g3, g1) for dtype in (torch.float32, torch.bfloat16)]
+    cases += [flash_case(timer, *g3, S, torch.bfloat16) for S in (1, 17, 1100, 2048)]
+    cases.append(flash_case(timer, *g3, T, torch.float32, window=8))
+    cases.append(flash_case(timer, *g1, T, torch.bfloat16, causal=False))
+    cases.append(flash_case(timer, *g3, T, torch.float32, s_valid=100))
+    return cases
 
 
 # --------------------------------------------------------------- serving
@@ -561,8 +653,157 @@ def full_width(mt, md, pt, pd, cfg, card):
         raise SystemExit(f"full-width serving did not complete cleanly: {info}")
     if launches != expect:
         raise SystemExit(f"kernel launches {launches} != expected {expect}")
-    profile(mt, md, pt, pd, reqs, scfg, card)
+
+    def run():
+        srv, _ = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+        return srv.total_rounds, srv.n_prefills
+    profile("profile", run, pt, pd, card)
     return launches
+
+
+def _nocache_rounds(eng, pt, pd, prompt, max_new):
+    """The rounds ``SpecEngine.generate`` runs, one at a time: (tokens,
+    committed tokens per round)."""
+    B, P = prompt.shape
+    state = eng.prefill(pt, pd, prompt, P + max_new + eng.ecfg.gamma + 2)
+    committed, length = [], P
+    while length < P + max_new:
+        state = eng.round_nocache(pt, pd, state)
+        new = int(state.length)
+        committed.append(new - length)
+        length = new
+    return state.tokens[:, :length].cpu().numpy(), committed
+
+
+def smoke_nocache_exactness():
+    """The no-cache engine on the smoke pair of ``smoke_tree_exactness``
+    (weights drawn on the CPU and copied to the card), gamma 4, six prompt
+    batches of B=2: linear and multi-draft k=2 rounds on the card, the same
+    on the CPU, and no-cache AR on the card must give identical tokens, and
+    some round must commit part of its draft (batch_min commits the rows'
+    minimum, so with two rows most rounds commit one token)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    from repro_torch.models.model import build_model
+    gamma, P, new = 4, 12, 24
+    cfg = registry.smoke_config("llama3.2-1b")
+    cfg = cfg.replace(embed_init_scale=cfg.d_model ** -0.5)
+    mt = build_model(cfg)
+    md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
+    pt_cpu = mt.init(0, "cpu")
+    pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
+    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
+    prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, P)).astype(np.int32)
+               for seed in range(6)]
+    ar = [autoregressive_generate(mt, pt, p, new).cpu().numpy() for p in prompts]
+    for policy in ("linear", "multi"):
+        eng = SpecEngine(mt, md, EngineConfig(gamma=gamma, draft_policy=policy,
+                                              draft_k=2))
+        info = {"phase": "smoke_nocache_exactness", "policy": policy,
+                "gamma": gamma, "batch": 2, "prompt_len": P, "new_tokens": new,
+                "rounds": 0, "accepted": 0, "accepted_per_round": [],
+                "gpu_equals_cpu": True, "spec_equals_ar": True,
+                "replay_equals_generate": True}
+        for prompt, want in zip(prompts, ar):
+            gpu, st_gpu = eng.generate(pt, pd, prompt, new)
+            cpu, st_cpu = eng.generate(pt_cpu, pd_cpu, prompt, new)
+            gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
+            replay, committed = _nocache_rounds(eng, pt, pd, prompt, new)
+            info["rounds"] += st_gpu["rounds"]
+            info["accepted"] += st_gpu["accepted"]
+            info["accepted_per_round"].append([c - 1 for c in committed])
+            info["gpu_equals_cpu"] &= np.array_equal(gpu, cpu) and st_gpu == st_cpu
+            info["spec_equals_ar"] &= np.array_equal(gpu[:, :P + new], want)
+            info["replay_equals_generate"] &= np.array_equal(replay, gpu)
+        info = {k: bool(v) if isinstance(v, np.bool_) else v for k, v in info.items()}
+        info["partial_accepts"] = sum(0 < a < gamma for batch in info["accepted_per_round"]
+                                      for a in batch)
+        emit(info)
+        if info["partial_accepts"] == 0:
+            raise SystemExit(f"no no-cache round accepted part of its draft: {info}")
+        if not (info["gpu_equals_cpu"] and info["spec_equals_ar"]
+                and info["replay_equals_generate"]):
+            raise SystemExit(f"smoke-width no-cache exactness failed: {info}")
+
+
+def full_width_nocache(mt, md, pt, pd, cfg, card):
+    """The paper's no-cache mode at full width through ``launch.serve``: 4
+    requests of 64 prompt + 64 new tokens, two waves of 2, gamma 4. Launch
+    counts are set to 0 just before each serve and read just after: every
+    spec round runs GAMMA drafter passes and one target pass, each layer
+    one flash launch, and one argmax launch; each AR step one target
+    pass."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import spec_verify as sv
+    from repro_torch.kernels import tree_attention as ta
+    from repro_torch.launch import serve as serve_cli
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    R, batch = 4, 2
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (R, NOCACHE_PROMPT)).astype(np.int32)
+    # warm-up (cuBLAS handles, allocator), not counted
+    for gamma in (GAMMA, 0):
+        serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
+                        batch=batch)
+    torch.cuda.synchronize()
+
+    def counted(gamma):
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        sv.blockwise_argmax.launches = 0
+        pa.paged_flash_attention.launches = 0
+        ta.tree_flash_attention.launches = 0
+        toks, s = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                  gamma=gamma, batch=batch)
+        torch.cuda.synchronize()
+        s["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        s["launches"] = {"flash_attention": fa.flash_attention.launches,
+                         "blockwise_argmax": sv.blockwise_argmax.launches,
+                         "paged_attention": pa.paged_flash_attention.launches,
+                         "tree_attention": ta.tree_flash_attention.launches}
+        return toks, s
+
+    spec, s = counted(GAMMA)
+    ar, s_ar = counted(0)
+    rounds, steps = s["rounds"], s_ar["rounds"]
+    expect = {"flash_attention": rounds * (GAMMA * L_d + L_t),
+              "blockwise_argmax": rounds, "paged_attention": 0,
+              "tree_attention": 0}
+    expect_ar = {"flash_attention": steps * L_t, "blockwise_argmax": 0,
+                 "paged_attention": 0, "tree_attention": 0}
+    in_vocab = bool(((spec >= 0) & (spec < cfg.vocab_size)).all())
+    same_ar = bool(np.array_equal(spec, ar))
+    info = {"phase": "full_width_nocache", "target": mt.cfg.name,
+            "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
+            "requests": R, "batch": batch, "waves": s["waves"],
+            "prompt_len": NOCACHE_PROMPT, "new_tokens": NOCACHE_NEW,
+            "buffer_len": NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2,
+            "gamma": GAMMA, "rounds": rounds,
+            "mean_accepted_per_round": s["accepted"] / rounds,
+            "wall_s": s["seconds"], "ms_per_round": s["seconds"] / rounds * 1e3,
+            "tokens_per_s": s["tokens_per_s"],
+            "peak_memory_gib": s["peak_memory_gib"],
+            "ar_steps": steps, "ar_wall_s": s_ar["seconds"],
+            "ar_ms_per_step": s_ar["seconds"] / steps * 1e3,
+            "ar_tokens_per_s": s_ar["tokens_per_s"],
+            "ar_peak_memory_gib": s_ar["peak_memory_gib"],
+            "launches": s["launches"], "expected_launches": expect,
+            "ar_launches": s_ar["launches"], "expected_ar_launches": expect_ar,
+            "spec_equals_ar": same_ar, "in_vocab": in_vocab}
+    emit(info)
+    if s["launches"] != expect or s_ar["launches"] != expect_ar:
+        raise SystemExit(f"no-cache kernel launches differ from the path's: {info}")
+    if not (same_ar and in_vocab):
+        raise SystemExit(f"full-width no-cache tokens differ from AR: {info}")
+
+    def run():
+        _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                gamma=GAMMA, batch=batch)
+        return st["rounds"], 0
+    profile("profile_nocache", run, pt, pd, card)
+    return s["launches"]
 
 
 def _union(intervals):
@@ -593,18 +834,18 @@ def streamed_bytes(params) -> int:
     return size(params["layers"]) + size(params["final_norm"]) + size(head)
 
 
-def profile(mt, md, pt, pd, reqs, scfg, card):
-    """The same serve once more under torch.profiler: the device's busy
-    time (the union of the CUDA kernels' intervals), its idle share of the
-    wall time, kernel launches per round and the device time by kernel,
-    largest first. The profiler slows the host, so this run's wall time is
-    not the throughput."""
+def profile(phase, run, pt, pd, card):
+    """A serve once more under torch.profiler (``run()`` serves and returns
+    its rounds and prefills): the device's busy time (the union of the CUDA
+    kernels' intervals), its idle share of the wall time, kernel launches
+    per round and the device time by kernel, largest first. The profiler
+    slows the host, so this run's wall time is not the throughput."""
     from repro_torch.obs import clock
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = clock.perf()
-        srv, _ = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+        rounds, prefills = run()
         torch.cuda.synchronize()
         wall = clock.perf() - t0
     spans, by_name = [], {}
@@ -615,11 +856,11 @@ def profile(mt, md, pt, pd, reqs, scfg, card):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + e - s
     busy_s = _union(spans) / 1e6 if spans else None   # None: not measured
     round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
-    emit({"phase": "profile", "card": card, "rounds": srv.total_rounds,
-          "prefills": srv.n_prefills, "wall_s": wall, "device_busy_s": busy_s,
+    emit({"phase": phase, "card": card, "rounds": rounds,
+          "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
           "device_idle_share": None if busy_s is None else 1 - busy_s / wall,
           "kernel_launches": len(spans),
-          "kernel_launches_per_round": len(spans) / srv.total_rounds,
+          "kernel_launches_per_round": len(spans) / rounds,
           "weight_bytes_per_round": round_bytes,
           "weight_floor_ms_per_round": round_bytes / HBM_BYTES_PER_S * 1e3,
           "top_kernels_s": [[n[:90], us / 1e6] for n, us in
@@ -670,17 +911,21 @@ def main() -> int:
     tree_cases.append(tree_attention_case(timer, "chain_tree(2,4)",
                                           chain_tree(TREE_W, TREE_D),
                                           torch.float32, window=8))
+    fl_cases = flash_cases(timer)
     del timer
 
     smoke_exactness()
     smoke_tree_exactness()
+    smoke_nocache_exactness()
     from repro_torch.launch.cli_args import build_pair
     pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
     launches = full_width(*pair, card)
     tree_launches = full_width_tree(*pair, card)
+    nocache_launches = full_width_nocache(*pair, card)
 
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
+    fl_head = next(c for c in fl_cases if c["headline"])
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -705,6 +950,14 @@ def main() -> int:
          "ms": tree_head["kernel_ms"], "plain_ms": tree_head["plain_ms"],
          "bound_ms": tree_head["bound_ms"], "bound_by": tree_head["bound_by"],
          "library_ms": tree_head["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:69",
+         "launches": nocache_launches["flash_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in fl_cases),
+         "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
+         "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
+         "library_ms": fl_head["library_ms"]},
     ]
     emit({"kernels": kernels})
     print(card_line(), flush=True)

@@ -1,11 +1,11 @@
 """The speculative round core: draft -> verify -> commit -> rollback
-(port of the cached, per-row, greedy subset of ``repro/core/rounds.py``:
-linear rounds and paged tree rounds).
+(port of the greedy subset of ``repro/core/rounds.py``: cached per-row
+linear and paged tree rounds, and no-cache batch-synchronized rounds).
 
 Every round of the paged server runs ``spec_round`` (or ``ar_round`` when
-the cost model says drafting does not pay). A round drafts gamma tokens per
-row with the drafter's cached single-token steps, verifies them in ONE
-target pass over ``[t_last, d_1..d_gamma]``, commits each row's own
+the cost model says drafting does not pay). A cached round drafts gamma
+tokens per row with the drafter's cached single-token steps, verifies them
+in ONE target pass over ``[t_last, d_1..d_gamma]``, commits each row's own
 accepted prefix plus the correction/bonus token (``per_row`` commits) and
 rolls both caches back by index.
 
@@ -15,19 +15,30 @@ the drafter's block tables, verifies the whole tree in ONE stacked target
 pass through tree attention (``Model.apply(tree=...)``), commits the
 winning chain's KV by compaction and adopts the winning drafter branch.
 
+A no-cache round (``SpecEngine(use_cache=False)``, the paper's mode)
+recomputes the whole fixed-size token buffer in every forward: gamma
+drafter passes write the drafts into a candidate buffer
+(``draft_nocache``), ONE target pass over it verifies them (recompute
+verify), and the batch-minimum emitted length is committed to every row
+(``batch_min``), so ``length`` is a scalar. ``MultiDraftPolicy`` drafts k
+candidate chains from the drafter's top-k first tokens and commits the
+best one. The buffer positions are 0-dim device tensors: the column
+writes and the logits/token slices gather and scatter on the device, so a
+round makes no host sync of its own.
+
 Greedy verification dispatches by device: the fused CUDA argmax kernel
 (``kernels.spec_verify``) for a CUDA tensor, the plain version
 (``core.acceptance``) for a CPU tensor. Both give the same tokens. The
 JAX switch ``RoundSpec.fused_verify``, which could route a GPU tensor away
 from the kernel, is left out.
 
-Everything stays on the device: the round-level live bound (``_live0``)
-is a 0-dim device tensor handed to the attention kernel, so a round issues
-no host sync (a paged tree round reads the lengths before its forks and
-the winners and new lengths after its commit, as in JAX). Batch-
-synchronized commits, sampled acceptance and sampled tree drafting,
-stateful drafters, ring-cache tree rounds, multi-draft, and the placed
-and traced round runners wait for later slices.
+A cached round stays on the device too: the round-level live bound
+(``_live0``) is a 0-dim device tensor handed to the attention kernel (a
+paged tree round reads the lengths before its forks and the winners and
+new lengths after its commit, as in JAX). Sampled acceptance and sampled
+drafting, stateful drafters, ring-cache rounds (and with them cached
+``batch_min`` commits), and the placed and traced round runners wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -43,27 +54,35 @@ from repro_torch.core import acceptance
 from repro_torch.core.tree import chain_tree
 
 
+COMMIT_MODES = ("batch_min", "per_row")
+
+
 # ==================================================================== state
 class RoundState(NamedTuple):
-    """The generation state every round threads through: per-row ``[B]``
-    lengths, an ``active`` mask (frozen slots draft along but commit
-    nothing; None = all rows live) and the two paged caches."""
+    """The generation state every round threads through. ``length`` (and
+    ``n_accepted``) is a scalar for batch-synchronized no-cache rounds (all
+    rows share one committed length) or per-row ``[B]`` for the paged
+    paths; ``active`` marks rows that still commit (frozen slots draft
+    along but commit nothing; None = all rows live); the two paged caches
+    are None on the no-cache path."""
     tokens: torch.Tensor           # [B, T] token buffer
-    length: torch.Tensor           # [B] committed tokens
+    length: torch.Tensor           # scalar or [B] committed tokens
     dcache: Any = None
     tcache: Any = None
     active: Any = None             # [B] bool or None (= all rows live)
     n_rounds: Any = 0              # scalar
-    n_accepted: Any = 0            # [B]
+    n_accepted: Any = 0            # scalar (batch_min) or [B] (per_row)
     n_drafted: Any = 0             # scalar
 
 
 class DraftOut(NamedTuple):
     """Draft-phase output: K candidate chains of gamma tokens per row
-    (K = 1 for linear rounds, the tree width for tree rounds)."""
+    (K = 1 for linear rounds, the tree width for tree rounds, k for
+    multi-draft)."""
     drafts: torch.Tensor           # [B, K, G] drafted tokens
-    t_last: torch.Tensor           # [B] last committed token
+    t_last: Any = None             # [B] last committed token (cached path)
     dcache: Any = None
+    cand_tokens: Any = None        # [B, K, T] no-cache candidate buffers
 
 
 class VerifyOut(NamedTuple):
@@ -71,6 +90,31 @@ class VerifyOut(NamedTuple):
     res: Any                       # VerifyResult or TreeVerifyResult
     base_tokens: torch.Tensor      # [B, T] buffer the commit scatters into
     tcache: Any = None
+
+
+def _write_col(tokens, pos, vals):
+    """A copy of tokens [B, T] with column ``pos`` (a 0-dim device tensor,
+    clamped into the buffer as ``dynamic_update_slice`` clamps it) set to
+    vals [B]."""
+    B, T = tokens.shape
+    col = torch.clamp(pos, 0, T - 1).long().reshape(1, 1).expand(B, 1)
+    return torch.scatter(tokens, 1, col, vals.to(tokens.dtype)[:, None])
+
+
+def _slice_logits(logits, start, width):
+    """logits [B, T, V] -> [B, width, V] from position ``start`` (a 0-dim
+    device tensor, clamped as ``dynamic_slice`` clamps it)."""
+    return torch.index_select(logits, 1, _window(start, width, logits.shape[1]))
+
+
+def _slice_tokens(tokens, start, width):
+    """tokens [B, T] -> [B, width] from position ``start`` (as above)."""
+    return torch.index_select(tokens, 1, _window(start, width, tokens.shape[1]))
+
+
+def _window(start, width, T):
+    start = torch.clamp(start, 0, T - width).long()
+    return start + torch.arange(width, device=start.device)
 
 
 def _gather_last(tokens, length):
@@ -86,6 +130,11 @@ def _is_paged_branched(dcache, B):
             and dcache["block_table"].shape[0] != B)
 
 
+def _take_candidate(x, win):
+    """x: [B, K, ...] -> the winner candidate per row: [B, ...]."""
+    return x[torch.arange(x.shape[0], device=x.device), win.long()]
+
+
 def _top_k(x, k):
     """[B, V] -> int32 [B, k]: the k largest entries per row, largest first
     and the lower index first among ties, as ``jax.lax.top_k`` orders them.
@@ -98,7 +147,8 @@ def _top_k(x, k):
 @dataclass(frozen=True)
 class LinearDraftPolicy:
     """Classic speculative sampling: ONE chain of gamma sequential greedy
-    draft steps per row, each a cached single-token drafter step."""
+    draft steps per row — cached single-token drafter steps, or no-cache
+    full-buffer recomputes."""
     name: str = "linear"
 
     def draft_cached(self, drafter, params_d, state: RoundState, spec,
@@ -114,6 +164,50 @@ class LinearDraftPolicy:
             drafts.append(tok)
         drafts = torch.stack(drafts, dim=1)                    # [B, G]
         return DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=cache)
+
+    def draft_nocache(self, drafter, params_d, state: RoundState,
+                      spec) -> DraftOut:
+        G = spec.gamma
+        length = state.length
+        toks = state.tokens
+        for i in range(G):
+            logits, _, _ = drafter.apply(params_d, toks)
+            pos = length - 1 + i
+            q_i = _slice_logits(logits, pos, 1)[:, 0]           # [B, V]
+            toks = _write_col(toks, pos + 1, torch.argmax(q_i, dim=-1))
+        drafts = _slice_tokens(toks, length, G)
+        return DraftOut(drafts=drafts[:, None], cand_tokens=toks[:, None])
+
+
+@dataclass(frozen=True)
+class MultiDraftPolicy:
+    """k parallel draft candidates per row: the drafter's top-k FIRST tokens
+    each continued greedily, all k verified in ONE stacked target pass, the
+    best accepted prefix committed. Greedy and no-cache only (cached
+    k-candidate rounds are the tree policy). Every candidate's emission is
+    a prefix of THE target greedy continuation, so committing the longest
+    one is still exact greedy decoding."""
+    name: str = "multi"
+    k: int = 2
+
+    def draft_nocache(self, drafter, params_d, state: RoundState,
+                      spec) -> DraftOut:
+        K, G = self.k, spec.gamma
+        tokens, length = state.tokens, state.length
+        B, T = tokens.shape
+        # chain heads: the drafter's top-k next tokens after the prefix
+        logits, _, _ = drafter.apply(params_d, tokens)
+        q0 = _slice_logits(logits, length - 1, 1)[:, 0]         # [B, V]
+        heads = _top_k(q0, K)                                   # [B, K]
+        cand = _write_col(torch.repeat_interleave(tokens, K, dim=0), length,
+                          heads.reshape(B * K))                 # [B*K, T]
+        for i in range(1, G):
+            lg, _, _ = drafter.apply(params_d, cand)
+            pos = length - 1 + i
+            q_i = _slice_logits(lg, pos, 1)[:, 0]               # [B*K, V]
+            cand = _write_col(cand, pos + 1, torch.argmax(q_i, dim=-1))
+        drafts = _slice_tokens(cand, length, G).reshape(B, K, G)
+        return DraftOut(drafts=drafts, cand_tokens=cand.reshape(B, K, T))
 
 
 @dataclass(frozen=True)
@@ -163,31 +257,51 @@ class TreeDraftPolicy:
 def make_policy(name: str, k: int = 2):
     if name == "linear":
         return LinearDraftPolicy()
+    if name == "multi":
+        if k < 2:
+            raise ValueError(f"multi-draft needs k >= 2 candidates, got {k}")
+        return MultiDraftPolicy(k=k)
     if name == "tree":
         if k < 1:
             raise ValueError(f"tree draft needs width >= 1, got {k}")
         return TreeDraftPolicy(width=k)
     raise ValueError(f"unknown draft policy {name!r} "
-                     f"(expected 'linear' or 'tree')")
+                     f"(expected 'linear', 'multi' or 'tree')")
 
 
 # ===================================================================== spec
 @dataclass(frozen=True)
 class RoundSpec:
-    """Static parameterization of one round: cached, greedy, per-row.
-    ``gamma`` is the chain depth of a tree policy."""
+    """Static parameterization of one greedy round. ``gamma`` is the chain
+    depth of a tree policy. The defaults are the paged server's cached
+    per-row round (JAX defaults to ``commit="batch_min"``); the no-cache
+    engine passes ``commit="batch_min", use_cache=False``."""
     gamma: int = 4
+    commit: str = "per_row"                # COMMIT_MODES
+    use_cache: bool = True
     policy: Any = field(default_factory=LinearDraftPolicy)
 
     def __post_init__(self):
         if self.gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {self.gamma}")
+        if self.commit not in COMMIT_MODES:
+            raise ValueError(f"commit must be one of {COMMIT_MODES}")
         name = getattr(self.policy, "name", "")
-        if name not in ("linear", "tree"):
-            raise NotImplementedError("only linear and tree drafting are ported")
+        if name == "multi" and self.use_cache:
+            raise ValueError("multi-draft needs no-cache verification")
+        if self.commit == "per_row" and not self.use_cache:
+            raise ValueError("per-row commits need per-row cache indices "
+                             "(use_cache=True)")
         if name == "tree":
+            if not self.use_cache:
+                raise ValueError("tree drafting is cached-only (branch "
+                                 "caches + tree-attention verify)")
             # validates span = 1 + width*gamma <= MAX_SPAN up front
             chain_tree(self.policy.width, self.gamma)
+        if self.use_cache and self.commit == "batch_min":
+            raise NotImplementedError(
+                "cached batch_min rounds run on the ring cache, which is not "
+                "ported; the paged rounds commit per_row")
 
     @property
     def drafted_per_round(self) -> int:
@@ -204,8 +318,10 @@ def _live0(state: RoundState):
 def draft_phase(drafter, params_d, state: RoundState,
                 spec: RoundSpec) -> DraftOut:
     """Phase 1: run the draft policy."""
-    return spec.policy.draft_cached(drafter, params_d, state, spec,
-                                    _live0(state))
+    if spec.use_cache:
+        return spec.policy.draft_cached(drafter, params_d, state, spec,
+                                        _live0(state))
+    return spec.policy.draft_nocache(drafter, params_d, state, spec)
 
 
 def _greedy_verify(drafts, p_logits):
@@ -217,8 +333,11 @@ def _greedy_verify(drafts, p_logits):
 
 def verify_phase(target, params_t, state: RoundState, d: DraftOut,
                  spec: RoundSpec) -> VerifyOut:
-    """Phase 2: one cached target pass over [t_last, d_1..d_G] (a tree:
-    over [t_last, level-major nodes]) + acceptance."""
+    """Phase 2: one target pass + acceptance: cached over [t_last,
+    d_1..d_G] (a tree: over [t_last, level-major nodes]), or a recompute
+    over the K stacked candidate buffers with best-candidate selection."""
+    if not spec.use_cache:
+        return _verify_recompute(target, params_t, state, d, spec)
     if getattr(spec.policy, "name", "") == "tree":
         # ONE stacked cached pass over the whole tree; the chain tree's
         # (depths, bits) select tree attention in the target's layers
@@ -240,6 +359,26 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
                                        max_live=ml)
     res = _greedy_verify(drafts, p_logits)
     return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
+
+
+def _verify_recompute(target, params_t, state: RoundState, d: DraftOut,
+                      spec: RoundSpec) -> VerifyOut:
+    """Full-buffer target pass over the K stacked candidates; for K > 1 the
+    best accepted prefix wins, ties to the drafter-greedy candidate 0
+    (``torch.argmax`` takes the first maximum, as ``jnp.argmax`` does)."""
+    G = spec.gamma
+    B, K, T = d.cand_tokens.shape
+    p_full, _, _ = target.apply(params_t, d.cand_tokens.reshape(B * K, T))
+    p_logits = _slice_logits(p_full, state.length - 1, G + 1)  # [B*K, G+1, V]
+    res = _greedy_verify(d.drafts.reshape(B * K, G), p_logits)
+    if K == 1:
+        return VerifyOut(res=res, base_tokens=d.cand_tokens[:, 0])
+    win = torch.argmax(res.n_emitted.reshape(B, K), dim=1)
+    res = acceptance.VerifyResult(
+        _take_candidate(res.n_accepted.reshape(B, K), win),
+        _take_candidate(res.out_tokens.reshape(B, K, G + 1), win),
+        _take_candidate(res.n_emitted.reshape(B, K), win))
+    return VerifyOut(res=res, base_tokens=_take_candidate(d.cand_tokens, win))
 
 
 def _scatter_commit(tokens, length, out_tokens, n_eff, gamma):
@@ -305,11 +444,31 @@ def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
         n_drafted=state.n_drafted + spec.drafted_per_round)
 
 
+def _commit_batch_min(state: RoundState, v: VerifyOut,
+                      spec: RoundSpec) -> RoundState:
+    """No-cache batch-synchronized commit: every row commits the
+    batch-minimum emitted length (discarded acceptances are re-drafted;
+    exact at B=1), so ``length`` stays a scalar; no cache to roll back."""
+    res = v.res
+    B = state.tokens.shape[0]
+    n_commit = res.n_emitted.min()
+    tokens = _scatter_commit(v.base_tokens, state.length, res.out_tokens,
+                             n_commit.expand(B), spec.gamma)
+    return state._replace(
+        tokens=tokens, length=state.length + n_commit,
+        n_rounds=state.n_rounds + 1,
+        n_accepted=state.n_accepted + (n_commit - 1),
+        n_drafted=state.n_drafted + spec.drafted_per_round)
+
+
 def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
-    """Phase 3: commit each row's accepted prefix + roll both caches back."""
+    """Phase 3: commit the accepted prefix (per row, or the batch minimum
+    on the no-cache path) + roll the caches back."""
     if getattr(spec.policy, "name", "") == "tree":
         return _tree_commit(state, d, v, spec)
+    if spec.commit == "batch_min":
+        return _commit_batch_min(state, v, spec)
     return _commit_rows(state, d, v, spec)
 
 

@@ -36,6 +36,10 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                     _F, _I, _P]),
     },
+    "flash_attention": {
+        "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _F, _I, _P]),
+    },
     "spec_verify": {
         "row_argmax_chunks": (_I, [_I]),
         "row_argmax": (_I, [_P, _P, _P, _P, _I, _I, _P]),

@@ -9,6 +9,7 @@ path.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import spec_verify as _sv
 from repro_torch.kernels import tree_attention as _ta
@@ -17,6 +18,12 @@ from repro_torch.kernels import tree_attention as _ta
 def verify_greedy(draft_tokens, p_logits):
     """Fused greedy verification (see repro_torch.core.acceptance)."""
     return _sv.verify_greedy_fused(draft_tokens, p_logits)
+
+
+def flash_attention(q, k, v, *, window=None, causal=True, s_valid=None):
+    """No-cache blockwise attention (q and kv positions both from 0)."""
+    return _fa.flash_attention(q, k, v, window=window, causal=causal,
+                               s_valid=s_valid)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, index, *, window=None,

@@ -27,10 +27,15 @@ def as_int32(x, shape, device):
 
 
 def check_args(what, q, k_pool, v_pool, scale, window):
-    """The checks every launch of ``paged_attention.cu`` (either mask
-    policy) makes on the card: raises on what the kernel does not take."""
+    """The checks every attention kernel launch makes on the card (the two
+    mask policies of ``paged_attention.cu``, and ``flash_attention.cu``
+    with k/v in place of the pools): raises on what the kernel does not
+    take."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
+    if k_pool.device != q.device or v_pool.device != q.device:
+        raise ValueError(f"{what}: K/V on {k_pool.device}/{v_pool.device}, "
+                         f"q on {q.device}")
     if scale is not None:
         raise ValueError(f"the {what} kernel uses scale D**-0.5; "
                          "an explicit scale is not supported on the GPU")
@@ -38,15 +43,15 @@ def check_args(what, q, k_pool, v_pool, scale, window):
     if q.dtype not in DTYPES:
         raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"{what} kernel needs pools of q's dtype "
+        raise TypeError(f"{what} kernel needs K/V of q's dtype "
                         f"{q.dtype}, got {k_pool.dtype}/{v_pool.dtype}")
     if D not in (64, 128):
         raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
     if q.shape[2] % Kv or tuple(v_pool.shape) != tuple(k_pool.shape) \
             or k_pool.shape[3] != D:
-        raise ValueError(f"bad shapes q={tuple(q.shape)} pool={tuple(k_pool.shape)}")
+        raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k_pool.shape)}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError(f"{what} kernel needs contiguous pools")
+        raise ValueError(f"{what} kernel needs contiguous K/V")
     if window is not None and int(window) <= 0:
         raise ValueError(f"window must be positive, got {window}")
 

@@ -19,6 +19,28 @@ def add_model_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return ap
 
 
+def add_traffic_args(ap: argparse.ArgumentParser, *, requests: int = 8,
+                     prompt_len: int = 8, max_new: int = 24
+                     ) -> argparse.ArgumentParser:
+    ap.add_argument("--requests", type=int, default=requests)
+    ap.add_argument("--prompt-len", type=int, default=prompt_len)
+    ap.add_argument("--max-new", type=int, default=max_new)
+    return ap
+
+
+def add_spec_args(ap: argparse.ArgumentParser, *, gamma: int = None
+                  ) -> argparse.ArgumentParser:
+    """The JAX CLI's speculation flags, less ``--placement`` (placement is
+    not ported)."""
+    ap.add_argument("--gamma", type=int, default=gamma,
+                    help="draft length (default: the cost-model decision)")
+    ap.add_argument("--alpha", type=float, default=0.8,
+                    help="expected acceptance rate fed to the gamma decision")
+    ap.add_argument("--cost-coefficient", type=float, default=None,
+                    help="c = t_draft/t_target fed to the gamma decision")
+    return ap
+
+
 def build_pair(arch: str, smoke: bool, device=None
                ) -> Tuple[object, object, dict, dict, object]:
     """(target, drafter, params_t, params_d, cfg_t) for a registry arch,

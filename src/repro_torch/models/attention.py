@@ -1,34 +1,45 @@
-"""Paged GQA attention with causal / sliding-window masking, and its
-tree-verify variant (port of the paged read paths of
-``repro/models/attention.py``).
+"""GQA attention with causal / sliding-window masking: the no-cache paths
+and the paged read paths (port of ``repro/models/attention.py`` without the
+ring-cache tree path).
 
-``attn_paged`` is the plain PyTorch version: a loop over KV *blocks*
+No cache: ``attn_dense`` materialises the [B, Kv, G, Q, S] scores,
+``attn_chunked`` walks KV chunks with an online softmax, and ``attention``
+picks between them by the KV length (dense up to ``2 * chunk``), as JAX
+does. They are the plain versions. ``attention_flash`` is the dispatch the
+no-cache forward calls, for positions 0..S-1 on both sides: a CPU tensor
+takes ``attention``, a CUDA tensor the flash kernel
+(``repro_torch.kernels.flash_attention``), whose plain version is
+``attn_dense``.
+
+Paged: ``attn_paged`` is the plain version, a loop over KV *blocks*
 fetched through the block table with an online softmax, stopping at the
-batch-max live block. It is what runs on the CPU, and what the CUDA kernel
-(``repro_torch.kernels.paged_attention``) is held against on the card.
-``attention_paged`` is the dispatch the model calls: the tensor's device
-decides — a CPU tensor takes ``attn_paged``, a CUDA tensor the kernel.
+batch-max live block. ``attention_paged`` is the dispatch the model calls:
+the tensor's device decides — a CPU tensor takes ``attn_paged``, a CUDA
+tensor the kernel (``repro_torch.kernels.paged_attention``).
 ``attn_tree`` / ``attention_tree`` are the same pair for a stacked
 tree-verify span, with the causal mask replaced by ``_tree_mask``.
 
-The no-cache paths (``attn_dense``, ``attn_chunked``, ``attention``) and the
-ring-cache tree path (``attn_tree_ring``) wait for later slices.
+The ring-cache tree path (``attn_tree_ring``) waits for the ring-cache
+slice.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.cache.kv_cache import _from_buf
 
 NEG_INF = -1e30  # large-but-finite; avoids NaNs from (-inf) - (-inf)
 
 
-def _mask(q_pos, kv_pos, window):
+def _mask(q_pos, kv_pos, window, causal=True):
     """Boolean mask [Q,S] (shared positions) or [B,Q,S] (per-row positions):
-    causal + optional sliding window."""
+    causal (or not) + optional sliding window."""
     qp = q_pos[..., :, None]
     kp = kv_pos[..., None, :]
-    m = qp >= kp
+    m = (qp >= kp) if causal else torch.ones(
+        torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+        device=qp.device)
     if window is not None:
         m = m & (torch.abs(qp - kp) < window)
     m = m & (kp >= 0)  # invalid cache slots carry position -1
@@ -42,6 +53,27 @@ def _expand_mask(m):
     return m[:, None, None]
 
 
+def _gqa_scores(q, k):
+    """q:[B,Q,H,D] k:[B,S,Kv,D] -> [B,Kv,H/Kv,Q,S] fp32."""
+    B, Q, H, D = q.shape
+    Kv = k.shape[2]
+    q = q.reshape(B, Q, Kv, H // Kv, D)
+    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+
+
+def attn_dense(q, k, v, q_pos, kv_pos, *, window=None, scale=None,
+               causal=True):
+    """q:[B,Q,H,D] k,v:[B,S,Kv,D] positions int32 -> [B,Q,H,D]."""
+    B, Q, H, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    s = _gqa_scores(q, k) * scale                             # [B,Kv,G,Q,S]
+    m = _mask(q_pos, kv_pos, window, causal)
+    s = torch.where(_expand_mask(m), s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(B, Q, H, D).to(q.dtype)
+
+
 def _online_carry(B, Kv, G, Q, D, device):
     return (torch.zeros((B, Kv, G, Q, D), dtype=torch.float32, device=device),
             torch.full((B, Kv, G, Q), NEG_INF, dtype=torch.float32, device=device),
@@ -49,13 +81,14 @@ def _online_carry(B, Kv, G, Q, D, device):
 
 
 def _online_step(carry, qf, k_i, v_i, q_pos, kv_pos, window, scale,
-                 mask=None):
-    """One online-softmax update over a KV slab (the recurrence the CUDA
-    kernel implements in shared memory). ``mask`` overrides the
-    causal/window mask (tree-speculation visibility)."""
+                 causal=True, mask=None):
+    """One online-softmax update over a KV slab — the shared inner step of
+    attn_chunked and attn_paged (the recurrence the CUDA kernels implement
+    in shared memory). ``mask`` overrides the causal/window mask
+    (tree-speculation visibility)."""
     acc, mx, den = carry
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_i.float()) * scale
-    m = mask if mask is not None else _mask(q_pos, kv_pos, window)
+    m = mask if mask is not None else _mask(q_pos, kv_pos, window, causal)
     s = torch.where(_expand_mask(m), s, torch.full_like(s, NEG_INF))
     mx_new = torch.maximum(mx, s.amax(dim=-1))
     alpha = torch.exp(mx - mx_new)
@@ -71,6 +104,52 @@ def _online_emit(acc, den, B, Q, H, D, dtype):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Q, H, D).to(dtype)
 
 
+def attn_chunked(q, k, v, q_pos, kv_pos, *, window=None, scale=None,
+                 chunk=512, causal=True):
+    """Online-softmax attention over KV chunks. Same semantics as
+    attn_dense; the padded tail carries position -1 (never visible)."""
+    B, Q, H, D = q.shape
+    S, Kv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    qf = q.reshape(B, Q, Kv, H // Kv, D).float()
+    carry = _online_carry(B, Kv, H // Kv, Q, D, q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        carry = _online_step(carry, qf, k[:, sl], v[:, sl], q_pos,
+                             kv_pos[sl], window, scale, causal)
+    acc, _, den = carry
+    return _online_emit(acc, den, B, Q, H, D, q.dtype)
+
+
+def attention(q, k, v, q_pos, kv_pos, *, window=None, scale=None, chunk=512,
+              causal=True):
+    """Dispatch: dense path for short KV, chunked for long KV."""
+    if k.shape[1] <= 2 * chunk:
+        return attn_dense(q, k, v, q_pos, kv_pos, window=window, scale=scale,
+                          causal=causal)
+    return attn_chunked(q, k, v, q_pos, kv_pos, window=window, scale=scale,
+                        chunk=chunk, causal=causal)
+
+
+def attention_flash(q, k, v, *, window=None):
+    """No-cache causal attention dispatch, for query and key positions both
+    0..S-1 (the no-cache forward): a CPU tensor takes ``attention``, a CUDA
+    tensor the flash kernel (see ``repro_torch.kernels.ops.
+    flash_attention``)."""
+    if q.device.type == "cpu":
+        pos = torch.arange(q.shape[1], dtype=torch.int32)
+        return attention(q, k, v, pos, pos, window=window)
+    from repro_torch.kernels import ops
+    return ops.flash_attention(q, k, v, window=window)
+
+
+# ------------------------------------------------------------- paged read path
 def attn_paged(q, k_pool, v_pool, block_table, index, *, window=None,
                scale=None, max_live=None):
     """Block-table-native attention over a paged KV pool (plain version).

@@ -3,11 +3,12 @@
   model = build_model(cfg)
   params = model.init(seed, device)
   logits, cache, aux = model.apply(params, tokens, cache, **kw)
+  logits, _, _ = model.apply(params, tokens)       # no-cache full pass
   cache = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
 
 ``init`` and ``init_paged_cache`` allocate on ``cuda`` unless the caller
-passes ``device="cpu"``. The other families, the ring cache and the
-no-cache forward wait for later slices.
+passes ``device="cpu"``. The other families and the ring cache wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -39,8 +40,10 @@ class Model:
 
     def apply(self, params, tokens, cache=None, *, logits_slice=None,
               max_live=None, tree=None):
-        """``tree`` = (depths, bits) int32 [Q] runs a stacked tree-verify
-        pass (``core.tree``; dense family, paged cache)."""
+        """``cache=None`` runs the no-cache full-sequence pass and returns
+        (logits, None, {}). ``tree`` = (depths, bits) int32 [Q] runs a
+        stacked tree-verify pass (``core.tree``; dense family, paged
+        cache)."""
         logits, new_cache = dense.forward(self.cfg, params, tokens, cache,
                                           logits_slice=logits_slice,
                                           max_live=max_live, tree=tree)
