@@ -51,19 +51,47 @@
    flash / argmax launch counts and no paged or tree launch, and its
    tokens must equal no-cache AR's on the card; then the same spec serve
    runs once more under ``torch.profiler`` (its ``"phase":
-   "profile_nocache"`` line, as in step 4).
-8. Prints the ``{"kernels": [...]}`` line, the card line again and, last,
-   ``{"ok": true, "device": {...}}``.
+   "profile_nocache"`` line, as in step 4); every kernel's count is read,
+   so the SSD and int8 kernels must stay at 0 there.
+8. The last two kernels against their plain versions: the SSD scan at the
+   Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
+   heads) shapes at T = 134, 1100 rows (9 chunks of state carry) and the
+   JAX kernel test's impulse (fp32, B and C a stride-0 view over heads,
+   as the model hands them; no library call computes the scan); the int8
+   matmul at the eight projections of the w8a8 Llama-3.2-3B/1B pair at
+   M = 2 x 134 = 268 (bf16 out), M = 1 and 256, JAX's ragged shapes and
+   fp32 out (bit-equal expected; library: ``torch._int_mm`` + rescale).
+9. Smoke-width exactness of the two new paths, as in step 7: the
+   ``mamba2-780m`` smoke pair (``"phase": "smoke_ssm_nocache_exactness"``)
+   and the llama3.2-1b smoke pair through ``quantize_for_serving`` under
+   ``act_quant`` with a static scale calibrated on the CPU
+   (``"smoke_w8a8_exactness"``).
+10. Full width, through ``launch.serve`` with step 7's traffic: the paper's
+   pair through ``quantize_for_serving`` under ``act_quant`` with a static
+   scale from ``calibrate_act_scale`` over the linear inputs of one
+   unquantized target pass on the first wave (``"full_width_w8a8"``: 7
+   int8 launches and one flash launch per layer pass), then the
+   ``mamba2-780m`` target with its registered drafter (``"full_width_ssm"``:
+   one SSD launch per layer pass); tokens == AR's, exact counts of all six
+   kernels, each followed by a profiled serve (``"profile_w8a8"``,
+   ``"profile_ssm"``).
+11. Prints the ``{"kernels": [...]}`` line (six kernels), the card line
+   again and, last, ``{"ok": true, "device": {...}}``.
 
-Nothing is caught: any failure exits non-zero before the last line. With no
+Every JSON line carries ``elapsed_s``, the seconds since the script
+started. Nothing is caught: any failure exits non-zero before the last line. With no
 CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
 import sys
+import time
+
+START = time.perf_counter()
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -73,7 +101,8 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FLOPS_PER_S = {torch.float32: 67e12,    # H100 SXM peak for the input type:
-               torch.bfloat16: 989e12}  # fp32 CUDA cores, bf16 tensor cores
+               torch.bfloat16: 989e12,  # fp32 CUDA cores, bf16 tensor cores,
+               torch.int8: 1979e12}     # dense int8 tensor cores (OP/s)
 TOL = {torch.float32: (1e-4, 1e-4),   # (atol, rtol): summation order differs
        torch.bfloat16: (1e-2, 1e-2)}  # plus one bf16 output rounding (2^-8)
 GAMMA = 4
@@ -89,7 +118,8 @@ def card_line() -> str:
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the seconds since the script started."""
+    print(json.dumps({**obj, "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def agreement(out, ref, dtype) -> dict:
@@ -363,6 +393,139 @@ def flash_cases(timer):
     cases.append(flash_case(timer, *g3, T, torch.float32, window=8))
     cases.append(flash_case(timer, *g1, T, torch.bfloat16, causal=False))
     cases.append(flash_case(timer, *g3, T, torch.float32, s_valid=100))
+    return cases
+
+
+def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
+             headline=False):
+    """The SSD scan kernel against its plain version at [b, l, h, p] with
+    state size n: the inputs as ``ssm_mix`` hands them (B and C one group
+    broadcast to the heads by a stride-0 view, x and dA contiguous), or the
+    JAX kernel test's impulse (one input at t = 0, constant decay)."""
+    from repro_torch.kernels import ssd_scan as ss
+    g = torch.Generator(device="cuda").manual_seed(b * l * h + n)
+    if impulse:
+        x = torch.zeros((b, l, h, p), device="cuda")
+        x[0, 0, 0, :] = 1.0
+        dA = torch.full((b, l, h), -0.05, device="cuda")
+        Bm = torch.full((b, l, 1, n), 0.5, device="cuda").expand(b, l, h, n)
+        Cm = torch.full((b, l, 1, n), 0.5, device="cuda").expand(b, l, h, n)
+    else:
+        x = torch.randn((b, l, h, p), generator=g, device="cuda")
+        dA = -(torch.rand((b, l, h), generator=g, device="cuda") * 0.49 + 0.01)
+        Bm = (torch.randn((b, l, 1, n), generator=g, device="cuda") * 0.5).expand(b, l, h, n)
+        Cm = (torch.randn((b, l, 1, n), generator=g, device="cuda") * 0.5).expand(b, l, h, n)
+    args = (x, dA, Bm, Cm)
+
+    out = ss.ssd_scan(*args, chunk=chunk)
+    ref = ss.plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, torch.float32)
+    ok = agree["ok"] and bool(torch.isfinite(out).all())
+    if impulse:       # the response decays through every chunk boundary
+        resp = out[0, :, 0, 0]
+        ok = ok and bool(resp[9] > resp[17] > resp[31] > 0)
+
+    ms = timer(lambda: ss.ssd_scan(*args, chunk=chunk))
+    plain_ms = timer(lambda: ss.plain(*args, chunk=chunk), iters=5)
+
+    # least work: each input's distinct elements read once (B and C are one
+    # group shared by all heads), y written once; the chunked algorithm's
+    # flops over the real rows: per (batch row, head) and chunk of nv rows,
+    # the causal scores (2n per visible pair) and their product with X (2p
+    # per pair), the state read (2pn per row, after the first chunk) and
+    # the state update (2pn per chunk row, where a chunk follows)
+    def distinct(t):
+        return int(np.prod([d for d, st in zip(t.shape, t.stride()) if st != 0]))
+    nbytes = 4 * (sum(distinct(t) for t in args) + out.numel())
+    flops = 0
+    n_chunks = -(-l // chunk)
+    for c in range(n_chunks):
+        nv = min(chunk, l - c * chunk)
+        pairs = nv * (nv + 1) // 2
+        flops += pairs * 2 * (n + p)
+        flops += (c > 0) * nv * 2 * p * n + (c + 1 < n_chunks) * chunk * 2 * p * n
+    flops *= b * h
+    case = {"case": "ssd_scan", "shape": name, "b": b, "l": l, "h": h, "p": p,
+            "n": n, "chunk": chunk, "dtype": "float32", **agree, "ok": ok,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the chunked SSD scan",
+            **bound(nbytes, flops, torch.float32), "headline": headline}
+    emit(case)
+    if not ok:
+        raise SystemExit(f"ssd_scan disagrees with its plain version: {case}")
+    return case
+
+
+def ssd_cases(timer):
+    """The mamba2 smoke shape, the main path's target and drafter shapes
+    (T = 64 + 64 + GAMMA + 2 = 134 rows, two chunks of 128), a long
+    sequence (9 chunks of state carry) and the impulse."""
+    T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
+    return [ssd_case(timer, "smoke", 2, 20, 8, 32, 16, 8),
+            ssd_case(timer, "mamba2-780m", 2, T, 48, 64, 128, 128, headline=True),
+            ssd_case(timer, "mamba2-draft", 2, T, 24, 64, 128, 128),
+            ssd_case(timer, "mamba2-780m long", 2, 1100, 48, 64, 128, 128),
+            ssd_case(timer, "impulse", 1, 32, 1, 4, 4, 8, impulse=True)]
+
+
+def int8_case(timer, name, M, K, N, out_dtype, headline=False):
+    """The int8 matmul kernel against its plain version (the same exact
+    int32 sums and fp32 epilogue: bit-equal expected), with torch._int_mm
+    plus the same rescale as the library yardstick where it applies
+    (M > 16, K and N multiples of 8)."""
+    from repro_torch.kernels import int8_matmul as im
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + K * 3 + N)
+    x_q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    w_q = torch.randint(-128, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    sx = torch.full((), 0.0123, device="cuda")
+    sw = torch.rand((N,), generator=g, device="cuda") * 9e-3 + 1e-3
+    args = (x_q, w_q, sx, sw)
+
+    out = im.int8_matmul(*args, out_dtype=out_dtype)
+    ref = im.plain(*args, out_dtype)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, out_dtype)
+    bit_equal = bool(torch.equal(out, ref))
+
+    ms = timer(lambda: im.int8_matmul(*args, out_dtype=out_dtype))
+    plain_ms = timer(lambda: im.plain(*args, out_dtype))
+    library_ms = None
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        w_cm = w_q.t().contiguous().t()          # column-major, as cuBLASLt takes it
+        library_ms = timer(lambda: (torch._int_mm(x_q, w_cm).float() * sx
+                                    * sw).to(out_dtype))
+
+    esz = out.element_size()
+    nbytes = M * K + K * N + 4 + 4 * N + M * N * esz
+    case = {"case": "int8_matmul", "shape": name, "M": M, "K": K, "N": N,
+            "out_dtype": str(out_dtype).replace("torch.", ""), **agree,
+            "bit_equal": bit_equal, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "torch._int_mm + rescale",
+            **bound(nbytes, 2 * M * K * N, torch.int8), "headline": headline}
+    emit(case)
+    if not agree["ok"]:
+        raise SystemExit(f"int8_matmul disagrees with its plain version: {case}")
+    return case
+
+
+def int8_cases(timer):
+    """The eight projections of the w8a8 Llama-3.2-3B/1B pair at the main
+    path's M = 2 x 134 = 268 (bf16 out), then M = 1 and M = 256, JAX's
+    ragged sweep shapes and fp32 out."""
+    M = 2 * (NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2)
+    proj = [("3b q/o", 3072, 3072), ("3b k/v", 3072, 1024),
+            ("3b gate/up", 3072, 8192), ("3b down", 8192, 3072),
+            ("1b q/o", 2048, 2048), ("1b k/v", 2048, 512),
+            ("1b gate/up", 2048, 8192), ("1b down", 8192, 2048)]
+    cases = [int8_case(timer, name, M, K, N, torch.bfloat16,
+                       headline=(name == "3b gate/up")) for name, K, N in proj]
+    cases += [int8_case(timer, "3b gate/up", m, 3072, 8192, torch.bfloat16)
+              for m in (1, 256)]
+    cases += [int8_case(timer, "ragged", 37, 200, 150, torch.bfloat16),
+              int8_case(timer, "ragged", 1, 128, 257, torch.bfloat16),
+              int8_case(timer, "3b q/o", M, 3072, 3072, torch.float32),
+              int8_case(timer, "ragged", 37, 200, 150, torch.float32)]
     return cases
 
 
@@ -675,41 +838,78 @@ def _nocache_rounds(eng, pt, pd, prompt, max_new):
     return state.tokens[:, :length].cpu().numpy(), committed
 
 
-def smoke_nocache_exactness():
-    """The no-cache engine on the smoke pair of ``smoke_tree_exactness``
-    (weights drawn on the CPU and copied to the card), gamma 4, six prompt
-    batches of B=2: linear and multi-draft k=2 rounds on the card, the same
-    on the CPU, and no-cache AR on the card must give identical tokens, and
-    some round must commit part of its draft (batch_min commits the rows'
-    minimum, so with two rows most rounds commit one token)."""
+def calibrated_scale(model, params, tokens) -> float:
+    """The w8a8 static activation scale: ``quant.int8.calibrate_act_scale``
+    over the input of every linear in one unquantized forward of ``model``
+    on ``tokens``, collected by a wrapper around ``layers.linear`` that is
+    installed for that pass only."""
+    from repro_torch.models import layers
+    from repro_torch.quant import int8 as q8
+    seen, real = [], layers.linear
+
+    def collect(p, x):
+        seen.append(x.detach().float().cpu())
+        return real(p, x)
+    layers.linear = collect
+    try:
+        dev = params["embed"]["table"].device
+        model.apply(params, torch.as_tensor(tokens, device=dev))
+    finally:
+        layers.linear = real
+    return q8.calibrate_act_scale(seen)
+
+
+def smoke_nocache_exactness(arch="llama3.2-1b", phase="smoke_nocache_exactness",
+                            w8a8=False):
+    """The no-cache engine on the smoke pair of ``arch`` (the drafter is the
+    target's first L-1 layers, embedding std d**-0.5; weights drawn on the
+    CPU and copied to the card), gamma 4, six prompt batches of B=2: linear
+    and multi-draft k=2 rounds on the card, the same on the CPU, and
+    no-cache AR on the card must give identical tokens, and some round must
+    commit part of its draft (batch_min commits the rows' minimum, so with
+    two rows most rounds commit one token). ``w8a8``: both models through
+    ``quantize_for_serving`` and every forward under ``act_quant`` with a
+    static scale calibrated on the CPU, so every linear runs the int8
+    kernel on the card."""
     from repro_torch.configs import registry
     from repro_torch.core.engine import (EngineConfig, SpecEngine,
                                          autoregressive_generate)
     from repro_torch.models.model import build_model
+    from repro_torch.quant import int8 as q8
     gamma, P, new = 4, 12, 24
-    cfg = registry.smoke_config("llama3.2-1b")
+    cfg = registry.smoke_config(arch)
     cfg = cfg.replace(embed_init_scale=cfg.d_model ** -0.5)
     mt = build_model(cfg)
     md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
     pt_cpu = mt.init(0, "cpu")
     pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
-    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
     prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, P)).astype(np.int32)
                for seed in range(6)]
-    ar = [autoregressive_generate(mt, pt, p, new).cpu().numpy() for p in prompts]
+    quant, scale = contextlib.nullcontext, None
+    if w8a8:
+        scale = calibrated_scale(mt, pt_cpu, prompts[0])
+        pt_cpu, pd_cpu = (q8.quantize_for_serving(pt_cpu),
+                          q8.quantize_for_serving(pd_cpu))
+
+        def quant():
+            return q8.act_quant(static_scale=scale)
+    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
+    with quant():
+        ar = [autoregressive_generate(mt, pt, p, new).cpu().numpy() for p in prompts]
     for policy in ("linear", "multi"):
         eng = SpecEngine(mt, md, EngineConfig(gamma=gamma, draft_policy=policy,
                                               draft_k=2))
-        info = {"phase": "smoke_nocache_exactness", "policy": policy,
+        info = {"phase": phase, "arch": arch, "policy": policy,
                 "gamma": gamma, "batch": 2, "prompt_len": P, "new_tokens": new,
-                "rounds": 0, "accepted": 0, "accepted_per_round": [],
-                "gpu_equals_cpu": True, "spec_equals_ar": True,
-                "replay_equals_generate": True}
+                "act_scale": scale, "rounds": 0, "accepted": 0,
+                "accepted_per_round": [], "gpu_equals_cpu": True,
+                "spec_equals_ar": True, "replay_equals_generate": True}
         for prompt, want in zip(prompts, ar):
-            gpu, st_gpu = eng.generate(pt, pd, prompt, new)
-            cpu, st_cpu = eng.generate(pt_cpu, pd_cpu, prompt, new)
+            with quant():
+                gpu, st_gpu = eng.generate(pt, pd, prompt, new)
+                cpu, st_cpu = eng.generate(pt_cpu, pd_cpu, prompt, new)
+                replay, committed = _nocache_rounds(eng, pt, pd, prompt, new)
             gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
-            replay, committed = _nocache_rounds(eng, pt, pd, prompt, new)
             info["rounds"] += st_gpu["rounds"]
             info["accepted"] += st_gpu["accepted"]
             info["accepted_per_round"].append([c - 1 for c in committed])
@@ -727,56 +927,73 @@ def smoke_nocache_exactness():
             raise SystemExit(f"smoke-width no-cache exactness failed: {info}")
 
 
-def full_width_nocache(mt, md, pt, pd, cfg, card):
-    """The paper's no-cache mode at full width through ``launch.serve``: 4
-    requests of 64 prompt + 64 new tokens, two waves of 2, gamma 4. Launch
-    counts are set to 0 just before each serve and read just after: every
-    spec round runs GAMMA drafter passes and one target pass, each layer
-    one flash launch, and one argmax launch; each AR step one target
-    pass."""
+def kernel_counters():
+    """Every kernel wrapper of the port, by name; each counts its launches."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import spec_verify as sv
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import tree_attention as ta
+    return {"flash_attention": fa.flash_attention,
+            "blockwise_argmax": sv.blockwise_argmax,
+            "paged_attention": pa.paged_flash_attention,
+            "tree_attention": ta.tree_flash_attention,
+            "ssd_scan": ss.ssd_scan, "int8_matmul": im.int8_matmul}
+
+
+def nocache_prompts(cfg):
+    return np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, NOCACHE_PROMPT)).astype(np.int32)
+
+
+def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
+                  quant=contextlib.nullcontext, extra=None):
+    """The paper's no-cache mode at full width through ``launch.serve``: 4
+    requests of 64 prompt + 64 new tokens, two waves of 2, gamma 4, every
+    forward under ``quant()``. Every kernel's launch count is set to 0 just
+    before each serve and read just after: ``per_pass`` maps a kernel to its
+    launches in one (target, drafter) forward; every spec round runs GAMMA
+    drafter passes, one target pass and one argmax launch, each AR step one
+    target pass, and no other kernel launches. Then the same spec serve
+    runs once more under ``torch.profiler``."""
     from repro_torch.launch import serve as serve_cli
-    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    counters = kernel_counters()
     R, batch = 4, 2
-    prompts = np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (R, NOCACHE_PROMPT)).astype(np.int32)
-    # warm-up (cuBLAS handles, allocator), not counted
-    for gamma in (GAMMA, 0):
-        serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
-                        batch=batch)
+    prompts = nocache_prompts(cfg)
+    with quant():
+        # warm-up (cuBLAS handles, allocator), not counted
+        for gamma in (GAMMA, 0):
+            serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
+                            batch=batch)
     torch.cuda.synchronize()
 
     def counted(gamma):
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
-        sv.blockwise_argmax.launches = 0
-        pa.paged_flash_attention.launches = 0
-        ta.tree_flash_attention.launches = 0
-        toks, s = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
-                                  gamma=gamma, batch=batch)
+        for fn in counters.values():
+            fn.launches = 0
+        with quant():
+            toks, s = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                      gamma=gamma, batch=batch)
         torch.cuda.synchronize()
         s["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        s["launches"] = {"flash_attention": fa.flash_attention.launches,
-                         "blockwise_argmax": sv.blockwise_argmax.launches,
-                         "paged_attention": pa.paged_flash_attention.launches,
-                         "tree_attention": ta.tree_flash_attention.launches}
+        s["launches"] = {name: fn.launches for name, fn in counters.items()}
         return toks, s
 
     spec, s = counted(GAMMA)
     ar, s_ar = counted(0)
     rounds, steps = s["rounds"], s_ar["rounds"]
-    expect = {"flash_attention": rounds * (GAMMA * L_d + L_t),
-              "blockwise_argmax": rounds, "paged_attention": 0,
-              "tree_attention": 0}
-    expect_ar = {"flash_attention": steps * L_t, "blockwise_argmax": 0,
-                 "paged_attention": 0, "tree_attention": 0}
+    expect = {name: rounds * (GAMMA * per_pass.get(name, (0, 0))[1]
+                              + per_pass.get(name, (0, 0))[0])
+              for name in counters}
+    expect["blockwise_argmax"] = rounds
+    expect_ar = {name: steps * per_pass.get(name, (0, 0))[0] for name in counters}
+    expect_ar["blockwise_argmax"] = 0
     in_vocab = bool(((spec >= 0) & (spec < cfg.vocab_size)).all())
     same_ar = bool(np.array_equal(spec, ar))
-    info = {"phase": "full_width_nocache", "target": mt.cfg.name,
+    info = {"phase": phase, "target": mt.cfg.name,
             "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
+            **(extra or {}),
             "requests": R, "batch": batch, "waves": s["waves"],
             "prompt_len": NOCACHE_PROMPT, "new_tokens": NOCACHE_NEW,
             "buffer_len": NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2,
@@ -799,11 +1016,52 @@ def full_width_nocache(mt, md, pt, pd, cfg, card):
         raise SystemExit(f"full-width no-cache tokens differ from AR: {info}")
 
     def run():
-        _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
-                                gamma=GAMMA, batch=batch)
+        with quant():
+            _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                    gamma=GAMMA, batch=batch)
         return st["rounds"], 0
-    profile("profile_nocache", run, pt, pd, card)
+    profile(profile_phase, run, pt, pd, card)
     return s["launches"]
+
+
+def full_width_nocache(mt, md, pt, pd, cfg, card):
+    """The paper's pair (bf16): one flash launch per layer of each pass."""
+    per_pass = {"flash_attention": (mt.cfg.num_layers, md.cfg.num_layers)}
+    return nocache_phase("full_width_nocache", "profile_nocache", mt, md, pt,
+                         pd, cfg, card, per_pass)
+
+
+def full_width_w8a8(mt, md, pt, pd, cfg, card):
+    """The paper's w8a8 deployment of the pair: both models through
+    ``quantize_for_serving``, every forward under ``act_quant`` with a
+    static scale calibrated over the linear inputs of one unquantized
+    target pass on the first wave's prompts. Each layer runs its 7
+    projections on the int8 kernel and one flash launch; the tied fp32
+    unembedding stays as it is."""
+    from repro_torch.quant import int8 as q8
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    scale = calibrated_scale(mt, pt, nocache_prompts(cfg)[:2])
+    qt, qd = q8.quantize_for_serving(pt), q8.quantize_for_serving(pd)
+    per_pass = {"flash_attention": (L_t, L_d), "int8_matmul": (7 * L_t, 7 * L_d)}
+
+    def quant():
+        return q8.act_quant(static_scale=scale)
+    launches = nocache_phase("full_width_w8a8", "profile_w8a8", mt, md, qt, qd,
+                             cfg, card, per_pass, quant, {"act_scale": scale})
+    del qt, qd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def full_width_ssm(card):
+    """Mamba-2 at full width: the mamba2-780m target and its registered
+    drafter (bf16, seeded random weights), one SSD launch per layer of each
+    pass and nothing else but the argmax."""
+    from repro_torch.launch.cli_args import build_pair
+    mt, md, pt, pd, cfg = build_pair("mamba2-780m", smoke=False, device="cuda")
+    per_pass = {"ssd_scan": (mt.cfg.num_layers, md.cfg.num_layers)}
+    return nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd, cfg,
+                         card, per_pass)
 
 
 def _union(intervals):
@@ -848,13 +1106,15 @@ def profile(phase, run, pt, pd, card):
         rounds, prefills = run()
         torch.cuda.synchronize()
         wall = clock.perf() - t0
+    # the profiler's raw device events: building its FunctionEvent tree
+    # (prof.events()) would take minutes of host time for ~10^5 launches
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            s, e = ev.time_range.start, ev.time_range.end
-            spans.append((s, e))
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + e - s
-    busy_s = _union(spans) / 1e6 if spans else None   # None: not measured
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            s, d = ev.start_ns(), ev.duration_ns()
+            spans.append((s, s + d))
+            by_name[ev.name()] = by_name.get(ev.name(), 0) + d
+    busy_s = _union(spans) / 1e9 if spans else None   # None: not measured
     round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
     emit({"phase": phase, "card": card, "rounds": rounds,
           "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
@@ -863,7 +1123,7 @@ def profile(phase, run, pt, pd, card):
           "kernel_launches_per_round": len(spans) / rounds,
           "weight_bytes_per_round": round_bytes,
           "weight_floor_ms_per_round": round_bytes / HBM_BYTES_PER_S * 1e3,
-          "top_kernels_s": [[n[:90], us / 1e6] for n, us in
+          "top_kernels_s": [[n[:90], ns / 1e9] for n, ns in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
 
 
@@ -912,16 +1172,24 @@ def main() -> int:
                                           chain_tree(TREE_W, TREE_D),
                                           torch.float32, window=8))
     fl_cases = flash_cases(timer)
+    ssd = ssd_cases(timer)
+    i8 = int8_cases(timer)
     del timer
 
     smoke_exactness()
     smoke_tree_exactness()
     smoke_nocache_exactness()
+    smoke_nocache_exactness("mamba2-780m", "smoke_ssm_nocache_exactness")
+    smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True)
     from repro_torch.launch.cli_args import build_pair
     pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
     launches = full_width(*pair, card)
     tree_launches = full_width_tree(*pair, card)
     nocache_launches = full_width_nocache(*pair, card)
+    w8a8_launches = full_width_w8a8(*pair, card)
+    del pair
+    torch.cuda.empty_cache()
+    ssm_launches = full_width_ssm(card)
 
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
@@ -959,11 +1227,24 @@ def main() -> int:
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
          "library_ms": fl_head["library_ms"]},
     ]
-    emit({"kernels": kernels})
+    for name, src, replaces, n, cases in (
+            ("int8_matmul", "int8_matmul.cu", "int8_matmul.py:40",
+             w8a8_launches["int8_matmul"], i8),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:67",
+             ssm_launches["ssd_scan"], ssd)):
+        h = next(c for c in cases if c["headline"])
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+             "replaces": f"src/repro/kernels/{replaces}", "launches": n,
+             "max_abs_err": max(c["max_abs_err"] for c in cases),
+             "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
+             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+             "library_ms": h["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,11 +1,17 @@
 """Weight bridge: JAX-initialised params (as numpy) -> the port's params.
 
-The JAX dense model keeps its params as a nested dict with the layer
-params stacked on axis 0. A caller that holds both packages turns that
-tree into numpy (``jax.tree_util.tree_map(np.asarray, params)``) and hands
-it here; this module itself never imports JAX. Layers are unstacked into a
-list of per-layer dicts; linear weights keep JAX's ``[d_in, d_out]``
-layout, because the port computes ``x @ w`` as JAX does.
+The JAX models (dense and ssm) keep their params as a nested dict with the
+layer params stacked on axis 0. A caller that holds both packages turns
+that tree into numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
+hands it here; this module itself never imports JAX. Layers are unstacked
+into a list of per-layer dicts; linear weights keep JAX's ``[d_in, d_out]``
+layout (and conv weights JAX's ``[K, CH]``), because the port computes as
+JAX does. Trees from ``quantize_for_serving`` cross too.
+
+Each leaf keeps its dtype class: fp32 leaves stay fp32 (the SSM's
+``A_log``, ``D`` and ``dt_bias`` are fp32 whatever the param dtype, and
+rounding them would change the decay), integer leaves keep their type (the
+int8 ``w_q``), and the other float leaves (bf16) take ``cfg.weight_dtype``.
 """
 from __future__ import annotations
 
@@ -22,17 +28,26 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [np.asarray(tree)]
+
+
 def params_from_numpy(cfg, tree, device=None):
     """Port params for ``cfg`` from the JAX param tree ``tree`` (numpy
     leaves; bfloat16 leaves are widened through float32, which is exact)."""
     dev = devices.resolve(device)
-    dt = cfg.weight_dtype
 
     def to_torch(a):
         # torch.tensor copies: the port never aliases the caller's arrays
-        return torch.tensor(np.asarray(a, dtype=np.float32), dtype=dt, device=dev)
+        a = np.asarray(a)
+        if a.dtype.kind in "iub":
+            return torch.tensor(a, device=dev)
+        dt = torch.float32 if a.dtype == np.float32 else cfg.weight_dtype
+        return torch.tensor(a.astype(np.float32), dtype=dt, device=dev)
 
-    n = np.asarray(tree["layers"]["attn"]["q"]["w"]).shape[0]
+    n = _leaves(tree["layers"])[0].shape[0]
     if n != cfg.num_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
     params = {
@@ -44,5 +59,5 @@ def params_from_numpy(cfg, tree, device=None):
     if cfg.tie_embeddings:
         params["embed"] = L.with_f32_table(params["embed"])
     else:
-        params["lm_head"] = {"w": to_torch(tree["lm_head"]["w"])}
+        params["lm_head"] = _map(to_torch, tree["lm_head"])
     return params

@@ -1,9 +1,9 @@
 """Model configuration dataclass (port of ``repro/configs/base.py``).
 
 Same fields and defaults as the JAX ``ModelConfig`` for the dense
-(llama-style) family, with dtypes resolved to ``torch`` dtypes. The MoE,
-SSM, hybrid, encoder-decoder and VLM fields wait for the slices that port
-those families.
+(llama-style) and SSM (Mamba-2) families, with dtypes resolved to
+``torch`` dtypes. The MoE, hybrid, encoder-decoder and VLM fields wait for
+the slices that port those families.
 """
 from __future__ import annotations
 
@@ -30,6 +30,13 @@ class ModelConfig:
     # --- attention ---
     sliding_window: Optional[int] = None   # None = full causal attention
     rope_theta: float = 1e4
+    # --- SSM (mamba2 / SSD) ---
+    ssm_state: int = 0                     # d_state N
+    ssm_head_dim: int = 64                 # P
+    ssm_expand: int = 2                    # d_inner = expand * d_model
+    ssm_groups: int = 1                    # G (B/C groups)
+    ssm_conv: int = 4                      # depthwise causal conv width
+    ssm_chunk: int = 128                   # SSD chunk length
     # --- numerics ---
     dtype: str = "bfloat16"                # activation dtype
     param_dtype: str = "bfloat16"
@@ -52,6 +59,14 @@ class ModelConfig:
     @property
     def weight_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,8 @@
 """Architecture registry: ``get(arch_id)`` -> module with config()/drafter_config()/smoke_config().
 
-Only the paper's pair is ported so far; the other architectures of
-``repro.configs.registry`` join with the slices that port their families.
+The paper's pair (dense) and Mamba-2 (ssm) are ported so far; the other
+architectures of ``repro.configs.registry`` join with the slices that port
+their families.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import importlib
 ARCHS = (
     "llama3.2-1b",
     "llama3.2-3b",
+    "mamba2-780m",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

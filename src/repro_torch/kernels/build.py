@@ -25,7 +25,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points of each library: name -> (restype, argtypes)
 SIGNATURES = {
     "paged_attention": {
@@ -39,6 +39,14 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _P]),
+    },
+    "int8_matmul": {
+        "int8_matmul_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    },
+    "ssd_scan": {
+        "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _L, _L, _L, _L, _P]),
     },
     "spec_verify": {
         "row_argmax_chunks": (_I, [_I]),

@@ -1,0 +1,63 @@
+"""w8a8 int8 matmul with its rescale epilogue on Hopper: wrapper, launch
+count and plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/int8_matmul.py::
+int8_matmul``. The kernel is ``repro_torch/csrc/int8_matmul.cu`` (its
+header says what bounds it on the H100 and how the design answers);
+``plain`` (``kernels/ref.py``) computes the same exact int32 sums and the
+same fp32 epilogue, so the two agree bit for bit.
+
+``int8_matmul`` takes the plain version for a CPU tensor. For a CUDA tensor
+it launches the kernel — counting the launch in ``int8_matmul.launches`` —
+or raises on what the kernel does not take; it never falls back. The
+activation scale ``sx`` stays a 0-dim device tensor, read by the kernel
+through its pointer: a host read per linear would synchronise the stream.
+The TPU block sizes are not parameters: the kernel masks the ragged edges.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import DTYPES
+from repro_torch.kernels.ref import int8_matmul_ref as plain
+
+
+def int8_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
+    """x_q: [M, K] int8; w_q: [K, N] int8; sx: 0-dim fp32 tensor; sw: [N]
+    fp32. Returns [M, N] ``out_dtype`` = (x_q @ w_q) * sx * sw."""
+    if x_q.device.type == "cpu":
+        return plain(x_q, w_q, sx, sw, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
+    if not isinstance(sx, torch.Tensor) or sx.numel() != 1:
+        raise TypeError("int8_matmul: sx must be a one-element fp32 tensor "
+                        "on the card (a host float would cost a copy per call)")
+    if x_q.ndim != 2 or w_q.ndim != 2 or x_q.shape[1] != w_q.shape[0] \
+            or tuple(sw.shape) != (w_q.shape[1],):
+        raise ValueError(f"int8_matmul: bad shapes x_q={tuple(x_q.shape)} "
+                         f"w_q={tuple(w_q.shape)} sw={tuple(sw.shape)}")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8 \
+            or sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise TypeError("the int8_matmul kernel takes int8 x_q/w_q and fp32 sx/sw")
+    if out_dtype not in DTYPES:
+        raise TypeError(f"int8_matmul: out_dtype {out_dtype} is not fp32 or bf16")
+    if any(t.device != x_q.device for t in (w_q, sx, sw)):
+        raise ValueError("int8_matmul: operands on different devices")
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    x_q, w_q, sx, sw = (t.contiguous() for t in (x_q, w_q, sx, sw))
+    lib = build.load("int8_matmul")
+    err = lib.int8_matmul_fwd(x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(),
+                              sw.data_ptr(), out.data_ptr(), M, K, N,
+                              DTYPES[out_dtype],
+                              torch.cuda.current_stream(x_q.device).cuda_stream)
+    build.check(err, "int8_matmul_fwd")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0

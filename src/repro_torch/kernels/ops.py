@@ -9,10 +9,26 @@ path.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import int8_matmul as _imm
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import spec_verify as _sv
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tree_attention as _ta
+
+
+def quantized_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
+    """w8a8 matmul with its rescale epilogue: ``(x_q @ w_q) * sx * sw``.
+    x_q: [..., K] int8 (quantized by the caller, as ``layers.linear`` does
+    under ``quant.int8.act_quant``; JAX's wrapper quantizes inside);
+    w_q: [K, N] int8; sx: 0-dim fp32 tensor; sw: [N] fp32. Ragged M, K and N
+    are masked in the kernel, so nothing is padded."""
+    lead = x_q.shape[:-1]
+    out = _imm.int8_matmul(x_q.reshape(-1, x_q.shape[-1]), w_q, sx, sw,
+                           out_dtype=out_dtype)
+    return out.reshape(*lead, w_q.shape[1])
 
 
 def verify_greedy(draft_tokens, p_logits):
@@ -41,3 +57,9 @@ def tree_attention(q, k_pool, v_pool, block_table, index, depths, bits, *,
     return _ta.tree_flash_attention(q, k_pool, v_pool, block_table, index,
                                     depths, bits, window=window, scale=scale,
                                     max_live=max_live)
+
+
+def ssd_scan(x, dA, Bm, Cm, *, chunk=128):
+    """Fused chunked SSD scan from a zero state (the mamba2 no-cache path);
+    any l: the kernel treats rows past l as the zero padding."""
+    return _ssd.ssd_scan(x, dA, Bm, Cm, chunk=chunk)

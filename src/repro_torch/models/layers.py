@@ -3,8 +3,8 @@
 Parameters are plain nested dicts of tensors, as in the JAX package, and
 every function is a plain function on tensors. Linear weights keep JAX's
 ``[d_in, d_out]`` layout (``x @ w``), so weights cross the bridge
-unchanged. Activation int8 quantisation (``quant.int8.maybe_quant_act``)
-is off by default in the JAX package and is left out here.
+unchanged. ``linear`` carries the w8a8 hooks of ``quant.int8`` (off by
+default, as in JAX).
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.quant import int8 as q8
 
 
 # --------------------------------------------------------------------------- init
@@ -30,6 +32,26 @@ def init_linear(gen, d_in, d_out, dtype, device, scale=None):
 
 
 def linear(p, x):
+    """``x @ w``, with the w8a8 paths of ``quant.int8``:
+
+    * int8 weights (``quantize_for_serving``) under ``act_quant``: x is
+      quantized per tensor and ``kernels.ops.quantized_matmul`` computes
+      ``(q_x @ w_q) * sx * scale`` — the int8 kernel on the card, its plain
+      version on the CPU. JAX instead multiplies the dequantized operands,
+      ``(q_x * sx)_dtype @ (w_q * scale)_dtype``: the same in fp32 up to
+      rounding (~1e-6 relative), apart by the operands' roundings in bf16.
+      The port computes what the TPU kernel computes.
+    * int8 weights without act-quant (w8a16): dequantize, then ``x @ w``.
+    * float weights: fake-quant x when act-quant is on, then ``x @ w``."""
+    if "w_q" in p:
+        if q8.act_quant_enabled():
+            from repro_torch.kernels import ops
+            q, sx = q8.int8_act(x)
+            return ops.quantized_matmul(q, p["w_q"], sx, p["scale"],
+                                        out_dtype=x.dtype)
+        w = p["w_q"].to(x.dtype) * p["scale"].to(x.dtype)
+        return x @ w
+    x = q8.maybe_quant_act(x)
     return x @ p["w"].to(x.dtype)
 
 
