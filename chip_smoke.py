@@ -41,7 +41,8 @@
    Llama-3.2-3B and -1B head geometries at the main-path shape (B=2,
    S=134), fp32 and bf16; S in {1, 17, 1100, 2048}; a window of 8;
    non-causal; keys masked past s_valid < S. One JSON line per case, with
-   the same fields as in step 2 (library: SDPA with the same mask).
+   the same fields as in step 2 (library: SDPA with the same mask) and the
+   plan's row tile.
 7. The paper's no-cache engine (``SpecEngine(use_cache=False)``): on the
    smoke pair of step 3, linear gamma 4 and multi-draft k=2 at B=2 must
    give identical tokens on the card, on the CPU and from no-cache AR on
@@ -60,7 +61,10 @@
    as the model hands them; no library call computes the scan); the int8
    matmul at the eight projections of the w8a8 Llama-3.2-3B/1B pair at
    M = 2 x 134 = 268 (bf16 out), M = 1 and 256, JAX's ragged shapes and
-   fp32 out (bit-equal expected; library: ``torch._int_mm`` + rescale).
+   fp32 out (bit-equal expected; library: ``torch._int_mm`` + rescale),
+   each with the plan's K split (``splits``): an int8 call launches one
+   CUDA kernel unsplit, two split (the split products, then their sum
+   and the epilogue), and the wrapper counts it once either way.
 9. Smoke-width exactness of the two new paths, as in step 7: the
    ``mamba2-780m`` smoke pair (``"phase": "smoke_ssm_nocache_exactness"``)
    and the llama3.2-1b smoke pair through ``quantize_for_serving`` under
@@ -144,7 +148,11 @@ def bound(nbytes, flops, dtype) -> dict:
 class Timer:
     """Median device time of one call, by CUDA events, with the 50 MB L2
     flushed before every call (the serving path finds each layer's KV and
-    the logits cold)."""
+    the logits cold). Before each flush the card spins for ~1 ms, so the
+    host has queued the call before the card reaches the start event: the
+    events time the card's work, not a slow host's launch path."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -154,6 +162,7 @@ class Timer:
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
+            torch.cuda._sleep(self.SPIN_CYCLES)
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -326,6 +335,7 @@ def flash_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
                causal=True, s_valid=None, headline=False):
     """No-cache flash attention at [B, S] queries and keys (positions from
     0 on both sides), against its plain version."""
+    from repro_torch.device import sm_count
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(H * 10000 + S)
     q = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
@@ -363,6 +373,8 @@ def flash_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
     ms = timer(lambda: fa.flash_attention(q, k, v, **kw))
     plain_ms = timer(lambda: fa.plain(q, k, v, **kw), iters=5)
     library_ms = timer(library)
+    row_tile = fa.plan(dtype, B, S, H, Kv, D, window,
+                       sms=sm_count(q.device)).row_tile
 
     # least work: q read and out written once, the s_valid keys and values
     # read once per kv-head; 4 flops per (query head, visible pair, d)
@@ -374,7 +386,8 @@ def flash_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
             "dtype": str(dtype).replace("torch.", ""), **agree,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "sdpa(is_causal)" if plain_causal else "sdpa(attn_mask)",
-            **bound(nbytes, flops, dtype), "headline": headline}
+            **bound(nbytes, flops, dtype), "row_tile": row_tile,
+            "headline": headline}
     emit(case)
     if not agree["ok"]:
         raise SystemExit(f"flash attention disagrees with its plain version: {case}")
@@ -474,6 +487,7 @@ def int8_case(timer, name, M, K, N, out_dtype, headline=False):
     int32 sums and fp32 epilogue: bit-equal expected), with torch._int_mm
     plus the same rescale as the library yardstick where it applies
     (M > 16, K and N multiples of 8)."""
+    from repro_torch.device import sm_count
     from repro_torch.kernels import int8_matmul as im
     g = torch.Generator(device="cuda").manual_seed(M * 7 + K * 3 + N)
     x_q = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
@@ -495,6 +509,7 @@ def int8_case(timer, name, M, K, N, out_dtype, headline=False):
         w_cm = w_q.t().contiguous().t()          # column-major, as cuBLASLt takes it
         library_ms = timer(lambda: (torch._int_mm(x_q, w_cm).float() * sx
                                     * sw).to(out_dtype))
+    splits = im.plan(M, K, N, sm_count(x_q.device)).splits
 
     esz = out.element_size()
     nbytes = M * K + K * N + 4 + 4 * N + M * N * esz
@@ -502,7 +517,8 @@ def int8_case(timer, name, M, K, N, out_dtype, headline=False):
             "out_dtype": str(out_dtype).replace("torch.", ""), **agree,
             "bit_equal": bit_equal, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "torch._int_mm + rescale",
-            **bound(nbytes, 2 * M * K * N, torch.int8), "headline": headline}
+            **bound(nbytes, 2 * M * K * N, torch.int8), "splits": splits,
+            "headline": headline}
     emit(case)
     if not agree["ok"]:
         raise SystemExit(f"int8_matmul disagrees with its plain version: {case}")
@@ -1092,12 +1108,22 @@ def streamed_bytes(params) -> int:
     return size(params["layers"]) + size(params["final_norm"]) + size(head)
 
 
+def port_kernel_names() -> set:
+    """The names of the __global__ functions in the port's CUDA sources."""
+    import re
+    from repro_torch.kernels import build
+    pattern = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)"
+    return {fn for src in build.CSRC.glob("*.cu")
+            for fn in re.findall(pattern, src.read_text())}
+
+
 def profile(phase, run, pt, pd, card):
     """A serve once more under torch.profiler (``run()`` serves and returns
     its rounds and prefills): the device's busy time (the union of the CUDA
     kernels' intervals), its idle share of the wall time, kernel launches
     per round and the device time by kernel, largest first. The profiler
-    slows the host, so this run's wall time is not the throughput."""
+    slows the host, so this run's wall time is not the throughput. The
+    port's kernels are also listed alone, in device ms per round."""
     from repro_torch.obs import clock
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1115,6 +1141,14 @@ def profile(phase, run, pt, pd, card):
             spans.append((s, s + d))
             by_name[ev.name()] = by_name.get(ev.name(), 0) + d
     busy_s = _union(spans) / 1e9 if spans else None   # None: not measured
+    # the port's own kernels (the __global__ functions of csrc/*.cu), by
+    # function and template arguments, in ms per round
+    port, own = {}, port_kernel_names()
+    for name, ns in by_name.items():
+        fn = name.removeprefix("void ").split("(anonymous namespace)::", 1)[-1]
+        fn = fn.split("(", 1)[0]
+        if fn.split("<", 1)[0] in own:
+            port[fn] = port.get(fn, 0) + ns / 1e6 / rounds
     round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
     emit({"phase": phase, "card": card, "rounds": rounds,
           "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
@@ -1124,7 +1158,8 @@ def profile(phase, run, pt, pd, card):
           "weight_bytes_per_round": round_bytes,
           "weight_floor_ms_per_round": round_bytes / HBM_BYTES_PER_S * 1e3,
           "top_kernels_s": [[n[:90], ns / 1e9] for n, ns in
-                            sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]})
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
+          "port_kernels_ms_per_round": port})
 
 
 def main() -> int:

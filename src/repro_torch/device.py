@@ -7,6 +7,7 @@ the CPU.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -23,3 +24,15 @@ def resolve(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (read once per
+    card): the kernels' launch plans size their grids by it."""
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -5,8 +5,9 @@ Every ``repro_torch/csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 ``ctypes``. The build runs at first use, into ``build/repro_torch/`` at the
 root of the checkout (listed in ``.gitignore``); one ``nvcc`` runs for each
 source, all started together. A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and an unchanged one is
-reused. Nothing here runs when the module is imported.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Nothing here
+runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -38,10 +39,11 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _P]),
+                                     _I, _I, _I, _F, _I, _I, _P]),
     },
     "int8_matmul": {
-        "int8_matmul_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "int8_matmul_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P]),
     },
     "ssd_scan": {
         "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -71,6 +73,8 @@ def _nvcc() -> str:
 def _target(name: str, nvcc: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -9,7 +9,10 @@ Tolerances: fp32 atol = rtol = 1e-5 (the frameworks sum the scores and the
 weighted values in different orders); bf16 atol = rtol = 1e-2 (both round
 the fp32 result to bf16 once, and a sum-order difference can move it by one
 bf16 step). The CUDA kernel itself is held against the same plain version
-on the card by ``chip_smoke.py``."""
+on the card by ``chip_smoke.py``; here its bf16 path's one departure from
+the plain arithmetic (weights rounded to bf16 before the PV product) is
+held to the card's bf16 tolerance, and its launch plan to covering every
+query row once."""
 import numpy as np
 import pytest
 
@@ -29,6 +32,7 @@ TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+H100_SMS = 132   # streaming multiprocessors of an H100 SXM
 
 
 def _inputs(seed, B, Sq, Skv, H, Kv, D, dtype):
@@ -127,3 +131,95 @@ def test_s_valid_out_of_range_raises(s_valid):
                                                      "float32"))
     with pytest.raises(ValueError, match="s_valid"):
         fa.flash_attention(q, k, v, s_valid=s_valid)
+
+
+# ------------------------------------------------- the bf16 kernel's rounding
+CARD_BF16_TOL = dict(atol=1e-2, rtol=1e-2)   # chip_smoke.py's bf16 tolerance
+
+
+def _bf16_weights_attention(q, k, v):
+    """Causal attention as the bf16 kernel rounds it, in fp32: scores and
+    the softmax denominator in fp32, the weights P rounded to bf16 before
+    the PV product (their role as the A operand of a bf16 tensor-core
+    product)."""
+    B, S, H, D = q.shape
+    Kv = k.shape[2]
+    qf = q.reshape(B, S, Kv, H // Kv, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k) * D ** -0.5
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(causal, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1)
+    pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(torch.bfloat16).float(), v)
+    o = pv / torch.clamp(den, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", [134, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_weights_stay_within_the_card_tolerance(S, D):
+    """Rounding P to bf16 (the kernel's PV operand) keeps the output within
+    chip_smoke.py's bf16 tolerance of the fp32 plain version, at the main
+    path's length and the longest case's, for both head widths."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(S + D, 1, S, S, 4, 2, D,
+                                                     "bfloat16"))
+    got = _bf16_weights_attention(q, k, v)
+    want = fa.plain(q, k, v)
+    torch.testing.assert_close(got, want, **CARD_BF16_TOL)
+
+
+def test_plan_covers_every_query_row_once():
+    """Over ragged shapes: the row tiles cover the Sq * gq rows of each
+    (kv-head, batch row) exactly once, with the tile sizes the kernel
+    instantiates; 128-row tiles only for D = 128, no window, and a grid
+    that still gives every SM of the card two blocks."""
+    hyp = pytest.importorskip("hypothesis")   # requirements-test.txt
+    st = hyp.strategies
+
+    @hyp.settings(max_examples=200, deadline=None)
+    @hyp.given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
+               B=st.integers(1, 8), Sq=st.integers(1, 4096),
+               Kv=st.integers(1, 16), gq=st.integers(1, 8),
+               D=st.sampled_from([64, 128]),
+               window=st.sampled_from([None, 8, 100]),
+               sms=st.sampled_from([H100_SMS, 114, 16]))
+    def check(dtype, B, Sq, Kv, gq, D, window, sms):
+        _check_flash_plan(dtype, B, Sq, Kv, gq, D, window, sms)
+
+    check()
+
+
+def _check_flash_plan(dtype, B, Sq, Kv, gq, D, window, sms):
+    allowed = fa.BF16_ROWS if dtype == torch.bfloat16 else (fa.F32_ROWS,)
+    p = fa.plan(dtype, B, Sq, Kv * gq, Kv, D, window, sms=sms)
+    assert p.row_tile in allowed
+    n_rows = Sq * gq
+    if dtype == torch.bfloat16:
+        long_walks = -(-n_rows // 128) * Kv * B >= 2 * sms
+        assert (p.row_tile == 128) == (D == 128 and window is None and long_walks)
+    owner = np.zeros(n_rows, dtype=np.int64)
+    for tile in range(p.row_tiles):
+        lo = tile * p.row_tile
+        assert lo < n_rows                       # no tile without rows
+        owner[lo:lo + p.row_tile] += 1
+    assert (owner == 1).all()
+
+
+@pytest.mark.parametrize("S,D,rows", [(134, 128, 64), (134, 64, 64),
+                                      (2048, 128, 128), (2048, 64, 64),
+                                      (1100, 128, 128)])
+def test_plan_picks_the_measured_tile_at_the_chip_smoke_shapes(S, D, rows):
+    """B=2, 8 kv-heads, the 3B (gq 3) and 1B (gq 4) geometries: 64-row
+    tiles on the main path (S = 134), 128-row tiles for the 3B geometry's
+    long causal walks."""
+    H = 24 if D == 128 else 32
+    assert fa.plan(torch.bfloat16, 2, S, H, 8, D, sms=H100_SMS).row_tile == rows
+
+
+@pytest.mark.parametrize("sms,rows", [(H100_SMS, 128), (114, 128), (512, 64)])
+def test_plan_sizes_the_tile_by_the_cards_sm_count(sms, rows):
+    """The 3B geometry at S = 1100 (B=2, 8 kv-heads) has 26 128-row tiles
+    per (kv-head, batch row), 416 blocks: at least two per SM of an H100
+    SXM (132 SMs) or PCIe (114), but not of a card with 512 SMs, which
+    keeps 64-row tiles."""
+    assert fa.plan(torch.bfloat16, 2, 1100, 24, 8, 128, sms=sms).row_tile == rows

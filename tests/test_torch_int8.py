@@ -224,6 +224,85 @@ def test_quantized_matmul_lead_dims_and_dtype(out_dtype):
     np.testing.assert_array_equal(_np(flat), np.asarray(want, np.float32))
 
 
+H100_SMS = 132   # streaming multiprocessors of an H100 SXM
+# the main path's eight projections at M = 2 x 134 (3B q/o, k/v, gate/up,
+# down, then 1B), then ragged and other shapes
+SPLIT_SHAPES = [(268, 3072, 3072), (268, 3072, 1024), (268, 3072, 8192),
+                (268, 8192, 3072), (268, 2048, 2048), (268, 2048, 512),
+                (268, 2048, 8192), (268, 8192, 2048), (37, 200, 150),
+                (1, 128, 257), (1, 3072, 8192), (5, 1000, 300)]
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_split_k_sums_are_bit_equal_to_the_unsplit_product(M, K, N, out_dtype):
+    """The kernel's split-K path adds the int32 partial products of the
+    plan's K ranges in split order, then applies the epilogue: that equals
+    the plain version bit for bit (int32 sums are exact)."""
+    rng = np.random.default_rng(M * 31 + K + N)
+    x_q = _t(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w_q = _t(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    sx = torch.tensor(0.0123, dtype=torch.float32)
+    sw = _t(rng.uniform(1e-3, 1e-2, (N,)).astype(np.float32))
+    p = im.plan(M, K, N, H100_SMS)
+    acc = torch.zeros((M, N), dtype=torch.int32)
+    for z in range(p.splits):
+        lo, hi = (s * im.BK for s in p.k_range(z))
+        # exact in float64 (|sum| < 2**53), faster than an int32 product here
+        acc += (x_q[:, lo:hi].double() @ w_q[lo:hi].double()).to(torch.int32)
+    got = (acc.float() * sx * sw[None, :]).to(out_dtype)
+    assert torch.equal(got, im.plain(x_q, w_q, sx, sw, out_dtype))
+
+
+@pytest.mark.parametrize("M,K,N,splits", [
+    (268, 3072, 3072, 3), (268, 3072, 1024, 6), (268, 3072, 8192, 1),
+    (268, 8192, 3072, 3), (268, 2048, 2048, 3), (268, 2048, 512, 11),
+    (268, 2048, 8192, 1), (268, 8192, 2048, 5)])
+def test_plan_splits_k_on_the_thin_main_path_grids(M, K, N, splits):
+    """The main path's projections: three 96-row tiles; K split until the
+    blocks cover the 132 SMs (the down and k/v projections, 3B and 1B
+    q/o), the 8192-deep down projections and 3B q/o further, toward two
+    blocks per SM; the wide gate/up grids unsplit."""
+    p = im.plan(M, K, N, H100_SMS)
+    assert (p.m_tiles, p.splits) == (3, splits)
+    assert p.m_tiles * p.n_tiles * p.splits >= H100_SMS
+
+
+def test_plan_covers_every_tile_and_k_step_once():
+    """Over ragged shapes: the tiles cover [0, M) x [0, N) exactly once,
+    the splits' K ranges partition the K steps with none empty, and K is
+    split only while the blocks leave SMs idle."""
+    hyp = pytest.importorskip("hypothesis")   # requirements-test.txt
+    st = hyp.strategies
+
+    @hyp.settings(max_examples=300, deadline=None)
+    @hyp.given(M=st.integers(1, 3000), K=st.integers(0, 40000),
+               N=st.integers(1, 20000), sms=st.sampled_from([H100_SMS, 114, 16]))
+    def check(M, K, N, sms):
+        _check_int8_plan(M, K, N, sms)
+
+    check()
+
+
+def _check_int8_plan(M, K, N, sms):
+    p = im.plan(M, K, N, sms)
+    assert (p.m_tiles - 1) * im.BM < M <= p.m_tiles * im.BM
+    assert (p.n_tiles - 1) * im.BN < N <= p.n_tiles * im.BN
+    assert p.k_steps * im.BK >= K > (p.k_steps - 1) * im.BK
+    ranges = [p.k_range(z) for z in range(p.splits)]
+    steps = [s for lo, hi in ranges for s in range(lo, hi)]
+    assert steps == list(range(p.k_steps))
+    assert all(hi > lo for lo, hi in ranges) or (p.k_steps == 0 and p.splits == 1)
+    tiles = p.m_tiles * p.n_tiles
+    wave = -(-sms // tiles)               # splits for one block per SM
+    if tiles >= sms or p.k_steps <= 1:
+        assert p.splits == 1
+    else:                                 # at least a wave, at most two
+        assert p.splits >= min(wave, p.k_steps)
+        assert p.splits <= wave or (tiles * p.splits <= 2 * sms and
+                                    p.k_steps // (p.splits - 1) >= im.MIN_SPLIT_STEPS)
+
+
 def test_kernel_wrapper_refuses_a_non_cuda_device():
     _, x_q, w_q, sx, sw = _matmul_inputs(4, 32, 8)
     with pytest.raises(ValueError, match="device"):
