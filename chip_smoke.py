@@ -5,16 +5,22 @@
 
 1. Prints the card's name and power limit (nvidia-smi), builds the CUDA
    kernels from ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
-   and prints the build seconds and each kernel's registers and spills.
+   and prints the build seconds and each kernel's registers and spills;
+   then what the timer reads for one and two trivial kernels
+   (``"case": "timer_floor"``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it (paged attention: the Llama-3.2-3B and
    -1B head geometries, Q in {1, 5, 127}, block size 16, ragged rows with a
    row on the NULL block, fp32 and bf16; argmax: [20, 128256] fp32 with
    planted ties; tree attention: the 3B geometry, B=4, block size 16,
    ragged rows, the main path's chain_tree(2, 4) (span 9), chain_tree(5, 6)
-   (span 31), a non-chain tree, fp32 and bf16, and one fp32 case with a
-   window of 8), one JSON line per case with the error, the tolerance and
-   the kernel / plain / library / bound times in ms.
+   (span 31), a non-chain tree and chain_tree(2, 4) with a window of 8,
+   fp32 and bf16), one JSON line per case with the error, the tolerance,
+   the kernel / plain / library / bound times in ms and the launch plan's
+   key chunks and row tile. Then, per head geometry and dtype, on one
+   pool: the rows of a Q=5 paged call must be bit-equal to Q=1 calls at the
+   same positions, and a width-1 chain tree call to the causal call
+   (``"case": "attention_q_invariance"``).
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -29,14 +35,16 @@
    Llama-3.2-1B drafter (bf16, seeded random weights), serves 8 ragged
    requests through ``PagedSpecServer`` with gamma pinned to 4. The kernel
    launch counts are set to 0 just before and read just after, and must
-   equal what the path implies. The same serve then runs once more under
+   equal what the path implies; the tokens must equal the same requests
+   served with AR rounds. The same serve then runs once more under
    ``torch.profiler``: device busy time, idle share, launches per round
    and device time by kernel.
 5. Full-width tree rounds: the same pair runs ``PagedTreeRound`` (width 2,
    depth 4) over 4 ragged prompts until each row has 32 new tokens; the
    launch counts (set to 0 just before the tree prefills, read just after
    the last round) must equal what the path implies, and the tokens must
-   equal the same prompts served with AR rounds.
+   equal the same prompts served with AR rounds; then the same tree serve
+   runs once more under ``torch.profiler`` (``"phase": "profile_tree"``).
 6. The no-cache flash-attention kernel against its plain version: the
    Llama-3.2-3B and -1B head geometries at the main-path shape (B=2,
    S=134), fp32 and bf16; S in {1, 17, 1100, 2048}; a window of 8;
@@ -175,6 +183,17 @@ class Timer:
 
 
 # --------------------------------------------------------------- kernels
+def timer_floor(timer):
+    """What the timer reads for one and for two back-to-back trivial
+    kernels (an in-place add on 16 floats): the floor under every short
+    case's time, launch and L2 flush included."""
+    x = torch.zeros(16, device="cuda")
+    case = {"case": "timer_floor", "one_kernel_ms": timer(lambda: x.add_(1)),
+            "two_kernels_ms": timer(lambda: (x.add_(1), x.add_(1)))}
+    emit(case)
+    return case
+
+
 def attention_case(timer, name, H, Kv, D, Q, dtype, headline=False):
     from repro_torch.kernels import paged_attention as pa
     BS, MB, NB = 16, 16, 256
@@ -226,13 +245,63 @@ def attention_case(timer, name, H, Kv, D, Q, dtype, headline=False):
     nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
               + table.numel() * 4 + B * 4)
     flops = 4 * H * D * visible
+    p = pa.plan(dtype, B, Q, H, Kv, D, BS, MB)
     case = {"case": "paged_attention", "geometry": name, "Q": Q, "B": B,
             "dtype": str(dtype).replace("torch.", ""), **agree,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            **bound(nbytes, flops, dtype), "headline": headline}
+            **bound(nbytes, flops, dtype), "chunks": p.chunks,
+            "row_tile": p.row_tile, "row_tiles": p.row_tiles,
+            "headline": headline}
     emit(case)
     if not agree["ok"]:
         raise SystemExit(f"paged attention disagrees with its plain version: {case}")
+    return case
+
+
+def q_invariance(name, H, Kv, D, dtype):
+    """On one pool (B=4 ragged rows, row 2 on the NULL block, block size
+    16): the rows of a Q = GAMMA + 1 verify call against Q=1 calls at the
+    same positions, and a width-1 chain tree over the same span against
+    the causal call, each with the serving path's live bound max(index) + Q
+    as a device tensor. A row's arithmetic must not depend on Q or on the
+    mask policy, so all must be bit-equal (spec == AR and tree == AR rest
+    on it)."""
+    from repro_torch.core.tree import chain_tree
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import tree_attention as ta
+    BS, MB, NB, Q = 16, 16, 256, GAMMA + 1
+    g = torch.Generator(device="cuda").manual_seed(H * 100 + D)
+    idx = torch.tensor([37, 150, 11, 200], dtype=torch.int32, device="cuda")
+    B = idx.numel()
+    q = torch.randn((B, Q, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    table = perm[:B * MB].reshape(B, MB).to(torch.int32)
+    table[2] = 0
+
+    def live(n):
+        return (idx.max() + n).to(torch.int32)
+    verify = pa.paged_flash_attention(q, k, v, table, idx, max_live=live(Q))
+    steps = [pa.paged_flash_attention(q[:, i:i + 1].contiguous(), k, v, table,
+                                      idx + i, max_live=live(i + 1))
+             for i in range(Q)]
+    shape = chain_tree(1, Q - 1)
+    width1 = ta.tree_flash_attention(
+        q, k, v, table, idx, torch.from_numpy(shape.depths).cuda(),
+        torch.from_numpy(shape.bits).cuda(), max_live=live(Q))
+    torch.cuda.synchronize()
+    q_equal = [bool(torch.equal(s[:, 0], verify[:, i])) for i, s in enumerate(steps)]
+    tree_equal = bool(torch.equal(width1, verify))
+    p = pa.plan(dtype, B, Q, H, Kv, D, BS, MB)
+    case = {"case": "attention_q_invariance", "geometry": name, "Q": Q,
+            "B": B, "dtype": str(dtype).replace("torch.", ""),
+            "chunks": p.chunks, "row_tile": p.row_tile,
+            "verify_rows_equal_q1": q_equal,
+            "width1_tree_equals_causal": tree_equal}
+    emit(case)
+    if not (all(q_equal) and tree_equal):
+        raise SystemExit(f"paged/tree attention rows depend on Q or the policy: {case}")
     return case
 
 
@@ -272,6 +341,7 @@ def tree_attention_case(timer, name, shape, dtype, window=None,
     """Tree attention at the Llama-3.2-3B head geometry: B=4 ragged rows
     (row 2 on the NULL block), block size 16, the verify round's live
     bound max(index) + span as a device tensor."""
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import tree_attention as ta
     from repro_torch.models.attention import _tree_mask
     H, Kv, D, BS, MB, NB = 24, 8, 128, 16, 16, 256
@@ -320,11 +390,13 @@ def tree_attention_case(timer, name, shape, dtype, window=None,
     nbytes = (2 * q.numel() * esz + sum(live) * Kv * D * 2 * esz
               + table.numel() * 4 + B * 4 + 2 * span * 4)
     flops = 4 * H * D * int(mask.sum())
+    p = pa.plan(dtype, B, span, H, Kv, D, BS, MB)
     case = {"case": "tree_attention", "tree": name, "span": span, "B": B,
             "window": window, "dtype": str(dtype).replace("torch.", ""),
             **agree, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound(nbytes, flops, dtype),
-            "headline": headline}
+            "chunks": p.chunks, "row_tile": p.row_tile,
+            "row_tiles": p.row_tiles, "headline": headline}
     emit(case)
     if not agree["ok"]:
         raise SystemExit(f"tree attention disagrees with its plain version: {case}")
@@ -778,6 +850,11 @@ def full_width_tree(mt, md, pt, pd, cfg, card):
         raise SystemExit(f"tree kernel launches {launches} != expected {expect}")
     if not same_ar:
         raise SystemExit(f"full-width tree tokens differ from AR: {info}")
+
+    def run():
+        _, log, _, _ = tree_serve(mt, md, pt, pd, reqs, TREE_W, TREE_D, "cuda")
+        return len(log), len(reqs)
+    profile("profile_tree", run, pt, pd, card)
     return launches
 
 
@@ -816,6 +893,8 @@ def full_width(mt, md, pt, pd, cfg, card):
         and np.array_equal(done[i][:len(p)], p)
         for i, (p, new) in enumerate(reqs)))
     hist = s["accept_hist"][:GAMMA + 1]
+    _, out_ar = serve(mt, md, pt, pd, reqs, scfg, 0, "cuda")
+    same_ar = all(np.array_equal(done[i], out_ar[i]) for i in range(len(reqs)))
     info = {"phase": "full_width", "target": mt.cfg.name, "drafter": md.cfg.name,
             "dtype": mt.cfg.dtype, "card": card, "requests": len(reqs),
             "completed": len(done), "generated_tokens": s["total_generated_tokens"],
@@ -826,12 +905,14 @@ def full_width(mt, md, pt, pd, cfg, card):
                                              / max(hist.sum(), 1)),
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, "expected_launches": expect,
-            "all_complete_in_vocab": bool(complete)}
+            "all_complete_in_vocab": bool(complete), "spec_equals_ar": same_ar}
     emit(info)
     if not complete:
         raise SystemExit(f"full-width serving did not complete cleanly: {info}")
     if launches != expect:
         raise SystemExit(f"kernel launches {launches} != expected {expect}")
+    if not same_ar:
+        raise SystemExit(f"full-width spec tokens differ from AR: {info}")
 
     def run():
         srv, _ = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
@@ -1184,6 +1265,7 @@ def main() -> int:
         print(f"build {name}: {log['seconds']:.3f} s; " + " | ".join(regs), flush=True)
 
     timer = Timer()
+    timer_floor(timer)
     att = []
     for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)):
         for Q in (1, GAMMA + 1, 127):
@@ -1203,9 +1285,12 @@ def main() -> int:
                                                 and dtype == torch.bfloat16))
                   for name, shape, window in trees
                   for dtype in (torch.float32, torch.bfloat16)]
-    tree_cases.append(tree_attention_case(timer, "chain_tree(2,4)",
-                                          chain_tree(TREE_W, TREE_D),
-                                          torch.float32, window=8))
+    tree_cases += [tree_attention_case(timer, "chain_tree(2,4)",
+                                       chain_tree(TREE_W, TREE_D), dtype, window=8)
+                   for dtype in (torch.float32, torch.bfloat16)]
+    for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q_invariance(geom, H, Kv, D, dtype)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
     i8 = int8_cases(timer)

@@ -1,6 +1,7 @@
 // PTX helpers shared by the port's tensor-core kernels (flash_attention.cu,
-// int8_matmul.cu): 16-byte asynchronous copies into shared memory and
-// ldmatrix. Each source that includes this file gets its own internal copy.
+// int8_matmul.cu, paged_attention.cu): 16-byte asynchronous copies into
+// shared memory and ldmatrix. Each source that includes this file gets its
+// own internal copy.
 #pragma once
 
 #include <cuda_runtime.h>

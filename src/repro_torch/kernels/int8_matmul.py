@@ -50,9 +50,12 @@ def plan(M: int, K: int, N: int, sms: int) -> Int8Plan:
     leave some of the ``sms`` SMs idle, K is split until the blocks cover
     the SMs once, and further, up to the two blocks an SM holds, while each split keeps at
     least MIN_SPLIT_STEPS steps (a split adds an int32 workspace round
-    trip); never into empty ranges."""
+    trip); never into empty ranges. Output tiles that fill every SM on
+    their own are never split."""
     m_tiles, n_tiles, k_steps = -(-M // BM), -(-N // BN), -(-K // BK)
     tiles = m_tiles * n_tiles
+    if tiles >= sms:
+        return Int8Plan(m_tiles, n_tiles, k_steps, 1)
     splits = max(-(-sms // tiles),
                  min(2 * sms // tiles, -(-k_steps // MIN_SPLIT_STEPS)))
     return Int8Plan(m_tiles, n_tiles, k_steps, max(1, min(splits, k_steps)))

@@ -52,6 +52,92 @@ def tree_attention_ref(q, k_pool, v_pool, block_table, index, depths, bits,
                      window=window, scale=scale, max_live=max_live)
 
 
+def live_keys(index, Q, BS, MB, max_live=None):
+    """[B] keys each row's paged walk covers, as the kernels compute it:
+    whole pages, min(ceil((index + Q) / BS), ceil(max_live / BS)), at least
+    one page and at most the table's MB."""
+    idx = torch.as_tensor(index, dtype=torch.int64)
+    pages = torch.clamp((idx + Q + BS - 1) // BS, 1, MB)
+    if max_live is not None:
+        cap = min(max((int(max_live) + BS - 1) // BS, 1), MB)
+        pages = torch.clamp(pages, max=cap)
+    return pages * BS
+
+
+def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
+                    bits=None, window=None, max_live=None, chunk=64,
+                    p_bf16=False):
+    """The split computation of the bf16 paged / tree kernels in plain
+    PyTorch (fp32): each row's keys go in fixed chunks of ``chunk`` keys
+    counted from key 0; each chunk gives a partial (max m, sum l, weighted
+    values acc) of its own, and the partials are merged in chunk order with
+    weights exp(m_c - M), exactly 1 where m_c is the row's max M. Keys past
+    the row's ``live_keys`` are masked; ``depths``/``bits`` select the tree
+    policy (``_tree_mask``), else causal. ``p_bf16`` rounds the weights to
+    bf16 before the value product, as the kernel's tensor cores take them.
+
+    Each (query row, chunk) is computed on its own, with tensors whose
+    shapes depend on neither Q nor the chunk count, so a row's result does
+    not depend on the call's Q (the property the kernel keeps)."""
+    from repro_torch.models.attention import NEG_INF, _mask, _tree_mask
+    B, Q, H, D = q.shape
+    BS, Kv = k_pool.shape[1], k_pool.shape[2]
+    MB = block_table.shape[1]
+    G = H // Kv
+    dev = q.device
+    idx = torch.as_tensor(index, dtype=torch.int32).to(dev)
+    if idx.ndim == 0:
+        idx = idx.expand(B)
+    live = live_keys(idx.cpu(), Q, BS, MB, max_live).to(dev)          # [B]
+    n_chunks = -(-int(live.max()) // chunk)
+    S = n_chunks * chunk
+    kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+    if depths is None:
+        q_pos = idx[:, None] + torch.arange(Q, dtype=torch.int32, device=dev)
+        vis = _mask(q_pos, kv_pos, window)                            # [B, Q, S]
+    else:
+        depths = torch.as_tensor(depths, dtype=torch.int32).to(dev)
+        bits = torch.as_tensor(bits, dtype=torch.int32).to(dev)
+        vis = _tree_mask(idx, kv_pos, depths, bits, window)
+    vis = vis & (kv_pos[None, None, :] < live[:, None, None])
+    # the keys through the block table (past the table: its last key,
+    # masked like every key past the live bound)
+    cols = torch.clamp(kv_pos.long(), max=MB * BS - 1)
+    blk = torch.clamp(block_table.long()[:, cols // BS], 0, k_pool.shape[0] - 1)
+    kf = k_pool[blk, cols % BS].float()                               # [B, S, Kv, D]
+    vf = v_pool[blk, cols % BS].float()
+    kc = kf.permute(0, 2, 1, 3).reshape(B, Kv, 1, n_chunks, chunk, D)
+    vc = vf.permute(0, 2, 3, 1).reshape(B, Kv, 1, D, n_chunks, chunk)
+    scale = D ** -0.5
+    out = torch.empty((B, Q, H, D), dtype=q.dtype, device=dev)
+    for qi in range(Q):
+        qr = q[:, qi].float().reshape(B, Kv, G, 1, D)
+        parts = []
+        for c in range(n_chunks):
+            s = (qr * kc[:, :, :, c]).sum(-1) * scale       # [B, Kv, G, chunk]
+            v_row = vis[:, qi, c * chunk:(c + 1) * chunk].reshape(B, 1, 1, chunk)
+            s = torch.where(v_row, s, torch.full_like(s, NEG_INF))
+            m = s.amax(dim=-1)                              # [B, Kv, G]
+            p = torch.exp(s - m[..., None])
+            l_c = p.sum(-1)
+            if p_bf16:
+                p = p.to(torch.bfloat16).float()
+            acc = (p[..., None, :] * vc[:, :, :, :, c]).sum(-1)   # [B, Kv, G, D]
+            parts.append((m, l_c, acc))
+        M = parts[0][0]
+        for m, _, _ in parts[1:]:
+            M = torch.maximum(M, m)
+        L = torch.zeros_like(M)
+        A = torch.zeros((B, Kv, G, D), dtype=torch.float32, device=dev)
+        for m, l_c, acc in parts:                           # in chunk order
+            w = torch.where(m == M, torch.ones_like(M), torch.exp(m - M))
+            L = L + w * l_c
+            A = A + w[..., None] * acc
+        o = A / torch.clamp(L, min=1e-30)[..., None]
+        out[:, qi] = o.reshape(B, H, D).to(q.dtype)
+    return out
+
+
 def ssd_scan_ref(x, dA, Bm, Cm, chunk=128):
     """The model-level chunked SSD from a zero state, y only (any l: the
     tail is zero-padded to a chunk multiple and cut off again)."""

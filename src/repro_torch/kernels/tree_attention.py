@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tree import MAX_SPAN
-from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import DTYPES, as_int32, check_args
+from repro_torch.kernels.paged_attention import as_int32, check_args, launch
 from repro_torch.kernels.ref import tree_attention_ref as plain
 
 
@@ -46,30 +45,16 @@ def tree_flash_attention(q, k_pool, v_pool, block_table, index, depths, bits,
         return plain(q, k_pool, v_pool, block_table, index, depths, bits,
                      window=window, scale=scale, max_live=max_live)
     check_args("tree attention", q, k_pool, v_pool, scale, window)
-    B, S, H, D = q.shape
+    S = q.shape[1]
     if S > MAX_SPAN:
         raise ValueError(f"tree attention kernel takes a span of at most "
                          f"{MAX_SPAN} slots (int32 ancestor masks), got {S}")
-    NB, BS, Kv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
-    MB = block_table.shape[1]
-    dev = q.device
-    q = q.contiguous()
-    table = block_table.to(torch.int32).contiguous()
-    idx = as_int32(index, (B,), dev)
-    ml = None if max_live is None else as_int32(max_live, (), dev)
-    dep = as_int32(depths, (S,), dev)
-    bts = as_int32(bits, (S,), dev)
+    dep = as_int32(depths, (S,), q.device)
+    bts = as_int32(bits, (S,), q.device)
     if window is not None:
         bts = fold_window(dep, bts, int(window))
-    out = torch.empty_like(q)
-    lib = build.load("paged_attention")
-    err = lib.tree_attention_fwd(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        idx.data_ptr(), None if ml is None else ml.data_ptr(), dep.data_ptr(),
-        bts.data_ptr(), out.data_ptr(), B, S, H, Kv, D, NB, BS, MB,
-        0 if window is None else int(window), float(D ** -0.5),
-        DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "tree_attention_fwd")
+    out = launch("tree_attention_fwd", q, k_pool, v_pool, block_table, index,
+                 max_live, window, (dep, bts))
     tree_flash_attention.launches += 1
     return out
 

@@ -284,6 +284,19 @@ def test_plan_covers_every_tile_and_k_step_once():
     check()
 
 
+@pytest.mark.parametrize("M,K,N,sms", [
+    (1, 3072, 16782, H100_SMS),     # 1 x 132 tiles
+    (192, 4096, 7296, 114),         # 2 x 57 tiles
+    (96, 2048, 2048, 16)])          # 1 x 16 tiles
+def test_plan_does_not_split_when_the_tiles_fill_every_sm(M, K, N, sms):
+    """At exactly one output tile per SM the blocks already cover the card:
+    one split, whatever the depth of K."""
+    p = im.plan(M, K, N, sms)
+    assert p.m_tiles * p.n_tiles == sms
+    assert p.splits == 1
+    _check_int8_plan(M, K, N, sms)
+
+
 def _check_int8_plan(M, K, N, sms):
     p = im.plan(M, K, N, sms)
     assert (p.m_tiles - 1) * im.BM < M <= p.m_tiles * im.BM
