@@ -12,14 +12,16 @@
    shapes the serving path gives it (paged attention: the Llama-3.2-3B and
    -1B head geometries, Q in {1, 5, 127}, block size 16, ragged rows with a
    row on the NULL block, fp32 and bf16; argmax: [20, 128256] fp32 with
-   planted ties; tree attention: the 3B geometry, B=4, block size 16,
-   ragged rows, the main path's chain_tree(2, 4) (span 9), chain_tree(5, 6)
-   (span 31), a non-chain tree and chain_tree(2, 4) with a window of 8,
-   fp32 and bf16), one JSON line per case with the error, the tolerance,
-   the kernel / plain / library / bound times in ms and the launch plan's
-   key chunks and row tile. Then, per head geometry and dtype, on one
-   pool: the rows of a Q=5 paged call must be bit-equal to Q=1 calls at the
-   same positions, and a width-1 chain tree call to the causal call
+   planted ties and a NaN after a tied maximum in one row, then [7, 50281]
+   (rows off a 16-byte boundary), with the plan's cluster; tree attention:
+   the 3B geometry, B=4, block size 16, ragged rows, the main path's
+   chain_tree(2, 4) (span 9), chain_tree(5, 6) (span 31), a non-chain tree
+   and chain_tree(2, 4) with a window of 8, fp32 and bf16), one JSON line
+   per case with the error, the tolerance, the kernel / plain / library /
+   bound times in ms and the launch plan's key chunks and row tile. Then,
+   per head geometry and dtype, on one pool: the rows of a Q=5 paged call
+   must be bit-equal to Q=1 calls at the same positions, and a width-1
+   chain tree call to the causal call
    (``"case": "attention_q_invariance"``).
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
@@ -64,9 +66,14 @@
    so the SSD and int8 kernels must stay at 0 there.
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
-   heads) shapes at T = 134, 1100 rows (9 chunks of state carry) and the
-   JAX kernel test's impulse (fp32, B and C a stride-0 view over heads,
-   as the model hands them; no library call computes the scan); the int8
+   heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
+   target shape with B and C copied per head, and the JAX kernel test's
+   impulse (fp32, B and C a stride-0 view over heads, as the model hands
+   them, except in the per-head case; no library call computes the scan),
+   each with the plan's head groups and block counts; then, at the target
+   and drafter shapes, SSD rows 0..127 at l = 134 must be bit-equal to the
+   call at l = 128 and rows 0..1023 at l = 1100 to l = 1024
+   (``"case": "ssd_l_invariance"``); the int8
    matmul at the eight projections of the w8a8 Llama-3.2-3B/1B pair at
    M = 2 x 134 = 268 (bf16 out), M = 1 and 256, JAX's ragged shapes and
    fp32 out (bit-equal expected; library: ``torch._int_mm`` + rescale),
@@ -86,7 +93,10 @@
    ``mamba2-780m`` target with its registered drafter (``"full_width_ssm"``:
    one SSD launch per layer pass); tokens == AR's, exact counts of all six
    kernels, each followed by a profiled serve (``"profile_w8a8"``,
-   ``"profile_ssm"``).
+   ``"profile_ssm"``); last, a reading (it fails nothing): the Mamba-2
+   target's no-cache logits on a T=128 buffer against a T=134 buffer
+   sharing its first 128 tokens (``"phase": "buffer_invariance"``: bit-equal
+   or not, else their max |d| and smallest top-1 margin).
 11. Prints the ``{"kernels": [...]}`` line (six kernels), the card line
    again and, last, ``{"ok": true, "device": {...}}``.
 
@@ -305,30 +315,53 @@ def q_invariance(name, H, Kv, D, dtype):
     return case
 
 
-def argmax_case(timer):
-    from repro_torch.kernels import spec_verify as sv
-    R, V = 5 * GAMMA, 128256
-    g = torch.Generator(device="cuda").manual_seed(5)
+def planted_logits(R, V, seed, nan_row=None):
+    """Seeded [R, V] logits with ties planted in every row: the first
+    maximum must win (and, in ``nan_row``, a NaN after the tied maximum,
+    which counts as the maximum). Returns (logits, expected argmax)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn((R, V), generator=g, device="cuda")
     top = float(logits.max()) + 1.0
-    for r in range(R):                 # planted ties: first maximum must win
-        a = (r * 977) % (V - 9000)
+    first = []
+    span = min(8000, V // 4)
+    for r in range(R):
+        a = (r * 977) % (V - span - 2)
         logits[r, a] = top
-        logits[r, a + 3] = top         # same kernel chunk
-        logits[r, a + 8000] = top      # another chunk
+        logits[r, a + 3] = top         # the same block
+        logits[r, a + span] = top      # another block of the row's cluster
+        first.append(a)
+        if r == nan_row:
+            logits[r, a + span + 1] = float("nan")
+            first[-1] = a + span + 1
+    return logits, torch.tensor(first, dtype=torch.int32, device="cuda")
+
+
+def argmax_case(timer):
+    """The argmax kernel against torch.argmax at the verify shape, with
+    planted ties and, in one row, a NaN after a tied maximum; then at a
+    vocabulary that is not a multiple of 4 (odd rows start off a 16-byte
+    boundary: the kernel's scalar head and tail)."""
+    from repro_torch.kernels import spec_verify as sv
+    R, V = 5 * GAMMA, 128256
+    logits, first = planted_logits(R, V, 5, nan_row=7)
     out = sv.blockwise_argmax(logits)[:, 0]
     ref = sv.plain(logits)[:, 0]
+    odd, odd_first = planted_logits(7, 50281, 6, nan_row=2)
+    odd_out = sv.blockwise_argmax(odd)[:, 0]
+    odd_ref = sv.plain(odd)[:, 0]
     torch.cuda.synchronize()
-    err = float((out.long() - ref.long()).abs().max())
-    first = torch.tensor([(r * 977) % (V - 9000) for r in range(R)],
-                         dtype=torch.int32, device="cuda")
-    ok = err == 0 and bool((out == first).all())
+    err = float(max((out.long() - ref.long()).abs().max(),
+                    (odd_out.long() - odd_ref.long()).abs().max()))
+    ok = (err == 0 and bool((out == first).all())
+          and bool((odd_out == odd_first).all()))
     ms = timer(lambda: sv.blockwise_argmax(logits))
     plain_ms = timer(lambda: sv.plain(logits))
     library_ms = timer(lambda: torch.argmax(logits, dim=-1))
     case = {"case": "blockwise_argmax", "shape": [R, V], "dtype": "float32",
+            "odd_shape": list(odd.shape), "nan_rows": [7, 2],
             "max_abs_err": err, "atol": 0, "rtol": 0, "ok": ok,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "cluster": sv.plan(R, V).cluster,
             **bound(logits.numel() * 4 + R * 4, R * V, torch.float32)}
     emit(case)
     if not ok:
@@ -481,13 +514,12 @@ def flash_cases(timer):
     return cases
 
 
-def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
-             headline=False):
-    """The SSD scan kernel against its plain version at [b, l, h, p] with
-    state size n: the inputs as ``ssm_mix`` hands them (B and C one group
-    broadcast to the heads by a stride-0 view, x and dA contiguous), or the
-    JAX kernel test's impulse (one input at t = 0, constant decay)."""
-    from repro_torch.kernels import ssd_scan as ss
+def ssd_inputs(b, l, h, p, n, *, impulse=False, per_head=False):
+    """SSD scan inputs as ``ssm_mix`` hands them (B and C one group
+    broadcast to the heads by a stride-0 view, x and dA contiguous), seeded
+    by the shape, or the JAX kernel test's impulse (one input at t = 0,
+    constant decay); ``per_head``: B and C copied out per head (a nonzero
+    head stride, as the JAX function's signature allows)."""
     g = torch.Generator(device="cuda").manual_seed(b * l * h + n)
     if impulse:
         x = torch.zeros((b, l, h, p), device="cuda")
@@ -500,7 +532,38 @@ def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
         dA = -(torch.rand((b, l, h), generator=g, device="cuda") * 0.49 + 0.01)
         Bm = (torch.randn((b, l, 1, n), generator=g, device="cuda") * 0.5).expand(b, l, h, n)
         Cm = (torch.randn((b, l, 1, n), generator=g, device="cuda") * 0.5).expand(b, l, h, n)
-    args = (x, dA, Bm, Cm)
+    if per_head:
+        Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    return x, dA, Bm, Cm
+
+
+def ssd_flops(b, l, h, p, n, chunk, shared):
+    """The chunked algorithm's flops over the real rows: per chunk of nv
+    rows, the causal scores (2n per visible pair; once per batch row when
+    B and C are one group over the heads, else per head) and, per head,
+    their product with X (2p per pair), the state read (2pn per row, after
+    the first chunk) and the state update (2pn per chunk row, where a chunk
+    follows)."""
+    n_chunks = -(-l // chunk)
+    scores = per_head = 0
+    for c in range(n_chunks):
+        nv = min(chunk, l - c * chunk)
+        pairs = nv * (nv + 1) // 2
+        scores += pairs * 2 * n
+        per_head += pairs * 2 * p
+        per_head += (c > 0) * nv * 2 * p * n + (c + 1 < n_chunks) * chunk * 2 * p * n
+    return scores * b * (1 if shared else h) + per_head * b * h
+
+
+def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
+             headline=False, per_head=False):
+    """The SSD scan kernel against its plain version at [b, l, h, p] with
+    state size n (``ssd_inputs``), with the launch plan's head groups and
+    blocks."""
+    from repro_torch import device as devices
+    from repro_torch.kernels import ssd_scan as ss
+    args = ssd_inputs(b, l, h, p, n, impulse=impulse, per_head=per_head)
+    x, dA, Bm, Cm = args
 
     out = ss.ssd_scan(*args, chunk=chunk)
     ref = ss.plain(*args, chunk=chunk)
@@ -515,24 +578,18 @@ def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
     plain_ms = timer(lambda: ss.plain(*args, chunk=chunk), iters=5)
 
     # least work: each input's distinct elements read once (B and C are one
-    # group shared by all heads), y written once; the chunked algorithm's
-    # flops over the real rows: per (batch row, head) and chunk of nv rows,
-    # the causal scores (2n per visible pair) and their product with X (2p
-    # per pair), the state read (2pn per row, after the first chunk) and
-    # the state update (2pn per chunk row, where a chunk follows)
+    # group shared by all heads), y written once; ssd_flops
     def distinct(t):
         return int(np.prod([d for d, st in zip(t.shape, t.stride()) if st != 0]))
     nbytes = 4 * (sum(distinct(t) for t in args) + out.numel())
-    flops = 0
-    n_chunks = -(-l // chunk)
-    for c in range(n_chunks):
-        nv = min(chunk, l - c * chunk)
-        pairs = nv * (nv + 1) // 2
-        flops += pairs * 2 * (n + p)
-        flops += (c > 0) * nv * 2 * p * n + (c + 1 < n_chunks) * chunk * 2 * p * n
-    flops *= b * h
+    shared = ss.shares_scores(Bm, Cm)
+    flops = ssd_flops(b, l, h, p, n, chunk, shared)
+    pl = ss.plan(b, l, h, p, n, chunk, devices.sm_count(x.device), shared=shared)
     case = {"case": "ssd_scan", "shape": name, "b": b, "l": l, "h": h, "p": p,
             "n": n, "chunk": chunk, "dtype": "float32", **agree, "ok": ok,
+            "heads_per_block": pl.heads, "row_tile": pl.row_tile,
+            "y_blocks": pl.y_blocks, "state_blocks": pl.state_blocks,
+            "carry_blocks": pl.carry_blocks, "mflop": flops / 1e6,
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the chunked SSD scan",
             **bound(nbytes, flops, torch.float32), "headline": headline}
@@ -542,15 +599,47 @@ def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
     return case
 
 
+def ssd_l_invariance():
+    """The SSD kernel's rows must not depend on the buffer length: at the
+    main path's target and drafter shapes, rows 0..127 of a call at l = 134
+    bit-equal to the call at l = 128 on the same inputs (the spec and AR
+    buffers of the no-cache engine), and rows 0..1023 at l = 1100 to the
+    call at l = 1024."""
+    from repro_torch.kernels import ssd_scan as ss
+    checks = []
+    for h in (48, 24):
+        for long, short in ((134, 128), (1100, 1024)):
+            args = ssd_inputs(2, long, h, 64, 128)
+            y_long = ss.ssd_scan(*args, chunk=128)
+            y_short = ss.ssd_scan(*(t[:, :short] for t in args), chunk=128)
+            torch.cuda.synchronize()
+            checks.append({"h": h, "l": long, "rows": short,
+                           "bit_equal": bool(torch.equal(y_long[:, :short], y_short)),
+                           "max_abs_diff": float((y_long[:, :short] - y_short).abs().max())})
+    case = {"case": "ssd_l_invariance", "checks": checks,
+            "ok": all(c["bit_equal"] for c in checks)}
+    emit(case)
+    if not case["ok"]:
+        raise SystemExit(f"ssd_scan rows depend on the buffer length: {case}")
+    return case
+
+
 def ssd_cases(timer):
     """The mamba2 smoke shape, the main path's target and drafter shapes
     (T = 64 + 64 + GAMMA + 2 = 134 rows, two chunks of 128), a long
-    sequence (9 chunks of state carry) and the impulse."""
+    sequence (9 chunks of state carry), the target shape with B and C per
+    head (no shared scores), p and n that are not multiples of 4 (rows the
+    kernel stages with plain loads, one case with head groups of 4) and the
+    impulse."""
     T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
     return [ssd_case(timer, "smoke", 2, 20, 8, 32, 16, 8),
             ssd_case(timer, "mamba2-780m", 2, T, 48, 64, 128, 128, headline=True),
             ssd_case(timer, "mamba2-draft", 2, T, 24, 64, 128, 128),
             ssd_case(timer, "mamba2-780m long", 2, 1100, 48, 64, 128, 128),
+            ssd_case(timer, "mamba2-780m per-head B/C", 2, T, 48, 64, 128, 128,
+                     per_head=True),
+            ssd_case(timer, "ragged p, n", 2, 21, 4, 10, 6, 8),
+            ssd_case(timer, "ragged p, n, head groups", 2, 141, 24, 6, 10, 128),
             ssd_case(timer, "impulse", 1, 32, 1, 4, 4, 8, impulse=True)]
 
 
@@ -1157,8 +1246,37 @@ def full_width_ssm(card):
     from repro_torch.launch.cli_args import build_pair
     mt, md, pt, pd, cfg = build_pair("mamba2-780m", smoke=False, device="cuda")
     per_pass = {"ssd_scan": (mt.cfg.num_layers, md.cfg.num_layers)}
-    return nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd, cfg,
-                         card, per_pass)
+    launches = nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd,
+                             cfg, card, per_pass)
+    buffer_invariance(mt, pt, cfg, card)
+    return launches
+
+
+def buffer_invariance(mt, pt, cfg, card):
+    """A reading, not a check: the full-width target's no-cache forward on
+    a T=128 buffer (the AR buffer) and on a T=134 buffer sharing its first
+    128 tokens (the spec buffer). Are logits rows 0..127 bit-equal (the
+    cuBLAS GEMMs of the linears may differ with T)? If not, their max |d|
+    and the smallest top-1 margin among those rows."""
+    T_ar = NOCACHE_PROMPT + NOCACHE_NEW
+    T_spec = T_ar + GAMMA + 2
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, T_spec)).astype(np.int64)).cuda()
+    with torch.no_grad():
+        spec, _, _ = mt.apply(pt, toks)
+        ar, _, _ = mt.apply(pt, toks[:, :T_ar])
+    torch.cuda.synchronize()
+    spec, ar = spec[:, :T_ar].float(), ar.float()
+    equal = bool(torch.equal(spec, ar))
+    info = {"phase": "buffer_invariance", "target": mt.cfg.name, "card": card,
+            "buffers": [T_ar, T_spec], "rows": T_ar, "logits_bit_equal": equal}
+    if not equal:
+        top2 = ar.topk(2, dim=-1).values
+        info["max_abs_diff"] = float((spec - ar).abs().max())
+        info["min_top1_margin"] = float((top2[..., 0] - top2[..., 1]).min())
+        info["argmax_equal"] = bool(torch.equal(spec.argmax(-1), ar.argmax(-1)))
+    emit(info)
+    return info
 
 
 def _union(intervals):
@@ -1189,12 +1307,12 @@ def streamed_bytes(params) -> int:
     return size(params["layers"]) + size(params["final_norm"]) + size(head)
 
 
-def port_kernel_names() -> set:
-    """The names of the __global__ functions in the port's CUDA sources."""
+def port_kernel_sources() -> dict:
+    """The __global__ functions of the port's CUDA sources: name -> file."""
     import re
     from repro_torch.kernels import build
     pattern = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)"
-    return {fn for src in build.CSRC.glob("*.cu")
+    return {fn: src.name for src in build.CSRC.glob("*.cu")
             for fn in re.findall(pattern, src.read_text())}
 
 
@@ -1215,21 +1333,30 @@ def profile(phase, run, pt, pd, card):
         wall = clock.perf() - t0
     # the profiler's raw device events: building its FunctionEvent tree
     # (prof.events()) would take minutes of host time for ~10^5 launches
-    spans, by_name = [], {}
+    spans, by_name, by_file = [], {}, {}
+    sources, fn_of = port_kernel_sources(), {}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
             s, d = ev.start_ns(), ev.duration_ns()
             spans.append((s, s + d))
-            by_name[ev.name()] = by_name.get(ev.name(), 0) + d
+            name = ev.name()
+            by_name[name] = by_name.get(name, 0) + d
+            if name not in fn_of:       # the function and template arguments
+                fn = name.removeprefix("void ").split("(anonymous namespace)::", 1)[-1]
+                fn_of[name] = fn.split("(", 1)[0]
+            src = sources.get(fn_of[name].split("<", 1)[0])
+            if src:
+                by_file.setdefault(src, []).append((s, s + d))
     busy_s = _union(spans) / 1e9 if spans else None   # None: not measured
     # the port's own kernels (the __global__ functions of csrc/*.cu), by
-    # function and template arguments, in ms per round
-    port, own = {}, port_kernel_names()
+    # function and template arguments, in ms per round; and the device
+    # time of each source's kernels together (the union of their spans: a
+    # kernel launched by PDL has a span that includes its wait on the
+    # kernel before it, so the sum overstates)
+    port = {}
     for name, ns in by_name.items():
-        fn = name.removeprefix("void ").split("(anonymous namespace)::", 1)[-1]
-        fn = fn.split("(", 1)[0]
-        if fn.split("<", 1)[0] in own:
-            port[fn] = port.get(fn, 0) + ns / 1e6 / rounds
+        if sources.get(fn_of.get(name, "").split("<", 1)[0]):
+            port[fn_of[name]] = port.get(fn_of[name], 0) + ns / 1e6 / rounds
     round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
     emit({"phase": phase, "card": card, "rounds": rounds,
           "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
@@ -1240,7 +1367,9 @@ def profile(phase, run, pt, pd, card):
           "weight_floor_ms_per_round": round_bytes / HBM_BYTES_PER_S * 1e3,
           "top_kernels_s": [[n[:90], ns / 1e9] for n, ns in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
-          "port_kernels_ms_per_round": port})
+          "port_kernels_ms_per_round": port,
+          "port_sources_busy_ms_per_round": {
+              src: _union(iv) / 1e6 / rounds for src, iv in sorted(by_file.items())}})
 
 
 def main() -> int:
@@ -1293,6 +1422,7 @@ def main() -> int:
             q_invariance(geom, H, Kv, D, dtype)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
+    ssd_l_invariance()
     i8 = int8_cases(timer)
     del timer
 

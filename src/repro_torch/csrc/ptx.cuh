@@ -1,6 +1,6 @@
-// PTX helpers shared by the port's tensor-core kernels (flash_attention.cu,
-// int8_matmul.cu, paged_attention.cu): 16-byte asynchronous copies into
-// shared memory and ldmatrix. Each source that includes this file gets its
+// PTX helpers shared by the port's kernels (flash_attention.cu,
+// int8_matmul.cu, paged_attention.cu, ssd_scan.cu): 16-byte asynchronous
+// copies into shared memory and ldmatrix. Each source that includes this file gets its
 // own internal copy.
 #pragma once
 

@@ -46,13 +46,12 @@ SIGNATURES = {
                                  _P]),
     },
     "ssd_scan": {
-        "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                              _L, _L, _L, _L, _P]),
+        "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _L, _L, _L, _L, _L, _L, _P]),
     },
     "spec_verify": {
-        "row_argmax_chunks": (_I, [_I]),
-        "row_argmax": (_I, [_P, _P, _P, _P, _I, _I, _P]),
+        "row_argmax": (_I, [_P, _P, _I, _I, _I, _P]),
     },
 }
 

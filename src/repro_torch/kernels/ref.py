@@ -146,3 +146,82 @@ def ssd_scan_ref(x, dA, Bm, Cm, chunk=128):
     init = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     y, _ = ssd_chunked(x.float(), dA.float(), Bm.float(), Cm.float(), chunk, init)
     return y
+
+
+def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
+    """The SSD scan kernel's decomposition in plain PyTorch (fp32), item by
+    item of ``plan`` (``kernels/ssd_scan.py::plan``; by default the plan on
+    132 SMs): each y item forms the causal score tile C_i . B_j of its
+    16-row tile from its group's first head, applies each head's decay
+    (selected to 0 above the diagonal and past the real rows) and
+    multiplies by the head's X; each state item forms its columns of a chunk's contribution
+    (X o exp(a_cs[Q-1] - a_cs))^T B; then, per (batch row, head) and
+    64-row tile, the state is carried over the chunks in order
+    (state' = exp(a_cs[Q-1]) state + contribution) and exp(a_cs) o (C
+    state^T) is added to y_diag. Chunks are zero-padded to whole 16-row
+    tiles, and every product of a full chunk has shapes that depend on the
+    chunk length alone, so a row's result does not depend on l (the
+    property the kernel keeps). The sums run in PyTorch's order, not the
+    kernel's FFMA order."""
+    from repro_torch.kernels import ssd_scan as ss
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    if plan is None:
+        plan = ss.plan(b, l, h, p, n, chunk, 132,
+                       shared=ss.shares_scores(Bm, Cm))
+    dev = x.device
+    Q, nc, RT = chunk, plan.chunks, ss.ROW_TILE
+    R = -(-Q // RT) * RT                       # a chunk padded to whole row tiles
+    xf, af, bf, cf = (t.float() for t in (x, dA, Bm, Cm))
+
+    def rows(t, c):
+        """Chunk c of t ([b, l, ...]), its real rows then zeros up to R."""
+        nv = min(Q, l - c * Q)
+        out = torch.zeros((b, R) + tuple(t.shape[2:]), dtype=torch.float32, device=dev)
+        out[:, :nv] = t[:, c * Q:c * Q + nv]
+        return out
+
+    X = [rows(xf, c) for c in range(nc)]
+    Bc = [rows(bf, c) for c in range(nc)]
+    Cc = [rows(cf, c) for c in range(nc)]
+    acs = [torch.cumsum(rows(af, c), dim=1) for c in range(nc)]   # [b, R, h]
+    y = torch.zeros((b, l, h, p), dtype=torch.float32, device=dev)
+    ar = torch.arange(R, device=dev)
+    for bb, h0, c, t in ss.y_items(plan, b, h, Q):
+        nv = min(Q, l - c * Q)
+        r0 = t * RT
+        nr = min(RT, nv - r0)
+        J = r0 + nr
+        S = Cc[c][bb, r0:r0 + RT, h0] @ Bc[c][bb, :J, h0].T              # [RT, J]
+        i, j = ar[r0:r0 + RT, None], ar[None, :J]
+        vis = (j <= i) & (i < nv)
+        for hd in range(h0, h0 + plan.heads):
+            a = acs[c][bb, :, hd]
+            Sp = torch.where(vis, S * torch.exp(a[r0:r0 + RT, None] - a[None, :J]),
+                             torch.zeros((), device=dev))
+            y[bb, c * Q + r0:c * Q + J, hd] = (Sp @ X[c][bb, :J, hd])[:nr]
+    Z = torch.zeros((b, h, max(nc - 1, 0), n, p), dtype=torch.float32, device=dev)
+    for bb, hd, c, k0 in ss.state_items(plan, b, h, n):
+        a = acs[c][bb, :Q, hd]
+        xd = X[c][bb, :Q, hd] * torch.exp(a[Q - 1] - a)[:, None]         # [Q, p]
+        Z[bb, hd, c, k0:k0 + ss.K_TILE] = (xd.T @ Bc[c][bb, :Q, hd, k0:k0 + ss.K_TILE]).T
+    CR = ss.CARRY_ROWS
+    for bb in range(b):
+        for hd in range(h):
+            for r0 in range(0, R, CR):
+                state = torch.zeros((n, p), dtype=torch.float32, device=dev)
+                decay = torch.exp(acs[0][bb, Q - 1, hd])
+                for c in range(1, nc):
+                    nv = min(Q, l - c * Q)
+                    state = decay * state + Z[bb, hd, c - 1]
+                    decay = torch.exp(acs[c][bb, Q - 1, hd])
+                    if r0 >= nv:
+                        continue
+                    Crows = torch.zeros((CR, n), dtype=torch.float32, device=dev)
+                    m = min(CR, R - r0)
+                    Crows[:m] = Cc[c][bb, r0:r0 + m, hd]
+                    off = (Crows @ state)[:min(CR, nv - r0)]                  # [rows, p]
+                    ea = torch.exp(acs[c][bb, r0:r0 + off.shape[0], hd])
+                    t0 = c * Q + r0
+                    y[bb, t0:t0 + off.shape[0], hd] += off * ea[:, None]
+    return y

@@ -9,17 +9,39 @@ also returns the first maximum.
 
 ``blockwise_argmax`` takes the plain version for a CPU tensor. For a CUDA
 tensor it launches the kernel — counting the launch in
-``blockwise_argmax.launches`` — or raises; it never falls back. The
-acceptance epilogue stays in plain torch on the tensor's device, as the
-JAX version leaves it in jnp.
+``blockwise_argmax.launches`` — or raises; it never falls back. ``plan``
+sizes the launch: one thread block cluster per row. The acceptance
+epilogue stays in plain torch on the tensor's device, as the JAX version
+leaves it in jnp.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.acceptance import VerifyResult, verify_from_argmax
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import blockwise_argmax_ref as plain
+
+
+MAX_CLUSTER = 8      # the portable cluster size (csrc: kMaxCluster)
+PER_BLOCK = 4096     # logits a block of a row's cluster takes at least
+
+
+class ArgmaxPlan(NamedTuple):
+    cluster: int         # blocks per row: one thread block cluster
+    blocks: int          # blocks of the launch
+
+
+def plan(R: int, V: int) -> ArgmaxPlan:
+    """The launch of one call: the largest power of two up to MAX_CLUSTER
+    blocks per row that leaves each at least PER_BLOCK logits (one block
+    for a short row). Nothing here depends on the card."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and V >= 2 * cluster * PER_BLOCK:
+        cluster *= 2
+    return ArgmaxPlan(cluster, cluster * R)
 
 
 def blockwise_argmax(logits):
@@ -34,12 +56,8 @@ def blockwise_argmax(logits):
     logits = logits.contiguous()
     R, V = logits.shape
     lib = build.load("spec_verify")
-    n_chunks = lib.row_argmax_chunks(V)
-    part_m = torch.empty((R, n_chunks), dtype=torch.float32, device=logits.device)
-    part_i = torch.empty((R, n_chunks), dtype=torch.int32, device=logits.device)
     out = torch.empty((R,), dtype=torch.int32, device=logits.device)
-    err = lib.row_argmax(logits.data_ptr(), part_m.data_ptr(), part_i.data_ptr(),
-                         out.data_ptr(), R, V,
+    err = lib.row_argmax(logits.data_ptr(), out.data_ptr(), R, V, plan(R, V).cluster,
                          torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(err, "row_argmax")
     blockwise_argmax.launches += 1
