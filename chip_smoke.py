@@ -22,7 +22,13 @@
    per head geometry and dtype, on one pool: the rows of a Q=5 paged call
    must be bit-equal to Q=1 calls at the same positions, and a width-1
    chain tree call to the causal call
-   (``"case": "attention_q_invariance"``).
+   (``"case": "attention_q_invariance"``). Then paged attention as a
+   prefill chunk launches it (``"case": "paged_chunk"``): bf16, B=1, Q=64
+   from starts 0, 448, 1984 and 3968 over a shuffled table of 256 blocks
+   of 16 (4096 keys), the 3B and 1B geometries, with the same fields (the
+   library: SDPA with the causal mask over the gathered keys); at starts
+   448 and 1984 the chunk's rows must be bit-equal to the same rows of
+   one whole call from 0 over a table just wide enough.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -47,6 +53,23 @@
    the last round) must equal what the path implies, and the tokens must
    equal the same prompts served with AR rounds; then the same tree serve
    runs once more under ``torch.profiler`` (``"phase": "profile_tree"``).
+   Two readings of the dense 3B target follow (they fail nothing;
+   ``"phase": "buffer_invariance"``): its no-cache logits on a T=128
+   buffer against a T=134 buffer, and one 600-token prompt's KV and
+   last-position logits prefilled whole (one 639-token call, as the
+   bucketed path does) against in chunks of 64. Then the main path with
+   chunked prefill and the prefix pool (``"phase": "full_width_chunked"``):
+   12 requests sharing a 512-token system prompt, chunks of 64, gamma 4;
+   all six kernels' counts set to 0 just before and read just after must
+   equal what the path implies (paged attention once per layer of every
+   round's passes and every chunk program); the prefix hit tokens must
+   equal the count worked out from the trace; AR rounds give the same
+   tokens; overcommit 2.0 on a 96-block pool preempts with the same
+   tokens; every server's block census balances; the bucketed path's
+   tokens must be the same, or differ only where the readings explain it
+   (within one bf16 step of the top-2 margin). Then the chunked serve runs
+   once more under ``torch.profiler``, with the device time split between
+   chunk programs and rounds (``"phase": "profile_chunked"``).
 6. The no-cache flash-attention kernel against its plain version: the
    Llama-3.2-3B and -1B head geometries at the main-path shape (B=2,
    S=134), fp32 and bf16; S in {1, 17, 1100, 2048}; a window of 8;
@@ -97,8 +120,9 @@
    target's no-cache logits on a T=128 buffer against a T=134 buffer
    sharing its first 128 tokens (``"phase": "buffer_invariance"``: bit-equal
    or not, else their max |d| and smallest top-1 margin).
-11. Prints the ``{"kernels": [...]}`` line (six kernels), the card line
-   again and, last, ``{"ok": true, "device": {...}}``.
+11. Prints the ``{"kernels": [...]}`` line (six kernels; paged attention
+   and the argmax with their launches on the chunked main path of step 5),
+   the card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -130,6 +154,10 @@ TOL = {torch.float32: (1e-4, 1e-4),   # (atol, rtol): summation order differs
 GAMMA = 4
 TREE_W, TREE_D = 2, 4          # full-width tree rounds: chain_tree(2, 4)
 NOCACHE_PROMPT, NOCACHE_NEW = 64, 64   # full-width no-cache requests
+CHUNK = 64                     # prefill chunk of the chunked serving path
+CHUNK_STARTS = (0, 448, 1984, 3968)    # first key of the paged chunk cases
+CHUNK_EQUAL = (448, 1984)      # ... checked bit-equal to a whole call
+SYSTEM_LEN = 512               # shared system prompt of the chunked trace
 
 
 def card_line() -> str:
@@ -313,6 +341,86 @@ def q_invariance(name, H, Kv, D, dtype):
     if not (all(q_equal) and tree_equal):
         raise SystemExit(f"paged/tree attention rows depend on Q or the policy: {case}")
     return case
+
+
+def paged_chunk_case(timer, name, H, Kv, D, start):
+    """A prefill chunk as the chunked serving path launches it: bf16, B=1,
+    Q=CHUNK queries at positions start..start+CHUNK-1 over a shuffled table
+    of 256 blocks of 16 (4096 keys), the live bound from the index (no
+    max_live, as the server passes none). At the starts in CHUNK_EQUAL the
+    chunk's rows must also be bit-equal to the same rows of one whole call
+    of start+CHUNK queries from 0 over a table just wide enough."""
+    from repro_torch.kernels import paged_attention as pa
+    dtype, BS, MB, NB, Q = torch.bfloat16, 16, 256, 512, CHUNK
+    g = torch.Generator(device="cuda").manual_seed(H * 10007 + start)
+    q = torch.randn((1, Q, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((NB, BS, Kv, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    table = perm[:MB].reshape(1, MB).to(torch.int32)
+    idx = torch.tensor([start], dtype=torch.int32, device="cuda")
+    args = (q, k, v, table, idx)
+
+    out = pa.paged_flash_attention(*args)
+    ref = pa.plain(*args)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype)
+
+    # library yardstick: SDPA over the gathered, head-expanded keys
+    # 0..start+Q-1 with the causal mask of positions start..start+Q-1
+    S = start + Q
+    cols = torch.arange(S, device="cuda")
+    blk = table.long()[:, cols // BS]
+    kg = k[blk, cols % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = v[blk, cols % BS].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    qg = q.permute(0, 2, 1, 3)
+    qpos = start + torch.arange(Q, device="cuda")
+    mask = (qpos[:, None] >= cols[None, :])[None, None]      # [1,1,Q,S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    ms = timer(lambda: pa.paged_flash_attention(*args))
+    plain_ms = timer(lambda: pa.plain(*args), iters=3)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask))
+
+    # least work: the start+Q live keys and values read once per kv-head,
+    # q read and out written once, the table; 4 flops per (query head,
+    # visible key, d)
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + S * Kv * D * 2 * esz + table.numel() * 4 + 4
+    flops = 4 * H * D * sum(start + i + 1 for i in range(Q))
+    p = pa.plan(dtype, 1, Q, H, Kv, D, BS, MB)
+    case = {"case": "paged_chunk", "geometry": name, "Q": Q, "B": 1,
+            "start": start, "keys": S, "table_keys": MB * BS,
+            "dtype": "bfloat16", **agree, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound(nbytes, flops, dtype), "chunks": p.chunks,
+            "row_tile": p.row_tile, "row_tiles": p.row_tiles}
+    equal = True
+    if start in CHUNK_EQUAL:
+        mb = -(-S // BS)
+        qw = torch.randn((1, S, H, D), generator=g, device="cuda").to(dtype)
+        qw[:, start:] = q
+        zero = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        whole = pa.paged_flash_attention(qw, k, v, table[:, :mb].contiguous(), zero)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(whole[:, start:], out))
+        case.update(whole_call_Q=S, whole_call_blocks=mb,
+                    whole_call_chunks=pa.plan(dtype, 1, S, H, Kv, D, BS, mb).chunks,
+                    rows_equal_whole_call=equal)
+        del qw, whole
+    emit(case)
+    if not agree["ok"]:
+        raise SystemExit(f"paged attention disagrees with its plain version: {case}")
+    if not equal:
+        raise SystemExit(f"paged chunk rows differ from the whole call's: {case}")
+    return case
+
+
+def paged_chunk_cases(timer):
+    return [paged_chunk_case(timer, geom, H, Kv, D, start)
+            for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128),
+                                   ("llama3.2-1b", 32, 8, 64))
+            for start in CHUNK_STARTS]
 
 
 def planted_logits(R, V, seed, nan_row=None):
@@ -1010,6 +1118,279 @@ def full_width(mt, md, pt, pd, cfg, card):
     return launches
 
 
+def chunked_trace(cfg, n=12):
+    """The multi-client chat shape (``repro/serving/frontend/traffic.py::
+    shared_prefix_trace``) at full width: every prompt opens with the same
+    SYSTEM_LEN-token system prompt, then a unique suffix of 16-120 tokens;
+    32-64 new tokens each."""
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_LEN).astype(np.int32)
+    return [(np.concatenate([system, rng.integers(
+                0, cfg.vocab_size, int(rng.integers(16, 121))).astype(np.int32)]),
+             int(rng.integers(32, 65))) for _ in range(n)]
+
+
+def expected_hits(reqs, batch, BS):
+    """Prefix-cache hit tokens the chunked path must record on ``reqs``:
+    the first wave (the first ``batch`` requests, admitted in one step,
+    before any row has inserted) misses; each later request attaches its
+    longest run of equal leading full blocks with a first-wave prompt,
+    capped at (P - 1) // BS blocks of each prompt (a first-wave row
+    registers that many blocks when its prefill completes, before any row
+    frees)."""
+    def common(a, b):
+        n = min((len(a) - 1) // BS, (len(b) - 1) // BS)
+        k = 0
+        while k < n and np.array_equal(a[k * BS:(k + 1) * BS], b[k * BS:(k + 1) * BS]):
+            k += 1
+        return k
+    return sum(max(common(p, q) for q, _ in reqs[:batch]) * BS
+               for p, _ in reqs[batch:])
+
+
+def audited(srv):
+    """The server's block census after a run: no live or seized block, the
+    cached partition the prefix pool's nodes; after a flush of the pool,
+    every block free. Returns the census before the flush."""
+    counts = srv.alloc.audit()
+    nodes = srv.prefix_pool.num_nodes if srv.prefix_pool is not None else 0
+    if counts["live"] or counts["seized"] or counts["cached"] != nodes:
+        raise SystemExit(f"block census after the run: {counts}, {nodes} pool nodes")
+    if srv.prefix_pool is not None:
+        srv.prefix_pool.flush()
+    if srv.alloc.audit() != {"free": srv.scfg.num_blocks - 1, "live": 0,
+                             "cached": 0, "seized": 0}:
+        raise SystemExit(f"blocks leaked: {srv.alloc.audit()}")
+    return counts
+
+
+def top2_margin(logits) -> dict:
+    """The top-1 minus top-2 logit of a row, and one bf16 step at the top
+    logit's magnitude (2^(floor(log2 |top1|) - 7))."""
+    top = logits.float().topk(2).values
+    step = 2.0 ** (np.floor(np.log2(max(abs(float(top[0])), 1e-30))) - 7)
+    return {"top1": float(top[0]), "margin": float(top[0] - top[1]),
+            "bf16_step": float(step)}
+
+
+def prefill_invariance(mt, pt, cfg, card, P=600):
+    """A reading, not a check: one prompt's KV and last-position logits
+    from the cold path's whole prefill (one call of bucket - 1 = 639
+    tokens, padded) against the chunked path's prefill (chunks of CHUNK,
+    the last at its true length), each into its own pool over the same
+    table. How many of the P - 1 positions hold bit-equal K and V in every
+    layer, the largest |d|, and whether the last position's logits are
+    bit-equal (else their max |d|, the argmax and the top-2 margin)."""
+    from repro_torch.cache.ops import PAGED
+    BS, bucket = 16, 640
+    MB = bucket // BS
+    prompt = np.random.default_rng(12).integers(0, cfg.vocab_size, P).astype(np.int32)
+    table = torch.arange(1, MB + 1, dtype=torch.int32, device="cuda")[None]
+    geom = dict(num_blocks=MB + 1, block_size=BS, max_blocks_per_row=MB)
+
+    def prefill(pieces):
+        """KV of positions 0..P-2 ([2, L, P-1, Kv*D]) and the logits of
+        position P-2."""
+        cache = {**PAGED.init(mt, 1, device="cuda", **geom), "block_table": table}
+        for start, toks in pieces:
+            logits, _, _ = mt.apply(pt, torch.from_numpy(toks[None]).cuda(), {
+                **cache, "index": torch.tensor([start], dtype=torch.int32, device="cuda")})
+        kv = torch.stack([cache[n][:, 1:].reshape(cache[n].shape[0], MB * BS, -1)[:, :P - 1]
+                          for n in ("k", "v")])
+        return kv, logits[0, P - 2 - start]
+
+    padded = np.zeros(bucket, np.int32)
+    padded[:P] = prompt
+    with torch.no_grad():
+        kv_w, lw = prefill([(0, padded[:-1])])
+        kv_c, lc = prefill([(s, prompt[s:min(s + CHUNK, P - 1)])
+                            for s in range(0, P - 1, CHUNK)])
+    torch.cuda.synchronize()
+    rows_equal = (kv_w == kv_c).all(dim=-1).all(dim=0).all(dim=0)    # [P-1]
+    equal = bool(torch.equal(lw, lc))
+    info = {"phase": "buffer_invariance", "reading": "prefill_whole_vs_chunked",
+            "target": mt.cfg.name, "card": card, "prompt_len": P,
+            "whole_call_tokens": bucket - 1, "chunk": CHUNK,
+            "kv_positions": P - 1,
+            "kv_positions_bit_equal": int(rows_equal.sum()),
+            "kv_max_abs_diff": float((kv_w.float() - kv_c.float()).abs().max()),
+            "last_logits_bit_equal": equal}
+    if not equal:
+        info.update(last_logits_max_abs_diff=float((lw - lc).abs().max()),
+                    argmax_equal=bool(lw.argmax() == lc.argmax()),
+                    whole=top2_margin(lw), chunked=top2_margin(lc))
+    emit(info)
+    return info
+
+
+def first_difference(a, b):
+    """(rid, position) of the first token where two runs differ, or None."""
+    for rid in sorted(a):
+        diff = np.flatnonzero(a[rid] != b[rid]) if len(a[rid]) == len(b[rid]) else [0]
+        if len(diff):
+            return rid, int(diff[0])
+    return None
+
+
+def full_width_chunked(mt, md, pt, pd, cfg, card, reading, chunk_cases):
+    """The main path with chunked prefill and the prefix pool at full width:
+    the paper's pair (bf16) serves ``chunked_trace`` (12 requests sharing a
+    512-token system prompt) through ``PagedSpecServer`` with batch 4,
+    block 16, 64 blocks per row, 512 blocks, prefill chunks of CHUNK,
+    the prefix pool on, gamma pinned to GAMMA. The launch counts of all six
+    kernels are set to 0 just before and read just after; paged attention
+    must launch rounds x (L_t + GAMMA x L_d) + chunks x (L_t + L_d) times,
+    the argmax once a round, the other four never. Checks: every request
+    complete in the vocabulary; the prefix hit tokens equal
+    ``expected_hits``; the same traffic with AR rounds and the same prefill
+    config gives the same tokens; again under overcommit 2.0 on a pool of
+    96 blocks, with at least one preemption and the same tokens; each
+    server's census balanced. Then the cold (bucketed) path, buckets
+    extended to 640: where its tokens differ, the first difference is
+    printed with the cold run's top-2 margin there, and the run fails
+    unless the difference is the one ``reading`` (the whole-vs-chunked
+    prefill reading) explains: chunk rows bit-equal to whole-call rows on
+    the card (``chunk_cases``), KV or logits not bit-equal between the two
+    prefills, and a margin within one bf16 step. Last, the chunked serve
+    runs once more under ``torch.profiler``, each chunk program and each
+    round its own region."""
+    import dataclasses
+    from repro_torch.serving import SchedulerConfig
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    counters = kernel_counters()
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=512,
+                           max_blocks_per_row=64, prefill_chunk=CHUNK,
+                           prefix_cache=True)
+    reqs = chunked_trace(cfg)
+    # warm-up (cuBLAS handles for the chunk shapes), not counted
+    serve(mt, md, pt, pd, [(reqs[0][0][:CHUNK + 16], 8)], scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    srv, done = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds, chunks = srv.total_rounds, srv.n_prefill_chunks
+    expect = {name: 0 for name in counters}
+    expect.update(paged_attention=rounds * (L_t + GAMMA * L_d) + chunks * (L_t + L_d),
+                  blockwise_argmax=rounds)
+    s = srv.metrics.summary()
+    pool_stats = srv.prefix_pool.stats()
+    census = audited(srv)
+    complete = (len(done) == len(reqs) and s["requests_failed"] == 0 and all(
+        len(done[i]) == len(p) + new
+        and ((done[i] >= 0) & (done[i] < cfg.vocab_size)).all()
+        and np.array_equal(done[i][:len(p)], p)
+        for i, (p, new) in enumerate(reqs)))
+    hits_want = expected_hits(reqs, scfg.max_batch, scfg.block_size)
+
+    ar, out_ar = serve(mt, md, pt, pd, reqs, scfg, 0, "cuda")
+    audited(ar)
+    same_ar = all(np.array_equal(done[i], out_ar[i]) for i in range(len(reqs)))
+    oc_cfg = dataclasses.replace(scfg, overcommit=2.0, num_blocks=96)
+    oc, out_oc = serve(mt, md, pt, pd, reqs, oc_cfg, GAMMA, "cuda")
+    audited(oc)
+    s_oc = oc.metrics.summary()
+    same_oc = (len(out_oc) == len(reqs)
+               and all(np.array_equal(done[i], out_oc[i]) for i in range(len(reqs))))
+    cold_cfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=512,
+                               max_blocks_per_row=64,
+                               prefill_buckets=scfg.prefill_buckets + (640,))
+    cold, out_cold = serve(mt, md, pt, pd, reqs, cold_cfg, GAMMA, "cuda")
+    audited(cold)
+    diff = first_difference(done, out_cold)
+
+    prompt_tokens = sum(len(p) - 1 for p, _ in reqs)
+    info = {"phase": "full_width_chunked", "target": mt.cfg.name,
+            "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
+            "requests": len(reqs), "system_prompt": SYSTEM_LEN,
+            "prompt_lens": [len(p) for p, _ in reqs],
+            "new_tokens": [n for _, n in reqs], "chunk": CHUNK,
+            "completed": len(done), "wall_s": wall, "rounds": rounds,
+            "ms_per_round": wall / rounds * 1e3, "prefill_chunks": chunks,
+            "generated_tokens": s["total_generated_tokens"],
+            "tokens_per_s": s["total_generated_tokens"] / wall,
+            "prefill_tokens": s["prefill_tokens"],
+            "prefix_hit_tokens": s["prefix_hit_tokens"],
+            "expected_hit_tokens": hits_want,
+            "prefix_hit_rate": s["prefix_hit_rate"],
+            "prefill_tokens_saved": prompt_tokens - s["prefill_tokens"],
+            "p50_ttft_s": s["p50_ttft_s"], "p95_ttft_s": s["p95_ttft_s"],
+            "peak_memory_gib": peak, "census": census,
+            "prefix_pool": pool_stats,
+            "launches": launches, "expected_launches": expect,
+            "all_complete_in_vocab": bool(complete), "spec_equals_ar": same_ar,
+            "ar_rounds": ar.total_rounds,
+            "overcommit": {"num_blocks": oc_cfg.num_blocks, "rounds": oc.total_rounds,
+                           "prefill_chunks": oc.n_prefill_chunks,
+                           "preemptions": s_oc["n_preemptions"],
+                           "recompute_tokens": s_oc["recompute_tokens"],
+                           "tokens_equal": same_oc},
+            "cold_prefills": cold.n_prefills, "cold_rounds": cold.total_rounds,
+            "chunked_equals_cold": diff is None}
+    deliberate = False
+    if diff is not None:
+        rid, pos = diff
+        ctx = torch.from_numpy(out_cold[rid][None, :pos].astype(np.int64)).cuda()
+        with torch.no_grad():
+            margin = top2_margin(mt.apply(pt, ctx)[0][0, -1])
+        rows_equal = all(c.get("rows_equal_whole_call", True) for c in chunk_cases)
+        prefill_differs = not (reading["last_logits_bit_equal"] and
+                               reading["kv_positions_bit_equal"] == reading["kv_positions"])
+        deliberate = rows_equal and prefill_differs and margin["margin"] <= margin["bf16_step"]
+        info.update(first_difference={"request": rid, "position": pos,
+                                      "prompt_len": len(reqs[rid][0]),
+                                      "chunked": int(done[rid][pos]),
+                                      "cold": int(out_cold[rid][pos]),
+                                      "cold_margin": margin},
+                    attention_rows_bit_equal=rows_equal,
+                    prefill_reading_differs=prefill_differs,
+                    deliberate=deliberate)
+    emit(info)
+    if not complete:
+        raise SystemExit(f"full-width chunked serving did not complete cleanly: {info}")
+    if launches != expect:
+        raise SystemExit(f"chunked kernel launches {launches} != expected {expect}")
+    if s["prefix_hit_tokens"] != hits_want or hits_want < 8 * SYSTEM_LEN:
+        raise SystemExit(f"prefix hit tokens {s['prefix_hit_tokens']} != {hits_want}")
+    if not same_ar:
+        raise SystemExit(f"full-width chunked spec tokens differ from AR: {info}")
+    if s_oc["n_preemptions"] < 1 or not same_oc:
+        raise SystemExit(f"overcommit run: no preemption or other tokens: {info}")
+    if diff is not None and not deliberate:
+        raise SystemExit(f"chunked tokens differ from the cold path: {info}")
+
+    def run():
+        from repro_torch.serving import PagedSpecServer, ServeRequest
+        srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA, device="cuda")
+        srv._run_chunk = region("prefill_chunk", srv._run_chunk)
+        eng = srv._engine(GAMMA)
+        eng.round = region("round", eng.round)
+        for i, (prompt, new) in enumerate(reqs):
+            srv.submit(ServeRequest(i, prompt, new))
+        srv.run()
+        return srv.total_rounds, srv.n_prefill_chunks
+    profile("profile_chunked", run, pt, pd, card, regions=("prefill_chunk", "round"))
+    return launches
+
+
+def region(label, fn):
+    """``fn`` as a profiler region: its kernels run between the region's
+    start and a synchronize at its end, so a kernel belongs to the region
+    its start falls in."""
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        return out
+    return wrapped
+
+
 def _nocache_rounds(eng, pt, pd, prompt, max_new):
     """The rounds ``SpecEngine.generate`` runs, one at a time: (tokens,
     committed tokens per round)."""
@@ -1316,13 +1697,16 @@ def port_kernel_sources() -> dict:
             for fn in re.findall(pattern, src.read_text())}
 
 
-def profile(phase, run, pt, pd, card):
+def profile(phase, run, pt, pd, card, regions=()):
     """A serve once more under torch.profiler (``run()`` serves and returns
     its rounds and prefills): the device's busy time (the union of the CUDA
     kernels' intervals), its idle share of the wall time, kernel launches
     per round and the device time by kernel, largest first. The profiler
     slows the host, so this run's wall time is not the throughput. The
-    port's kernels are also listed alone, in device ms per round."""
+    port's kernels are also listed alone, in device ms per round. Each
+    label of ``regions`` names a ``region`` the run wraps around some
+    calls: the union of the device time of the kernels that start inside
+    its calls, in all and per call."""
     from repro_torch.obs import clock
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1335,7 +1719,12 @@ def profile(phase, run, pt, pd, card):
     # (prof.events()) would take minutes of host time for ~10^5 launches
     spans, by_name, by_file = [], {}, {}
     sources, fn_of = port_kernel_sources(), {}
+    calls = {label: [] for label in regions}     # host intervals per region
     for ev in prof.profiler.kineto_results.events():
+        if ev.name() in calls:
+            if ev.device_type() == torch.autograd.DeviceType.CPU:
+                calls[ev.name()].append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            continue          # the region's own device-side annotation
         if ev.device_type() == torch.autograd.DeviceType.CUDA:
             s, d = ev.start_ns(), ev.duration_ns()
             spans.append((s, s + d))
@@ -1358,6 +1747,19 @@ def profile(phase, run, pt, pd, card):
         if sources.get(fn_of.get(name, "").split("<", 1)[0]):
             port[fn_of[name]] = port.get(fn_of[name], 0) + ns / 1e6 / rounds
     round_bytes = streamed_bytes(pt) + GAMMA * streamed_bytes(pd)
+    in_region = {}
+    for label, iv in calls.items():
+        iv.sort()
+        starts = [a for a, _ in iv]
+        mine = []
+        for s, e in spans:
+            i = int(np.searchsorted(starts, s, side="right")) - 1
+            if i >= 0 and s <= iv[i][1]:
+                mine.append((s, e))
+        busy = _union(mine) / 1e6
+        in_region[label] = {"calls": len(iv), "kernels": len(mine),
+                            "device_busy_ms": busy,
+                            "device_busy_ms_per_call": busy / len(iv) if iv else None}
     emit({"phase": phase, "card": card, "rounds": rounds,
           "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
           "device_idle_share": None if busy_s is None else 1 - busy_s / wall,
@@ -1369,7 +1771,8 @@ def profile(phase, run, pt, pd, card):
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
           "port_kernels_ms_per_round": port,
           "port_sources_busy_ms_per_round": {
-              src: _union(iv) / 1e6 / rounds for src, iv in sorted(by_file.items())}})
+              src: _union(iv) / 1e6 / rounds for src, iv in sorted(by_file.items())},
+          **({"regions": in_region} if regions else {})})
 
 
 def main() -> int:
@@ -1420,6 +1823,7 @@ def main() -> int:
     for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             q_invariance(geom, H, Kv, D, dtype)
+    chunk_cases = paged_chunk_cases(timer)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
     ssd_l_invariance()
@@ -1433,8 +1837,13 @@ def main() -> int:
     smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True)
     from repro_torch.launch.cli_args import build_pair
     pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
-    launches = full_width(*pair, card)
+    full_width(*pair, card)
     tree_launches = full_width_tree(*pair, card)
+    mt, md, pt, pd, cfg = pair
+    buffer_invariance(mt, pt, cfg, card)
+    reading = prefill_invariance(mt, pt, cfg, card)
+    launches = full_width_chunked(*pair, card, reading, chunk_cases)
+    del mt, md, pt, pd
     nocache_launches = full_width_nocache(*pair, card)
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
@@ -1449,7 +1858,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:87",
          "launches": launches["paged_attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in att),
+         "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"]},

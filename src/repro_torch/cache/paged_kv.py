@@ -20,17 +20,20 @@ the model shares its pools with the dict it was given. Speculative rollback
 is O(1) as in JAX: attention masks on positions recovered from ``index``,
 so ``rollback`` only replaces the index.
 
-Of ``BlockAllocator`` the port has what the default server uses
+``BlockAllocator`` is the JAX allocator in full: what the server uses
 (``ensure``, ``free_tail``, ``free_row``, ``num_free``, ``blocks_for``,
-``can_allocate``, ``version``, ``table``, ``audit``) and the copy-on-write
-branch forks of paged tree rounds (``fork_row``, ``ensure_branch``,
-``branch_tables``, ``adopt_branch``, ``release_branches``). Prefix attach
-and fault seizure wait for the slices that need them.
+``can_allocate``, ``version``, ``table``), the copy-on-write branch forks
+of paged tree rounds (``fork_row``, ``ensure_branch``, ``branch_tables``,
+``adopt_branch``, ``release_branches``), the prefix-cache pins
+(``cache_ref``, ``uncache``, ``attach``, and the ``reclaimer`` hook that
+every allocation tries before it fails; ``cache/prefix_pool.py``), fault
+seizure (``seize``, ``release_seized``, ``num_seized``) and the four-way
+``audit`` (free + live + cached + seized).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -164,6 +167,12 @@ class BlockAllocator:
         self.refcnt = np.zeros((num_blocks,), np.int64)
         self._branches: Dict[int, np.ndarray] = {}       # row -> [n_br, MB]
         self._branch_alloc: Dict[int, np.ndarray] = {}   # row -> [n_br]
+        self._seized: deque = deque()  # blocks withheld by fault injection
+        # prefix-cache state: blocks pinned by the prefix pool (one extra
+        # reference each; immutable, shareable across row families) and the
+        # pool's LRU eviction hook, tried before any allocation fails
+        self.cached: set = set()
+        self.reclaimer = None            # callable(n_blocks) -> n_freed
 
     # ------------------------------------------------------------- queries
     @property
@@ -181,6 +190,15 @@ class BlockAllocator:
         return torch.from_numpy(self.table.copy()).to(device)
 
     # ----------------------------------------------------------- mutation
+    def _want_free(self, n: int) -> bool:
+        """True if ``n`` free blocks are available, evicting idle cached
+        prefix blocks through the installed ``reclaimer`` if needed."""
+        if n <= len(self.free):
+            return True
+        if self.reclaimer is not None:
+            self.reclaimer(n - len(self.free))
+        return n <= len(self.free)
+
     def ensure(self, row: int, n_tokens: int) -> bool:
         """Grow row's allocation to cover ``n_tokens`` positions. Returns
         False (allocating nothing) if the pool cannot satisfy the request."""
@@ -190,7 +208,7 @@ class BlockAllocator:
         have = int(self.n_alloc[row])
         if need <= have:
             return True
-        if need - have > len(self.free):
+        if not self._want_free(need - have):
             return False
         for j in range(have, need):
             self.table[row, j] = self._take_fresh()
@@ -251,7 +269,7 @@ class BlockAllocator:
         tail = 1 if n_tokens % BS else 0
         if full + tail > int(self.n_alloc[row]):
             raise AssertionError(f"fork of row {row} beyond its allocation")
-        if tail * n_branches > len(self.free):
+        if not self._want_free(tail * n_branches):
             return None
         tables = np.full((n_branches, self.max_blocks_per_row), NULL_BLOCK,
                          np.int32)
@@ -285,7 +303,7 @@ class BlockAllocator:
         have = int(alloc[branch])
         if need <= have:
             return True
-        if need - have > len(self.free):
+        if not self._want_free(need - have):
             return False
         for j in range(have, need):
             tables[branch, j] = self._take_fresh()
@@ -332,17 +350,86 @@ class BlockAllocator:
         self.version += 1
         return freed
 
+    # -------------------------------------------------- prefix-cache blocks
+    def cache_ref(self, blk: int):
+        """Pin ``blk`` into the prefix cache: one extra reference held by the
+        prefix pool. The block must be live and fully written: the pool
+        registers only blocks strictly below the owner's first decode
+        position, so pinned blocks are never written again."""
+        if blk == NULL_BLOCK:
+            raise AssertionError("cannot cache the null block")
+        if self.refcnt[blk] <= 0:
+            raise AssertionError(f"caching unreferenced block {blk}")
+        if blk in self.cached:
+            raise AssertionError(f"block {blk} cached twice")
+        self.refcnt[blk] += 1
+        self.cached.add(blk)
+
+    def uncache(self, blk: int) -> int:
+        """Drop the prefix pool's pin on ``blk`` (LRU eviction). Returns 1
+        if the block went back to the free list (no row was still attached
+        to it), else 0."""
+        if blk not in self.cached:
+            raise AssertionError(f"uncaching non-cached block {blk}")
+        self.cached.discard(blk)
+        return self._release_ref(blk)
+
+    def attach(self, row: int, blocks) -> int:
+        """Install cached prefix blocks at the front of an EMPTY row's table
+        (a prefix-cache hit: the row reuses their KV and prefills only its
+        suffix). Each block gains one table reference; returns the number
+        of tokens covered."""
+        if int(self.n_alloc[row]) != 0:
+            raise AssertionError(f"attach into non-empty row {row}")
+        if len(blocks) > self.max_blocks_per_row:
+            raise AssertionError(f"{len(blocks)} blocks exceed the row")
+        for j, blk in enumerate(blocks):
+            blk = int(blk)
+            if blk not in self.cached:
+                raise AssertionError(f"attaching non-cached block {blk}")
+            self.refcnt[blk] += 1
+            self.table[row, j] = blk
+        self.n_alloc[row] = len(blocks)
+        self.peak_in_use = max(self.peak_in_use, int(self.n_alloc.sum()))
+        if blocks:
+            self.version += 1
+        return len(blocks) * self.block_size
+
+    # ------------------------------------------------------- fault seizure
+    @property
+    def num_seized(self) -> int:
+        return len(self._seized)
+
+    def seize(self, n: int) -> int:
+        """Withhold up to ``n`` FREE blocks from the pool (forced memory
+        pressure). Live rows are never touched. Returns the number seized."""
+        taken = 0
+        while taken < n and self.free:
+            self._seized.append(self.free.popleft())
+            taken += 1
+        return taken
+
+    def release_seized(self, n: Optional[int] = None) -> int:
+        """Return ``n`` (default: all) seized blocks to the free list."""
+        n = len(self._seized) if n is None else min(n, len(self._seized))
+        for _ in range(n):
+            self.free.append(self._seized.popleft())
+        return n
+
     # ------------------------------------------------------------ auditing
     def audit(self) -> Dict[str, int]:
         """Full block census; raises AssertionError on any inconsistency.
 
-        Invariants: free + live == num_blocks - 1 (block 0 is the null
-        block; 'live' = DISTINCT blocks referenced by any main or branch
-        table), every refcount equals its number of table references, no
-        free block is referenced, table entries beyond each row's or
-        branch's allocation are NULL, and copy-on-write sharing never
-        crosses row families (a block referenced by row b's tables, main
-        or branch, is referenced by no other row's)."""
+        Invariants: free + live + cached + seized == num_blocks - 1 (block 0
+        is the null block; 'live' = DISTINCT blocks referenced by any main
+        or branch table and not pinned by the prefix pool; 'cached' = the
+        pinned blocks, attached or idle), every refcount equals its number
+        of table references plus the pool's pin, no free or seized block is
+        referenced or cached, table entries beyond each row's or branch's
+        allocation are NULL, and copy-on-write sharing never crosses row
+        families (a block referenced by row b's tables, main or branch, is
+        referenced by no other row's) except for cached blocks, which are
+        immutable and shared by design."""
         refs: Dict[int, int] = {}        # block -> #table references
         families: Dict[int, int] = {}    # block -> owning row
 
@@ -352,7 +439,7 @@ class BlockAllocator:
                 if x == NULL_BLOCK:
                     raise AssertionError(f"null block handed out to {what}")
                 refs[x] = refs.get(x, 0) + 1
-                if families.setdefault(x, row) != row:
+                if x not in self.cached and families.setdefault(x, row) != row:
                     raise AssertionError(
                         f"block {x} shared across row families "
                         f"{families[x]} and {row}")
@@ -366,20 +453,27 @@ class BlockAllocator:
             alloc = self._branch_alloc[b]
             for w in range(tables.shape[0]):
                 count(b, tables[w], int(alloc[w]), f"row {b} branch {w}")
-        for blk, n in refs.items():
-            if int(self.refcnt[blk]) != n:
+        for blk in set(refs) | self.cached:
+            want = refs.get(blk, 0) + (blk in self.cached)
+            if int(self.refcnt[blk]) != want:
                 raise AssertionError(
                     f"block {blk}: refcount {int(self.refcnt[blk])} != "
-                    f"{n} table references")
-        for blk in self.free:
-            if blk in refs:
-                raise AssertionError(f"block {blk} is free but still referenced")
+                    f"{refs.get(blk, 0)} table references"
+                    + (" + 1 cache pin" if blk in self.cached else ""))
+        for blk in list(self.free) + list(self._seized):
+            if blk in refs or blk in self.cached:
+                raise AssertionError(
+                    f"block {blk} is free/seized but still referenced or cached")
             if int(self.refcnt[blk]) != 0:
                 raise AssertionError(
-                    f"free block {blk} has refcount {int(self.refcnt[blk])}")
-        if len(set(self.free)) != len(self.free):
-            raise AssertionError("a block appears twice on the free list")
-        counts = {"free": len(self.free), "live": len(refs)}
+                    f"free/seized block {blk} has refcount {int(self.refcnt[blk])}")
+        live = [blk for blk in refs if blk not in self.cached]
+        counts = {"free": len(self.free), "live": len(live),
+                  "cached": len(self.cached), "seized": len(self._seized)}
+        all_ids = list(self.free) + list(self._seized) + live + list(self.cached)
+        if len(all_ids) != len(set(all_ids)):
+            raise AssertionError(
+                "block appears in more than one of free/seized/live/cached")
         total = sum(counts.values())
         if total != self.num_blocks - 1:
             raise AssertionError(

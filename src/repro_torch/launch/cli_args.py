@@ -3,6 +3,7 @@ CLIs (port of part of ``repro/launch/cli_args.py``)."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Tuple
 
 from repro_torch import device as devices
@@ -39,6 +40,88 @@ def add_spec_args(ap: argparse.ArgumentParser, *, gamma: int = None
     ap.add_argument("--cost-coefficient", type=float, default=None,
                     help="c = t_draft/t_target fed to the gamma decision")
     return ap
+
+
+def add_robustness_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The JAX CLI's ``--overcommit`` (``--faults-seed`` waits for the
+    fault plan)."""
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="admission reservation divisor (>1.0 admits on "
+                         "expected demand instead of the worst case; a dry "
+                         "pool before a round evicts the most-slack row, "
+                         "which re-prefills its committed prefix when it is "
+                         "admitted again)")
+    return ap
+
+
+def add_prefill_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
+                    help="chunked prefill: at most N prompt tokens per "
+                         "chunk, one chunk between two decode rounds "
+                         "(instead of bucketed all-at-once prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cache prompt-prefix KV blocks and attach them to "
+                         "later requests with the same prefix (implies "
+                         "chunked prefill of the unique suffix)")
+    return ap
+
+
+def apply_prefill_args(scfg, args):
+    """Fold ``--prefill-chunk``/``--prefix-cache`` into a
+    ``SchedulerConfig`` (the JAX CLI folds them into the plan's cache
+    layout; the port has no planner yet)."""
+    chunk = getattr(args, "prefill_chunk", None)
+    prefix = bool(getattr(args, "prefix_cache", False))
+    if chunk is None and not prefix:
+        return scfg
+    return dataclasses.replace(scfg, prefill_chunk=chunk, prefix_cache=prefix)
+
+
+def apply_overcommit_arg(scfg, overcommit, max_new: int):
+    """Fold ``--overcommit`` into a ``SchedulerConfig``. On the bucketed
+    path a preempted request re-prefills its committed prefix (up to the
+    largest prompt + ``max_new`` - 1 tokens), so the buckets are extended
+    by doubling until they cover it, as JAX's planner does; the chunked
+    path needs no bucket cover."""
+    if overcommit is None or overcommit <= 1.0:
+        return scfg
+    scfg = dataclasses.replace(scfg, overcommit=float(overcommit))
+    if not scfg.chunked:
+        buckets = list(scfg.prefill_buckets)
+        resume_max = buckets[-1] + max_new - 1
+        while buckets[-1] < resume_max:
+            buckets.append(buckets[-1] * 2)
+        scfg = dataclasses.replace(scfg, prefill_buckets=tuple(buckets))
+    return scfg
+
+
+def report_robustness(server):
+    """Post-run preemption/expiry/failure counters, printed only when
+    something happened."""
+    s = server.metrics.summary()
+    if (s["n_preemptions"] or s["requests_cancelled"]
+            or s["requests_expired"] or s["requests_failed"]):
+        print(f"robustness: preemptions={s['n_preemptions']} "
+              f"(recompute_tokens={s['recompute_tokens']}), "
+              f"cancelled={s['requests_cancelled']}, "
+              f"expired={s['requests_expired']}, "
+              f"failed={s['requests_failed']}")
+
+
+def report_prefill(server):
+    """Post-run chunked-prefill / prefix-cache counters, printed only when
+    the run recorded prefill work."""
+    s = server.metrics.summary()
+    if not (s["prefill_tokens"] or s["prefix_hit_tokens"]):
+        return
+    line = (f"prefill: {s['prefill_tokens']} tokens computed, "
+            f"{s['prefix_hit_tokens']} attached from prefix cache")
+    if s["prefix_hit_rate"] is not None:
+        line += (f" (hit-rate {s['prefix_hit_rate']:.0%}, prefill compute "
+                 f"saved {s['prefill_compute_saved']:.0%})")
+    if s["chunks_per_prefill"]:
+        line += f", {s['chunks_per_prefill']:.1f} chunks/prefill"
+    print(line)
 
 
 def build_pair(arch: str, smoke: bool, device=None

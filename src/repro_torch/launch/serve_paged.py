@@ -2,14 +2,23 @@
 (port of ``repro/launch/serve_paged.py``).
 
     python -m repro_torch.launch.serve_paged --arch llama3.2-3b [--smoke] [--device cpu]
+        [--prefill-chunk N] [--prefix-cache] [--overcommit F]
 
 serves a stream of synthetic requests with mixed prompt lengths and
 per-request decode budgets on the paged speculative server. It runs on the
 GPU unless ``--device cpu`` is given. The JAX CLI plans through the
 ``Planner``/``Session`` facade; until that is ported this one builds the
-``SchedulerConfig`` directly from the block-geometry flags, and the
-scheduler's online cost-model gamma/AR decision runs unless ``--gamma``
-pins gamma.
+``SchedulerConfig`` directly from the flags: the block geometry
+(``--batch``, ``--block-size``, ``--num-blocks``,
+``--max-blocks-per-row``), chunked prefill (``--prefill-chunk N``: at most
+N prompt tokens between two rounds), the prefix pool (``--prefix-cache``:
+requests sharing a prompt prefix attach its cached KV blocks; implies
+chunked prefill) and overcommitted admission (``--overcommit F`` > 1:
+admit on expected demand and preempt when the pool runs dry; on the
+bucketed path the buckets grow to cover a resumed prefix). The scheduler's
+online cost-model gamma/AR decision runs unless ``--gamma`` pins gamma.
+After the run it prints the prefill counters and, when any occurred, the
+preemptions.
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=8)
     ap.add_argument("--num-blocks", type=int, default=256)
     ap.add_argument("--max-blocks-per-row", type=int, default=16)
+    cli_args.add_prefill_args(ap)
+    cli_args.add_robustness_args(ap)
     args = ap.parse_args(argv)
 
     mt, md, pt, pd, cfg_t = cli_args.build_pair(args.arch, args.smoke,
@@ -51,6 +62,9 @@ def main(argv=None):
     scfg = SchedulerConfig(max_batch=args.batch, block_size=args.block_size,
                            num_blocks=args.num_blocks,
                            max_blocks_per_row=args.max_blocks_per_row)
+    scfg = cli_args.apply_prefill_args(scfg, args)
+    scfg = cli_args.apply_overcommit_arg(scfg, args.overcommit,
+                                         max(r.max_new for r in reqs))
     srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=args.gamma,
                           device=args.device)
     for r in reqs:
@@ -70,6 +84,9 @@ def main(argv=None):
           f"alpha_hat={alpha if alpha is None else round(alpha, 2)})")
     print(f"acceptance histogram (n_accepted per round): "
           f"{s['accept_hist'][:(srv.gamma or 0) + 1].tolist()}")
+    cli_args.report_prefill(srv)
+    cli_args.report_robustness(srv)
+    return srv
 
 
 if __name__ == "__main__":

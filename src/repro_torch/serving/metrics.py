@@ -1,14 +1,18 @@
 """Serving telemetry: per-request latency/throughput and acceptance-rate
-statistics for the paged speculative server (port of the part of
-``repro/serving/metrics.py`` that the default serving path records).
+statistics for the paged speculative server (port of
+``repro/serving/metrics.py`` less the degradation log and the per-request
+acceptance histograms, which the fault and watchdog paths record).
 
 Two consumers:
   * operators — ``summary()`` aggregates tokens/s, latency and the per-round
     acceptance histogram (the serving-time estimate of the paper's α);
   * the scheduler — ``alpha_hat()`` feeds the cost model's gamma/AR decision.
 
-Cancellation, preemption, degradation and prefix-cache counters wait for
-the slices that port those features.
+A preempted request stays open: its record keeps the queue wait and TTFT of
+its first admission, counts its preemptions, and charges the generated
+tokens it must prefill again (``recompute_tokens``). Prefill work is counted
+in tokens computed, tokens attached from the prefix cache and chunk
+programs run.
 """
 from __future__ import annotations
 
@@ -31,8 +35,11 @@ class RequestRecord:
     n_generated: Optional[int] = None  # actual tokens produced (<= max_new)
     first_token_t: Optional[float] = None  # when the first token committed
     deadline: Optional[float] = None       # absolute SLO deadline (clock domain)
+    cancelled: bool = False
     expired: bool = False     # dropped at admission: deadline already passed
     failed: Optional[str] = None  # terminal failure reason
+    preemptions: int = 0      # times evicted + re-queued mid-flight
+    admissions: int = 0       # prefills run (1 + preemptions that resumed)
 
     @property
     def latency(self) -> float:
@@ -60,14 +67,20 @@ class ServingMetrics:
         self.n_spec_rounds = 0
         self.requests: Dict[int, RequestRecord] = {}
         self.completed: List[RequestRecord] = []
+        self.cancelled: List[RequestRecord] = []
         self.rejected: List[Tuple[int, str]] = []   # (rid, reason)
         self.expired: List[RequestRecord] = []
         self.failed: List[RequestRecord] = []
+        self.n_preemptions = 0
+        self.recompute_tokens = 0   # generated tokens evicted -> re-prefilled
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
         self.total_generated = 0
-        self.prefill_tokens = 0
-        self.n_prefills = 0
+        # prefill accounting (chunked prefill + prefix cache)
+        self.prefill_tokens = 0       # suffix tokens actually prefilled
+        self.prefix_hit_tokens = 0    # prefill tokens skipped via cached blocks
+        self.prefill_chunks = 0       # chunk programs run
+        self.n_prefills = 0           # prefills completed (1 + resumes)
 
     # ------------------------------------------------------------- requests
     def submit(self, rid: int, prompt_len: int, max_new: int,
@@ -83,15 +96,32 @@ class ServingMetrics:
 
     def start(self, rid: int):
         rec = self.requests[rid]
-        rec.started = self.now()
+        t = self.now()
+        if rec.admissions == 0:
+            # re-admission after preemption must not rewrite the queue wait
+            rec.started = t
+        rec.admissions += 1
         if self._t0 is None:
-            self._t0 = rec.started
+            self._t0 = t
 
     def first_token(self, rid: int):
         """Stamp the first committed token for ``rid`` (idempotent)."""
         rec = self.requests.get(rid)
         if rec is not None and rec.first_token_t is None:
             rec.first_token_t = self.now()
+
+    def cancel(self, rid: int, n_generated: int = 0):
+        """Client cancellation: the record goes to ``cancelled``, not to
+        the latency stats; tokens already committed count toward
+        throughput."""
+        rec = self.requests.pop(rid)
+        rec.completed = self.now()
+        rec.cancelled = True
+        rec.n_generated = max(int(n_generated), 0)
+        self._t_last = rec.completed
+        self.total_generated += rec.n_generated
+        self.cancelled.append(rec)
+        return rec
 
     def complete(self, rid: int, n_generated: Optional[int] = None):
         rec = self.requests.pop(rid)
@@ -102,6 +132,16 @@ class ServingMetrics:
         self.total_generated += rec.n_generated
         self.completed.append(rec)
         return rec
+
+    def preempt(self, rid: int, n_resume_generated: int):
+        """Mid-flight eviction: the request stays open (re-queued, not
+        terminal). ``n_resume_generated`` = generated tokens in the committed
+        prefix that re-admission prefills again (the recompute debt)."""
+        rec = self.requests.get(rid)
+        if rec is not None:
+            rec.preemptions += 1
+        self.n_preemptions += 1
+        self.recompute_tokens += max(int(n_resume_generated), 0)
 
     def expire(self, rid: int):
         """Deadline passed while queued: terminal, no blocks ever spent."""
@@ -122,10 +162,21 @@ class ServingMetrics:
         self.failed.append(rec)
         return rec
 
-    def prefill(self, rid: int, n_tokens: int):
-        """One completed prefill of ``n_tokens`` prompt positions."""
+    def prefill(self, rid: int, n_tokens: int, hit_tokens: int = 0,
+                chunks: int = 1):
+        """One completed prefill: ``n_tokens`` suffix tokens computed across
+        ``chunks`` chunk programs, ``hit_tokens`` skipped by attaching cached
+        prefix blocks. A resume prefill (after preemption) records again."""
         self.prefill_tokens += max(int(n_tokens), 0)
+        self.prefix_hit_tokens += max(int(hit_tokens), 0)
+        self.prefill_chunks += max(int(chunks), 0)
         self.n_prefills += 1
+
+    def prefix_hit_rate(self) -> Optional[float]:
+        """Fraction of candidate prefill tokens served from the prefix cache
+        (None until a prefill ran)."""
+        total = self.prefill_tokens + self.prefix_hit_tokens
+        return self.prefix_hit_tokens / total if total else None
 
     # --------------------------------------------------------------- rounds
     def record_round(self, n_accepted, gamma: int, active=None, rids=None):
@@ -161,9 +212,12 @@ class ServingMetrics:
                 if self._t0 is not None and self._t_last is not None else 0.0)
         return {
             "requests_completed": len(self.completed),
+            "requests_cancelled": len(self.cancelled),
             "requests_rejected": len(self.rejected),
             "requests_expired": len(self.expired),
             "requests_failed": len(self.failed),
+            "n_preemptions": self.n_preemptions,
+            "recompute_tokens": self.recompute_tokens,
             "total_generated_tokens": self.total_generated,
             "aggregate_tokens_per_s": (self.total_generated / wall
                                        if wall > 0 else None),
@@ -171,10 +225,17 @@ class ServingMetrics:
             "p95_latency_s": (float(np.percentile(lat, 95)) if lat
                               else float("nan")),
             "mean_ttft_s": float(np.mean(ttft)) if ttft else None,
+            "p50_ttft_s": float(np.percentile(ttft, 50)) if ttft else None,
             "p95_ttft_s": float(np.percentile(ttft, 95)) if ttft else None,
             "rounds": self.n_rounds,
             "spec_rounds": self.n_spec_rounds,
             "alpha_hat": self._alpha,
             "accept_hist": self.accept_hist.copy(),
             "prefill_tokens": self.prefill_tokens,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "prefix_hit_rate": self.prefix_hit_rate(),
+            "prefill_compute_saved": self.prefix_hit_rate() or 0.0,
+            "chunks_per_prefill": (self.prefill_chunks / self.n_prefills
+                                   if self.n_prefills else None),
         }

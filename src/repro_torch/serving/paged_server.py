@@ -1,43 +1,87 @@
 """Paged continuous-batching speculative server (port of
-``repro/serving/paged_server.py::PagedSpecServer`` on its default path:
-bucketed all-at-once prefill, worst-case admission).
+``repro/serving/paged_server.py::PagedSpecServer``).
 
 Every request carries its own prompt length and decode budget; KV lives in
 a shared block pool per model (cache/paged_kv.py) and the Scheduler drives
-admission, length-bucketed prefill, slot refill into the live block tables
-and the cost-model gamma/AR decision. One round — speculative
+admission, prefill, slot refill into the live block tables and the
+cost-model gamma/AR decision. One round — speculative
 (``BatchedSpecEngine.round``) or AR when the cost model says speculation
 does not pay — advances the whole batch; between rounds the host harvests
-finished rows, frees their blocks and refills slots by running a bucketed
-one-row prefill straight into the shared pools. Target and drafter consume
-identical token positions, so one allocator and one block table drive both
-models' pools.
+finished rows, frees their blocks and refills slots. Target and drafter
+consume identical token positions, so one allocator and one block table
+drive both models' pools.
+
+Prefill runs one of two ways. Bucketed (the default): a one-row prefill of
+the whole prompt, padded to a bucket, straight into the shared pools.
+Chunked (``SchedulerConfig.prefill_chunk`` or ``prefix_cache``): the row
+first attaches the longest chain of cached blocks the prefix pool holds
+for its prompt (cache/prefix_pool.py), then prefills the rest at most one
+chunk per step, before that step's round, and registers its fully written
+prompt blocks in the pool when done. A mid-prefill row is inactive and its
+row of the device block table is pushed as NULL: rounds keep writing every
+row at its stale index, in place, and those writes must not land in the
+row's real blocks, which may be cached blocks other rows attach. A chunk
+carries the row's true table, uploaded from the allocator.
+
+Overcommit (``overcommit > 1``) admits on expected demand; before each
+round every live row grows to the round's demand, and when the pool is dry
+a victim is evicted and re-queued with its committed tokens, which its
+re-admission prefills again (greedy decode then continues byte-identically).
+``cancel(rid)`` tears a request down at the start of the next step.
 
 A round pulls ``length`` and ``active`` to the host once; nothing else in
 it syncs. A failing speculative round raises: the JAX server degrades such
 a round to AR, which here would hide a kernel that fails. Placement,
-tracing, fault injection, the watchdog, the prefix pool, chunked prefill,
-overcommit with preemption and cancellation wait for later slices.
+tracing, round events, the drift monitor, fault injection and the watchdog
+wait for later slices. Two more differences from the JAX server: the last
+chunk of a prefill runs at its true length, not padded to the chunk (no
+padding is ever written, so none can wrap onto the row's last block), and
+the drafter's prefill unembeds only its last position.
 
 Invariant (tested): every completed request's tokens equal that prompt's
-standalone greedy AR continuation, regardless of its neighbours' lengths.
+standalone greedy AR continuation, regardless of its neighbours' lengths,
+the prefill path, the prefix pool, preemption or cancellation of others.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as devices
 from repro_torch.cache.ops import PAGED
-from repro_torch.cache.paged_kv import BlockAllocator
+from repro_torch.cache.paged_kv import NULL_BLOCK, BlockAllocator
+from repro_torch.cache.prefix_pool import PrefixPool
 from repro_torch.core import rounds
 from repro_torch.core.batched_engine import (KV_FAMILIES, BatchedEngineConfig,
                                              BatchedSpecEngine, RowState)
 from repro_torch.obs import clock
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig, ServeRequest
+
+
+def _set_rows(state: RowState, b: int, **fields) -> RowState:
+    """``state`` with row ``b`` of each named [B] (or [B, T]) tensor set to
+    the given value; the tensors are copied, never written in place."""
+    out = {}
+    for name, value in fields.items():
+        t = getattr(state, name).clone()
+        t[b] = value
+        out[name] = t
+    return state._replace(**out)
+
+
+def _set_index(state: RowState, b: int, index: int) -> RowState:
+    """``state`` with row ``b`` of both caches' index set to ``index``."""
+    caches = {}
+    for name in ("tcache", "dcache"):
+        cache = getattr(state, name)
+        t = cache["index"].clone()
+        t[b] = index
+        caches[name] = {**cache, "index": t}
+    return state._replace(**caches)
 
 
 class PagedSpecServer:
@@ -70,6 +114,18 @@ class PagedSpecServer:
         self.T = self.scfg.max_tokens_per_row + self.scfg.gamma_max + 2
         self._slots: List[Optional[ServeRequest]] = [None] * self.B
         self._target_len = np.zeros(self.B, np.int64)
+        # chunked-prefill state: None on the bucketed path. Mid-prefill rows
+        # are ``_masked`` (inactive, their pushed table row NULL)
+        self._chunk = self.scfg.effective_chunk if self.scfg.chunked else None
+        self.prefix_pool = (PrefixPool(self.alloc) if self.scfg.prefix_cache
+                            else None)
+        self._prefill_pos = np.zeros(self.B, np.int64)  # next suffix position
+        self._prefill_hit = np.zeros(self.B, np.int64)  # tokens from cache
+        self._prefill_chunks = np.zeros(self.B, np.int64)
+        self._masked: set = set()
+        self._table_masked: frozenset = frozenset()  # masked set last pushed
+        self._aborted_pending: List[int] = []  # mid-prefill evictions
+        self._pending_cancels: Deque[int] = deque()  # processed at next step
         self._state: Optional[RowState] = None
         self._lengths: Optional[np.ndarray] = None  # host mirror of .length
         self._batch_formed = False   # gamma decided for the current batch
@@ -80,7 +136,8 @@ class PagedSpecServer:
         self._failed_pending: List[int] = []
         self.done: List[ServeRequest] = []
         self.total_rounds = 0
-        self.n_prefills = 0
+        self.n_prefills = 0         # bucketed prefills run (one forward each)
+        self.n_prefill_chunks = 0   # chunk programs run (one forward each)
 
     # ------------------------------------------------------------- plumbing
     def submit(self, req: ServeRequest):
@@ -108,57 +165,189 @@ class PagedSpecServer:
             n_drafted=torch.zeros((), dtype=torch.int32, device=dev))
 
     def _sync_tables(self, state: RowState) -> RowState:
-        """Push the host block table to the device, only when it changed
-        since the last push. Both caches share the one device table."""
-        if self._table_version == self.alloc.version:
+        """Push the host block table to the device, only when the allocator
+        or the mid-prefill set changed since the last push. Mid-prefill rows
+        go as NULL, so the rounds' writes at their stale index land in the
+        null block. Both caches share the one device table."""
+        masked = frozenset(self._masked)
+        if (self._table_version == self.alloc.version
+                and self._table_masked == masked):
             return state
         self._table_version = self.alloc.version
-        table = self.alloc.device_table(self.device)
+        self._table_masked = masked
+        host = self.alloc.table.copy()
+        if masked:
+            host[sorted(masked)] = NULL_BLOCK
+        table = torch.from_numpy(host).to(self.device)
         return state._replace(tcache={**state.tcache, "block_table": table},
                               dcache={**state.dcache, "block_table": table})
+
+    def _row_views(self, state: RowState, b: int, start: int):
+        """One-row views of both caches for a prefill of row ``b`` from
+        position ``start``: the row's TRUE table (the pushed one may have
+        it nulled), uploaded from the allocator, and the pools shared."""
+        table = torch.from_numpy(self.alloc.table[b:b + 1].copy()).to(self.device)
+        index = torch.full((1,), start, dtype=torch.int32, device=self.device)
+        return ({**state.tcache, "block_table": table, "index": index},
+                {**state.dcache, "block_table": table, "index": index})
+
+    def _forward_prefill(self, state: RowState, b: int, toks: np.ndarray,
+                         start: int) -> bool:
+        """Write the KV of ``toks`` (positions start..) into both pools for
+        row ``b``; True if the target's logits are all finite. The
+        drafter's prefill logits are never read: it unembeds only the last
+        position."""
+        tview, dview = self._row_views(state, b, start)
+        x = torch.from_numpy(np.ascontiguousarray(toks[None])).to(self.device)
+        logits, _, _ = self.target.apply(self.params_t, x, tview)
+        self.drafter.apply(self.params_d, x, dview, logits_slice="last")
+        return bool(torch.isfinite(logits).all())
 
     # -------------------------------------------------------------- prefill
     def _prefill_into(self, state: RowState, row: int, req: ServeRequest):
         """Length-bucketed one-row prefill written straight into the shared
         pools (in place), then rolled back to the true prompt length (exact:
         the padded tail is causally invisible to the real tokens and masked
-        afterward). The caller must have synced the block tables.
+        afterward). A PREEMPTED request prefills its ``effective_prompt``,
+        the committed prefix snapshotted at eviction, and decodes on from
+        there.
 
         Returns ``(state, ok)``: ``ok`` is False when the target produced
         non-finite prefill logits — the caller fails the request instead of
         decoding from a poisoned cache."""
-        dev = self.device
-        prompt = np.asarray(req.prompt, np.int32)
+        prompt = np.asarray(req.effective_prompt, np.int32)
         padded = self.sched.pad_to_bucket(prompt)
-        P = req.prompt_len
-        toks = torch.from_numpy(padded[None, :-1]).to(dev)
-        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-        table_row = state.tcache["block_table"][row:row + 1]
-        logits, _, _ = self.target.apply(
-            self.params_t, toks,
-            {**state.tcache, "block_table": table_row, "index": zero})
-        # the drafter's prefill logits are never read: unembed the last
-        # position only
-        self.drafter.apply(self.params_d, toks,
-                           {**state.dcache, "block_table": table_row,
-                            "index": zero}, logits_slice="last")
-        ok = bool(torch.isfinite(logits).all())
+        P = req.resume_len
+        ok = self._forward_prefill(state, row, padded[:-1], 0)
         self.n_prefills += 1
-        tindex = state.tcache["index"].clone()
-        tindex[row] = P - 1
-        dindex = state.dcache["index"].clone()
-        dindex[row] = P - 1
         tokens = state.tokens.clone()
         tokens[row] = 0
-        tokens[row, :P] = torch.from_numpy(prompt).to(dev)
-        length = state.length.clone()
-        length[row] = P
-        active = state.active.clone()
-        active[row] = True
+        tokens[row, :P] = torch.from_numpy(prompt).to(self.device)
+        # target_len counts from the ORIGINAL prompt: a resumed request
+        # only owes the rest of its decode budget
         self._target_len[row] = req.prompt_len + req.max_new
-        return state._replace(tokens=tokens, length=length, active=active,
-                              tcache={**state.tcache, "index": tindex},
-                              dcache={**state.dcache, "index": dindex}), ok
+        state = _set_rows(state._replace(tokens=tokens), row, length=P,
+                          active=True)
+        return _set_index(state, row, P - 1), ok
+
+    # ------------------------------------------------- chunked prefill path
+    def _begin_prefill(self, state: RowState, b: int,
+                       req: ServeRequest) -> RowState:
+        """Admit ``req`` into row ``b`` on the chunked path: look up the
+        prefix pool, attach any cached block chain (the row then prefills
+        only its suffix), stage the prompt tokens and mark the row
+        mid-prefill until ``_advance_prefills`` finishes the suffix. The
+        re-grow after the attach cannot fail: admission's grant goes back to
+        the free list first and cached blocks take none."""
+        prompt = np.asarray(req.effective_prompt, np.int32)
+        P, BS = req.resume_len, self.scfg.block_size
+        hit_blocks: List[int] = []
+        if self.prefix_pool is not None and P > 1:
+            # cap at (P-1)//BS blocks: the row's first decode write lands at
+            # position P-1, which must NEVER fall inside a shared block
+            cap = min((P - 1) // BS, self.scfg.max_blocks_per_row)
+            hit_blocks = self.prefix_pool.lookup(prompt, cap)
+            if hit_blocks:
+                admit = self.sched.admit_tokens(req)
+                self.alloc.free_row(b)
+                self.alloc.attach(b, hit_blocks)
+                if not self.alloc.ensure(b, admit):
+                    raise AssertionError("re-grow after a cached-prefix attach failed")
+        start = len(hit_blocks) * BS
+        self._prefill_pos[b] = start
+        self._prefill_hit[b] = start
+        self._prefill_chunks[b] = 0
+        self._target_len[b] = req.prompt_len + req.max_new
+        self._masked.add(b)
+        tokens = state.tokens.clone()
+        tokens[b] = 0
+        tokens[b, :P] = torch.from_numpy(prompt).to(self.device)
+        # reset the device length: the slot's previous occupant left its
+        # final length behind, which must not read as instant completion
+        return _set_rows(state._replace(tokens=tokens), b, length=1, active=False)
+
+    def _run_chunk(self, state: RowState, b: int, req: ServeRequest):
+        """One chunk program for mid-prefill row ``b``: write KV for suffix
+        positions [pos, min(pos + C, P - 1)). The last chunk runs at its
+        true length. Returns ``ok`` (finite target logits), or None when
+        the pool is dry (the caller aborts the prefill)."""
+        prompt = np.asarray(req.effective_prompt, np.int32)
+        s = int(self._prefill_pos[b])
+        e = min(s + self._chunk, req.resume_len - 1)
+        if not self.sched.grow(b, e):
+            return None
+        ok = self._forward_prefill(state, b, prompt[s:e], s)
+        self.n_prefill_chunks += 1
+        self._prefill_pos[b] = e
+        self._prefill_chunks[b] += 1
+        return ok
+
+    def _complete_prefill(self, state: RowState, b: int,
+                          req: ServeRequest) -> RowState:
+        """Suffix done: register the fully written prompt blocks in the
+        prefix pool, unmask the row, set its committed length and index,
+        activate it. Registered blocks sit strictly below position P-1, so
+        this row and every attacher write only past them."""
+        P, BS = req.resume_len, self.scfg.block_size
+        if self.prefix_pool is not None and P > 1:
+            F = min((P - 1) // BS, self.scfg.max_blocks_per_row)
+            if F > 0:
+                prompt = np.asarray(req.effective_prompt, np.int32)
+                self.prefix_pool.insert(prompt[:F * BS],
+                                        [int(x) for x in self.alloc.table[b, :F]])
+        self._masked.discard(b)
+        hit = int(self._prefill_hit[b])
+        self.metrics.prefill(req.rid, max(P - 1 - hit, 0), hit_tokens=hit,
+                             chunks=int(self._prefill_chunks[b]))
+        self._lengths[b] = P
+        return _set_index(_set_rows(state, b, length=P, active=True), b, P - 1)
+
+    def _abort_prefill(self, state: RowState, b: int,
+                       req: ServeRequest) -> RowState:
+        """Mid-prefill eviction: free the row's blocks and re-queue.
+        Re-admission restarts the prefill (cheaply, when the prefix pool
+        still holds the chain)."""
+        self.alloc.free_row(b)
+        self._masked.discard(b)
+        self._slots[b] = None
+        self.sched.requeue(req)
+        self._aborted_pending.append(req.rid)
+        return _set_rows(state, b, active=False)
+
+    def _advance_prefills(self, state: RowState) -> RowState:
+        """Advance mid-prefill rows by at most ONE chunk program per step,
+        so the prefill work between two rounds stays bounded. Fully cached
+        rows (empty suffix) and rows whose chunk just finished the suffix
+        activate this step."""
+        if self._chunk is None or not self._masked:
+            return state
+        budget = 1
+        for b in sorted(self._masked):
+            req = self._slots[b]
+            P = req.resume_len
+            if int(self._prefill_pos[b]) >= P - 1:
+                state = self._complete_prefill(state, b, req)
+                continue
+            if budget <= 0:
+                continue
+            budget -= 1
+            ok = self._run_chunk(state, b, req)
+            if ok is None:
+                state = self._abort_prefill(state, b, req)
+                continue
+            if not ok:
+                # non-finite target logits: fail cleanly, never decode from
+                # a poisoned cache
+                self.alloc.free_row(b)
+                self._masked.discard(b)
+                self.metrics.fail(req.rid, "non-finite prefill logits",
+                                  n_generated=req.resume_len - req.prompt_len)
+                self._failed_pending.append(req.rid)
+                self._slots[b] = None
+                continue
+            if int(self._prefill_pos[b]) >= P - 1:
+                state = self._complete_prefill(state, b, req)
+        return state
 
     # ------------------------------------------------------------- AR round
     def _ar_round(self, state: RowState) -> RowState:
@@ -167,12 +356,6 @@ class PagedSpecServer:
         return rounds.ar_round(self.target, self.params_t, state)
 
     # -------------------------------------------------------------- serving
-    @staticmethod
-    def _deactivate(state: RowState, b: int) -> RowState:
-        active = state.active.clone()
-        active[b] = False
-        return state._replace(active=active)
-
     def _refill(self, state: RowState, lengths: np.ndarray) -> RowState:
         for b in range(self.B):
             if self._slots[b] is not None:
@@ -180,18 +363,23 @@ class PagedSpecServer:
             req = self.sched.try_admit(b)
             if req is None:
                 break                       # FCFS head-blocking
-            state = self._sync_tables(state)
+            if self._chunk is not None:
+                state = self._begin_prefill(state, b, req)
+                lengths[b] = 1              # mirrors the reset device length
+                self._slots[b] = req
+                continue
             state, ok = self._prefill_into(state, b, req)
             if not ok:
                 # non-finite target logits: fail the request cleanly instead
                 # of decoding from a poisoned cache
                 self.alloc.free_row(b)
-                self.metrics.fail(req.rid, "non-finite prefill logits")
+                self.metrics.fail(req.rid, "non-finite prefill logits",
+                                  n_generated=req.resume_len - req.prompt_len)
                 self._failed_pending.append(req.rid)
-                state = self._deactivate(state, b)
+                state = _set_rows(state, b, active=False)
                 continue
-            self.metrics.prefill(req.rid, max(req.prompt_len - 1, 0))
-            lengths[b] = req.prompt_len     # keep the host mirror current
+            self.metrics.prefill(req.rid, max(req.resume_len - 1, 0))
+            lengths[b] = req.resume_len     # keep the host mirror current
             self._slots[b] = req
         return state
 
@@ -202,7 +390,8 @@ class PagedSpecServer:
         recorded instead of returning garbage."""
         for b in range(self.B):
             req = self._slots[b]
-            if req is None or lengths[b] < self._target_len[b]:
+            if (req is None or b in self._masked
+                    or lengths[b] < self._target_len[b]):
                 continue
             toks = state.tokens[b, :self._target_len[b]].cpu().numpy()
             gen = toks[req.prompt_len:]
@@ -217,9 +406,111 @@ class PagedSpecServer:
                 self.sched.release(b, req)
                 self.done.append(req)
             self._slots[b] = None
-            state = self._deactivate(state, b)
+            state = _set_rows(state, b, active=False)
         return self._sync_tables(self._refill(state, lengths))
 
+    # ----------------------------------------------------------- preemption
+    def _committed(self, b: int) -> int:
+        return int(min(self._lengths[b], self._target_len[b]))
+
+    def _choose_victim(self, prefer_not: int) -> Optional[int]:
+        """Victim policy: among occupied rows, LATEST deadline first (None
+        sorts latest), ties broken by fewest committed tokens (cheapest
+        recompute). The occupied row with the earliest deadline is spared
+        whenever another candidate exists, and so is the row whose growth
+        triggered the eviction (``prefer_not``), evicted only as the last
+        resort."""
+        occupied = [b for b in range(self.B) if self._slots[b] is not None]
+        if not occupied:
+            return None
+
+        def dl(b):
+            d = self._slots[b].deadline
+            return float("inf") if d is None else d
+
+        cands = list(occupied)
+        if len(cands) > 1:
+            head = min(occupied, key=lambda b: (dl(b), b))
+            cands = [b for b in cands if b != head]
+        if prefer_not in cands and len(cands) > 1:
+            cands = [b for b in cands if b != prefer_not]
+        return max(cands, key=lambda b: (dl(b), -self._committed(b), -b))
+
+    def _preempt_row(self, b: int, state: RowState) -> RowState:
+        """Evict row ``b``: snapshot its committed prefix (prompt +
+        generated tokens, never unverified speculation), free ALL its KV
+        blocks and re-queue the request."""
+        req = self._slots[b]
+        if b in self._masked:
+            # mid-prefill victim: nothing committed beyond the prefix it is
+            # already prefilling
+            return self._abort_prefill(state, b, req)
+        cur = self._committed(b)
+        req.resume_tokens = state.tokens[b, :cur].cpu().numpy().astype(np.int32)
+        req.preemptions += 1
+        self.alloc.free_row(b)
+        self._slots[b] = None
+        self.sched.requeue(req)
+        return _set_rows(state, b, active=False)
+
+    def _ensure_capacity(self, state: RowState):
+        """Overcommit enforcement between the gamma decision and the round:
+        every live row must own blocks for its committed prefix plus this
+        round's gamma + 1 unverified tokens. When the pool runs dry, evict
+        victims until the row fits. Under worst-case reservation the
+        admission grant already covers every round, so nothing is evicted.
+        Returns ``(state, preempted_rids)``."""
+        preempted: List[int] = []
+        for b in range(self.B):
+            if self._slots[b] is None or b in self._masked:
+                continue   # mid-prefill rows grow chunk by chunk instead
+            needed = self._committed(b) + self.gamma + 1
+            while self._slots[b] is not None and not self.sched.grow(b, needed):
+                victim = self._choose_victim(prefer_not=b)
+                if victim is None:
+                    break
+                preempted.append(self._slots[victim].rid)
+                state = self._preempt_row(victim, state)
+                if victim == b:
+                    break               # the growing row evicted itself
+        return state, preempted
+
+    # --------------------------------------------------------- cancellation
+    def cancel(self, rid: int):
+        """Ask for ``rid`` (queued or in flight) to be cancelled. The
+        teardown runs at the start of the next ``step()``: a queued request
+        leaves the queue; an in-flight row is released with its committed
+        tokens and its blocks go back to the pool, so the row can be
+        refilled in the same step."""
+        self._pending_cancels.append(rid)
+
+    def _process_cancels(self) -> List[int]:
+        cancelled: List[int] = []
+        while self._pending_cancels:
+            rid = self._pending_cancels.popleft()
+            if self.sched.cancel(rid):          # still queued: just dequeue
+                cancelled.append(rid)
+                continue
+            for b, req in enumerate(self._slots):
+                if req is None or req.rid != rid:
+                    continue
+                if b in self._masked:
+                    # cancelled mid-prefill: nothing decoded
+                    req.tokens = np.asarray(req.effective_prompt, np.int32)
+                    self._masked.discard(b)
+                    cur = req.prompt_len
+                else:
+                    cur = self._committed(b)
+                    req.tokens = self._state.tokens[b, :cur].cpu().numpy()
+                self.alloc.free_row(b)
+                self.metrics.cancel(rid, cur - req.prompt_len)
+                self._slots[b] = None
+                self._state = _set_rows(self._state, b, active=False)
+                cancelled.append(rid)
+                break
+        return cancelled
+
+    # ------------------------------------------------------------ the loop
     def run(self):
         """Drain the queue; returns completed requests (rows finish by their
         own lengths, so not in submission order)."""
@@ -231,26 +522,49 @@ class PagedSpecServer:
         out, self._failed_pending = self._failed_pending, []
         return out
 
+    def _drain_aborted(self, seen: List[int]) -> List[int]:
+        """Mid-prefill evictions since the last drain, less those already
+        in ``seen``."""
+        out, self._aborted_pending = self._aborted_pending, []
+        return [r for r in out if r not in seen]
+
+    def _idle_info(self, cancelled, expired, failed, preempted) -> Dict:
+        """The step-info of a step in which no round ran."""
+        return {"finished": [], "cancelled": cancelled, "expired": expired,
+                "failed": failed, "preempted": preempted, "round": None,
+                "queue_depth": len(self.sched.queue), "n_live": 0}
+
     def step(self) -> Optional[Dict]:
-        """ONE serving round: admit/refill (expiring doomed queue heads),
-        decide gamma, run one round, record telemetry, harvest finished
-        rows. Returns None when idle, else a step-info dict (finished /
-        expired / failed rids, the round id, queue depth, live rows)."""
+        """ONE serving round: process cancellations, admit/refill (expiring
+        doomed queue heads), advance one prefill chunk, decide gamma,
+        enforce block capacity (preempting victims under overcommit), run
+        one round, record telemetry, harvest finished rows. Returns None
+        when idle, else a step-info dict: finished / cancelled / expired /
+        failed / preempted (evicted and re-queued, not terminal) rids, the
+        round id (None when no round ran), queue depth and live rows."""
         if self._state is None:
             self._state = self._empty_state()
             self._lengths = self._state.length.cpu().numpy().astype(np.int64)
-        self._state = self._sync_tables(self._refill(self._state, self._lengths))
+        cancelled = self._process_cancels()
+        self._state = self._refill(self._state, self._lengths)
+        # one chunk program per step, BEFORE the round, so a row whose
+        # suffix completes decodes this step
+        self._state = self._sync_tables(self._advance_prefills(self._state))
         expired = self.sched.drain_expired()
         if not any(r is not None for r in self._slots):
             # the batch is over: the next admission re-forms it and
             # re-decides gamma
             self._batch_formed = False
             failed = self._drain_failed()
-            if expired or failed or self.sched.has_work():
-                return {"finished": [], "expired": expired, "failed": failed,
-                        "round": None, "queue_depth": len(self.sched.queue),
-                        "n_live": 0}
+            if cancelled or expired or failed or self.sched.has_work():
+                return self._idle_info(cancelled, expired, failed,
+                                       self._drain_aborted([]))
             return None
+        if all(b in self._masked for b in range(self.B)
+               if self._slots[b] is not None):
+            # every occupied row is still mid-prefill: no round to run
+            return self._idle_info(cancelled, expired, self._drain_failed(),
+                                   self._drain_aborted([]))
 
         # gamma/AR decision (paper Eq. 1, telemetry alpha): decided at batch
         # formation, then re-decided while speculative. AR->spec is one-way
@@ -262,6 +576,17 @@ class PagedSpecServer:
             self.gamma, _ = self.sched.choose_gamma(self._alpha_override,
                                                     self._c_override)
         self._batch_formed = True
+
+        # overcommit: grow every live row to this round's demand, evicting
+        # victims when the pool is dry
+        self._state, preempted = self._ensure_capacity(self._state)
+        preempted += self._drain_aborted(preempted)
+        self._state = self._sync_tables(self._state)
+        if not any(r is not None for r in self._slots):
+            # extreme pressure evicted the whole batch; deliver and retry
+            self._batch_formed = False
+            return self._idle_info(cancelled, expired, self._drain_failed(),
+                                   preempted)
 
         queue_depth = len(self.sched.queue)
         prev_len = self._lengths
@@ -281,14 +606,17 @@ class PagedSpecServer:
         self.metrics.record_round(np.maximum(emitted - 1, 0), self.gamma,
                                   active, rids)
         for b, req in enumerate(self._slots):
-            if req is not None and min(lengths[b], self._target_len[b]) > req.prompt_len:
+            if (req is not None and b not in self._masked
+                    and self._committed(b) > req.prompt_len):
                 self.metrics.first_token(req.rid)
         done_before = len(self.done)
         self._state = self._harvest(self._state, lengths)
         expired += self.sched.drain_expired()
         return {"finished": [r.rid for r in self.done[done_before:]],
+                "cancelled": cancelled,
                 "expired": expired,
                 "failed": self._drain_failed(),
+                "preempted": preempted,
                 "round": self.total_rounds - 1,
                 "queue_depth": queue_depth,
                 "n_live": int(np.sum(active))}

@@ -1,17 +1,25 @@
 """Request scheduler for paged variable-length continuous speculative
-batching (port of ``repro/serving/scheduler.py`` on its default path).
+batching (port of ``repro/serving/scheduler.py``).
 
   * ADMISSION CONTROL — earliest-deadline-first (requests without a
     deadline sort last, FCFS among themselves), head-blocking on the EDF
     head; a head whose deadline has already passed is expired. Requests
     whose worst-case demand can never fit are rejected at submit.
-  * WORST-CASE RESERVATION — admission reserves ``prompt_len + max_new +
-    gamma_max + 1`` tokens (prompt + decode + in-flight speculation), so
-    nothing is ever preempted mid-flight. Overcommit with preemption waits
-    for a later slice.
-  * LENGTH BUCKETING — prompts are padded up to a small set of bucket
+  * OVERCOMMIT + PREEMPTION — with ``overcommit == 1.0`` (default)
+    admission reserves the worst case ``prompt_len + max_new + gamma_max +
+    1`` tokens (prompt + decode + in-flight speculation), so nothing is
+    ever preempted. With ``overcommit > 1.0`` it reserves only the expected
+    demand and rows ``grow`` round by round; when the pool runs dry the
+    server evicts a victim and ``requeue``s it with its committed tokens,
+    which re-admission prefills again (byte-identical under greedy decode).
+  * PREFILL — bucketed: prompts are padded up to a small set of bucket
     lengths; padding is exact (the cache index is rolled back to
-    ``prompt_len - 1`` afterwards, masking the padded tail).
+    ``prompt_len - 1`` afterwards, masking the padded tail). Chunked
+    (``prefill_chunk``, or ``prefix_cache``): the server prefills at most
+    ``effective_chunk`` tokens per step between decode rounds, after
+    attaching the prefix pool's cached blocks.
+  * CANCELLATION — ``cancel`` drops a still-queued request; the server
+    tears down in-flight ones.
   * GAMMA / AR DECISION — the paper's Eq. (1) (``core/cost_model.py``) at
     the measured acceptance rate (metrics EMA, else a prior) and the
     configured cost coefficient; gamma* = 0 falls back to AR decoding.
@@ -39,10 +47,30 @@ class SchedulerConfig:
     prefill_buckets: Tuple[int, ...] = (8, 16, 32, 64, 128, 256)
     alpha_prior: float = 0.8           # acceptance prior before telemetry
     cost_coefficient: float = 0.25     # c = t_draft / t_target
+    overcommit: float = 1.0            # admission reservation divisor; 1.0 =
+                                       # worst-case reservation, >1 admits on
+                                       # expected demand + preempts on dry pool
+    prefill_chunk: Optional[int] = None  # tokens per prefill chunk, run
+                                       # interleaved with decode rounds; None
+                                       # = bucketed all-at-once prefill
+    prefix_cache: bool = False         # shared-prefix block reuse (radix
+                                       # pool; cache/prefix_pool.py)
 
     @property
     def max_tokens_per_row(self) -> int:
         return self.max_blocks_per_row * self.block_size
+
+    @property
+    def chunked(self) -> bool:
+        """Chunked prefill path on? Prefix caching forces it: attaching
+        cached blocks means prefill starts mid-sequence."""
+        return self.prefill_chunk is not None or self.prefix_cache
+
+    @property
+    def effective_chunk(self) -> int:
+        """Chunk budget when the chunked path runs (prefix_cache without an
+        explicit budget prefills the whole suffix as one chunk)."""
+        return self.prefill_chunk or self.prefill_buckets[-1]
 
 
 @dataclass
@@ -53,10 +81,26 @@ class ServeRequest:
     tokens: Optional[np.ndarray] = None  # filled on completion
     deadline: Optional[float] = None   # absolute SLO deadline (clock domain);
                                        # None = best-effort (sorts last)
+    resume_tokens: Optional[np.ndarray] = None  # committed prefix (prompt +
+                                       # generated) snapshotted at preemption;
+                                       # re-admission prefills THIS instead
+    preemptions: int = 0               # times this request was evicted
 
     @property
     def prompt_len(self) -> int:
+        """ORIGINAL prompt length, stable across preemptions."""
         return int(len(self.prompt))
+
+    @property
+    def effective_prompt(self) -> np.ndarray:
+        """What (re-)admission must prefill: the committed prefix if this
+        request was preempted, else the prompt."""
+        return (self.resume_tokens if self.resume_tokens is not None
+                else self.prompt)
+
+    @property
+    def resume_len(self) -> int:
+        return int(len(self.effective_prompt))
 
 
 class Scheduler:
@@ -87,7 +131,24 @@ class Scheduler:
                     f"allocatable pool {pool_tokens} "
                     f"({self.cfg.num_blocks - 1} blocks x "
                     f"{self.cfg.block_size}; block 0 is reserved)")
-            self.bucket(req.prompt_len)  # over-bucket prompts fail here
+            if not self.cfg.chunked:
+                # chunked prefill has no bucket bound: any prompt that fits
+                # the row fits the chunk loop, and so does a resume prefix
+                self.bucket(req.prompt_len)  # over-bucket prompts fail here
+                if self.cfg.overcommit > 1.0:
+                    # a preempted request resumes by prefilling up to
+                    # prompt_len + max_new - 1 tokens: that must fit a
+                    # bucket too, or eviction would strand it
+                    try:
+                        self.bucket(req.prompt_len + req.max_new - 1)
+                    except ValueError:
+                        raise ValueError(
+                            f"request {req.rid}: committed prefix can reach "
+                            f"{req.prompt_len + req.max_new - 1} tokens, "
+                            f"past the largest prefill bucket "
+                            f"{self.cfg.prefill_buckets[-1]} — not "
+                            f"admissible under overcommit (preemption could "
+                            f"strand it)")
         except ValueError as e:
             self.metrics.reject(req.rid, str(e))
             raise
@@ -103,6 +164,27 @@ class Scheduler:
         slack (a round writes up to gamma+1 unverified tokens past the
         committed index)."""
         return req.prompt_len + req.max_new + self.cfg.gamma_max + 1
+
+    def admit_tokens(self, req: ServeRequest) -> int:
+        """Tokens to reserve at admission: the worst case when
+        ``overcommit == 1``, else the expected demand, the committed prefix
+        plus the remaining decode budget scaled down by the factor. The
+        floor lets every admission commit one full speculative round plus a
+        block of decode before it must grow, so a preempt/re-admit cycle
+        always makes progress. A chunked admission is charged only its
+        first chunk plus the floor: the server grows the row before every
+        chunk."""
+        worst = self.demand_tokens(req)
+        if self.cfg.overcommit <= 1.0:
+            return worst
+        start = req.resume_len
+        floor = self.cfg.gamma_max + 1 + self.cfg.block_size
+        if self.cfg.chunked:
+            return min(worst, min(start, self.cfg.effective_chunk) + floor)
+        remaining = req.prompt_len + req.max_new - start
+        expected = start + max(int(np.ceil(remaining / self.cfg.overcommit)),
+                               floor)
+        return min(worst, expected)
 
     def has_work(self) -> bool:
         return bool(self.queue)
@@ -129,7 +211,7 @@ class Scheduler:
                 self.metrics.expire(req.rid)
                 self._expired_pending.append(req.rid)
                 continue
-            if not self.alloc.ensure(row, self.demand_tokens(req)):
+            if not self.alloc.ensure(row, self.admit_tokens(req)):
                 return None
             del self.queue[i]
             self.metrics.start(req.rid)
@@ -139,6 +221,30 @@ class Scheduler:
     def drain_expired(self) -> list:
         out, self._expired_pending = self._expired_pending, []
         return out
+
+    def grow(self, row: int, n_tokens: int) -> bool:
+        """Grow an in-flight row's reservation to ``n_tokens`` (overcommit:
+        rows are admitted below the worst case and extended round by
+        round). False = pool dry; the server must preempt a victim."""
+        return self.alloc.ensure(row, n_tokens)
+
+    def requeue(self, req: ServeRequest):
+        """Re-queue a preempted request (its blocks already freed). Keeps
+        its deadline; records the preemption and the recompute debt."""
+        self.metrics.preempt(req.rid, req.resume_len - req.prompt_len)
+        self.queue.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Remove a still-QUEUED request. False if ``rid`` is not queued:
+        in-flight cancellation is the server's (it owns the row)."""
+        for i, r in enumerate(self.queue):
+            if r.rid == rid:
+                del self.queue[i]
+                # a preempted request cancelled while re-queued has already
+                # committed its resume prefix: credit it
+                self.metrics.cancel(rid, r.resume_len - r.prompt_len)
+                return True
+        return False
 
     def release(self, row: int, req: ServeRequest):
         """Return a finished request's blocks to the pool."""

@@ -1,12 +1,16 @@
 """Port parity: the host-side ``BlockAllocator`` runs op for op against
 ``repro.cache.paged_kv.BlockAllocator`` on seeded random lifecycles of the
-ops the default server uses (admit/grow = ``ensure``, shrink =
-``free_tail``, complete = ``free_row``) and the copy-on-write branch ops
-of paged tree rounds (``fork_row``, ``ensure_branch``, ``adopt_branch``,
-``release_branches``, and ``free_row`` of a forked row). After every op
-both allocators must return the same value and hold the same tables
-(main and branch), refcounts, free list, per-row allocation and version,
-and both censuses must balance."""
+ops the server uses (admit/grow = ``ensure``, shrink = ``free_tail``,
+complete = ``free_row``), the copy-on-write branch ops of paged tree rounds
+(``fork_row``, ``ensure_branch``, ``adopt_branch``, ``release_branches``,
+and ``free_row`` of a forked row), the prefix-cache pins (``cache_ref``,
+``uncache``, ``attach``) and fault seizure (``seize``,
+``release_seized``). After every op both allocators must return the same
+value and hold the same tables (main and branch), refcounts, free list,
+seized list, cached set, per-row allocation and version, and both
+four-way censuses must balance and agree."""
+from collections import Counter
+
 import numpy as np
 import pytest
 
@@ -25,15 +29,16 @@ def _same(port, ref):
     assert port.version == ref.version
     assert port.peak_in_use == ref.peak_in_use
     np.testing.assert_array_equal(port.refcnt, ref.refcnt)
+    assert list(port._seized) == list(ref._seized)
+    assert port.num_seized == ref.num_seized
+    assert port.cached == ref.cached
     assert port._branches.keys() == ref._branches.keys()
     for row in ref._branches:
         np.testing.assert_array_equal(port.branch_tables(row),
                                       ref.branch_tables(row))
         np.testing.assert_array_equal(port._branch_alloc[row],
                                       ref._branch_alloc[row])
-    counts = port.audit()
-    ref_counts = ref.audit()
-    assert counts == {"free": ref_counts["free"], "live": ref_counts["live"]}
+    assert port.audit() == ref.audit()
 
 
 @pytest.mark.parametrize("seed", range(8))
@@ -43,9 +48,11 @@ def test_allocator_matches_jax_op_for_op(seed):
     ref = JaxAllocator(NUM_BLOCKS, BLOCK_SIZE, MAX_BLOCKS, BATCH)
     tokens = np.zeros(BATCH, np.int64)
     branches = {}                         # row -> branch token counts
-    for _ in range(200):
+    ran = Counter()                       # prefix-cache / seizure ops run
+    for _ in range(400):
         kind = rng.choice(["ensure", "free_tail", "free_row", "query",
-                           "fork", "growbr", "adopt", "dropbr"])
+                           "fork", "growbr", "adopt", "dropbr", "cache_ref",
+                           "uncache", "attach", "seize", "release"])
         row = int(rng.integers(0, BATCH))
         if kind in ("ensure", "free_tail") and row in branches:
             kind = "query"                # a forked row grows by branch
@@ -89,12 +96,46 @@ def test_allocator_matches_jax_op_for_op(seed):
         elif kind == "dropbr":
             assert port.release_branches(row) == ref.release_branches(row)
             branches.pop(row, None)
+        elif kind == "cache_ref":
+            # pin the row's full blocks (the server caches blocks strictly
+            # below a row's first decode position)
+            for j in range(int(tokens[row]) // BLOCK_SIZE):
+                blk = int(ref.table[row, j])
+                if blk not in ref.cached:
+                    port.cache_ref(blk)
+                    ref.cache_ref(blk)
+                    ran[kind] += 1
+        elif kind == "uncache":
+            # the prefix pool evicts only idle blocks (its pin alone)
+            idle = [b for b in sorted(ref.cached) if ref.refcnt[b] == 1]
+            for blk in idle[:int(rng.integers(1, 3))]:
+                assert port.uncache(blk) == ref.uncache(blk)
+                ran[kind] += 1
+        elif kind == "attach":
+            if ref.n_alloc[row] or not ref.cached:
+                continue
+            chain = sorted(ref.cached)[:int(rng.integers(1, MAX_BLOCKS + 1))]
+            assert port.attach(row, chain) == ref.attach(row, chain)
+            tokens[row] = len(chain) * BLOCK_SIZE
+            ran[kind] += 1
+        elif kind == "seize":
+            n = int(rng.integers(0, 3))
+            got = port.seize(n)
+            assert got == ref.seize(n)
+            ran[kind] += got > 0
+        elif kind == "release":
+            n = None if rng.random() < 0.3 else int(rng.integers(0, 6))
+            got = port.release_seized(n)
+            assert got == ref.release_seized(n)
+            ran[kind] += got > 0
         else:
             n = int(rng.integers(0, MAX_BLOCKS * BLOCK_SIZE + 8))
             assert port.can_allocate(n) == ref.can_allocate(n)
             assert port.blocks_for(n) == ref.blocks_for(n)
             assert port.num_free == ref.num_free
         _same(port, ref)
+    assert all(ran[k] for k in ("cache_ref", "uncache", "attach", "seize",
+                                "release")), ran
 
 
 def test_ensure_refuses_beyond_row_capacity_and_pool():
@@ -102,6 +143,6 @@ def test_ensure_refuses_beyond_row_capacity_and_pool():
     assert not port.ensure(0, 3 * BLOCK_SIZE)          # past max_blocks_per_row
     assert port.ensure(0, 2 * BLOCK_SIZE)
     assert not port.ensure(1, 2 * BLOCK_SIZE)          # one block left
-    assert port.audit() == {"free": 1, "live": 2}
+    assert port.audit() == {"free": 1, "live": 2, "cached": 0, "seized": 0}
     assert port.free_row(0) == 2
-    assert port.audit() == {"free": 3, "live": 0}
+    assert port.audit() == {"free": 3, "live": 0, "cached": 0, "seized": 0}

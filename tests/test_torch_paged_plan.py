@@ -94,6 +94,36 @@ def test_split_keeps_the_max_live_cap(max_live):
                                          interpret=True)), **TOL)
 
 
+@pytest.mark.parametrize("start", [0, 24, 61, 112])
+@pytest.mark.parametrize("BS", [4, 16])
+def test_prefill_chunk_matches_jax_and_the_whole_call(BS, start):
+    """A prefill chunk as the chunked serving path launches it: B=1, Q=C
+    queries from ``start`` over a shuffled table wider than the live keys,
+    the live bound from the index. The plain version and the split walk
+    match the jnp oracle and the Pallas kernel, and the split walk's rows
+    are bit-equal to the same rows of one whole call of start+C queries
+    from 0 over a table just wide enough (``chip_smoke.py`` checks the
+    same of the kernel on the card)."""
+    C, MB = 16, 128 // BS
+    q, k, v, table = _pool(BS + start, 1, C, 8, 2, BS, MB)
+    idx = np.asarray([start], np.int32)
+    want = np.asarray(jax_attn_paged(*_j(q, k, v, table, idx)))
+    np.testing.assert_allclose(attn_paged(*_t(q, k, v, table, idx)).numpy(),
+                               want, **TOL)
+    np.testing.assert_allclose(
+        np.asarray(jax_paged_kernel(*_j(q, k, v, table, idx), interpret=True)),
+        want, **TOL)
+    got = paged_split_ref(*_t(q, k, v, table, idx), chunk=8)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    S = start + C
+    qw = np.random.default_rng(start).standard_normal(
+        (1, S, 8, q.shape[3])).astype(np.float32)
+    qw[:, start:] = q
+    whole = paged_split_ref(*_t(qw, k, v, table[:, :-(-S // BS)],
+                                np.zeros(1, np.int32)), chunk=8)
+    assert torch.equal(whole[:, start:], got)
+
+
 TREES = [("chain_tree(2,4)", 4, None), ("chain_tree(2,4)", 16, 3),
          ("chain_tree(5,6)", 4, None), ("chain_tree(5,6)", 16, 3),
          ("irregular", 8, None), ("irregular", 8, 2)]
@@ -256,3 +286,15 @@ def test_plan_at_the_chip_smoke_shapes(Q, H, D, MB, tiles, chunks):
     assert p.workspace == 4 * 8 * Q * (H // 8) * chunks * (D + 2)
     f = pa.plan(torch.float32, 4, Q, H, 8, D, 16, MB)
     assert (f.row_tiles, f.chunks, f.workspace) == (tiles, 1, 0)
+
+
+@pytest.mark.parametrize("H,D,MB,tiles,chunks", [
+    (24, 128, 64, 12, 16), (32, 64, 64, 16, 16),      # the chunked serve
+    (24, 128, 256, 12, 64), (32, 64, 256, 16, 64)])   # chip_smoke's cases
+def test_plan_at_the_prefill_chunk_shapes(H, D, MB, tiles, chunks):
+    """B=1, Q=64 (a prefill chunk), 8 kv-heads, block size 16: 12 or 16
+    row tiles over every 64-key chunk of the table, whatever the chunk's
+    start (the live bound is read on the card)."""
+    p = pa.plan(torch.bfloat16, 1, 64, H, 8, D, 16, MB)
+    assert (p.row_tile, p.row_tiles, p.chunks) == (16, tiles, chunks)
+    assert p.workspace == 8 * 64 * (H // 8) * chunks * (D + 2)

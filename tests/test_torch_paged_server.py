@@ -100,7 +100,8 @@ def test_ar_only_gives_the_same_tokens(pair, served):
 def test_audit_clean_and_every_block_free(served):
     srv, _ = served
     counts = srv.alloc.audit()
-    assert counts == {"free": srv.scfg.num_blocks - 1, "live": 0}
+    assert counts == {"free": srv.scfg.num_blocks - 1, "live": 0,
+                      "cached": 0, "seized": 0}
     s = srv.metrics.summary()
     assert s["requests_completed"] == len(RAGGED)
     assert s["total_generated_tokens"] == sum(new for _, new in RAGGED)
