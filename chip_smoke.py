@@ -69,7 +69,21 @@
    tokens must be the same, or differ only where the readings explain it
    (within one bf16 step of the top-2 margin). Then the chunked serve runs
    once more under ``torch.profiler``, with the device time split between
-   chunk programs and rounds (``"phase": "profile_chunked"``).
+   chunk programs and rounds (``"phase": "profile_chunked"``). Then the
+   same serve traced (``"phase": "full_width_traced"``): (a) with an
+   enabled ``repro_torch.obs.Tracer`` at gamma 4, it must give the
+   untraced serve's tokens and launch counts, one round event per round
+   with phase times on every speculative one, the metrics' alpha and a
+   calibrated drift monitor; it prints the per-phase split of a round
+   (draft, verify, commit, prefill, serve: ms per round, the events' mean
+   phase times, the leaf phases' share of the serve span), the drift
+   monitor's measured c and alerts, and the wall per round against the
+   untraced serve's; (b) with gamma unpinned, so that the measured c
+   drives Eq. (1): tokens == AR's, launches as each round's gamma implies;
+   it prints every round's gamma and the gamma* of the measured c; (c) the
+   no-cache engine of step 7 traced (``strategy="modular"``): tokens and
+   launches equal to the untraced modular serve's, and its phase split.
+   The Chrome traces go to build/traces/.
 6. The no-cache flash-attention kernel against its plain version: the
    Llama-3.2-3B and -1B head geometries at the main-path shape (B=2,
    S=134), fp32 and bf16; S in {1, 17, 1100, 2048}; a window of 8;
@@ -120,9 +134,10 @@
    target's no-cache logits on a T=128 buffer against a T=134 buffer
    sharing its first 128 tokens (``"phase": "buffer_invariance"``: bit-equal
    or not, else their max |d| and smallest top-1 margin).
-11. Prints the ``{"kernels": [...]}`` line (six kernels; paged attention
-   and the argmax with their launches on the chunked main path of step 5),
-   the card line again and, last, ``{"ok": true, "device": {...}}``.
+11. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
+   [...]}`` line (six kernels; paged attention and the argmax with their
+   launches on the chunked main path of step 5), the card line again and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -815,9 +830,10 @@ def int8_cases(timer):
 
 
 # --------------------------------------------------------------- serving
-def serve(mt, md, pt, pd, reqs, scfg, gamma, device):
+def serve(mt, md, pt, pd, reqs, scfg, gamma, device, tracer=None):
     from repro_torch.serving import PagedSpecServer, ServeRequest
-    srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=gamma, device=device)
+    srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=gamma, tracer=tracer,
+                          device=device)
     for i, (prompt, new) in enumerate(reqs):
         srv.submit(ServeRequest(i, prompt, new))
     done = {r.rid: r.tokens for r in srv.run()}
@@ -1376,7 +1392,202 @@ def full_width_chunked(mt, md, pt, pd, cfg, card, reading, chunk_cases):
         srv.run()
         return srv.total_rounds, srv.n_prefill_chunks
     profile("profile_chunked", run, pt, pd, card, regions=("prefill_chunk", "round"))
-    return launches
+    return launches, {"reqs": reqs, "scfg": scfg, "tokens": done,
+                      "launches": launches, "ar_tokens": out_ar, "wall_s": wall,
+                      "rounds": rounds, "cold_scfg": cold_cfg,
+                      "cold_tokens": out_cold}
+
+
+def phase_split(tracer, srv) -> dict:
+    """The per-phase split of a traced serve: each phase's span time per
+    round (phase_totals over all rounds), the events' mean phase times
+    (t_draft/t_verify/t_commit over speculative rounds, t_prefill over the
+    steps that ran a chunk, t_round over all rounds), the leaf phases'
+    share of the serve span, and the drift monitor's evidence and alerts."""
+    totals = tracer.phase_totals()
+    serve_s = tracer.total(name="serve")
+    leaf = sum(v for k, v in totals.items() if k != "serve")
+    events = srv.events.events()
+    drift = srv.drift
+    calibrated = drift is not None and drift.calibrated
+    return {"rounds": srv.total_rounds,
+            "spec_rounds": sum(1 for e in events if e.gamma > 0),
+            "phase_ms_per_round": {k: v / srv.total_rounds * 1e3
+                                   for k, v in sorted(totals.items())},
+            "event_mean_ms": {k: v * 1e3
+                              for k, v in sorted(srv.events.phase_means().items())},
+            "leaf_over_serve": leaf / serve_s, "spans": tracer.count(),
+            "drift_unit_ms": drift.unit * 1e3 if calibrated else None,
+            "drift_evidence": drift.evidence() if calibrated else None,
+            "drift_alerts": drift.alerts() if calibrated else [],
+            "kv_traffic": srv.kv_traffic()}
+
+
+def export_trace(tracer, name) -> str:
+    """Write a traced serve's Chrome trace under build/traces (gitignored);
+    returns its path in the checkout."""
+    path = ROOT / "build" / "traces" / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tracer.export(str(path))
+    return str(path.relative_to(ROOT))
+
+
+def path_launches(srv, counters, L_t, L_d) -> dict:
+    """The launches a paged serve's rounds and prefills imply: paged
+    attention once per layer of every pass (GAMMA drafter steps and one
+    verify per speculative round, a target step per AR round, both models
+    per prefill or chunk program), the argmax once per speculative round,
+    no other kernel."""
+    events = srv.events.events()
+    want = {n: 0 for n in counters}
+    want.update(paged_attention=sum(L_t + e.gamma * L_d for e in events)
+                + (srv.n_prefills + srv.n_prefill_chunks) * (L_t + L_d),
+                blockwise_argmax=sum(1 for e in events if e.gamma > 0))
+    return want
+
+
+def full_width_traced(mt, md, pt, pd, cfg, card, chunked):
+    """Tracing on the main path (``"phase": "full_width_traced"``), on
+    ``full_width_chunked``'s pair and trace; every serve here runs with an
+    enabled ``Tracer``, its six launch counts set to 0 just before and read
+    just after. Each traced paged serve must give the tokens it is held to
+    and the launches its rounds and prefills imply (``path_launches``), one
+    RoundEvent per round with phase times on every speculative one and the
+    metrics' alpha, and leaf spans covering 0.9-1.02 of the serve span (the
+    bar of the JAX suite's traced serving test); it prints the per-phase
+    split (``phase_split``).
+    (a) The chunked serve at gamma GAMMA: tokens and launch counts equal to
+    the untraced serve's, a calibrated drift monitor with evidence; it
+    prints the measured c and the wall per round against the untraced
+    serve's. Then the same traffic on the bucketed path (the cold config of
+    ``full_width_chunked``; its whole-prompt prefills in ``prefill``):
+    tokens equal that path's untraced tokens. (b) The chunked serve with
+    gamma unpinned, so the drift monitor's measured c drives Eq. (1) once
+    calibrated: tokens equal AR's; it prints every round's gamma and the
+    gamma* the measured c gives. (c) The no-cache engine,
+    ``launch.serve.serve`` at ``full_width_nocache``'s traffic with
+    ``strategy="modular"``, traced and untraced: the same tokens and
+    launches, flash rounds x (L_t + GAMMA x L_d); it prints the phase split
+    and c = draft per token / verify. The Chrome traces go to
+    build/traces/."""
+    from repro_torch.core import cost_model
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import Tracer
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    reqs = chunked["reqs"]
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
+
+    def traced_paged(part, scfg, gamma, want_tokens):
+        """One traced paged serve, its common checks and its line's
+        fields; returns the server and the line."""
+        tracer = Tracer()
+        (srv, done), wall, launches = counted(
+            lambda: serve(mt, md, pt, pd, reqs, scfg, gamma, "cuda", tracer))
+        events = srv.events.events()
+        want = path_launches(srv, counters, L_t, L_d)
+        info = {"phase": "full_width_traced", "part": part, "card": card,
+                "gamma": gamma, "requests": len(reqs), "wall_s": wall,
+                "ms_per_round": wall / srv.total_rounds * 1e3,
+                "prefills": srv.n_prefills,
+                "prefill_chunks": srv.n_prefill_chunks,
+                "alpha_hat": srv.metrics.alpha_hat(), **phase_split(tracer, srv),
+                "trace": export_trace(tracer, f"full_width_traced_{part}"),
+                "launches": launches, "expected_launches": want,
+                "tokens_equal": all(np.array_equal(done[i], want_tokens[i])
+                                    for i in range(len(reqs))),
+                "events": len(events),
+                "phase_times_on_spec_events": all(
+                    e.t_draft is not None and e.t_verify is not None
+                    and e.t_commit is not None for e in events if e.gamma > 0)}
+        if not info["tokens_equal"]:
+            raise SystemExit(f"traced tokens differ from the reference's: {info}")
+        if launches != want:
+            raise SystemExit(f"traced launches differ from the path's: {info}")
+        if len(events) != srv.total_rounds or not info["phase_times_on_spec_events"]:
+            raise SystemExit(f"round events incomplete: {info}")
+        if srv.events.alpha_hat() != srv.metrics.alpha_hat():
+            raise SystemExit(f"event alpha != metrics alpha: {info}")
+        if not 0.9 <= info["leaf_over_serve"] <= 1.02:
+            raise SystemExit(f"leaf spans do not cover the serve span: {info}")
+        return srv, info
+
+    # (a) gamma pinned, chunked then bucketed
+    srv, info = traced_paged("a_chunked", chunked["scfg"], GAMMA, chunked["tokens"])
+    info["untraced_ms_per_round"] = chunked["wall_s"] / chunked["rounds"] * 1e3
+    info["untraced_launches"] = chunked["launches"]
+    emit(info)
+    if info["launches"] != chunked["launches"]:
+        raise SystemExit(f"traced launches differ from the untraced serve's: {info}")
+    if srv.drift is None or srv.drift.evidence() is None:
+        raise SystemExit(f"the drift monitor did not calibrate: {info}")
+    emit(traced_paged("a_bucketed", chunked["cold_scfg"], GAMMA,
+                      chunked["cold_tokens"])[1])
+
+    # (b) gamma from Eq. (1) with the measured c
+    scfg = chunked["scfg"]
+    srv, info = traced_paged("b_gamma_from_measured_c", scfg, None,
+                             chunked["ar_tokens"])
+    ev, alpha = info["drift_evidence"], info["alpha_hat"]
+
+    def gamma_star(a, c):
+        return cost_model.optimal_gamma(a, c, scfg.gamma_max)[0]
+    info.update(
+        gammas=[e.gamma for e in srv.events.events()],
+        prior_c=scfg.cost_coefficient,
+        gamma_star_prior_c=gamma_star(alpha, scfg.cost_coefficient),
+        measured_c=ev["c"], gamma_star_measured_c=gamma_star(alpha, ev["c"]),
+        # what the measured c would pick at lower acceptance (the random
+        # weights accept every draft, and at alpha 1 Eq. (1) takes
+        # gamma_max for any c < 1)
+        gamma_star_measured_c_by_alpha={
+            str(a): gamma_star(a, ev["c"]) for a in (0.5, 0.6, 0.7, 0.8, 0.9, 0.95)})
+    emit(info)
+
+    # (c) the no-cache engine, modular, untraced then traced
+    prompts, batch = nocache_prompts(cfg), 2
+    serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=GAMMA, batch=batch,
+                    strategy="modular")                    # warm-up
+    torch.cuda.synchronize()
+    (ref, s_ref), wall_ref, launches_ref = counted(lambda: serve_cli.serve(
+        mt, md, pt, pd, prompts, NOCACHE_NEW, gamma=GAMMA, batch=batch,
+        strategy="modular"))
+    tracer = Tracer()
+    (toks, s), wall, launches = counted(lambda: serve_cli.serve(
+        mt, md, pt, pd, prompts, NOCACHE_NEW, gamma=GAMMA, batch=batch,
+        strategy="modular", tracer=tracer))
+    rounds = s["rounds"]
+    totals = tracer.phase_totals()
+    want = {n: 0 for n in counters}
+    want.update(flash_attention=rounds * (L_t + GAMMA * L_d), blockwise_argmax=rounds)
+    same = bool(np.array_equal(toks, ref))
+    info = {"phase": "full_width_traced", "part": "c_nocache_modular",
+            "card": card, "requests": len(prompts), "batch": batch,
+            "gamma": GAMMA, "rounds": rounds, "wall_s": wall,
+            "ms_per_round": wall / rounds * 1e3,
+            "untraced_ms_per_round": wall_ref / s_ref["rounds"] * 1e3,
+            "phase_ms_per_round": {k: v / rounds * 1e3 for k, v in sorted(totals.items())},
+            "c_draft_per_token_over_verify": cost_model.cost_coefficient(
+                totals["draft"] / (rounds * GAMMA), totals["verify"] / rounds),
+            "spans": tracer.count(),
+            "trace": export_trace(tracer, "full_width_traced_c"),
+            "launches": launches, "untraced_launches": launches_ref,
+            "expected_launches": want, "tokens_equal_untraced": same}
+    emit(info)
+    if not same or s["rounds"] != s_ref["rounds"]:
+        raise SystemExit(f"traced no-cache tokens differ from the untraced serve's: {info}")
+    if launches != want or launches_ref != want:
+        raise SystemExit(f"traced no-cache launches differ: {info}")
+    emit({"phase": "full_width_traced", "part": "done", "card": card,
+          "phase_s": time.perf_counter() - t_phase})
 
 
 def region(label, fn):
@@ -1842,7 +2053,8 @@ def main() -> int:
     mt, md, pt, pd, cfg = pair
     buffer_invariance(mt, pt, cfg, card)
     reading = prefill_invariance(mt, pt, cfg, card)
-    launches = full_width_chunked(*pair, card, reading, chunk_cases)
+    launches, chunked = full_width_chunked(*pair, card, reading, chunk_cases)
+    full_width_traced(*pair, card, chunked)
     del mt, md, pt, pd
     nocache_launches = full_width_nocache(*pair, card)
     w8a8_launches = full_width_w8a8(*pair, card)
@@ -1899,6 +2111,7 @@ def main() -> int:
              "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
              "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
              "library_ms": h["library_ms"]})
+    emit({"phase": "end", "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

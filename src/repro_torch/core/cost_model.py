@@ -6,8 +6,10 @@ scheduler's gamma/AR decision calls.
 
 α — expected acceptance rate, γ — draft length, c — cost coefficient
 t_draft / t_target. Used prescriptively: speculation pays only if c < α, and
-γ* maximises S. The other terms of the JAX module (expected tokens per
-round, multi-draft, tree, overlap, roofline) wait for the slices that port
+γ* maximises S. ``round_time`` prices a round in t_target units for the
+drift monitor (``obs/drift.py``), and ``cost_coefficient`` turns measured
+times into c. The other terms of the JAX module (expected tokens per
+round, multi-draft, tree, prefill, roofline) wait for the slices that port
 their callers.
 """
 from __future__ import annotations
@@ -40,3 +42,29 @@ def optimal_gamma(alpha: float, c: float,
         if s > best[1] + 1e-12:
             best = (g, s)
     return best
+
+
+# Host dispatch + cross-submesh gamma-token handoff per round, in t_target
+# units (the JAX module's prior, measured there on the bench pair).
+DISPATCH_OVERHEAD_DEFAULT = 0.05
+
+
+def round_time(gamma: int, c: float,
+               dispatch_overhead: float = DISPATCH_OVERHEAD_DEFAULT,
+               overlap: bool = False) -> float:
+    """Expected speculative-round time in t_target units.
+
+    Serialized: T = γ·c + 1 + h (draft chain + verify + dispatch h).
+    Overlapped (per-role devices, async dispatch): h hides under the
+    verify, but no more of it than the verify is long:
+    T = γ·c + 1 + max(h − 1, 0).
+    """
+    base = gamma * c + 1.0
+    if overlap:
+        return base + max(dispatch_overhead - 1.0, 0.0)
+    return base + dispatch_overhead
+
+
+def cost_coefficient(t_draft: float, t_target: float) -> float:
+    """c = t_draft / t_target (paper §II-B), from measured times."""
+    return float(t_draft) / float(t_target)

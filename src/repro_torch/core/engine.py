@@ -13,9 +13,13 @@ enabled") every forward recomputes the whole fixed-size token buffer, and
 Both strategies run one host loop of rounds, reading the committed length
 once per round: PyTorch runs eagerly, so JAX's "monolithic" strategy (the
 whole loop as one jitted ``while_loop``) has no counterpart here, and
-"modular" is the same loop. ``autoregressive_generate`` is the
+"modular" is the same loop. They differ under an enabled ``tracer`` as
+JAX's do: monolithic puts one ``generate`` span (phase "round") over the
+whole loop, synchronized before it closes, as over JAX's fused loop;
+modular runs each round as a ``rounds.TracedRound`` (draft/verify/commit
+spans tagged ``round=k``). ``autoregressive_generate`` is the
 non-speculative baseline. Greedy only; sampling, the cached (ring-cache)
-engine, placement and the tracer wait for later slices.
+engine and placement wait for later slices.
 """
 from __future__ import annotations
 
@@ -23,8 +27,10 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import device as devices
 from repro_torch.core import rounds
 from repro_torch.core.rounds import (RoundState, _slice_logits, _write_col)
+from repro_torch.obs.trace import NULL_TRACER
 
 STRATEGIES = ("monolithic", "modular")
 
@@ -54,7 +60,8 @@ class SpecEngine:
     """Drives a (target, drafter) pair with greedy speculative decoding on
     the device of the parameters."""
 
-    def __init__(self, target_model, drafter_model, ecfg: EngineConfig):
+    def __init__(self, target_model, drafter_model, ecfg: EngineConfig,
+                 tracer=None):
         if ecfg.use_cache:
             raise _no_ring_cache()
         if ecfg.strategy not in STRATEGIES:
@@ -66,6 +73,8 @@ class SpecEngine:
         self._spec = rounds.RoundSpec(
             gamma=ecfg.gamma, commit="batch_min", use_cache=False,
             policy=rounds.make_policy(ecfg.draft_policy, ecfg.draft_k))
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._traced_round = None
 
     def round_nocache(self, params_t, params_d, state: RoundState) -> RoundState:
         return rounds.spec_round(self.target, self.drafter, params_t,
@@ -93,8 +102,24 @@ class SpecEngine:
         max_len = P + max_new_tokens + self.ecfg.gamma + 2
         state = self.prefill(params_t, params_d, prompt, max_len)
         target_len = P + max_new_tokens
-        while int(state.length) < target_len:
-            state = self.round_nocache(params_t, params_d, state)
+        if self.tracer.enabled and self.ecfg.strategy == "modular":
+            # phase-split traced rounds (draft/verify/commit spans)
+            if self._traced_round is None:
+                self._traced_round = rounds.TracedRound(
+                    self.target, self.drafter, self._spec, self.tracer)
+            k = 0
+            while int(state.length) < target_len:
+                state = self._traced_round(params_t, params_d, state, round=k)
+                k += 1
+        else:
+            # monolithic: one span over the whole loop, as over JAX's fused
+            # while_loop (the shared null span when tracing is off)
+            with self.tracer.span("generate", phase="round", role="target",
+                                  strategy="monolithic"):
+                while int(state.length) < target_len:
+                    state = self.round_nocache(params_t, params_d, state)
+                if self.tracer.enabled:
+                    devices.synchronize(state.tokens.device)
         n_rounds, n_acc, n_drafted, length = (
             int(x) for x in torch.stack([state.n_rounds, state.n_accepted,
                                          state.n_drafted, state.length]).cpu())

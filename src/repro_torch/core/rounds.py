@@ -35,10 +35,12 @@ from the kernel, is left out.
 A cached round stays on the device too: the round-level live bound
 (``_live0``) is a 0-dim device tensor handed to the attention kernel (a
 paged tree round reads the lengths before its forks and the winners and
-new lengths after its commit, as in JAX). Sampled acceptance and sampled
-drafting, stateful drafters, ring-cache rounds (and with them cached
-``batch_min`` commits), and the placed and traced round runners wait for
-later slices.
+new lengths after its commit, as in JAX). ``TracedRound`` runs the same three
+phases with a span around each and the device synchronized inside it, so
+a traced run commits exactly what ``spec_round`` commits. Sampled
+acceptance and sampled drafting, stateful drafters, ring-cache rounds (and
+with them cached ``batch_min`` commits), and the placed round runner wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -48,10 +50,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import device as devices
 from repro_torch.cache import ops as cache_ops
 from repro_torch.cache import paged_kv
 from repro_torch.core import acceptance
 from repro_torch.core.tree import chain_tree
+from repro_torch.obs.trace import NULL_TRACER
 
 
 COMMIT_MODES = ("batch_min", "per_row")
@@ -479,6 +483,70 @@ def spec_round(target, drafter, params_t, params_d, state: RoundState,
     d = draft_phase(drafter, params_d, state, spec)
     v = verify_phase(target, params_t, state, d, spec)
     return commit_phase(target, state, d, v, spec)
+
+
+def phase_fns(target, drafter, spec: RoundSpec):
+    """(draft, verify, commit) callables over the SAME phase code
+    ``spec_round`` composes."""
+    def draft(params_d, state):
+        return draft_phase(drafter, params_d, state, spec)
+
+    def verify(params_t, state, d):
+        return verify_phase(target, params_t, state, d, spec)
+
+    def commit(state, d, v):
+        return commit_phase(target, state, d, v, spec)
+
+    return draft, verify, commit
+
+
+class TracedRound:
+    """ONE speculative round, phase-split for observability: the three
+    ``phase_fns`` run in turn, each inside its span with the device
+    synchronized before the span closes, so a span's wall time is that
+    phase's time on the card (host dispatch included), never its enqueue
+    time. The tax against ``spec_round``: a host sync per phase, which
+    forfeits overlap of one phase's launches with the previous phase's
+    kernels; so engines build a TracedRound only for an ENABLED tracer.
+
+    Token identity with ``spec_round``: it IS the composition of these
+    phases, called in the same order on the same state (the pools update in
+    place exactly as they do there), so tracing changes when the host
+    waits, never what the round commits.
+
+    ``last_phase_times`` holds the most recent round's per-phase seconds;
+    servers turn it into RoundEvents and drift-monitor observations.
+    """
+
+    def __init__(self, target, drafter, spec: RoundSpec, tracer, **tags):
+        self.spec = spec
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tags = tags
+        self._draft, self._verify, self._commit = phase_fns(target, drafter,
+                                                            spec)
+        self.last_phase_times: dict = {}
+
+    def __call__(self, params_t, params_d, state: RoundState,
+                 **tags) -> RoundState:
+        tr = self.tracer
+        dev = state.tokens.device
+        t = {**self.tags, **tags}      # caller tags may override role etc.
+        with tr.span("draft",
+                     **{"phase": "draft", "role": "drafter", **t}) as s_d:
+            d = self._draft(params_d, state)
+            devices.synchronize(dev)
+        with tr.span("verify",
+                     **{"phase": "verify", "role": "target", **t}) as s_v:
+            v = self._verify(params_t, state, d)
+            devices.synchronize(dev)
+        with tr.span("commit",
+                     **{"phase": "commit", "role": "target", **t}) as s_c:
+            new = self._commit(state, d, v)
+            devices.synchronize(dev)
+        self.last_phase_times = {"draft": s_d.duration,
+                                 "verify": s_v.duration,
+                                 "commit": s_c.duration}
+        return new
 
 
 def ar_round(target, params_t, state: RoundState) -> RoundState:

@@ -36,3 +36,11 @@ def sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def synchronize(device: torch.device):
+    """Wait for the work queued on ``device``: the traced spans' counterpart
+    of ``jax.block_until_ready``. Eager CPU ops have finished when they
+    return, so on the CPU there is nothing to wait for."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -124,6 +124,48 @@ def report_prefill(server):
     print(line)
 
 
+def add_trace_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable round-phase tracing (repro_torch.obs) and "
+                         "write a Chrome-trace/Perfetto JSON of the run's "
+                         "draft/verify/commit spans to PATH. Tracing "
+                         "synchronizes the device after each phase, so "
+                         "expect lower throughput than the untraced round.")
+    return ap
+
+
+def make_tracer(args):
+    """Tracer from ``--trace-out``: enabled iff a path was given (disabled
+    tracing is free)."""
+    from repro_torch.obs import Tracer
+    return Tracer(enabled=args.trace_out is not None)
+
+
+def report_telemetry(tracer, server, args):
+    """Post-run telemetry: export the Chrome trace, print the per-phase
+    breakdown and, for a paged ``server``, any cost-model drift alerts and
+    the measured c. No-op when tracing is off. (The JAX CLI reads the
+    tracer and drift monitor from its ``Session``; the port has none yet,
+    so it takes them from the tracer and the server; ``server`` is None
+    for the no-cache engine, which has no drift monitor.)"""
+    if args.trace_out and tracer.enabled:
+        tracer.export(args.trace_out)
+        totals = tracer.phase_totals()
+        breakdown = ", ".join(f"{k}={v * 1e3:.0f}ms"
+                              for k, v in sorted(totals.items()))
+        print(f"trace: {tracer.count()} spans -> {args.trace_out} "
+              f"({breakdown})")
+    drift = getattr(server, "drift", None)
+    if drift is not None and drift.calibrated:
+        for msg in drift.alerts():
+            print(f"drift: {msg}")
+        ev = drift.evidence()
+        if ev:
+            print(f"drift: measured c={ev['c']:.3f} "
+                  f"(t_draft={ev['t_draft'] * 1e3:.2f}ms/token, "
+                  f"t_target={ev['t_target'] * 1e3:.2f}ms)")
+
+
 def build_pair(arch: str, smoke: bool, device=None
                ) -> Tuple[object, object, dict, dict, object]:
     """(target, drafter, params_t, params_d, cfg_t) for a registry arch,

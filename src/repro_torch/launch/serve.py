@@ -16,7 +16,10 @@ planner's prior c = 0.25); gamma* = 0 serves AR, as the planner's plan
 does, and ``--gamma`` forces the draft length. Its ``alpha_hat`` is the
 run's accepted / drafted (the JAX CLI prints its gamma controller's
 moving average, which comes with the facade). ``--use-cache`` raises until
-the ring KV cache is ported.
+the ring KV cache is ported. ``--trace-out PATH`` traces the speculative
+serve (one ``generate`` span per wave under ``--strategy monolithic``,
+draft/verify/commit spans per round under ``modular``) and writes the
+Chrome trace to PATH.
 """
 from __future__ import annotations
 
@@ -42,15 +45,16 @@ def choose_gamma(alpha: float, cost_coefficient=None) -> int:
 
 
 def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
-          batch, strategy="monolithic"):
+          batch, strategy="monolithic", tracer=None):
     """Serve the [R, P] ``prompts`` wave by wave, ``batch`` requests per
-    wave: no-cache ``SpecEngine`` rounds for gamma >= 1, no-cache
-    ``autoregressive_generate`` for gamma 0. Returns (tokens
-    [R, P + max_new] numpy, stats)."""
+    wave: no-cache ``SpecEngine`` rounds for gamma >= 1 (traced by
+    ``tracer``), no-cache ``autoregressive_generate`` for gamma 0. Returns
+    (tokens [R, P + max_new] numpy, stats)."""
     prompts = np.asarray(prompts, np.int32)
     R, P = prompts.shape
     eng = (SpecEngine(target, drafter, EngineConfig(gamma=gamma,
-                                                    strategy=strategy))
+                                                    strategy=strategy),
+                      tracer=tracer)
            if gamma else None)
     out = np.zeros((R, P + max_new), np.int32)
     totals = {"rounds": 0, "accepted": 0, "drafted": 0}
@@ -88,6 +92,7 @@ def main(argv=None):
                     help="cached engine (not ported yet: raises)")
     ap.add_argument("--strategy", default="monolithic", choices=STRATEGIES)
     ap.add_argument("--batch", type=int, default=8)
+    cli_args.add_trace_args(ap)
     args = ap.parse_args(argv)
     if args.use_cache:
         raise NotImplementedError(
@@ -109,8 +114,9 @@ def main(argv=None):
              else choose_gamma(args.alpha, args.cost_coefficient))
     prompts = np.stack([rng.integers(0, cfg_t.vocab_size, P)
                         for _ in range(R)])
+    tracer = cli_args.make_tracer(args)
     toks, s = serve(mt, md, pt, pd, prompts, new, gamma=gamma,
-                    batch=args.batch, strategy=args.strategy)
+                    batch=args.batch, strategy=args.strategy, tracer=tracer)
     alpha = s["alpha_hat"]
     print(f"speculative served {R} requests, {s['generated']} tokens in "
           f"{s['seconds']:.2f}s ({s['tokens_per_s']:.1f} tok/s aggregate, "
@@ -118,6 +124,7 @@ def main(argv=None):
           f"alpha_hat={float('nan') if alpha is None else alpha:.2f}, "
           f"gamma={gamma}, strategy={args.strategy}, cache=False, "
           f"backend=engine)")
+    cli_args.report_telemetry(tracer, None, args)
     return toks, s
 
 

@@ -17,8 +17,11 @@ chunked prefill) and overcommitted admission (``--overcommit F`` > 1:
 admit on expected demand and preempt when the pool runs dry; on the
 bucketed path the buckets grow to cover a resumed prefix). The scheduler's
 online cost-model gamma/AR decision runs unless ``--gamma`` pins gamma.
-After the run it prints the prefill counters and, when any occurred, the
-preemptions.
+``--trace-out PATH`` traces the run (draft/verify/commit/prefill/serve
+spans) and writes the Chrome trace to PATH; the drift monitor's measured c
+then drives the gamma decision. After the run it prints the prefill
+counters, when any occurred the preemptions, and with ``--trace-out`` the
+phase breakdown, drift alerts and the measured c.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ def main(argv=None):
     ap.add_argument("--max-blocks-per-row", type=int, default=16)
     cli_args.add_prefill_args(ap)
     cli_args.add_robustness_args(ap)
+    cli_args.add_trace_args(ap)
     args = ap.parse_args(argv)
 
     mt, md, pt, pd, cfg_t = cli_args.build_pair(args.arch, args.smoke,
@@ -65,8 +69,9 @@ def main(argv=None):
     scfg = cli_args.apply_prefill_args(scfg, args)
     scfg = cli_args.apply_overcommit_arg(scfg, args.overcommit,
                                          max(r.max_new for r in reqs))
+    tracer = cli_args.make_tracer(args)
     srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=args.gamma,
-                          device=args.device)
+                          tracer=tracer, device=args.device)
     for r in reqs:
         srv.submit(r)
 
@@ -86,6 +91,7 @@ def main(argv=None):
           f"{s['accept_hist'][:(srv.gamma or 0) + 1].tolist()}")
     cli_args.report_prefill(srv)
     cli_args.report_robustness(srv)
+    cli_args.report_telemetry(tracer, srv, args)
     return srv
 
 

@@ -30,13 +30,25 @@ re-admission prefills again (greedy decode then continues byte-identically).
 ``cancel(rid)`` tears a request down at the start of the next step.
 
 A round pulls ``length`` and ``active`` to the host once; nothing else in
-it syncs. A failing speculative round raises: the JAX server degrades such
-a round to AR, which here would hide a kernel that fails. Placement,
-tracing, round events, the drift monitor, fault injection and the watchdog
-wait for later slices. Two more differences from the JAX server: the last
-chunk of a prefill runs at its true length, not padded to the chunk (no
-padding is ever written, so none can wrap onto the row's last block), and
-the drafter's prefill unembeds only its last position.
+it syncs unless tracing is on. Every round records one ``RoundEvent``
+(``events``), charges its KV block reads (``kv_traffic``) and, when
+speculative, feeds the cost-model ``DriftMonitor`` (``drift``), traced or
+not. An ENABLED ``tracer`` (repro_torch.obs) runs speculative rounds as
+``rounds.TracedRound`` (draft/verify/commit spans, the device synchronized
+inside each) and puts spans around the serve, each prefill and each AR
+round; the per-phase times then reach the events and the drift monitor,
+whose measured c (t_draft per token / t_target) drives the gamma decision
+unless ``cost_coefficient`` pins it. A disabled tracer (the default) adds
+no sync and no launch.
+
+A failing speculative round raises: the JAX server degrades such a round
+to AR, which here would hide a kernel that fails. Placement, fault
+injection and the watchdog wait for later slices (so an event's
+``degraded`` is False and its ``fault_delay`` 0.0). Two more differences
+from the JAX server: the last chunk of a prefill runs at its true length,
+not padded to the chunk (no padding is ever written, so none can wrap onto
+the row's last block), and the drafter's prefill unembeds only its last
+position.
 
 Invariant (tested): every completed request's tokens equal that prompt's
 standalone greedy AR continuation, regardless of its neighbours' lengths,
@@ -58,6 +70,9 @@ from repro_torch.core import rounds
 from repro_torch.core.batched_engine import (KV_FAMILIES, BatchedEngineConfig,
                                              BatchedSpecEngine, RowState)
 from repro_torch.obs import clock
+from repro_torch.obs.drift import DriftMonitor
+from repro_torch.obs.events import RoundEvent, RoundEventLog
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig, ServeRequest
 
@@ -90,18 +105,23 @@ class PagedSpecServer:
                  gamma: Optional[int] = None,
                  alpha: Optional[float] = None,
                  cost_coefficient: Optional[float] = None,
-                 now=clock.wall, device=None):
+                 tracer=None, now=clock.wall, device=None):
         """``gamma``/``alpha``/``cost_coefficient`` override the scheduler's
-        cost-model decision (None = decide online from telemetry). The
-        server's state lives on ``device`` (``cuda`` unless the caller asks
-        for the CPU); the params must already be there."""
+        cost-model decision (None = decide online from telemetry; c then
+        comes from the drift monitor once it has evidence). ``tracer``: see
+        the module docstring. The server's state lives on ``device``
+        (``cuda`` unless the caller asks for the CPU); the params must
+        already be there."""
         if target.family not in KV_FAMILIES or drafter.family not in KV_FAMILIES:
             raise ValueError("paged speculative serving needs KV-cache families")
         self.device = devices.resolve(device)
         self.target, self.drafter = target, drafter
         self.params_t, self.params_d = params_t, params_d
         self.scfg = scfg or SchedulerConfig()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = ServingMetrics(gamma_max=self.scfg.gamma_max, now=now)
+        self.events = RoundEventLog(alpha_ema=self.metrics.alpha_ema)
+        self.drift: Optional[DriftMonitor] = None  # built at first spec round
         self.alloc = BlockAllocator(self.scfg.num_blocks, self.scfg.block_size,
                                     self.scfg.max_blocks_per_row,
                                     self.scfg.max_batch)
@@ -124,6 +144,11 @@ class PagedSpecServer:
         self._prefill_chunks = np.zeros(self.B, np.int64)
         self._masked: set = set()
         self._table_masked: frozenset = frozenset()  # masked set last pushed
+        # this step's chunk-program work, for its RoundEvent and the drift
+        # monitor
+        self._round_prefill_tokens = 0
+        self._round_prefill_chunks = 0
+        self._round_prefill_t = 0.0
         self._aborted_pending: List[int] = []  # mid-prefill evictions
         self._pending_cancels: Deque[int] = deque()  # processed at next step
         self._state: Optional[RowState] = None
@@ -138,6 +163,14 @@ class PagedSpecServer:
         self.total_rounds = 0
         self.n_prefills = 0         # bucketed prefills run (one forward each)
         self.n_prefill_chunks = 0   # chunk programs run (one forward each)
+        # paged-attention read accounting (kv_traffic()): per-round KV
+        # gathers, live-bounded vs worst-case row capacity, for the target
+        # (verify / AR read) and the drafter (gamma draft reads per
+        # speculative round; none under AR)
+        self.kv_blocks_read_t = 0
+        self.kv_blocks_read_d = 0
+        self.kv_blocks_capacity_t = 0
+        self.kv_blocks_capacity_d = 0
 
     # ------------------------------------------------------------- plumbing
     def submit(self, req: ServeRequest):
@@ -146,7 +179,8 @@ class PagedSpecServer:
     def _engine(self, gamma: int) -> BatchedSpecEngine:
         if gamma not in self._engines:
             self._engines[gamma] = BatchedSpecEngine(
-                self.target, self.drafter, BatchedEngineConfig(gamma=gamma))
+                self.target, self.drafter, BatchedEngineConfig(gamma=gamma),
+                tracer=self.tracer)
         return self._engines[gamma]
 
     def _empty_state(self) -> RowState:
@@ -192,16 +226,16 @@ class PagedSpecServer:
                 {**state.dcache, "block_table": table, "index": index})
 
     def _forward_prefill(self, state: RowState, b: int, toks: np.ndarray,
-                         start: int) -> bool:
+                         start: int) -> torch.Tensor:
         """Write the KV of ``toks`` (positions start..) into both pools for
-        row ``b``; True if the target's logits are all finite. The
-        drafter's prefill logits are never read: it unembeds only the last
-        position."""
+        row ``b``; returns the 0-dim device flag "the target's logits are
+        all finite" (the caller pulls it). The drafter's prefill logits are
+        never read: it unembeds only the last position."""
         tview, dview = self._row_views(state, b, start)
         x = torch.from_numpy(np.ascontiguousarray(toks[None])).to(self.device)
         logits, _, _ = self.target.apply(self.params_t, x, tview)
         self.drafter.apply(self.params_d, x, dview, logits_slice="last")
-        return bool(torch.isfinite(logits).all())
+        return torch.isfinite(logits).all()
 
     # -------------------------------------------------------------- prefill
     def _prefill_into(self, state: RowState, row: int, req: ServeRequest):
@@ -218,7 +252,12 @@ class PagedSpecServer:
         prompt = np.asarray(req.effective_prompt, np.int32)
         padded = self.sched.pad_to_bucket(prompt)
         P = req.resume_len
-        ok = self._forward_prefill(state, row, padded[:-1], 0)
+        with self.tracer.span("prefill", phase="prefill", role="target",
+                              rid=req.rid, prompt_len=P):
+            ok = self._forward_prefill(state, row, padded[:-1], 0)
+            if self.tracer.enabled:
+                devices.synchronize(self.device)
+        ok = bool(ok)
         self.n_prefills += 1
         tokens = state.tokens.clone()
         tokens[row] = 0
@@ -276,10 +315,17 @@ class PagedSpecServer:
         e = min(s + self._chunk, req.resume_len - 1)
         if not self.sched.grow(b, e):
             return None
-        ok = self._forward_prefill(state, b, prompt[s:e], s)
+        t0 = self.tracer.clock()
+        with self.tracer.span("prefill_chunk", phase="prefill", role="target",
+                              rid=req.rid, start=s, end=e):
+            ok = self._forward_prefill(state, b, prompt[s:e], s)
+        ok = bool(ok)
         self.n_prefill_chunks += 1
         self._prefill_pos[b] = e
         self._prefill_chunks[b] += 1
+        self._round_prefill_tokens += e - s
+        self._round_prefill_chunks += 1
+        self._round_prefill_t += self.tracer.clock() - t0
         return ok
 
     def _complete_prefill(self, state: RowState, b: int,
@@ -475,6 +521,112 @@ class PagedSpecServer:
                     break               # the growing row evicted itself
         return state, preempted
 
+    # ----------------------------------------------------------- telemetry
+    def _account_round(self, prev_len: np.ndarray):
+        """Per-round paged-attention read bound: with live = batch-max
+        committed length of the occupied rows, a speculative round reads
+        ceil((live+i)/BS) blocks per row for draft step i plus
+        ceil((live+gamma)/BS) for the verify; an AR round reads
+        ceil(live/BS) on the target only — against max_blocks_per_row per
+        gather at worst. Feeds kv_traffic().
+
+        Returns ``(blocks_read, blocks_written)`` for this round (the write
+        side is a span estimate: distinct blocks covering the gamma + 1
+        unverified target writes plus gamma drafter writes per occupied
+        row), the RoundEvent's traffic fields."""
+        occupied = np.array([s is not None for s in self._slots])
+        n_occ = int(occupied.sum())
+        live = int(prev_len[occupied].max()) if occupied.any() else 1
+        bs, mb = self.scfg.block_size, self.scfg.max_blocks_per_row
+
+        def blocks(tokens):
+            return min(-(-tokens // bs), mb)
+
+        def write_span(n_new):
+            # distinct blocks covering token positions [live, live + n_new)
+            return 0 if n_new <= 0 else (live + n_new - 1) // bs - live // bs + 1
+
+        if self.gamma > 0:
+            t_blocks, d_gathers = blocks(live + self.gamma), self.gamma
+            d_blocks = sum(blocks(live + i) for i in range(self.gamma))
+            written = (write_span(self.gamma + 1)
+                       + write_span(self.gamma)) * n_occ
+        else:
+            t_blocks, d_gathers, d_blocks = blocks(live), 0, 0
+            written = write_span(1) * n_occ
+        self.kv_blocks_read_t += t_blocks * self.B
+        self.kv_blocks_read_d += d_blocks * self.B
+        self.kv_blocks_capacity_t += mb * self.B
+        self.kv_blocks_capacity_d += d_gathers * mb * self.B
+        return (t_blocks + d_blocks) * self.B, written
+
+    def kv_traffic(self) -> Dict[str, float]:
+        """KV bytes gathered by the rounds' attention reads, live-block
+        bounded (actual) vs worst-case row capacity. Target and drafter
+        gathers are charged against their own pools' block sizes."""
+        def per_block(cache):
+            total = 0
+            for leaf in cache.values():
+                if leaf.ndim == 5:          # [L, NB, BS, Kv, D] pools
+                    L, _, BS, Kv, D = leaf.shape
+                    total += L * BS * Kv * D * leaf.element_size()
+            return total
+
+        pt = per_block(self._state.tcache) if self._state is not None else 0
+        pd = per_block(self._state.dcache) if self._state is not None else 0
+        return {"read_blocks": self.kv_blocks_read_t + self.kv_blocks_read_d,
+                "capacity_blocks": (self.kv_blocks_capacity_t
+                                    + self.kv_blocks_capacity_d),
+                "read_bytes": (self.kv_blocks_read_t * pt
+                               + self.kv_blocks_read_d * pd),
+                "capacity_bytes": (self.kv_blocks_capacity_t * pt
+                                   + self.kv_blocks_capacity_d * pd)}
+
+    def _measured_c(self) -> Optional[float]:
+        """Drift-measured cost coefficient, once the monitor has evidence:
+        the next gamma decision uses the MEASURED t_draft/t_target instead
+        of the configured prior."""
+        if self._c_override is not None or self.drift is None:
+            return None
+        ev = self.drift.evidence()
+        return ev["c"] if ev else None
+
+    def _record_event(self, prev_len, lengths, active, rids, t_round,
+                      phase_t, blocks_read, blocks_written, queue_depth,
+                      n_preempted, n_expired, n_failed):
+        """One RoundEvent per round (always, traced or not) + a drift
+        observation per speculative round (phase times when traced)."""
+        emitted = lengths - prev_len
+        accepted = tuple(int(max(e - 1, 0))
+                         for e, a in zip(emitted, active) if a)
+        live_rids = tuple(r for r, a in zip(rids, active)
+                          if a and r is not None)
+        t_prefill = (self._round_prefill_t if self._round_prefill_chunks
+                     else None)
+        self.events.record(RoundEvent(
+            round=self.total_rounds - 1, gamma=self.gamma,
+            n_active=int(np.sum(active)), accepted=accepted,
+            emitted=int(emitted[active].sum()) if active.any() else 0,
+            t_round=t_round,
+            t_draft=phase_t.get("draft"), t_verify=phase_t.get("verify"),
+            t_commit=phase_t.get("commit"),
+            blocks_read=blocks_read, blocks_written=blocks_written,
+            rids=live_rids, t_wall=clock.wall(), queue_depth=queue_depth,
+            n_preempted=n_preempted, n_expired=n_expired, n_failed=n_failed,
+            prefill_tokens=self._round_prefill_tokens,
+            prefill_chunks=self._round_prefill_chunks, t_prefill=t_prefill,
+            prefix_hit_rate=self.metrics.prefix_hit_rate()))
+        if self.gamma > 0:
+            if self.drift is None:
+                c = (self._c_override if self._c_override is not None
+                     else self.scfg.cost_coefficient)
+                self.drift = DriftMonitor(self.gamma, c)
+            self.drift.observe(t_round=t_round,
+                               t_draft=phase_t.get("draft"),
+                               t_verify=phase_t.get("verify"),
+                               t_commit=phase_t.get("commit"),
+                               t_prefill=t_prefill, gamma=self.gamma)
+
     # --------------------------------------------------------- cancellation
     def cancel(self, rid: int):
         """Ask for ``rid`` (queued or in flight) to be cancelled. The
@@ -514,9 +666,10 @@ class PagedSpecServer:
     def run(self):
         """Drain the queue; returns completed requests (rows finish by their
         own lengths, so not in submission order)."""
-        while self.step() is not None:
-            pass
-        return self.done
+        with self.tracer.span("serve", phase="serve"):
+            while self.step() is not None:
+                pass
+            return self.done
 
     def _drain_failed(self) -> List[int]:
         out, self._failed_pending = self._failed_pending, []
@@ -546,6 +699,9 @@ class PagedSpecServer:
             self._state = self._empty_state()
             self._lengths = self._state.length.cpu().numpy().astype(np.int64)
         cancelled = self._process_cancels()
+        self._round_prefill_tokens = 0
+        self._round_prefill_chunks = 0
+        self._round_prefill_t = 0.0
         self._state = self._refill(self._state, self._lengths)
         # one chunk program per step, BEFORE the round, so a row whose
         # suffix completes decodes this step
@@ -573,8 +729,8 @@ class PagedSpecServer:
         if self._gamma_override is not None:
             self.gamma = self._gamma_override
         elif not self._batch_formed or self.gamma > 0:
-            self.gamma, _ = self.sched.choose_gamma(self._alpha_override,
-                                                    self._c_override)
+            self.gamma, _ = self.sched.choose_gamma(
+                self._alpha_override, self._c_override or self._measured_c())
         self._batch_formed = True
 
         # overcommit: grow every live row to this round's demand, evicting
@@ -590,16 +746,31 @@ class PagedSpecServer:
 
         queue_depth = len(self.sched.queue)
         prev_len = self._lengths
+        phase_t: dict = {}
+        t0 = self.tracer.clock()
         if self.gamma > 0:
-            self._state = self._engine(self.gamma).round(
-                self.params_t, self.params_d, self._state)
+            eng = self._engine(self.gamma)
+            if eng.traced_round is not None:
+                self._state = eng.traced_round(
+                    self.params_t, self.params_d, self._state,
+                    round=self.total_rounds, gamma=self.gamma)
+                phase_t = eng.traced_round.last_phase_times
+            else:
+                self._state = eng.round(self.params_t, self.params_d,
+                                        self._state)
         else:
-            self._state = self._ar_round(self._state)
+            with self.tracer.span("ar_round", phase="verify",
+                                  role="target", round=self.total_rounds):
+                self._state = self._ar_round(self._state)
+                if self.tracer.enabled:
+                    devices.synchronize(self.device)
+        blocks_read, blocks_written = self._account_round(prev_len)
         self.total_rounds += 1
         # ONE host sync per round: lengths + active in a single pull
         snap = torch.stack([self._state.length,
                             self._state.active.to(torch.int32)]).cpu().numpy()
         lengths, active = snap[0].astype(np.int64), snap[1].astype(bool)
+        t_round = self.tracer.clock() - t0      # dispatch -> sync
         self._lengths = lengths
         emitted = lengths - prev_len
         rids = [r.rid if r is not None else None for r in self._slots]
@@ -609,13 +780,21 @@ class PagedSpecServer:
             if (req is not None and b not in self._masked
                     and self._committed(b) > req.prompt_len):
                 self.metrics.first_token(req.rid)
+        # _harvest's refill writes newly admitted rows into ``lengths``;
+        # the event must see THIS round's commit
+        ev_lengths = lengths.copy()
         done_before = len(self.done)
         self._state = self._harvest(self._state, lengths)
         expired += self.sched.drain_expired()
+        failed = self._drain_failed()
+        self._record_event(prev_len, ev_lengths, active, rids, t_round,
+                           phase_t, blocks_read, blocks_written, queue_depth,
+                           n_preempted=len(preempted), n_expired=len(expired),
+                           n_failed=len(failed))
         return {"finished": [r.rid for r in self.done[done_before:]],
                 "cancelled": cancelled,
                 "expired": expired,
-                "failed": self._drain_failed(),
+                "failed": failed,
                 "preempted": preempted,
                 "round": self.total_rounds - 1,
                 "queue_depth": queue_depth,
