@@ -28,7 +28,12 @@
    of 16 (4096 keys), the 3B and 1B geometries, with the same fields (the
    library: SDPA with the causal mask over the gathered keys); at starts
    448 and 1984 the chunk's rows must be bit-equal to the same rows of
-   one whole call from 0 over a table just wide enough.
+   one whole call from 0 over a table just wide enough. Then paged
+   attention as the cached dense forward launches it over a ring's
+   identity view (``"case": "ring_view"``): bf16, B=2, a 144-slot ring,
+   Q=1 and Q=5 at position 70 and Q=63 from 0, the 3B and 1B geometries,
+   held against its plain version and against the concat read over
+   ``slot_positions`` that JAX's ring computes.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -100,7 +105,18 @@
    tokens must equal no-cache AR's on the card; then the same spec serve
    runs once more under ``torch.profiler`` (its ``"phase":
    "profile_nocache"`` line, as in step 4); every kernel's count is read,
-   so the SSD and int8 kernels must stay at 0 there.
+   so the SSD and int8 kernels must stay at 0 there. Then the cached
+   engines on the same pair (``"phase": "full_width_cached"``): (a) the
+   same traffic through ``launch.serve.serve(use_cache=True)`` on the ring
+   KV cache: paged launches rounds x (4 * 16 + 28) + waves x (28 + 16), an
+   argmax a round, the tokens compared with cached AR's and with the
+   no-cache serve's (a difference must sit at a near-tie: a top-2 margin
+   within one bf16 step), profiled (``"profile_cached"``) and set beside
+   the no-cache profile (``"phase": "cached_vs_nocache"``); (b)
+   ``BatchedSpecEngine.generate`` at B=4 (``"full_width_batched_ring"``:
+   every row == its cached AR, exact launches); (c) ring tree rounds W=2,
+   depth 4 (``"full_width_ring_tree"``: tree 28 a round, the drafter's
+   paged 16 * 4 a round + 16, the target's 28, tokens == AR).
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
    heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
@@ -110,7 +126,12 @@
    each with the plan's head groups and block counts; then, at the target
    and drafter shapes, SSD rows 0..127 at l = 134 must be bit-equal to the
    call at l = 128 and rows 0..1023 at l = 1100 to l = 1024
-   (``"case": "ssd_l_invariance"``); the int8
+   (``"case": "ssd_l_invariance"``); the SSD scan as the cached Mamba-2
+   prefill calls it (``"case": "ssd_state"``): 63 rows from a nonzero
+   initial state with the final state returned, at the target and drafter
+   shapes, and the carry kernel's other variants (the final state alone,
+   three chunks with either option or both, p and n not multiples of 4),
+   y and the final state against ``ssd_chunked`` from the same state; the int8
    matmul at the eight projections of the w8a8 Llama-3.2-3B/1B pair at
    M = 2 x 134 = 268 (bf16 out), M = 1 and 256, JAX's ragged shapes and
    fp32 out (bit-equal expected; library: ``torch._int_mm`` + rescale),
@@ -130,14 +151,19 @@
    ``mamba2-780m`` target with its registered drafter (``"full_width_ssm"``:
    one SSD launch per layer pass); tokens == AR's, exact counts of all six
    kernels, each followed by a profiled serve (``"profile_w8a8"``,
-   ``"profile_ssm"``); last, a reading (it fails nothing): the Mamba-2
+   ``"profile_ssm"``); then a reading (it fails nothing): the Mamba-2
    target's no-cache logits on a T=128 buffer against a T=134 buffer
    sharing its first 128 tokens (``"phase": "buffer_invariance"``: bit-equal
-   or not, else their max |d| and smallest top-1 margin).
+   or not, else their max |d| and smallest top-1 margin); last, (d) the
+   cached Mamba-2 engine on the same traffic (``"full_width_ssm_cached"``,
+   the stateful drafter): SSD launches waves x (48 + 12), from the
+   prefills only, an argmax a round, the tokens compared with cached AR's
+   and the no-cache serve's as in (a), profiled (``"profile_ssm_cached"``).
 11. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
-   [...]}`` line (six kernels; paged attention and the argmax with their
-   launches on the chunked main path of step 5), the card line again and,
-   last, ``{"ok": true, "device": {...}}``.
+   [...]}`` line (six kernels; each kernel's launches are its main path's
+   — the chunked serve of step 5 for paged attention and the argmax, the
+   tree phase, the no-cache serves — plus the cached paths' of steps 7 and
+   10), the card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -173,6 +199,9 @@ CHUNK = 64                     # prefill chunk of the chunked serving path
 CHUNK_STARTS = (0, 448, 1984, 3968)    # first key of the paged chunk cases
 CHUNK_EQUAL = (448, 1984)      # ... checked bit-equal to a whole call
 SYSTEM_LEN = 512               # shared system prompt of the chunked trace
+RING_W = 144                   # ring_view cases: a cached wave's ring, 64 + 64
+                               # + gamma + 2, rounded up to the 16-key page
+RING_CASES = ((1, 70), (GAMMA + 1, 70), (63, 0))   # (Q, first position)
 
 
 def card_line() -> str:
@@ -431,6 +460,78 @@ def paged_chunk_case(timer, name, H, Kv, D, start):
     return case
 
 
+def ring_view_case(timer, name, H, Kv, D, Q, start):
+    """Paged attention over a ring's identity view, as the cached dense
+    forward launches it: bf16, B=2, a ring of RING_W slots holding random
+    stale keys everywhere, Q new K/V written at start..start+Q-1 with a
+    0-dim index (``SpecEngine``'s batch_min rounds), then read through the
+    view [B * RING_W / 16, 16, Kv, D] with table[b, j] = b * RING_W / 16 +
+    j and no max_live. Held against its plain version on the same view
+    and against the concat attention over ``slot_positions`` that JAX's
+    ring read computes (``kv_cache.extend`` + ``models.attention.
+    attention``, on copies of the ring taken before the write). Library:
+    SDPA over the ring's first start+Q keys with the causal mask."""
+    from repro_torch.cache import kv_cache
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention, dense
+    dtype, B, W = torch.bfloat16, 2, RING_W
+    g = torch.Generator(device="cuda").manual_seed(H * 977 + Q * 31 + start)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    ring = {n: rnd(B, W, Kv, D) for n in "kv"}
+    k_new, v_new, q = rnd(B, Q, Kv, D), rnd(B, Q, Kv, D), rnd(B, Q, H, D)
+    idx = torch.tensor(start, dtype=torch.int32, device="cuda")
+    k_all, v_all, kv_pos, _ = kv_cache.extend(
+        {n: t.clone() for n, t in ring.items()}, k_new, v_new, idx)
+    q_pos = idx + torch.arange(Q, dtype=torch.int32, device="cuda")
+    concat = attention.attention(q, k_all, v_all, q_pos, kv_pos)
+    kv_cache.write(ring["k"], ring["v"], k_new, v_new, idx)
+    table = dense.ring_view_table(B, W, q.device)
+    args = (q, dense.ring_view(ring["k"]), dense.ring_view(ring["v"]), table, idx)
+
+    out = pa.paged_flash_attention(*args)
+    ref = pa.plain(*args)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype)
+    vs_concat = agreement(out, concat, dtype)
+
+    S = start + Q
+    kg = ring["k"][:, :S].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = ring["v"][:, :S].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    qg = q.permute(0, 2, 1, 3)
+    cols = torch.arange(S, device="cuda")
+    mask = (q_pos[:, None] >= cols[None, :])[None, None]       # [1,1,Q,S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timer(lambda: pa.paged_flash_attention(*args))
+    plain_ms = timer(lambda: pa.plain(*args), iters=5)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask))
+
+    # least work: each row's start+Q live keys and values read once per
+    # kv-head, q read and out written once, the table; 4 flops per (query
+    # head, visible key, d)
+    esz = q.element_size()
+    nbytes = 2 * q.numel() * esz + B * S * Kv * D * 2 * esz + table.numel() * 4 + 4
+    flops = 4 * H * D * B * sum(start + i + 1 for i in range(Q))
+    p = pa.plan(dtype, B, Q, H, Kv, D, 16, W // 16)
+    case = {"case": "ring_view", "geometry": name, "Q": Q, "B": B,
+            "start": start, "ring_len": W, "dtype": "bfloat16", **agree,
+            "vs_concat": vs_concat, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, flops, dtype),
+            "chunks": p.chunks, "row_tile": p.row_tile}
+    emit(case)
+    if not (agree["ok"] and vs_concat["ok"]):
+        raise SystemExit(f"ring-view attention disagrees: {case}")
+    return case
+
+
+def ring_view_cases(timer):
+    return [ring_view_case(timer, geom, H, Kv, D, Q, start)
+            for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128),
+                                   ("llama3.2-1b", 32, 8, 64))
+            for Q, start in RING_CASES]
+
+
 def paged_chunk_cases(timer):
     return [paged_chunk_case(timer, geom, H, Kv, D, start)
             for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128),
@@ -660,13 +761,14 @@ def ssd_inputs(b, l, h, p, n, *, impulse=False, per_head=False):
     return x, dA, Bm, Cm
 
 
-def ssd_flops(b, l, h, p, n, chunk, shared):
+def ssd_flops(b, l, h, p, n, chunk, shared, init=False, final=False):
     """The chunked algorithm's flops over the real rows: per chunk of nv
     rows, the causal scores (2n per visible pair; once per batch row when
     B and C are one group over the heads, else per head) and, per head,
     their product with X (2p per pair), the state read (2pn per row, after
-    the first chunk) and the state update (2pn per chunk row, where a chunk
-    follows)."""
+    the first chunk, or from the first with an ``init``ial state) and the
+    state update (2pn per chunk row, where a chunk follows, or for the last
+    chunk's nv rows too when the ``final`` state is returned)."""
     n_chunks = -(-l // chunk)
     scores = per_head = 0
     for c in range(n_chunks):
@@ -674,7 +776,9 @@ def ssd_flops(b, l, h, p, n, chunk, shared):
         pairs = nv * (nv + 1) // 2
         scores += pairs * 2 * n
         per_head += pairs * 2 * p
-        per_head += (c > 0) * nv * 2 * p * n + (c + 1 < n_chunks) * chunk * 2 * p * n
+        per_head += (c > 0 or init) * nv * 2 * p * n
+        per_head += (c + 1 < n_chunks) * chunk * 2 * p * n
+        per_head += (c + 1 == n_chunks and final) * nv * 2 * p * n
     return scores * b * (1 if shared else h) + per_head * b * h
 
 
@@ -720,6 +824,75 @@ def ssd_case(timer, name, b, l, h, p, n, chunk, *, impulse=False,
     if not ok:
         raise SystemExit(f"ssd_scan disagrees with its plain version: {case}")
     return case
+
+
+def ssd_state_case(timer, name, b, l, h, p, n, chunk, *, init=True,
+                   final=True, headline=False):
+    """The SSD kernel as the cached Mamba-2 prefill calls it: from a nonzero
+    initial state (``init``; fp32 [b, h, p, n], std 0.3) and returning the
+    final state (``final``). y and the final state against the plain
+    version (``ssd_chunked`` from the same state) at the fp32 tolerance."""
+    from repro_torch import device as devices
+    from repro_torch.kernels import ssd_scan as ss
+    args = ssd_inputs(b, l, h, p, n)
+    g = torch.Generator(device="cuda").manual_seed(b * l * h * p + n)
+    state = (torch.randn((b, h, p, n), generator=g, device="cuda") * 0.3
+             if init else None)
+    kw = dict(chunk=chunk, init_state=state, return_final_state=final)
+    out = ss.ssd_scan(*args, **kw)
+    ref = ss.plain(*args, **kw)
+    torch.cuda.synchronize()
+    y, y_ref = (out[0], ref[0]) if final else (out, ref)
+    agree = agreement(y, y_ref, torch.float32)
+    ok = agree["ok"] and bool(torch.isfinite(y).all())
+    case = {"case": "ssd_state", "shape": name, "b": b, "l": l, "h": h,
+            "p": p, "n": n, "chunk": chunk, "init_state": init,
+            "final_state": final, "dtype": "float32", **agree}
+    if final:
+        fin = agreement(out[1], ref[1], torch.float32)
+        case["final_state_agreement"] = fin
+        ok = ok and fin["ok"] and bool(torch.isfinite(out[1]).all())
+        case["max_abs_err"] = max(agree["max_abs_err"], fin["max_abs_err"])
+    ms = timer(lambda: ss.ssd_scan(*args, **kw))
+    plain_ms = timer(lambda: ss.plain(*args, **kw), iters=5)
+    x, dA, Bm, Cm = args
+
+    def distinct(t):
+        return int(np.prod([d for d, st in zip(t.shape, t.stride()) if st != 0]))
+    nbytes = 4 * (sum(distinct(t) for t in args) + y.numel()
+                  + (init + final) * b * h * p * n)
+    shared = ss.shares_scores(Bm, Cm)
+    flops = ssd_flops(b, l, h, p, n, chunk, shared, init, final)
+    pl = ss.plan(b, l, h, p, n, chunk, devices.sm_count(x.device), shared=shared,
+                 init=init, final=final)
+    case.update({"ok": ok, "heads_per_block": pl.heads, "y_blocks": pl.y_blocks,
+                 "state_blocks": pl.state_blocks, "carry_blocks": pl.carry_blocks,
+                 "mflop": flops / 1e6, "kernel_ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None,
+                 "library": "none: no single PyTorch call computes the chunked SSD scan",
+                 **bound(nbytes, flops, torch.float32), "headline": headline})
+    emit(case)
+    if not ok:
+        raise SystemExit(f"ssd_scan with a state disagrees with its plain version: {case}")
+    return case
+
+
+def ssd_state_cases(timer):
+    """The cached Mamba-2 prefill of P = 64 prompts (l = P - 1 = 63, one
+    partial chunk) at the target's and the drafter's shapes from a nonzero
+    state, and the variants the carry kernel takes: the final state alone
+    (from a zero state), three chunks with each option alone and both, and
+    p, n not multiples of 4 (plain loads) with head groups."""
+    P = NOCACHE_PROMPT - 1
+    return [ssd_state_case(timer, "mamba2-780m prefill", 2, P, 48, 64, 128, 128,
+                           headline=True),
+            ssd_state_case(timer, "mamba2-draft prefill", 2, P, 24, 64, 128, 128),
+            ssd_state_case(timer, "final state only", 2, P, 48, 64, 128, 128,
+                           init=False),
+            ssd_state_case(timer, "3 chunks, initial state only", 2, 300, 48, 64,
+                           128, 128, final=False),
+            ssd_state_case(timer, "3 chunks", 2, 300, 48, 64, 128, 128),
+            ssd_state_case(timer, "ragged p, n, head groups", 2, 141, 24, 6, 10, 128)]
 
 
 def ssd_l_invariance():
@@ -1798,8 +1971,9 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
                                     gamma=GAMMA, batch=batch)
         return st["rounds"], 0
-    profile(profile_phase, run, pt, pd, card)
-    return s["launches"]
+    prof = profile(profile_phase, run, pt, pd, card)
+    return {"launches": s["launches"], "tokens": spec, "info": info,
+            "profile": prof}
 
 
 def full_width_nocache(mt, md, pt, pd, cfg, card):
@@ -1807,6 +1981,240 @@ def full_width_nocache(mt, md, pt, pd, cfg, card):
     per_pass = {"flash_attention": (mt.cfg.num_layers, md.cfg.num_layers)}
     return nocache_phase("full_width_nocache", "profile_nocache", mt, md, pt,
                          pd, cfg, card, per_pass)
+
+
+def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
+                 nocache):
+    """The cached engine at full width through ``launch.serve.serve(use_cache
+    =True)`` with the no-cache traffic (4 requests of 64 prompt + 64 new
+    tokens, two waves of 2, gamma 4). Every kernel's count is set to 0 just
+    before each serve and read just after: ``per_pass`` maps a kernel to
+    its launches in one (target, drafter) forward; every spec round runs
+    GAMMA drafter passes (GAMMA + 1 for a stateful drafter, whose passes
+    launch nothing of the port), one target pass and one argmax launch,
+    each wave one prefill pass of each model, each AR step one target pass
+    and each AR wave one target prefill. Tokens must equal cached AR's, and
+    how many new tokens equal ``nocache``'s (the no-cache serve of the same
+    call) is reported; where a request differs from either, its first
+    difference is reported with the no-cache target's top-2 margin there,
+    and the run fails unless the margin is within one bf16 step of the top
+    logit (a near-tie that the two computations' last bits may break
+    either way: the cached Mamba-2 path cannot be bit-equal to its AR,
+    whose prefill covers one token more and whose steps run one token
+    where a verify runs GAMMA + 1). Then the same spec serve once more
+    under ``torch.profiler``."""
+    from repro_torch.launch import serve as serve_cli
+    counters = kernel_counters()
+    batch = 2
+    prompts = nocache_prompts(cfg)
+    P = prompts.shape[1]
+    for gamma in (GAMMA, 0):           # warm-up, not counted
+        serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
+                        batch=batch, use_cache=True)
+    torch.cuda.synchronize()
+
+    def counted(gamma):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        toks, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                   gamma=gamma, batch=batch, use_cache=True)
+        torch.cuda.synchronize()
+        st["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        st["launches"] = {name: fn.launches for name, fn in counters.items()}
+        return toks, st
+
+    spec, s = counted(GAMMA)
+    ar, s_ar = counted(0)
+    rounds, waves, steps = s["rounds"], s["waves"], s_ar["rounds"]
+    d_passes = GAMMA + 1 if md.cfg.family == "ssm" else GAMMA
+
+    def n(name, which):
+        return per_pass.get(name, (0, 0, 0, 0))[which]
+    expect = {name: rounds * (d_passes * n(name, 3) + n(name, 2))
+              + waves * (n(name, 0) + n(name, 1)) for name in counters}
+    expect["blockwise_argmax"] = rounds
+    # an AR wave: one prefill pass over the prompt (its last position
+    # gives the first token), then max_new - 1 single-token steps
+    expect_ar = {name: (steps - s_ar["waves"]) * n(name, 2)
+                 + s_ar["waves"] * n(name, 0) for name in counters}
+    same_ar = bool(np.array_equal(spec, ar))
+
+    def differences(other):
+        """Each request's first new token that differs from ``other``'s,
+        with the no-cache target's top-2 margin on the shared context."""
+        out = []
+        for row in np.flatnonzero((spec[:, P:] != other[:, P:]).any(axis=1)):
+            pos = P + int(np.flatnonzero(spec[row, P:] != other[row, P:])[0])
+            ctx = torch.from_numpy(spec[row:row + 1, :pos].astype(np.int64)).cuda()
+            with torch.no_grad():
+                margin = top2_margin(mt.apply(pt, ctx)[0][0, -1])
+            out.append({"request": int(row), "position": pos,
+                        "tokens": [int(spec[row, pos]), int(other[row, pos])],
+                        "margin": margin,
+                        "explained": margin["margin"] <= margin["bf16_step"]})
+        return out
+    nc = nocache["tokens"]
+    equal = spec[:, P:] == nc[:, P:]
+    info = {"phase": phase, "target": mt.cfg.name, "drafter": md.cfg.name,
+            "dtype": mt.cfg.dtype, "card": card, "requests": len(prompts),
+            "batch": batch, "waves": waves, "prompt_len": P,
+            "new_tokens": NOCACHE_NEW, "gamma": GAMMA, "rounds": rounds,
+            "mean_accepted_per_round": s["accepted"] / rounds,
+            "wall_s": s["seconds"], "ms_per_round": s["seconds"] / rounds * 1e3,
+            "tokens_per_s": s["tokens_per_s"],
+            "peak_memory_gib": s["peak_memory_gib"],
+            "ar_steps": steps, "ar_wall_s": s_ar["seconds"],
+            "ar_ms_per_step": s_ar["seconds"] / steps * 1e3,
+            "ar_tokens_per_s": s_ar["tokens_per_s"],
+            "launches": s["launches"], "expected_launches": expect,
+            "ar_launches": s_ar["launches"], "expected_ar_launches": expect_ar,
+            "spec_equals_ar": same_ar,
+            "in_vocab": bool(((spec >= 0) & (spec < cfg.vocab_size)).all()),
+            "nocache_rounds": nocache["info"]["rounds"],
+            "nocache_ms_per_round": nocache["info"]["ms_per_round"],
+            "new_tokens_equal_nocache": int(equal.sum()),
+            "new_tokens_total": int(equal.size),
+            "differences_from_ar": differences(ar),
+            "differences_from_nocache": differences(nc)}
+    emit(info)
+    if s["launches"] != expect or s_ar["launches"] != expect_ar:
+        raise SystemExit(f"cached kernel launches differ from the path's: {info}")
+    if not info["in_vocab"]:
+        raise SystemExit(f"full-width cached tokens out of the vocabulary: {info}")
+    if not all(d["explained"] for d in info["differences_from_ar"]
+               + info["differences_from_nocache"]):
+        raise SystemExit(f"cached tokens differ from AR or no-cache beyond the margin: {info}")
+
+    def run():
+        _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW,
+                                gamma=GAMMA, batch=batch, use_cache=True)
+        return st["rounds"], waves
+    prof = profile(profile_phase, run, pt, pd, card)
+    emit(cache_saving(phase, nocache, info, prof))
+    return {"launches": s["launches"], "tokens": spec, "ar": ar, "info": info}
+
+
+def cache_saving(phase, nocache, cached, prof):
+    """The no-cache and the cached serve of the same traffic in the same
+    call, side by side: wall ms per round (unprofiled), device busy ms per
+    round and idle share (profiled), the port's kernels' ms per round."""
+    def side(info, p):
+        busy = p["device_busy_s"]
+        return {"rounds": info["rounds"], "wall_ms_per_round": info["ms_per_round"],
+                "tokens_per_s": info["tokens_per_s"],
+                "device_busy_ms_per_round": None if busy is None else busy / p["rounds"] * 1e3,
+                "device_idle_share": p["device_idle_share"],
+                "kernel_launches_per_round": p["kernel_launches_per_round"],
+                "port_kernels_ms_per_round": p["port_kernels_ms_per_round"]}
+    return {"phase": "cached_vs_nocache", "trace": phase,
+            "nocache": side(nocache["info"], nocache["profile"]),
+            "cached": side(cached, prof)}
+
+
+def full_width_cached(mt, md, pt, pd, cfg, card, nocache):
+    """The cached engines at full width on the paper's pair (bf16): (a) the
+    no-cache traffic on the ring through ``launch.serve.serve(use_cache=
+    True)`` (``cached_serve``: paged attention once per layer of every
+    pass); (b) ``BatchedSpecEngine.generate`` on the ring at B=4 (the same
+    prompts, 64 new tokens): paged rounds x (GAMMA L_d + L_t) + one prefill
+    (L_t + L_d), an argmax a round, each row == its cached AR (B=4); (c)
+    ring tree rounds, ``SpecEngine(use_cache=True, draft_policy="tree",
+    draft_k=TREE_W)`` on the first 2 prompts: tree launches L_t a round,
+    the drafter's paged launches GAMMA L_d a round (a root step on B rows,
+    GAMMA - 1 chain steps on B W rows) + L_d for its prefill, the target's
+    L_t (its prefill; its passes are tree passes), tokens == cached AR's."""
+    from repro_torch.core.batched_engine import (BatchedEngineConfig,
+                                                 BatchedSpecEngine)
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    per_pass = {"paged_attention": (L_t, L_d, L_t, L_d)}
+    a = cached_serve("full_width_cached", "profile_cached", mt, md, pt, pd, cfg,
+                     card, per_pass, nocache)
+    counters = kernel_counters()
+    none = {name: 0 for name in counters}
+    prompts = nocache_prompts(cfg)
+    P = prompts.shape[1]
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # (b) per-row rounds on the ring, B = 4
+    eng = BatchedSpecEngine(mt, md, BatchedEngineConfig(gamma=GAMMA))
+    zero()
+    toks, lengths, st = eng.generate(pt, pd, prompts, NOCACHE_NEW)
+    torch.cuda.synchronize()
+    b_launch = read()
+    b_rounds = st["rounds"]
+    b_expect = {**none, "paged_attention": b_rounds * (GAMMA * L_d + L_t) + L_t + L_d,
+                "blockwise_argmax": b_rounds}
+    ar4 = autoregressive_generate(mt, pt, prompts, NOCACHE_NEW, use_cache=True).cpu().numpy()
+    toks = toks.cpu().numpy()
+    b_rows = [bool(np.array_equal(toks[i, :P + NOCACHE_NEW], ar4[i]))
+              for i in range(len(prompts))]
+    info_b = {"phase": "full_width_batched_ring", "card": card, "batch": len(prompts),
+              "prompt_len": P, "new_tokens": NOCACHE_NEW, "gamma": GAMMA,
+              "rounds": b_rounds, "lengths": lengths.tolist(),
+              "launches": b_launch, "expected_launches": b_expect,
+              "rows_equal_ar": b_rows}
+    emit(info_b)
+    if b_launch != b_expect or not all(b_rows):
+        raise SystemExit(f"full-width per-row ring rounds failed: {info_b}")
+
+    # (c) ring tree rounds
+    tally = {"target": 0, "drafter": 0}
+    real = {}
+    from repro_torch.kernels import paged_attention as pa
+
+    def tallied(model, role):
+        real[role] = model.apply
+
+        def apply(*args, **kw):
+            n0 = pa.paged_flash_attention.launches
+            out = real[role](*args, **kw)
+            tally[role] += pa.paged_flash_attention.launches - n0
+            return out
+        model.apply = apply
+    tree_eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, use_cache=True,
+                                               draft_policy="tree", draft_k=TREE_W))
+    tree_eng.generate(pt, pd, prompts[:2, :16], 4)          # warm-up
+    tallied(mt, "target")
+    tallied(md, "drafter")
+    try:
+        zero()
+        t0 = time.perf_counter()
+        tree_toks, st_c = tree_eng.generate(pt, pd, prompts[:2], NOCACHE_NEW)
+        torch.cuda.synchronize()
+        c_wall = time.perf_counter() - t0
+        c_launch = read()
+    finally:
+        del mt.apply, md.apply
+    c_rounds = st_c["rounds"]
+    c_expect = {**none, "tree_attention": L_t * c_rounds,
+                "paged_attention": GAMMA * L_d * c_rounds + L_d + L_t,
+                "blockwise_argmax": c_rounds}
+    tree_toks = tree_toks.cpu().numpy()[:, :P + NOCACHE_NEW]
+    same = bool(np.array_equal(tree_toks, a["ar"][:2]))
+    info_c = {"phase": "full_width_ring_tree", "card": card, "batch": 2,
+              "width": TREE_W, "depth": GAMMA, "rounds": c_rounds,
+              "accepted": st_c["accepted"], "wall_s": c_wall,
+              "ms_per_round": c_wall / c_rounds * 1e3,
+              "launches": c_launch, "expected_launches": c_expect,
+              "paged_by_model": tally,
+              "expected_paged_by_model": {"target": L_t,
+                                          "drafter": GAMMA * L_d * c_rounds + L_d},
+              "tree_equals_ar": same}
+    emit(info_c)
+    if c_launch != c_expect or tally != info_c["expected_paged_by_model"] or not same:
+        raise SystemExit(f"full-width ring tree rounds failed: {info_c}")
+    total = {name: a["launches"][name] + b_launch[name] + c_launch[name]
+             for name in counters}
+    return total
 
 
 def full_width_w8a8(mt, md, pt, pd, cfg, card):
@@ -1828,20 +2236,28 @@ def full_width_w8a8(mt, md, pt, pd, cfg, card):
                              cfg, card, per_pass, quant, {"act_scale": scale})
     del qt, qd
     torch.cuda.empty_cache()
-    return launches
+    return launches["launches"]
 
 
 def full_width_ssm(card):
     """Mamba-2 at full width: the mamba2-780m target and its registered
     drafter (bf16, seeded random weights), one SSD launch per layer of each
-    pass and nothing else but the argmax."""
+    pass and nothing else but the argmax; then (d) the cached engine on the
+    same traffic (the stateful drafter: GAMMA + 1 sequential-scan steps a
+    round; the verify's trail by the sequential scan too, as in JAX): SSD
+    launches only in the prefills (one per layer: P - 1 = 63 > 16 rows
+    take the chunked kernel from the cache's state, keeping its final
+    state), an argmax a round. Returns (no-cache, cached) launches."""
     from repro_torch.launch.cli_args import build_pair
     mt, md, pt, pd, cfg = build_pair("mamba2-780m", smoke=False, device="cuda")
-    per_pass = {"ssd_scan": (mt.cfg.num_layers, md.cfg.num_layers)}
-    launches = nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd,
-                             cfg, card, per_pass)
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    nocache = nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd,
+                            cfg, card, {"ssd_scan": (L_t, L_d)})
     buffer_invariance(mt, pt, cfg, card)
-    return launches
+    cached = cached_serve("full_width_ssm_cached", "profile_ssm_cached", mt, md,
+                          pt, pd, cfg, card, {"ssd_scan": (L_t, L_d, 0, 0)},
+                          nocache)
+    return nocache["launches"], cached["launches"]
 
 
 def buffer_invariance(mt, pt, cfg, card):
@@ -1971,7 +2387,7 @@ def profile(phase, run, pt, pd, card, regions=()):
         in_region[label] = {"calls": len(iv), "kernels": len(mine),
                             "device_busy_ms": busy,
                             "device_busy_ms_per_call": busy / len(iv) if iv else None}
-    emit({"phase": phase, "card": card, "rounds": rounds,
+    info = {"phase": phase, "card": card, "rounds": rounds,
           "prefills": prefills, "wall_s": wall, "device_busy_s": busy_s,
           "device_idle_share": None if busy_s is None else 1 - busy_s / wall,
           "kernel_launches": len(spans),
@@ -1983,7 +2399,9 @@ def profile(phase, run, pt, pd, card, regions=()):
           "port_kernels_ms_per_round": port,
           "port_sources_busy_ms_per_round": {
               src: _union(iv) / 1e6 / rounds for src, iv in sorted(by_file.items())},
-          **({"regions": in_region} if regions else {})})
+          **({"regions": in_region} if regions else {})}
+    emit(info)
+    return info
 
 
 def main() -> int:
@@ -2035,8 +2453,10 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             q_invariance(geom, H, Kv, D, dtype)
     chunk_cases = paged_chunk_cases(timer)
+    ring_cases = ring_view_cases(timer)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
+    ssd += ssd_state_cases(timer)
     ssd_l_invariance()
     i8 = int8_cases(timer)
     del timer
@@ -2056,12 +2476,20 @@ def main() -> int:
     launches, chunked = full_width_chunked(*pair, card, reading, chunk_cases)
     full_width_traced(*pair, card, chunked)
     del mt, md, pt, pd
-    nocache_launches = full_width_nocache(*pair, card)
+    nocache = full_width_nocache(*pair, card)
+    cached_launches = full_width_cached(*pair, card, nocache)
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
     torch.cuda.empty_cache()
-    ssm_launches = full_width_ssm(card)
+    ssm_launches, ssm_cached = full_width_ssm(card)
 
+    # each kernel's launches: its main path's (the chunked serve for paged
+    # attention and the argmax, the tree phase, the no-cache serves) plus
+    # the cached paths' (full_width_cached parts a-c, the cached Mamba-2)
+    for name, n in cached_launches.items():
+        launches[name] += n
+    tree_launches["tree_attention"] += cached_launches["tree_attention"]
+    launches["blockwise_argmax"] += ssm_cached["blockwise_argmax"]
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
@@ -2070,7 +2498,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:87",
          "launches": launches["paged_attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases),
+         "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases + ring_cases),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"]},
@@ -2092,7 +2520,7 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:69",
-         "launches": nocache_launches["flash_attention"],
+         "launches": nocache["launches"]["flash_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in fl_cases),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
@@ -2102,7 +2530,7 @@ def main() -> int:
             ("int8_matmul", "int8_matmul.cu", "int8_matmul.py:40",
              w8a8_launches["int8_matmul"], i8),
             ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:67",
-             ssm_launches["ssd_scan"], ssd)):
+             ssm_launches["ssd_scan"] + ssm_cached["ssd_scan"], ssd)):
         h = next(c for c in cases if c["headline"])
         kernels.append(
             {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

@@ -1,13 +1,17 @@
 """CacheOps: the cache surface behind the speculative round core
 (port of ``repro/cache/ops.py``).
 
-Only the paged layout is ported so far: ``init`` allocates a model's block
-pools, ``write`` is the layer-level append the attention stack calls,
-``rollback`` is the O(1) speculative rollback, ``live_bound`` is the
-round-level live-token bound threaded into the block-scan reads, and
-``compact`` moves a tree round's winner path into the committed tail. The
-ring layout and ``spec`` (shape-only allocation) wait for the slices that
-need them.
+Both layouts, the ring buffer (``kv_cache.py``) and the paged block pool
+(``paged_kv.py``), implement one small protocol, so the round core and the
+engines are generic over layout: ``init`` allocates a model's buffers,
+``write`` is the layer-level append the attention stack calls (in place on
+both layouts: the read side is the block-table-native kernel, over the
+pool or over an identity view of the ring), ``rollback`` is the O(1)
+speculative rollback, ``live_bound`` the round-level live-token bound
+threaded into the paged block-scan reads (None for a ring: the kernel
+bounds each row by its own index), and ``compact`` moves a tree round's
+winner path into the committed tail. JAX's ``spec`` (shape-only
+allocation) has no counterpart.
 """
 from __future__ import annotations
 
@@ -15,7 +19,37 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.cache import paged_kv
+from repro_torch.cache import kv_cache, paged_kv
+
+
+class _RingOps:
+    """Per-row ring buffers: [L, B, W, Kv, D], token p in slot p % W."""
+    kind = "ring"
+
+    @staticmethod
+    def init(model, batch, *, max_len, spec_slack=8, dtype=None, device=None):
+        return model.init_cache(batch, model.cache_len(max_len),
+                                spec_slack=spec_slack, dtype=dtype,
+                                device=device)
+
+    @staticmethod
+    def write(layer_cache, k_new, v_new, index):
+        """Write this step's K/V into the layer's ring buffers, in place;
+        returns ``layer_cache``."""
+        kv_cache.write(layer_cache["k"], layer_cache["v"], k_new, v_new, index)
+        return layer_cache
+
+    @staticmethod
+    def rollback(cache, accepted_index):
+        return kv_cache.rollback(cache, accepted_index)
+
+    @staticmethod
+    def live_bound(length, active=None):
+        return None                      # position masking; no read bound
+
+    @staticmethod
+    def compact(cache, src_pos, dst_pos):
+        return kv_cache.compact_positions(cache, src_pos, dst_pos)
 
 
 class _PagedOps:
@@ -51,11 +85,12 @@ class _PagedOps:
                                           src_pos, dst_pos)
 
 
+RING = _RingOps()
 PAGED = _PagedOps()
 
 
 def ops_for(cache: Any):
-    """Layout dispatch for a live cache dict (only paged caches so far)."""
-    if not paged_kv.is_paged(cache):
-        raise NotImplementedError("only paged KV caches are ported so far")
-    return PAGED
+    """Layout dispatch for a live cache dict (None -> ring: the no-cache
+    paths never touch rollback/live_bound, and ring is the benign
+    default)."""
+    return PAGED if paged_kv.is_paged(cache) else RING

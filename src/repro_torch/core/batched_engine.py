@@ -1,18 +1,25 @@
-"""Per-row batched speculative decoding (port of the round part of
+"""Per-row batched speculative decoding (port of the greedy part of
 ``repro/core/batched_engine.py``).
 
 Every round runs ``rounds.spec_round`` with per-row commits: each row
 commits its OWN accepted prefix, so throughput tracks each row's own alpha.
-``serving.paged_server`` drives this engine on paged caches. With an
-enabled tracer the engine also holds a ``rounds.TracedRound`` over the same
-spec (``traced_round``), which the server runs instead of ``round``.
-``generate`` (which runs on the ring cache) waits for the ring-cache slice.
+``generate`` runs the rounds on ring KV caches (the per-row index is a [B]
+vector); ``serving.paged_server`` drives ``round`` on paged caches. With
+an enabled tracer the engine also holds a ``rounds.TracedRound`` over the
+same spec (``traced_round``), which ``generate`` and the server run instead
+of ``round``.
+
+Invariant (tested): every row's output equals that row's own
+autoregressive greedy continuation, regardless of what other rows do.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.core import rounds
+from repro_torch.core.engine import _prompt_on, init_rings, ring_slack
 from repro_torch.core.rounds import RoundState
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -26,6 +33,9 @@ RowState = RoundState
 @dataclass(frozen=True)
 class BatchedEngineConfig:
     gamma: int = 4
+    max_new_tokens: int = 32
+    draft_policy: str = "linear"        # or "tree" (cached W-chain tree
+    draft_k: int = 2                    # rounds; draft_k = tree width)
 
 
 class BatchedSpecEngine:
@@ -42,7 +52,9 @@ class BatchedSpecEngine:
         self.drafter = drafter_model
         self.ecfg = ecfg
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self._round_spec = rounds.RoundSpec(gamma=ecfg.gamma)
+        self._round_spec = rounds.RoundSpec(
+            gamma=ecfg.gamma, commit="per_row", use_cache=True,
+            policy=rounds.make_policy(ecfg.draft_policy, ecfg.draft_k))
         self.traced_round = (rounds.TracedRound(self.target, self.drafter,
                                                 self._round_spec, self.tracer)
                              if self.tracer.enabled else None)
@@ -50,3 +62,38 @@ class BatchedSpecEngine:
     def round(self, params_t, params_d, st: RowState) -> RowState:
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, st, self._round_spec)
+
+    def generate(self, params_t, params_d, prompt, max_new_tokens=None):
+        """Per-row rounds on ring caches until every row has
+        ``max_new_tokens`` new tokens (default: the config's). Returns
+        (tokens [B, P + max_new + gamma + 2], lengths [B], stats)."""
+        e = self.ecfg
+        max_new = max_new_tokens or e.max_new_tokens
+        prompt = _prompt_on(prompt, params_t)
+        B, P = prompt.shape
+        dev = prompt.device
+        max_len = P + max_new + e.gamma + 2
+        buf = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
+        buf[:, :P] = prompt
+        tcache, dcache = init_rings(
+            self.target, self.drafter, params_t, params_d, prompt, max_len,
+            ring_slack(e.gamma, self._round_spec.policy), e.gamma)
+        # promote the shared scalar index to a per-row vector
+        row_index = torch.full((B,), P - 1, dtype=torch.int32, device=dev)
+        st = RowState(tokens=buf,
+                      length=torch.full((B,), P, dtype=torch.int32, device=dev),
+                      dcache={**dcache, "index": row_index},
+                      tcache={**tcache, "index": row_index.clone()},
+                      active=torch.ones((B,), dtype=torch.bool, device=dev),
+                      n_rounds=torch.zeros((), dtype=torch.int32, device=dev),
+                      n_accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
+                      n_drafted=torch.zeros((), dtype=torch.int32, device=dev))
+        round_fn = self.traced_round or self.round
+        target_len = P + max_new
+        while int(st.length.min()) < target_len:
+            st = round_fn(params_t, params_d, st)
+        stats = {"rounds": int(st.n_rounds),
+                 "alpha_hat_per_row": (st.n_accepted.float()
+                                       / max(int(st.n_rounds) * e.gamma, 1)),
+                 "lengths": st.length}
+        return st.tokens, st.length, stats

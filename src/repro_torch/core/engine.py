@@ -1,14 +1,21 @@
-"""Single-stream speculative engine, paper-faithful no-cache mode (port of
-the no-cache greedy part of ``repro/core/engine.py``).
+"""Single-stream speculative engine (port of the greedy part of
+``repro/core/engine.py``).
 
 ``SpecEngine`` is the batch-synchronized specialization of the round core
 (``core/rounds.py``): every round drafts, verifies and commits through
 ``rounds.spec_round`` with ``commit="batch_min"`` — the batch-minimum
 emitted length is committed, which is exact greedy decoding (discarded
 acceptances are re-drafted) and standard speculative sampling at B=1, the
-paper's operating point. With ``use_cache=False`` (§IV: "no KV cache is
-enabled") every forward recomputes the whole fixed-size token buffer, and
-``draft_policy="multi"`` (k-candidate drafting) is available.
+paper's operating point. Two cache modes:
+
+  * ``use_cache=False`` — paper-faithful (§IV: "no KV cache is enabled"):
+    every forward recomputes the whole fixed-size token buffer;
+    ``draft_policy="multi"`` (k-candidate drafting) is available.
+  * ``use_cache=True`` — the production path: ring KV caches (dense) or
+    recurrent state caches (ssm) filled by a prefill over the prompt, with
+    O(1) / trail rollback through the CacheOps seam (``repro_torch.cache.
+    ops``); ``draft_policy="tree"`` (ring rows replicated per branch) is
+    available, and an ssm drafter runs as a stateful drafter.
 
 Both strategies run one host loop of rounds, reading the committed length
 once per round: PyTorch runs eagerly, so JAX's "monolithic" strategy (the
@@ -18,8 +25,8 @@ JAX's do: monolithic puts one ``generate`` span (phase "round") over the
 whole loop, synchronized before it closes, as over JAX's fused loop;
 modular runs each round as a ``rounds.TracedRound`` (draft/verify/commit
 spans tagged ``round=k``). ``autoregressive_generate`` is the
-non-speculative baseline. Greedy only; sampling, the cached (ring-cache)
-engine and placement wait for later slices.
+non-speculative baseline, with or without a cache. Greedy only; sampling
+and placement wait for later slices.
 """
 from __future__ import annotations
 
@@ -28,18 +35,14 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import device as devices
+from repro_torch.cache.ops import RING
 from repro_torch.core import rounds
-from repro_torch.core.rounds import (RoundState, _slice_logits, _write_col)
+from repro_torch.core.rounds import (RoundState, _slice_logits, _slice_tokens,
+                                     _write_col)
 from repro_torch.obs.trace import NULL_TRACER
 
 STRATEGIES = ("monolithic", "modular")
-
-
-def _no_ring_cache():
-    return NotImplementedError(
-        "use_cache=True runs on the ring KV cache, which a later slice "
-        "ports; the cached path available today is the paged server "
-        "(repro_torch.serving.PagedSpecServer)")
+STATEFUL_FAMILIES = ("ssm",)
 
 
 @dataclass(frozen=True)
@@ -47,8 +50,43 @@ class EngineConfig:
     gamma: int = 4
     use_cache: bool = False             # False = paper-faithful mode
     strategy: str = "monolithic"        # or "modular": the same host loop here
-    draft_policy: str = "linear"        # or "multi" (greedy no-cache only)
-    draft_k: int = 2                    # candidates per row for "multi"
+    draft_policy: str = "linear"        # "multi" (greedy no-cache only) or
+                                        # "tree" (cached)
+    draft_k: int = 2                    # candidates per row for "multi";
+                                        # tree width for "tree"
+
+
+def ring_slack(gamma: int, policy) -> int:
+    """Ring slots past the committed length a round may write: gamma + 1
+    unverified slots for linear rounds, a tree's whole span (1 + width *
+    gamma) for tree rounds, plus one."""
+    if getattr(policy, "name", "") == "tree":
+        return 1 + policy.width * gamma + 1
+    return gamma + 2
+
+
+def init_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
+               gamma):
+    """Ring (or state) caches for both models, each prefilled with
+    ``prompt[:, :-1]`` (the last prompt token is the first round's input).
+    ``max_len`` is the token buffer's length, P + max_new + gamma + 2; the
+    rings hold ``max_len - (gamma + 2) + slack`` positions, which adds what
+    a tree round's span writes past a linear round's (JAX sizes them at
+    ``max_len`` and lets the last tree round wrap its ring, reading that
+    round through a concat; the identity view needs the span to fit). The
+    prefills unembed only the last position: their logits are not used,
+    and the written caches are the same."""
+    B, P = prompt.shape
+    cap = max_len - (gamma + 2) + slack
+    dev = prompt.device
+    tcache = RING.init(target, B, max_len=cap, spec_slack=slack, device=dev)
+    dcache = RING.init(drafter, B, max_len=cap, spec_slack=slack, device=dev)
+    if P > 1:
+        _, tcache, _ = target.apply(params_t, prompt[:, :-1], tcache,
+                                    logits_slice="last")
+        _, dcache, _ = drafter.apply(params_d, prompt[:, :-1], dcache,
+                                     logits_slice="last")
+    return tcache, dcache
 
 
 def _prompt_on(prompt, params):
@@ -62,27 +100,31 @@ class SpecEngine:
 
     def __init__(self, target_model, drafter_model, ecfg: EngineConfig,
                  tracer=None):
-        if ecfg.use_cache:
-            raise _no_ring_cache()
         if ecfg.strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}, "
                              f"got {ecfg.strategy!r}")
         self.target = target_model
         self.drafter = drafter_model
         self.ecfg = ecfg
+        self.d_stateful = drafter_model.family in STATEFUL_FAMILIES
+        self._policy = rounds.make_policy(ecfg.draft_policy, ecfg.draft_k)
         self._spec = rounds.RoundSpec(
-            gamma=ecfg.gamma, commit="batch_min", use_cache=False,
-            policy=rounds.make_policy(ecfg.draft_policy, ecfg.draft_k))
+            gamma=ecfg.gamma, commit="batch_min", use_cache=ecfg.use_cache,
+            d_stateful=self.d_stateful and ecfg.use_cache, policy=self._policy)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._traced_round = None
 
-    def round_nocache(self, params_t, params_d, state: RoundState) -> RoundState:
+    def round(self, params_t, params_d, state: RoundState) -> RoundState:
+        """ONE round in the engine's cache mode."""
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, state, self._spec)
 
+    round_nocache = round     # JAX's name (here the config picks the mode)
+
     def prefill(self, params_t, params_d, prompt, max_len) -> RoundState:
         """The generation state for a [B, P] prompt in a [B, max_len]
-        buffer. No cache: nothing is computed until the first round."""
+        buffer. No cache: nothing is computed until the first round.
+        Cached: both caches consume prompt[:, :-1] (``init_rings``)."""
         prompt = _prompt_on(prompt, params_t)
         B, P = prompt.shape
         dev = prompt.device
@@ -91,9 +133,19 @@ class SpecEngine:
 
         def zero():
             return torch.zeros((), dtype=torch.int32, device=dev)
-        return RoundState(tokens=buf,
-                          length=torch.full((), P, dtype=torch.int32, device=dev),
-                          n_rounds=zero(), n_accepted=zero(), n_drafted=zero())
+        st = RoundState(tokens=buf,
+                        length=torch.full((), P, dtype=torch.int32, device=dev),
+                        n_rounds=zero(), n_accepted=zero(), n_drafted=zero())
+        if not self.ecfg.use_cache:
+            return st
+        tcache, dcache = init_rings(
+            self.target, self.drafter, params_t, params_d, prompt, max_len,
+            ring_slack(self.ecfg.gamma, self._policy), self.ecfg.gamma)
+        # cache-index offset: prefill consumed P-1 text tokens plus any
+        # prefix the cache also holds (none for the ported families)
+        return st._replace(tcache=tcache, dcache=dcache,
+                           t_off=tcache["index"] - (P - 1),
+                           d_off=dcache["index"] - (P - 1))
 
     def generate(self, params_t, params_d, prompt, max_new_tokens):
         """Returns (tokens [B, length], stats); the last round may commit
@@ -117,7 +169,7 @@ class SpecEngine:
             with self.tracer.span("generate", phase="round", role="target",
                                   strategy="monolithic"):
                 while int(state.length) < target_len:
-                    state = self.round_nocache(params_t, params_d, state)
+                    state = self.round(params_t, params_d, state)
                 if self.tracer.enabled:
                     devices.synchronize(state.tokens.device)
         n_rounds, n_acc, n_drafted, length = (
@@ -132,16 +184,30 @@ class SpecEngine:
 def autoregressive_generate(model, params, prompt, max_new_tokens, *,
                             use_cache=False):
     """The non-speculative greedy baseline (the paper's 'standard
-    sampling'): ``max_new_tokens`` full-buffer passes over a
-    [B, P + max_new_tokens] buffer. Returns the buffer."""
-    if use_cache:
-        raise _no_ring_cache()
+    sampling') over a [B, P + max_new_tokens] buffer, returned whole. No
+    cache: ``max_new_tokens`` full-buffer passes. Cached: one prefill over
+    the prompt (its last position gives the first token), then one
+    single-token cached step per further token."""
     prompt = _prompt_on(prompt, params)
     B, P = prompt.shape
     dev = prompt.device
-    buf = torch.zeros((B, P + max_new_tokens), dtype=torch.int32, device=dev)
+    max_len = P + max_new_tokens
+    buf = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
     buf[:, :P] = prompt
     length = torch.full((), P, dtype=torch.int32, device=dev)
+    if use_cache:
+        cache = model.init_cache(B, model.cache_len(max_len), spec_slack=2,
+                                 device=dev)
+        logits, cache, _ = model.apply(params, prompt, cache,
+                                       logits_slice="last")
+        for i in range(max_new_tokens):
+            if i:
+                logits, cache, _ = model.apply(
+                    params, _slice_tokens(buf, length - 1, 1), cache,
+                    logits_slice="last")
+            buf = _write_col(buf, length, torch.argmax(logits[:, -1], dim=-1))
+            length = length + 1
+        return buf
     for _ in range(max_new_tokens):
         logits, _, _ = model.apply(params, buf)
         q = _slice_logits(logits, length - 1, 1)[:, 0]

@@ -1,19 +1,26 @@
 """The speculative round core: draft -> verify -> commit -> rollback
-(port of the greedy subset of ``repro/core/rounds.py``: cached per-row
-linear and paged tree rounds, and no-cache batch-synchronized rounds).
+(port of the greedy subset of ``repro/core/rounds.py``: cached linear and
+tree rounds on both cache layouts, with per-row or batch-synchronized
+commits, and no-cache batch-synchronized rounds).
 
 Every round of the paged server runs ``spec_round`` (or ``ar_round`` when
 the cost model says drafting does not pay). A cached round drafts gamma
 tokens per row with the drafter's cached single-token steps, verifies them
 in ONE target pass over ``[t_last, d_1..d_gamma]``, commits each row's own
-accepted prefix plus the correction/bonus token (``per_row`` commits) and
-rolls both caches back by index.
+accepted prefix plus the correction/bonus token (``per_row`` commits; or
+the batch minimum, ``batch_min``, as ``SpecEngine(use_cache=True)`` does)
+and rolls both caches back: by index for KV caches, through the verify
+pass's state trail for a recurrent (ssm) target, and for a stateful
+drafter (``RoundSpec.d_stateful``) to the state snapshot its draft steps
+kept (it drafts gamma + 1 steps so the trail covers a full accept).
 
-A tree round (``TreeDraftPolicy``, driven by ``PagedTreeRound``) drafts
-``width`` chains branching once at the root against copy-on-write forks of
-the drafter's block tables, verifies the whole tree in ONE stacked target
-pass through tree attention (``Model.apply(tree=...)``), commits the
-winning chain's KV by compaction and adopts the winning drafter branch.
+A tree round (``TreeDraftPolicy``) drafts ``width`` chains branching once
+at the root against branch caches: ring rows replicated [B] -> [B*W]
+(``_replicate_rows``), or copy-on-write forks of the drafter's block
+tables (``PagedTreeRound``). It verifies the whole tree in ONE stacked
+target pass through tree attention (``Model.apply(tree=...)``), commits
+the winning chain's KV by compaction and keeps the winning drafter branch
+(``_take_branch`` on a ring; ``PagedTreeRound`` adopts it on a pool).
 
 A no-cache round (``SpecEngine(use_cache=False)``, the paper's mode)
 recomputes the whole fixed-size token buffer in every forward: gamma
@@ -33,13 +40,13 @@ JAX switch ``RoundSpec.fused_verify``, which could route a GPU tensor away
 from the kernel, is left out.
 
 A cached round stays on the device too: the round-level live bound
-(``_live0``) is a 0-dim device tensor handed to the attention kernel (a
-paged tree round reads the lengths before its forks and the winners and
-new lengths after its commit, as in JAX). ``TracedRound`` runs the same three
-phases with a span around each and the device synchronized inside it, so
-a traced run commits exactly what ``spec_round`` commits. Sampled
-acceptance and sampled drafting, stateful drafters, ring-cache rounds (and
-with them cached ``batch_min`` commits), and the placed round runner wait
+(``_live0``; paged per-row rounds only) is a 0-dim device tensor handed to
+the attention kernel, and the stateful drafter's snapshot is picked on the
+device (a paged tree round reads the lengths before its forks and the
+winners and new lengths after its commit, as in JAX). ``TracedRound`` runs
+the same three phases with a span around each and the device synchronized
+inside it, so a traced run commits exactly what ``spec_round`` commits.
+Sampled acceptance and sampled drafting, and the placed round runner, wait
 for later slices.
 """
 from __future__ import annotations
@@ -64,11 +71,13 @@ COMMIT_MODES = ("batch_min", "per_row")
 # ==================================================================== state
 class RoundState(NamedTuple):
     """The generation state every round threads through. ``length`` (and
-    ``n_accepted``) is a scalar for batch-synchronized no-cache rounds (all
-    rows share one committed length) or per-row ``[B]`` for the paged
-    paths; ``active`` marks rows that still commit (frozen slots draft
-    along but commit nothing; None = all rows live); the two paged caches
-    are None on the no-cache path."""
+    ``n_accepted``) is a scalar for batch-synchronized rounds (all rows
+    share one committed length) or per-row ``[B]`` for per-row rounds;
+    ``active`` marks rows that still commit (frozen slots draft along but
+    commit nothing; None = all rows live); the two caches are None on the
+    no-cache path. ``t_off``/``d_off`` shift cache indices past any prefix
+    the cache holds besides the text (0 for the ported text families; JAX's
+    VLM vision tokens)."""
     tokens: torch.Tensor           # [B, T] token buffer
     length: torch.Tensor           # scalar or [B] committed tokens
     dcache: Any = None
@@ -77,6 +86,8 @@ class RoundState(NamedTuple):
     n_rounds: Any = 0              # scalar
     n_accepted: Any = 0            # scalar (batch_min) or [B] (per_row)
     n_drafted: Any = 0             # scalar
+    t_off: Any = 0                 # cache-index offset vs text length
+    d_off: Any = 0
 
 
 class DraftOut(NamedTuple):
@@ -87,6 +98,7 @@ class DraftOut(NamedTuple):
     t_last: Any = None             # [B] last committed token (cached path)
     dcache: Any = None
     cand_tokens: Any = None        # [B, K, T] no-cache candidate buffers
+    snaps: Any = None              # stateful drafter: {leaf: [G+1, ...]} states
 
 
 class VerifyOut(NamedTuple):
@@ -122,9 +134,64 @@ def _window(start, width, T):
 
 
 def _gather_last(tokens, length):
-    """tokens[b, length[b]-1] per row."""
+    """tokens[b, length[b]-1] per row. A per-row engine's finished row
+    keeps drafting and may commit past the buffer (JAX reads a fill value
+    there); the column is clamped into the buffer, which only that row's
+    discarded tokens see."""
     lvec = length.expand(tokens.shape[0]) if length.ndim == 0 else length
-    return torch.gather(tokens, 1, (lvec - 1)[:, None].long())[:, 0]
+    col = torch.clamp(lvec - 1, 0, tokens.shape[1] - 1)
+    return torch.gather(tokens, 1, col[:, None].long())[:, 0]
+
+
+def _state_leaves(cache):
+    """The small recurrent-state leaves (state/conv) of a cache: the only
+    parts that need a per-step snapshot; KV buffers roll back by index."""
+    return {k: cache[k] for k in ("state", "conv") if k in cache}
+
+
+def _restore_state_leaves(cache, snaps, j):
+    """``cache`` with its state leaves taken from snapshot ``j`` (a 0-dim
+    device tensor) of the stacked ``snaps``, gathered on the device."""
+    j = j.long().reshape(1)
+    return {**cache, **{k: torch.index_select(v, 0, j)[0]
+                        for k, v in snaps.items()}}
+
+
+def _replicate_rows(cache, W):
+    """Row-replicate a ring KV cache for tree drafting: [B] rows -> [B*W]
+    branch rows (branch w of row b is row b*W + w). The drafter's branches
+    are linear chains, so each replica runs plain causal decode steps."""
+    if W == 1:
+        return cache
+    if not (isinstance(cache, dict) and "k" in cache and "v" in cache) \
+            or paged_kv.is_paged(cache):
+        raise NotImplementedError(
+            "tree drafting needs a KV-family drafter cache: ring rows are "
+            "replicated here, a paged cache is forked by PagedTreeRound")
+    out = {**cache, "k": torch.repeat_interleave(cache["k"], W, dim=1),
+           "v": torch.repeat_interleave(cache["v"], W, dim=1)}
+    if cache["index"].ndim:
+        out["index"] = torch.repeat_interleave(cache["index"], W)
+    return out
+
+
+def _take_branch(cache, winner, W):
+    """Inverse of ``_replicate_rows``: keep each row's winning branch of a
+    [B*W]-row ring cache -> [B] rows. The winner's replica holds exactly
+    the committed chain's KV at contiguous positions, so it simply becomes
+    the next round's drafter cache."""
+    if W == 1:
+        return cache
+    B = winner.shape[0]
+    rows = torch.arange(B, device=winner.device)
+    win = winner.long()
+    out = dict(cache)
+    for kk in ("k", "v"):
+        leaf = cache[kk]
+        out[kk] = leaf.reshape(leaf.shape[0], B, W, *leaf.shape[2:])[:, rows, win]
+    if cache["index"].ndim:
+        out["index"] = cache["index"].reshape(B, W)[rows, win]
+    return out
 
 
 def _is_paged_branched(dcache, B):
@@ -159,15 +226,22 @@ class LinearDraftPolicy:
                      live0) -> DraftOut:
         t_last = _gather_last(state.tokens, state.length)
         tok, cache = t_last, state.dcache
-        drafts = []
-        for i in range(spec.gamma):
+        drafts, snaps = [], []
+        # +1 step for stateful drafters so the snapshot trail covers the
+        # full-acceptance rollback target
+        for i in range(spec.gamma + 1 if spec.d_stateful else spec.gamma):
             ml = None if live0 is None else live0 + i
             logits, cache, _ = drafter.apply(params_d, tok[:, None], cache,
                                              logits_slice="last", max_live=ml)
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             drafts.append(tok)
-        drafts = torch.stack(drafts, dim=1)                    # [B, G]
-        return DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=cache)
+            if spec.d_stateful:
+                snaps.append(_state_leaves(cache))
+        drafts = torch.stack(drafts[:spec.gamma], dim=1)       # [B, G]
+        if snaps:
+            snaps = {k: torch.stack([s[k] for s in snaps]) for k in snaps[0]}
+        return DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=cache,
+                        snaps=snaps or None)
 
     def draft_nocache(self, drafter, params_d, state: RoundState,
                       spec) -> DraftOut:
@@ -220,14 +294,15 @@ class TreeDraftPolicy:
     drafted against branch caches and verified in ONE stacked cached target
     pass through tree attention (``Model.apply(tree=...)``).
 
-    Draft: a root step consumes t_last on every branch row of the
-    pre-branched [B*W]-row drafter cache (each branch's private tail block
+    Draft: a root step consumes t_last and yields the root distribution q0:
+    on the unbranched [B]-row drafter cache, which ``_replicate_rows`` then
+    copies into W branch rows per row (a ring), or on every branch row of a
+    pre-branched [B*W]-row paged cache (each branch's private tail block
     gets t_last's KV; the branch logits are identical, so row 0 of each
-    group is the root distribution q0); the W chain heads are q0's top-W;
-    each head then continues as a LINEAR chain of greedy steps against its
-    own branch, so the drafter itself never needs tree attention. Width 1
-    runs on the unbranched cache and drafts exactly what the linear policy
-    drafts.
+    group is q0). The W chain heads are q0's top-W; each head then
+    continues as a LINEAR chain of greedy steps against its own branch, so
+    the drafter itself never needs tree attention. Width 1 runs on the
+    unbranched cache and drafts exactly what the linear policy drafts.
     """
     name: str = "tree"
     width: int = 2
@@ -237,15 +312,17 @@ class TreeDraftPolicy:
         W, D = self.width, spec.gamma
         t_last = _gather_last(state.tokens, state.length)
         B = t_last.shape[0]
-        if W > 1 and not _is_paged_branched(state.dcache, B):
-            raise NotImplementedError(
-                "tree drafting needs the drafter's paged cache forked into "
-                "width branch rows (PagedTreeRound); ring-cache tree rounds "
-                "are not ported")
-        logits, cache, _ = drafter.apply(
-            params_d, torch.repeat_interleave(t_last, W)[:, None],
-            state.dcache, logits_slice="last", max_live=live0)
-        q0 = logits[:, -1].reshape(B, W, -1)[:, 0]             # [B, V]
+        if _is_paged_branched(state.dcache, B):
+            logits, cache, _ = drafter.apply(
+                params_d, torch.repeat_interleave(t_last, W)[:, None],
+                state.dcache, logits_slice="last", max_live=live0)
+            q0 = logits[:, -1].reshape(B, W, -1)[:, 0]         # [B, V]
+        else:
+            logits, cache, _ = drafter.apply(
+                params_d, t_last[:, None], state.dcache, logits_slice="last",
+                max_live=live0)
+            q0 = logits[:, -1]
+            cache = _replicate_rows(cache, W)
         tok = _top_k(q0, W).reshape(B * W)
         chain = [tok]
         for i in range(D - 1):
@@ -278,11 +355,14 @@ def make_policy(name: str, k: int = 2):
 class RoundSpec:
     """Static parameterization of one greedy round. ``gamma`` is the chain
     depth of a tree policy. The defaults are the paged server's cached
-    per-row round (JAX defaults to ``commit="batch_min"``); the no-cache
-    engine passes ``commit="batch_min", use_cache=False``."""
+    per-row round (JAX defaults to ``commit="batch_min"``); ``SpecEngine``
+    passes ``commit="batch_min"`` and its cache mode. ``d_stateful``: the
+    drafter carries recurrent state (ssm), rolled back to a draft step's
+    snapshot."""
     gamma: int = 4
     commit: str = "per_row"                # COMMIT_MODES
     use_cache: bool = True
+    d_stateful: bool = False
     policy: Any = field(default_factory=LinearDraftPolicy)
 
     def __post_init__(self):
@@ -296,24 +376,31 @@ class RoundSpec:
         if self.commit == "per_row" and not self.use_cache:
             raise ValueError("per-row commits need per-row cache indices "
                              "(use_cache=True)")
+        if self.d_stateful and (not self.use_cache
+                                or self.commit != "batch_min"):
+            raise ValueError("stateful drafters need the cached "
+                             "batch-synchronized path (docs/DESIGN.md §5)")
         if name == "tree":
             if not self.use_cache:
                 raise ValueError("tree drafting is cached-only (branch "
                                  "caches + tree-attention verify)")
+            if self.d_stateful:
+                raise ValueError("tree drafting needs a KV-family drafter "
+                                 "(branch caches replicate/fork KV rows)")
             # validates span = 1 + width*gamma <= MAX_SPAN up front
             chain_tree(self.policy.width, self.gamma)
-        if self.use_cache and self.commit == "batch_min":
-            raise NotImplementedError(
-                "cached batch_min rounds run on the ring cache, which is not "
-                "ported; the paged rounds commit per_row")
 
     @property
     def drafted_per_round(self) -> int:
         return self.gamma
 
 
-def _live0(state: RoundState):
-    """Round-level live-token bound for the paged block-scan reads."""
+def _live0(state: RoundState, spec: RoundSpec):
+    """Round-level live-token bound for paged block-scan reads (None for
+    ring caches and batch-synchronized rounds, which need none: the kernel
+    bounds each row by its own index)."""
+    if not spec.use_cache or spec.commit != "per_row":
+        return None
     return cache_ops.ops_for(state.tcache).live_bound(state.length,
                                                       state.active)
 
@@ -324,7 +411,7 @@ def draft_phase(drafter, params_d, state: RoundState,
     """Phase 1: run the draft policy."""
     if spec.use_cache:
         return spec.policy.draft_cached(drafter, params_d, state, spec,
-                                        _live0(state))
+                                        _live0(state, spec))
     return spec.policy.draft_nocache(drafter, params_d, state, spec)
 
 
@@ -349,18 +436,20 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
         tree = chain_tree(W, spec.gamma)
         level_major = d.drafts.transpose(1, 2).reshape(B, W * spec.gamma)
         verify_in = torch.cat([d.t_last[:, None], level_major], dim=1)
-        ml = _live0(state) + tree.span - 1
+        live0 = _live0(state, spec)
+        ml = None if live0 is None else live0 + tree.span - 1
         p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
-                                           max_live=ml,
+                                           want_trail=True, max_live=ml,
                                            tree=(tree.depths, tree.bits))
         res = acceptance.verify_tree_greedy(d.drafts, p_logits,
                                             tree.chain_slots)
         return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
     drafts = d.drafts[:, 0]
     verify_in = torch.cat([d.t_last[:, None], drafts], dim=1)
-    ml = _live0(state) + spec.gamma
+    live0 = _live0(state, spec)
+    ml = None if live0 is None else live0 + spec.gamma
     p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
-                                       max_live=ml)
+                                       want_trail=True, max_live=ml)
     res = _greedy_verify(drafts, p_logits)
     return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
 
@@ -401,26 +490,34 @@ def _scatter_commit(tokens, length, out_tokens, n_eff, gamma):
     return tokens
 
 
-def _tree_commit(state: RoundState, d: DraftOut, v: VerifyOut,
+def _tree_commit(target, state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
-    """Tree-round commit (per row): compact the winner path's scattered KV
-    into the committed tail, then the ordinary per-row commit. The winner
-    chain's level-l token sits at cache position (length-1) +
-    chain_slots[winner][l-1]; its committed home is length + l - 1 —
-    src >= dst always, and ``compact`` gathers before it scatters, so the
-    move is overlap-safe. Compacting all G levels is fine: rollback masks
-    everything past the accepted length. The drafter side needs no
-    compaction: the winner's branch already holds the committed chain
-    contiguously, and ``PagedTreeRound`` adopts it."""
+    """Tree-round commit: compact the winner path's scattered KV into the
+    committed tail, then the ordinary commit (per row or the batch
+    minimum). The winner chain's level-l token sits at cache position
+    (length-1) + chain_slots[winner][l-1]; its committed home is
+    length + l - 1 — src >= dst always, and ``compact`` gathers before it
+    scatters, so the move is overlap-safe. Compacting all G levels is fine:
+    rollback masks everything past the accepted length. The drafter side
+    needs no compaction: the winner's branch already holds the committed
+    chain contiguously, so it becomes the next round's drafter cache
+    (``_take_branch`` on a ring; ``PagedTreeRound`` adopts it on a pool)."""
     G = spec.gamma
     B, W = d.drafts.shape[:2]
     dev = state.tokens.device
     cs = torch.as_tensor(chain_tree(W, G).chain_slots, device=dev)   # [W, G]
-    src = (state.length - 1)[:, None] + cs[v.res.winner.long()]
-    dst = state.length[:, None] + torch.arange(G, dtype=torch.int32,
-                                               device=dev)
+    lvec = state.length.expand(B) if state.length.ndim == 0 else state.length
+    src = (lvec - 1)[:, None] + cs[v.res.winner.long()] + state.t_off
+    dst = lvec[:, None] + torch.arange(G, dtype=torch.int32,
+                                       device=dev) + state.t_off
     tcache = cache_ops.ops_for(v.tcache).compact(v.tcache, src, dst)
-    return _commit_rows(state, d, v._replace(tcache=tcache), spec)
+    dcache = d.dcache
+    if not _is_paged_branched(dcache, B):
+        dcache = _take_branch(dcache, v.res.winner, W)
+    d, v = d._replace(dcache=dcache), v._replace(tcache=tcache)
+    if spec.commit == "per_row":
+        return _commit_rows(state, d, v, spec)
+    return _commit_batch_min(target, state, d, v, spec, 1 + W * G)
 
 
 def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
@@ -448,31 +545,49 @@ def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
         n_drafted=state.n_drafted + spec.drafted_per_round)
 
 
-def _commit_batch_min(state: RoundState, v: VerifyOut,
-                      spec: RoundSpec) -> RoundState:
-    """No-cache batch-synchronized commit: every row commits the
-    batch-minimum emitted length (discarded acceptances are re-drafted;
-    exact at B=1), so ``length`` stays a scalar; no cache to roll back."""
+def _commit_batch_min(target, state: RoundState, d: DraftOut, v: VerifyOut,
+                      spec: RoundSpec, q_len=None) -> RoundState:
+    """Batch-synchronized commit: every row commits the batch-minimum
+    emitted length (discarded acceptances are re-drafted; exact at B=1),
+    so ``length`` stays a scalar. Cached: the target rolls back over the
+    verify pass's ``q_len`` tokens (gamma + 1, or a tree's span), and the
+    drafter by index or, stateful, to the snapshot after its n_acc + 1-th
+    step; both caches end at (committed length - 1) consumed inputs,
+    shifted by ``t_off``/``d_off``."""
     res = v.res
     B = state.tokens.shape[0]
     n_commit = res.n_emitted.min()
     tokens = _scatter_commit(v.base_tokens, state.length, res.out_tokens,
                              n_commit.expand(B), spec.gamma)
-    return state._replace(
-        tokens=tokens, length=state.length + n_commit,
-        n_rounds=state.n_rounds + 1,
-        n_accepted=state.n_accepted + (n_commit - 1),
+    new_len = state.length + n_commit
+    n_acc = n_commit - 1
+    st = state._replace(
+        tokens=tokens, length=new_len, n_rounds=state.n_rounds + 1,
+        n_accepted=state.n_accepted + n_acc,
         n_drafted=state.n_drafted + spec.drafted_per_round)
+    if not spec.use_cache:
+        return st
+    tcache = target.rollback(v.tcache, new_len - 1 + state.t_off,
+                             q_len or spec.gamma + 1)
+    if spec.d_stateful:
+        # snapshot j = state after consuming j+1 inputs; we need n_acc+1
+        dcache = _restore_state_leaves(d.dcache, d.snaps, n_acc)
+        dcache = {**dcache,
+                  "index": (new_len - 1 + state.d_off).to(torch.int32)}
+    else:
+        dcache = cache_ops.ops_for(d.dcache).rollback(
+            d.dcache, new_len - 1 + state.d_off)
+    return st._replace(dcache=dcache, tcache=tcache)
 
 
 def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
-    """Phase 3: commit the accepted prefix (per row, or the batch minimum
-    on the no-cache path) + roll the caches back."""
+    """Phase 3: commit the accepted prefix (per row, or the batch minimum)
+    + roll the caches back."""
     if getattr(spec.policy, "name", "") == "tree":
-        return _tree_commit(state, d, v, spec)
+        return _tree_commit(target, state, d, v, spec)
     if spec.commit == "batch_min":
-        return _commit_batch_min(state, v, spec)
+        return _commit_batch_min(target, state, d, v, spec)
     return _commit_rows(state, d, v, spec)
 
 

@@ -1,9 +1,12 @@
-// Chunked Mamba-2 SSD scan from a zero state, for Hopper (sm_90a).
+// Chunked Mamba-2 SSD scan, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py (ssd_scan,
 // pallas_call at :80). Same function: x [b, l, h, p] (pre-multiplied by dt),
 // dA [b, l, h] (log-decay, negative), B and C [b, l, h, n], all fp32, give
-// y [b, l, h, p] fp32; per chunk of Q rows (a_cs = cumsum of dA in the chunk)
+// y [b, l, h, p] fp32 from a zero state. Beyond the TPU kernel, a call may
+// start from a given state [b, h, p, n] and return the state after row l-1
+// (the cached Mamba-2 prefill, which JAX runs through its jnp ssd_chunked);
+// per chunk of Q rows (a_cs = cumsum of dA in the chunk)
 //   y     = ((C B^T) o Ldec) X + exp(a_cs) o (C state^T)
 //   state = exp(a_cs[Q-1]) state + X^T (B o exp(a_cs[Q-1] - a_cs))
 // with Ldec[i][j] = exp(a_cs[i] - a_cs[j]) for j <= i and 0 above the
@@ -36,7 +39,9 @@
 //      y_diag for every row of the tile.
 //    - A state item: (batch row, head, chunk that has a successor, 64 state
 //      columns): the chunk's contribution X^T (B o exp(a_cs[Q-1] - a_cs)) to
-//      the next state, into an fp32 workspace [b, h, nc - 1, n, p4].
+//      the next state, into an fp32 workspace [b, h, nsc, n, p4]. nsc =
+//      nc - 1, or nc when the final state is asked for: then the last,
+//      maybe partial, chunk has state items too (its real rows only).
 //    Both stream their operands through a ring of three shared-memory stage
 //    buffers filled by 16-byte cp.async (plain loads, none past a row's
 //    end, when a row is not 16-byte aligned or p or n is not a multiple of
@@ -47,7 +52,12 @@
 //    chunks 1..nc-1, carrying the state in shared memory
 //    (state' = exp(a_cs[Q-1]) state + contribution, in chunk order), and
 //    adds exp(a_cs) o (C state^T) to y_diag for its rows, the k range split
-//    over four groups of warps. At l <= chunk it is not launched.
+//    over four groups of warps. From a given state it starts at chunk 0
+//    with that state; for the final state, the blocks of the first row
+//    tile add the last chunk's contribution to the carried state and write
+//    it. A call with l <= chunk, no given state and no final state does not
+//    launch it: such a call, and every call that asks for neither, runs as
+//    before the state options existed.
 // Every product is register-tiled fp32 FFMA: a thread owns up to 4 x 4
 // outputs and reads its operands as float4s from shared memory, laid out so
 // a warp's reads are one or a few wavefronts. The plan
@@ -106,6 +116,7 @@ struct Shape {
   int k_tiles;       // state items per (batch row, head, chunk)
   int carry_tiles;   // carry blocks per (batch row, head)
   int y_full, n_state, y_last;
+  int nsc;           // chunks with state items: nc - 1, or nc for the final state
 };
 
 __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -405,14 +416,15 @@ __device__ void y_item(float* smem, const float* __restrict__ x,
 }
 
 // A state item: columns k0 .. k0+kKTile-1 of chunk c's contribution
-// (X o exp(a_cs[Q-1] - a_cs))^T B for head hd, into ws [b, h, nc-1, n, P4],
-// the chunk's rows streamed through a ring of kRing stage buffers.
+// (X o exp(a_cs[Q-1] - a_cs))^T B for head hd over its nv real rows, into
+// ws [b, h, nsc, n, P4], the chunk's rows streamed through a ring of kRing
+// stage buffers. Rows past nv read as zeros, so a_cs[Q-1] is a_cs[nv-1].
 template <bool VEC>
 __device__ void state_item(float* smem, const float* __restrict__ x,
                            const float* __restrict__ dA, const float* __restrict__ Bm,
                            float* __restrict__ ws, const Shape& s,
                            const Strides& sx, const Strides& sa, const Strides& sb,
-                           int bb, int hd, int c, int kt) {
+                           int bb, int hd, int c, int kt, int nv) {
   float* acs = smem;                          // [kQ]
   float* dec = acs + kQ;                      // [kQ]
   float* ring = dec + kQ;                     // kRing x {X [kSlab][kP + 4], B [kSlab][kKTile + 4]}
@@ -420,7 +432,7 @@ __device__ void state_item(float* smem, const float* __restrict__ x,
   const int t0 = c * s.Q, k0 = kt * kKTile, Q = s.Q;
   const float* xb = x + bb * sx.b + t0 * sx.l + hd * sx.h;
   const float* bbase = Bm + bb * sb.b + t0 * sb.l + hd * sb.h;
-  const int n_stages = (Q + kSlab - 1) / kSlab;
+  const int n_stages = (nv + kSlab - 1) / kSlab;
   // each thread stages rows tid/16 + 16 i of both slabs, 16-byte piece tid % 16
   constexpr int kStep = kThreads / (kP / 4);
   static_assert(kP == kKTile, "X and B slabs share the thread layout");
@@ -436,15 +448,15 @@ __device__ void state_item(float* smem, const float* __restrict__ x,
       for (int i = 0; i < kSlab / kStep; ++i) {
         const int jj = sj + i * kStep;
         stage4<VEC>(&Xs[jj * (kP + 4) + sp4], xsrc + (j0 + i * kStep) * sx.l, sx.e,
-                    j0 + jj < Q && sp4 < s.P, s.P - sp4);
+                    j0 + jj < nv && sp4 < s.P, s.P - sp4);
         stage4<VEC>(&Bs[jj * (kKTile + 4) + sp4], bsrc + (j0 + i * kStep) * sb.l, sb.e,
-                    j0 + jj < Q && k0 + sp4 < s.N, s.N - k0 - sp4);
+                    j0 + jj < nv && k0 + sp4 < s.N, s.N - k0 - sp4);
       }
     }
     commit<VEC>();
   };
   if (warp == 0)
-    chunk_cumsum(dA + bb * sa.b + t0 * sa.l + hd * sa.h, sa.l, Q, acs, lane);
+    chunk_cumsum(dA + bb * sa.b + t0 * sa.l + hd * sa.h, sa.l, nv, acs, lane);
   const int ty = tid / 16, tx = tid % 16;     // rows p = 4 ty .., columns k = 4 tx ..
   float acc[4][4];
 #pragma unroll
@@ -492,7 +504,7 @@ __device__ void state_item(float* smem, const float* __restrict__ x,
     }
   }
   if (4 * ty < s.P) {
-    float* z = ws + ((static_cast<long long>(bb) * s.H + hd) * (s.nc - 1) + c) * s.N * s.P4 + 4 * ty;
+    float* z = ws + ((static_cast<long long>(bb) * s.H + hd) * s.nsc + c) * s.N * s.P4 + 4 * ty;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int k = k0 + 4 * tx + q;
@@ -520,9 +532,10 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     item -= y_items;
     const int kt = item % s.k_tiles;
     item /= s.k_tiles;
-    const int c = item % (s.nc - 1);
-    item /= s.nc - 1;
-    state_item<VEC>(smem, x, dA, Bm, ws, s, sx, sa, sb, item / s.H, item % s.H, c, kt);
+    const int c = item % s.nsc;
+    item /= s.nsc;
+    state_item<VEC>(smem, x, dA, Bm, ws, s, sx, sa, sb, item / s.H, item % s.H, c, kt,
+                    min(s.Q, s.L - c * s.Q));
     return;
   }
   // y items: the full chunks' first, then those of a partial last chunk;
@@ -544,14 +557,21 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
                   last ? s.last_rows : s.Q);
 }
 
-// One block per (batch row, head, 64-row tile): walks chunks 1..nc-1,
-// carrying the state, and adds exp(a_cs) o (C state^T) to its rows' y_diag.
-// The product runs 16 rows at a time with its k range split over four
-// groups of two warps (so a chunk of a few rows still keeps every warp
-// busy); the four partial sums are added in group order.
+// One block per (batch row, head, 64-row tile): walks chunks 1..nc-1
+// (0..nc-1 from a given state ``init`` [b, h, p, n], INIT), carrying the
+// state, and adds exp(a_cs) o (C state^T) to its rows' y_diag. The product
+// runs 16 rows at a time with its k range split over four groups of two
+// warps (so a chunk of a few rows still keeps every warp busy); the four
+// partial sums are added in group order. With FINAL, the blocks of row tile
+// 0 write the final state to ``fin`` [b, h, p, n]: exp(a_cs[Q-1]) state +
+// the last chunk's contribution, the same update as between two chunks.
+// The options are template arguments, so a call with neither runs the code
+// it ran before they existed.
+template <bool INIT, bool FINAL>
 __global__ void __launch_bounds__(kThreads)
 ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
-                 float* __restrict__ y, const float* __restrict__ ws, Shape s,
+                 float* __restrict__ y, const float* __restrict__ ws,
+                 const float* __restrict__ init, float* __restrict__ fin, Shape s,
                  Strides sa, Strides sc) {
   extern __shared__ float4 smem4[];
   float* St = reinterpret_cast<float*>(smem4);  // [kN][kP + 4]: state^T entering the chunk
@@ -596,20 +616,29 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
       }
     }
   };
+  constexpr int kFirst = INIT ? 0 : 1;          // the first chunk the state reaches
+  const long long sp = (static_cast<long long>(bb) * s.H + hd) * s.P * s.N;
   for (int e = tid; e < kN * (kP + 4); e += kThreads) St[e] = 0.f;
-  if (warp == 0)                                // chunk 0 is full: it has a successor
-    chunk_cumsum(dA + bb * sa.b + hd * sa.h, sa.l, Q, acs, lane);
-  __syncthreads();
-  float decay = expf(acs[Q - 1]);               // exp(a_cs[Q-1]) of the chunk before
-  __syncthreads();                              // acs of chunk 0 is read
-  stage(1);
-  const float* z = ws + (static_cast<long long>(bb) * s.H + hd) * (s.nc - 1) * s.N * s.P4;
+  float decay = 0.f;                            // exp(a_cs[Q-1]) of the chunk before
+  if constexpr (INIT) {                         // St[k][p] = init[bb, hd, p, k]
+    __syncthreads();
+    for (int e = tid; e < s.P * s.N; e += kThreads)
+      St[(e % s.N) * (kP + 4) + e / s.N] = init[sp + e];
+  } else {
+    if (warp == 0)                              // chunk 0: full when nc > 1
+      chunk_cumsum(dA + bb * sa.b + hd * sa.h, sa.l, FINAL ? min(Q, s.L) : Q, acs, lane);
+    __syncthreads();
+    decay = expf(acs[Q - 1]);
+    __syncthreads();                            // acs of chunk 0 is read
+  }
+  if (kFirst < s.nc) stage(kFirst);
+  const float* z = ws + (static_cast<long long>(bb) * s.H + hd) * s.nsc * s.N * s.P4;
   // the contributions and y_diag come from the first kernel
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  for (int c = 1; c < s.nc; ++c) {
+  for (int c = kFirst; c < s.nc; ++c) {
     const int t0 = c * Q, nv = min(Q, s.L - t0);
     const float* zc = z + static_cast<long long>(c - 1) * s.N * s.P4;
-    if (4 * tx < s.P) {                         // 16 threads per state row, 16 rows a pass
+    if ((!INIT || c > 0) && 4 * tx < s.P) {     // 16 threads per state row, 16 rows a pass
       constexpr int kPasses = kN / (kThreads / 16);
       const int k1 = tid / 16;
       float4 zv[kPasses];
@@ -633,7 +662,7 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
       }
     }
     __syncthreads();                            // St, acs and Ct of chunk c are in place
-    const float next_decay = c + 1 < s.nc ? expf(acs[Q - 1]) : 0.f;
+    const float next_decay = c + 1 < s.nc || FINAL ? expf(acs[Q - 1]) : 0.f;
     for (int sub = 0; sub * kRowTile < min(kCarryRows, nv - r0); ++sub) {   // uniform
       const int i0 = sub * kRowTile;
       // y_diag of the epilogue's outputs, loaded before the product
@@ -685,6 +714,15 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
     decay = next_decay;
     if (c + 1 < s.nc) stage(c + 1);
   }
+  if constexpr (FINAL) {
+    if (rt == 0) {                              // St is in place (a barrier above)
+      const float* zl = z + static_cast<long long>(s.nc - 1) * s.N * s.P4;
+      for (int e = tid; e < s.P * s.N; e += kThreads) {
+        const int pp = e / s.N, k = e % s.N;
+        fin[sp + e] = fmaf(decay, St[k * (kP + 4) + pp], zl[k * s.P4 + pp]);
+      }
+    }
+  }
 }
 
 // a kernel's dynamic shared memory, with the carveout at its maximum so
@@ -733,13 +771,16 @@ bool aligned16(const void* ptr, const Strides& st, int width) {
 
 // x/y: [b, l, h, p]; dA: [b, l, h]; B/C: [b, l, h, n]; fp32; x, dA, B and C
 // read through the given element strides (batch, row, head, last axis; dA
-// has no last axis), y written contiguous. ws: fp32 [b, h, nc - 1, n, p4]
-// with p4 = p rounded up to 4 (unused when l <= chunk). heads_per_block in
+// has no last axis), y written contiguous. init_state (or null: a zero
+// state) and final_state (or null: not written): fp32 [b, h, p, n],
+// contiguous. ws: fp32 [b, h, nsc, n, p4] with p4 = p rounded up to 4 and
+// nsc = nc - 1, or nc with a final state (unused when nsc = 0). heads_per_block in
 // {1, 2, 4} divides h; above 1 the head strides of B and C must be 0.
 // 1 <= p <= 64, 1 <= n <= 128, 1 <= chunk <= 128. Returns a cudaError_t
 // (0 = launched).
 extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
-                            const void* Cm, void* y, void* ws, int b, int l,
+                            const void* Cm, void* y, void* ws,
+                            const void* init_state, void* final_state, int b, int l,
                             int h, int p, int n, int chunk, int heads_per_block,
                             long long x_sb, long long x_sl, long long x_sh,
                             long long x_sp, long long a_sb, long long a_sl,
@@ -763,10 +804,13 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
   s.tiles_full = (chunk + kRowTile - 1) / kRowTile;
   s.tiles_last = (s.last_rows + kRowTile - 1) / kRowTile;
   s.k_tiles = (n + kKTile - 1) / kKTile;
-  const int carry_rows = s.nc >= 3 ? chunk : s.last_rows;
-  s.carry_tiles = (carry_rows + kCarryRows - 1) / kCarryRows;
+  s.nsc = final_state != nullptr ? s.nc : s.nc - 1;
+  int carry_rows = 0;                           // the rows the carried state reaches
+  for (int c = init_state != nullptr ? 0 : 1; c < s.nc; ++c)
+    carry_rows = max(carry_rows, min(chunk, l - c * chunk));
+  s.carry_tiles = max((carry_rows + kCarryRows - 1) / kCarryRows, final_state != nullptr ? 1 : 0);
   const long long y_full = static_cast<long long>(b) * s.groups * s.full_chunks * s.tiles_full;
-  const long long n_state = static_cast<long long>(b) * h * (s.nc - 1) * s.k_tiles;
+  const long long n_state = static_cast<long long>(b) * h * s.nsc * s.k_tiles;
   const long long y_last =
       s.last_rows == chunk ? 0 : static_cast<long long>(b) * s.groups * s.tiles_last;
   const long long blocks = y_full + n_state + y_last;
@@ -776,7 +820,7 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
   s.y_full = static_cast<int>(y_full);
   s.n_state = static_cast<int>(n_state);
   s.y_last = static_cast<int>(y_last);
-  if (s.nc > 1 && (ws == nullptr || reinterpret_cast<uintptr_t>(ws) % 16 != 0))
+  if (s.nsc > 0 && (ws == nullptr || reinterpret_cast<uintptr_t>(ws) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sx{x_sb, x_sl, x_sh, x_sp}, sa{a_sb, a_sl, a_sh, 0},
       sb{b_sb, b_sl, b_sh, b_sn}, sc{c_sb, c_sl, c_sh, c_sn};
@@ -785,9 +829,12 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   int err = vec ? launch_chunk_hg<true>(s, blocks, x, dA, Bm, Cm, y, ws, sx, sa, sb, sc, st)
                 : launch_chunk_hg<false>(s, blocks, x, dA, Bm, Cm, y, ws, sx, sa, sb, sc, st);
-  if (err != 0 || s.nc == 1) return err;
+  if (err != 0 || s.carry_tiles == 0) return err;
+  auto carry = init_state != nullptr
+                   ? (final_state != nullptr ? ssd_carry_kernel<true, true> : ssd_carry_kernel<true, false>)
+                   : (final_state != nullptr ? ssd_carry_kernel<false, true> : ssd_carry_kernel<false, false>);
   const size_t bytes = sizeof(float) * kCarryFloats;
-  const cudaError_t cerr = set_smem(ssd_carry_kernel, bytes);
+  const cudaError_t cerr = set_smem(carry, bytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   // the carry kernel as a programmatic dependent launch: its launch overlaps
   // the chunk kernel, and it waits on the card (griddepcontrol.wait)
@@ -802,8 +849,9 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, ssd_carry_kernel, static_cast<const float*>(dA),
+      &cfg, carry, static_cast<const float*>(dA),
       static_cast<const float*>(Cm), static_cast<float*>(y),
-      static_cast<const float*>(ws), s, sa, sc));
+      static_cast<const float*>(ws), static_cast<const float*>(init_state),
+      static_cast<float*>(final_state), s, sa, sc));
 }
 

@@ -46,7 +46,8 @@ SIGNATURES = {
                                  _P]),
     },
     "ssd_scan": {
-        "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        "ssd_scan_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I,
                               _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _L, _L, _L, _L, _L, _L, _P]),
     },

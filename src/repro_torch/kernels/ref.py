@@ -138,17 +138,23 @@ def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
     return out
 
 
-def ssd_scan_ref(x, dA, Bm, Cm, chunk=128):
-    """The model-level chunked SSD from a zero state, y only (any l: the
-    tail is zero-padded to a chunk multiple and cut off again)."""
+def ssd_scan_ref(x, dA, Bm, Cm, chunk=128, init_state=None,
+                 return_final_state=False):
+    """The model-level chunked SSD from ``init_state`` (None: a zero state),
+    y, or (y, final state) with ``return_final_state`` (any l: the tail is
+    zero-padded to a chunk multiple, which leaves the final state as it is,
+    and cut off again)."""
     b, l, h, p = x.shape
     n = Bm.shape[-1]
-    init = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    y, _ = ssd_chunked(x.float(), dA.float(), Bm.float(), Cm.float(), chunk, init)
-    return y
+    init = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+            if init_state is None else init_state.float())
+    y, final = ssd_chunked(x.float(), dA.float(), Bm.float(), Cm.float(),
+                           chunk, init)
+    return (y, final) if return_final_state else y
 
 
-def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
+def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
+                  return_final_state=False):
     """The SSD scan kernel's decomposition in plain PyTorch (fp32), item by
     item of ``plan`` (``kernels/ssd_scan.py::plan``; by default the plan on
     132 SMs): each y item forms the causal score tile C_i . B_j of its
@@ -158,7 +164,10 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
     (X o exp(a_cs[Q-1] - a_cs))^T B; then, per (batch row, head) and
     64-row tile, the state is carried over the chunks in order
     (state' = exp(a_cs[Q-1]) state + contribution) and exp(a_cs) o (C
-    state^T) is added to y_diag. Chunks are zero-padded to whole 16-row
+    state^T) is added to y_diag; from ``init_state`` the walk starts at
+    chunk 0 with it, and ``return_final_state`` also returns the carried
+    state updated by the last chunk's contribution (a state item over its
+    real rows). Chunks are zero-padded to whole 16-row
     tiles, and every product of a full chunk has shapes that depend on the
     chunk length alone, so a row's result does not depend on l (the
     property the kernel keeps). The sums run in PyTorch's order, not the
@@ -168,7 +177,8 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
     n = Bm.shape[-1]
     if plan is None:
         plan = ss.plan(b, l, h, p, n, chunk, 132,
-                       shared=ss.shares_scores(Bm, Cm))
+                       shared=ss.shares_scores(Bm, Cm),
+                       init=init_state is not None, final=return_final_state)
     dev = x.device
     Q, nc, RT = chunk, plan.chunks, ss.ROW_TILE
     R = -(-Q // RT) * RT                       # a chunk padded to whole row tiles
@@ -200,20 +210,25 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
             Sp = torch.where(vis, S * torch.exp(a[r0:r0 + RT, None] - a[None, :J]),
                              torch.zeros((), device=dev))
             y[bb, c * Q + r0:c * Q + J, hd] = (Sp @ X[c][bb, :J, hd])[:nr]
-    Z = torch.zeros((b, h, max(nc - 1, 0), n, p), dtype=torch.float32, device=dev)
-    for bb, hd, c, k0 in ss.state_items(plan, b, h, n):
+    Z = torch.zeros((b, h, ss.state_chunks(plan, return_final_state), n, p),
+                    dtype=torch.float32, device=dev)
+    for bb, hd, c, k0 in ss.state_items(plan, b, h, n, return_final_state):
         a = acs[c][bb, :Q, hd]
         xd = X[c][bb, :Q, hd] * torch.exp(a[Q - 1] - a)[:, None]         # [Q, p]
         Z[bb, hd, c, k0:k0 + ss.K_TILE] = (xd.T @ Bc[c][bb, :Q, hd, k0:k0 + ss.K_TILE]).T
     CR = ss.CARRY_ROWS
+    first = 0 if init_state is not None else 1
+    final = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
     for bb in range(b):
         for hd in range(h):
             for r0 in range(0, R, CR):
-                state = torch.zeros((n, p), dtype=torch.float32, device=dev)
+                state = (init_state[bb, hd].float().T if init_state is not None
+                         else torch.zeros((n, p), dtype=torch.float32, device=dev))
                 decay = torch.exp(acs[0][bb, Q - 1, hd])
-                for c in range(1, nc):
+                for c in range(first, nc):
                     nv = min(Q, l - c * Q)
-                    state = decay * state + Z[bb, hd, c - 1]
+                    if c > 0:
+                        state = decay * state + Z[bb, hd, c - 1]
                     decay = torch.exp(acs[c][bb, Q - 1, hd])
                     if r0 >= nv:
                         continue
@@ -224,4 +239,6 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None):
                     ea = torch.exp(acs[c][bb, r0:r0 + off.shape[0], hd])
                     t0 = c * Q + r0
                     y[bb, t0:t0 + off.shape[0], hd] += off * ea[:, None]
-    return y
+                if r0 == 0 and return_final_state:
+                    final[bb, hd] = (decay * state + Z[bb, hd, nc - 1]).T
+    return (y, final) if return_final_state else y

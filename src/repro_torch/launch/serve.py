@@ -1,13 +1,15 @@
 """Serving CLI: batched speculative (or plain) decoding of synthetic
-requests in the paper's no-cache mode (port of ``repro/launch/serve.py``).
+requests on ``SpecEngine`` (port of ``repro/launch/serve.py``).
 
-    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu --speculative
+    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu --speculative [--use-cache]
 
 serves ``--requests`` synthetic prompts of ``--prompt-len`` tokens,
 ``--max-new`` new tokens each, wave by wave (``--batch`` requests per wave)
-on ``SpecEngine(use_cache=False)``; without ``--speculative`` it serves all
-requests as one autoregressive batch. It runs on the GPU unless ``--device
-cpu`` is given.
+on ``SpecEngine``, in the paper's no-cache mode or, with ``--use-cache``,
+on the cached engine (ring KV caches, or the state caches of
+``--arch mamba2-780m``); without ``--speculative`` it serves all requests
+as one autoregressive batch, cached or not. It runs on the GPU unless
+``--device cpu`` is given.
 
 The JAX CLI asks the ``Planner`` for gamma. Until the API facade is
 ported, this one takes the same Eq. (1) decision directly
@@ -15,8 +17,7 @@ ported, this one takes the same Eq. (1) decision directly
 planner's prior c = 0.25); gamma* = 0 serves AR, as the planner's plan
 does, and ``--gamma`` forces the draft length. Its ``alpha_hat`` is the
 run's accepted / drafted (the JAX CLI prints its gamma controller's
-moving average, which comes with the facade). ``--use-cache`` raises until
-the ring KV cache is ported. ``--trace-out PATH`` traces the speculative
+moving average, which comes with the facade). ``--trace-out PATH`` traces the speculative
 serve (one ``generate`` span per wave under ``--strategy monolithic``,
 draft/verify/commit spans per round under ``modular``) and writes the
 Chrome trace to PATH.
@@ -45,14 +46,15 @@ def choose_gamma(alpha: float, cost_coefficient=None) -> int:
 
 
 def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
-          batch, strategy="monolithic", tracer=None):
+          batch, strategy="monolithic", tracer=None, use_cache=False):
     """Serve the [R, P] ``prompts`` wave by wave, ``batch`` requests per
-    wave: no-cache ``SpecEngine`` rounds for gamma >= 1 (traced by
-    ``tracer``), no-cache ``autoregressive_generate`` for gamma 0. Returns
-    (tokens [R, P + max_new] numpy, stats)."""
+    wave: ``SpecEngine`` rounds for gamma >= 1 (traced by ``tracer``),
+    ``autoregressive_generate`` for gamma 0; no cache, or cached with
+    ``use_cache``. Returns (tokens [R, P + max_new] numpy, stats)."""
     prompts = np.asarray(prompts, np.int32)
     R, P = prompts.shape
     eng = (SpecEngine(target, drafter, EngineConfig(gamma=gamma,
+                                                    use_cache=use_cache,
                                                     strategy=strategy),
                       tracer=tracer)
            if gamma else None)
@@ -63,7 +65,8 @@ def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
     for i in range(0, R, batch):
         wave = prompts[i:i + batch]
         if eng is None:
-            toks = autoregressive_generate(target, params_t, wave, max_new)
+            toks = autoregressive_generate(target, params_t, wave, max_new,
+                                           use_cache=use_cache)
             st = {"rounds": max_new, "accepted": 0, "drafted": 0}
         else:
             toks, st = eng.generate(params_t, params_d, wave, max_new)
@@ -89,14 +92,12 @@ def main(argv=None):
     cli_args.add_spec_args(ap)
     ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--use-cache", action="store_true",
-                    help="cached engine (not ported yet: raises)")
+                    help="the cached engine (ring KV caches, or the ssm "
+                         "state caches) instead of the paper's no-cache mode")
     ap.add_argument("--strategy", default="monolithic", choices=STRATEGIES)
     ap.add_argument("--batch", type=int, default=8)
     cli_args.add_trace_args(ap)
     args = ap.parse_args(argv)
-    if args.use_cache:
-        raise NotImplementedError(
-            "--use-cache needs the ring KV cache, which a later slice ports")
 
     mt, md, pt, pd, cfg_t = cli_args.build_pair(args.arch, args.smoke,
                                                 args.device)
@@ -105,7 +106,8 @@ def main(argv=None):
     if not args.speculative:
         # plain autoregressive serving baseline (one fixed batch)
         prompts = rng.integers(0, cfg_t.vocab_size, (R, P))
-        toks, s = serve(mt, md, pt, pd, prompts, new, gamma=0, batch=R)
+        toks, s = serve(mt, md, pt, pd, prompts, new, gamma=0, batch=R,
+                        use_cache=args.use_cache)
         print(f"AR served {R} x {new} tokens in {s['seconds']:.2f}s "
               f"({R * new / s['seconds']:.1f} tok/s)")
         return toks, s
@@ -116,13 +118,14 @@ def main(argv=None):
                         for _ in range(R)])
     tracer = cli_args.make_tracer(args)
     toks, s = serve(mt, md, pt, pd, prompts, new, gamma=gamma,
-                    batch=args.batch, strategy=args.strategy, tracer=tracer)
+                    batch=args.batch, strategy=args.strategy, tracer=tracer,
+                    use_cache=args.use_cache)
     alpha = s["alpha_hat"]
     print(f"speculative served {R} requests, {s['generated']} tokens in "
           f"{s['seconds']:.2f}s ({s['tokens_per_s']:.1f} tok/s aggregate, "
           f"mean latency {s['mean_latency_s'] * 1e3:.0f}ms, "
           f"alpha_hat={float('nan') if alpha is None else alpha:.2f}, "
-          f"gamma={gamma}, strategy={args.strategy}, cache=False, "
+          f"gamma={gamma}, strategy={args.strategy}, cache={args.use_cache}, "
           f"backend=engine)")
     cli_args.report_telemetry(tracer, None, args)
     return toks, s

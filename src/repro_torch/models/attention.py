@@ -19,8 +19,10 @@ tensor the kernel (``repro_torch.kernels.paged_attention``).
 ``attn_tree`` / ``attention_tree`` are the same pair for a stacked
 tree-verify span, with the causal mask replaced by ``_tree_mask``.
 
-The ring-cache tree path (``attn_tree_ring``) waits for the ring-cache
-slice.
+Ring cache: the dense forward reads a ring buffer through the paged pair
+above, over an identity view of the ring (``models.dense``).
+``attn_tree_ring`` is JAX's plain tree read over a ring (dense scores with
+the ``_tree_mask`` visibility), the reference that read is held against.
 """
 from __future__ import annotations
 
@@ -62,12 +64,14 @@ def _gqa_scores(q, k):
 
 
 def attn_dense(q, k, v, q_pos, kv_pos, *, window=None, scale=None,
-               causal=True):
-    """q:[B,Q,H,D] k,v:[B,S,Kv,D] positions int32 -> [B,Q,H,D]."""
+               causal=True, mask=None):
+    """q:[B,Q,H,D] k,v:[B,S,Kv,D] positions int32 -> [B,Q,H,D].
+    ``mask`` overrides the causal/window mask (the tree path builds its
+    ancestor-bitmask visibility explicitly)."""
     B, Q, H, D = q.shape
     scale = scale if scale is not None else D ** -0.5
     s = _gqa_scores(q, k) * scale                             # [B,Kv,G,Q,S]
-    m = _mask(q_pos, kv_pos, window, causal)
+    m = mask if mask is not None else _mask(q_pos, kv_pos, window, causal)
     s = torch.where(_expand_mask(m), s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
@@ -233,6 +237,27 @@ def _tree_mask(idx, kv_pos, depths, bits, window):
     inspan = span_vis[:, relc].permute(1, 0, 2)
     inspan = inspan & ((rel >= 0) & (rel < span))[:, None, :]
     return prefix | inspan
+
+
+def attn_tree_ring(q, k, v, index, depths, bits, *, window=None, scale=None):
+    """Tree-verify attention over a ring cache (plain version).
+
+    q: [B, span, H, D], the packed [root, node_1..node_N] verify span, whose
+    KV was just written at contiguous slots index..index+span-1 of the
+    ring buffers k/v [B, W, Kv, D] (a ring that has not wrapped: slot s
+    holds position s)."""
+    B = q.shape[0]
+    S = k.shape[1]
+    idx = torch.as_tensor(index, dtype=torch.int32, device=q.device)
+    if idx.ndim == 0:
+        idx = idx.expand(B)
+    depths = torch.as_tensor(depths, dtype=torch.int32, device=q.device)
+    bits = torch.as_tensor(bits, dtype=torch.int32, device=q.device)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    m = _tree_mask(idx, kv_pos, depths, bits, window)
+    q_pos = idx[:, None] + depths[None, :]
+    return attn_dense(q, k, v, q_pos, kv_pos, window=window, scale=scale,
+                      mask=m)
 
 
 def attn_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,

@@ -1,13 +1,24 @@
 """Dense (llama-style) decoder-only transformer: RMSNorm + GQA + RoPE + SwiGLU
-(port of the no-cache and paged paths of ``repro/models/dense.py``).
+(port of ``repro/models/dense.py``).
 
 The JAX package stacks layer params on axis 0 and runs ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts and a Python loop runs
 them, each layer reading and writing its slice ``cache["k"][l]`` of the
-stacked pools in place. Two forwards are ported: the no-cache full-sequence
-pass (the paper's no-cache mode; attention through ``attention_flash``) and
-the paged-cache pass (plain and tree-verify). The ring-cache branch waits
-for a later slice.
+stacked buffers in place. Three forwards: the no-cache full-sequence pass
+(the paper's no-cache mode; attention through ``attention_flash``), the
+paged-cache pass and the ring-cache pass (each plain or tree-verify).
+
+A ring cache is read through the paged kernel over an identity view: while
+the ring has not wrapped, slot p of row b holds position p, so a layer's
+[B, W, Kv, D] buffer is the block pool [B * W / RING_PAGE, RING_PAGE, Kv, D]
+with table[b, j] = b * W / RING_PAGE + j. A layer writes its Q new tokens
+into the ring first, then reads it like a paged pool: the same keys and
+positions as JAX's [old buffer ++ new tokens] read over ``slot_positions``
+(slots past index + Q are stale and hidden by the causal mask, as on the
+paged path). A ring that can wrap (a sliding window) is refused;
+``Model.init_cache`` makes W a multiple of RING_PAGE at least max_len, and
+the engines never write past max_len, so index + Q <= W holds on their
+paths (it is not checked per call, which would cost a host sync).
 
 API:
   init(cfg, gen, device)                           -> params
@@ -17,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.cache.ops import PAGED
+from repro_torch.cache.ops import PAGED, RING
 from repro_torch.models import layers as L
 from repro_torch.models.attention import (attention_flash, attention_paged,
                                           attention_tree)
@@ -61,15 +72,33 @@ def init(cfg, gen: torch.Generator, device):
 
 
 # ------------------------------------------------------------------- forward
+RING_PAGE = 16      # block size of a ring's identity view
+
+
+def ring_view_table(B, W, device):
+    """[B, W / RING_PAGE] int32 block table of a ring's identity view: row
+    b's page j is block b * W / RING_PAGE + j."""
+    n = W // RING_PAGE
+    rows = torch.arange(B, dtype=torch.int32, device=device)[:, None] * n
+    return rows + torch.arange(n, dtype=torch.int32, device=device)
+
+
+def ring_view(buf):
+    """A layer's ring buffer [B, W, Kv, D] as a block pool
+    [B * W / RING_PAGE, RING_PAGE, Kv, D] (a view, no copy)."""
+    return buf.view(-1, RING_PAGE, *buf.shape[2:])
+
+
 def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
-               max_live=None, tree=None):
+               max_live=None, tree=None, ring=False):
     """Self-attention sub-block. ``layer_cache=None`` is the no-cache pass
-    (q_pos = 0..Q-1 on both sides). Otherwise, over a paged pool: write
-    this step's K/V into the pool (in place), then read it through the
-    block table. ``tree`` = (depths, bits) int32 [Q] device tensors marks a
-    stacked tree-verify pass (core/tree.py): q_pos already carries the
-    depth offsets, the KV lands at contiguous slots index..index+Q-1, and
-    visibility follows each slot's ancestor bitmask."""
+    (q_pos = 0..Q-1 on both sides). Otherwise write this step's K/V into
+    the cache (in place), then read it through ``block_table``: the pool's
+    own table, or for a ring (``ring=True``) its identity view's. ``tree``
+    = (depths, bits) int32 [Q] device tensors marks a stacked tree-verify
+    pass (core/tree.py): q_pos already carries the depth offsets, the KV
+    lands at contiguous slots index..index+Q-1, and visibility follows each
+    slot's ancestor bitmask."""
     B, Q, _ = x.shape
     hd = cfg.head_dim
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
@@ -81,23 +110,42 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
     if layer_cache is None:
         o = attention_flash(q, k, v, window=window)
         return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
-    layer_cache = PAGED.write(layer_cache, k, v, block_table, index)
-    if tree is not None:
-        o = attention_tree(q, layer_cache["k"], layer_cache["v"], block_table,
-                           index, tree[0], tree[1], window=window,
-                           max_live=max_live)
+    if ring:
+        layer_cache = RING.write(layer_cache, k, v, index)
+        k_pool, v_pool = ring_view(layer_cache["k"]), ring_view(layer_cache["v"])
     else:
-        o = attention_paged(q, layer_cache["k"], layer_cache["v"],
-                            block_table, index, window=window,
-                            max_live=max_live)
+        layer_cache = PAGED.write(layer_cache, k, v, block_table, index)
+        k_pool, v_pool = layer_cache["k"], layer_cache["v"]
+    if tree is not None:
+        o = attention_tree(q, k_pool, v_pool, block_table, index, tree[0],
+                           tree[1], window=window, max_live=max_live)
+    else:
+        o = attention_paged(q, k_pool, v_pool, block_table, index,
+                            window=window, max_live=max_live)
     return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
 
 
 def dense_layer(cfg, p, x, q_pos, layer_cache, index, block_table,
-                max_live=None, tree=None):
+                max_live=None, tree=None, ring=False):
     x = x + attn_block(cfg, p["attn"], x, q_pos, layer_cache, index,
-                       cfg.sliding_window, block_table, max_live, tree)
+                       cfg.sliding_window, block_table, max_live, tree, ring)
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+
+
+def _check_ring(cfg, cache, Q) -> int:
+    """A ring the identity view can read: no window (a windowed ring wraps),
+    W a multiple of RING_PAGE, Q <= W. Returns W."""
+    W = cache["k"].shape[2]
+    if cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "a windowed ring cache wraps, and the ring is read through an "
+            "identity view that holds only while it does not")
+    if W % RING_PAGE:
+        raise ValueError(f"a ring buffer's length must be a multiple of "
+                         f"{RING_PAGE} (Model.init_cache rounds it), got {W}")
+    if Q > W:
+        raise NotImplementedError(f"{Q} tokens would wrap a ring of {W} slots")
+    return W
 
 
 def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
@@ -105,22 +153,21 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
     """tokens: [B, Q] int.
     cache=None: full-sequence causal pass (the paper's no-cache mode);
     returns (logits, None).
-    cache=dict: a paged cache; Q new tokens are written at
-    ``cache["index"]`` and the returned cache (same pools) has index + Q.
+    cache=dict: a paged or ring cache; Q new tokens are written at
+    ``cache["index"]`` and the returned cache (same buffers) has index + Q.
     logits_slice: "last" unembeds only the final position (decode fast-path).
-    max_live: live-token bound for the block-scan read (None derives it
-    from the index); a 0-dim device tensor keeps the round free of host
-    syncs.
+    max_live: paged caches only — live-token bound for the block-scan read
+    (None derives it from the index); a 0-dim device tensor keeps the round
+    free of host syncs. A ring read is bounded by each row's index + Q.
     tree: (depths, bits) int32 [Q] — a stacked tree-verify pass
     (core/tree.py): RoPE positions become index + depths and attention
     follows the ancestor bitmasks. They become device tensors once here,
     not once per layer."""
-    if cache is not None and "block_table" not in cache:
-        raise NotImplementedError("the ring-cache forward is not ported")
     if cache is None and tree is not None:
         raise ValueError("a tree-verify pass needs a cache")
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
-    Q = x.shape[1]
+    B, Q = x.shape[0], x.shape[1]
+    ring = cache is not None and "block_table" not in cache
     if tree is not None:
         tree = tuple(torch.as_tensor(t, dtype=torch.int32, device=x.device)
                      for t in tree)
@@ -132,14 +179,18 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
         q_pos = offs
     else:
         index = cache["index"]
-        block_table = cache["block_table"]
+        if ring:
+            W = _check_ring(cfg, cache, Q)
+            block_table, max_live = ring_view_table(B, W, x.device), None
+        else:
+            block_table = cache["block_table"]
         # index: scalar (shared) or [B] (per-row batched speculation)
         q_pos = index[..., None] + offs if index.ndim else index + offs
     for l, lp in enumerate(params["layers"]):
         layer_cache = (None if cache is None
                        else {"k": cache["k"][l], "v": cache["v"][l]})
         x = dense_layer(cfg, lp, x, q_pos, layer_cache, index, block_table,
-                        max_live, tree)
+                        max_live, tree, ring)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]

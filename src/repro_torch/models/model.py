@@ -1,18 +1,26 @@
-"""Model API (port of ``repro/models/model.py``: the dense family, and the
-ssm family with no cache).
+"""Model API (port of ``repro/models/model.py``: the dense and ssm
+families).
 
   model = build_model(cfg)
   params = model.init(seed, device)
   logits, cache, aux = model.apply(params, tokens, cache, **kw)
   logits, _, _ = model.apply(params, tokens)       # no-cache full pass
-  cache = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
+  cache  = model.init_cache(batch, max_len, spec_slack)      (ring / state)
+  cache  = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
+  cache' = model.rollback(cache, accepted_index, q_len)      (O(1) / trail)
 
-``init`` and ``init_paged_cache`` allocate on ``cuda`` unless the caller
-passes ``device="cpu"``. The ssm family (Mamba-2) runs the no-cache pass
-only: its cached pass and ``init_paged_cache`` raise (its state and conv
-caches, trails and rollback come with a later slice; JAX has no paged
-cache for it either). The other families and the ring cache wait for later
-slices.
+``init``, ``init_cache`` and ``init_paged_cache`` allocate on ``cuda``
+unless the caller passes ``device="cpu"``. The dense family's
+``init_cache`` is a ring KV cache whose length is rounded up to a multiple
+of ``dense.RING_PAGE``, so the paged kernel can read it through an
+identity view (slots past max_len are never written); a windowed config's
+ring would wrap and is refused. The ssm family's is the recurrent state and
+conv caches; the state is kept in fp32 whatever the activation dtype (JAX
+keeps it in the activation dtype). A bf16 state is rounded after every
+cached step: cached AR rounds it once a token, a speculative round once a
+round (through the verify's trail), and the no-cache pass never, so the
+three drift apart. It has no paged cache (JAX has none either). The other
+families wait for later slices.
 """
 from __future__ import annotations
 
@@ -21,16 +29,10 @@ from typing import Optional, Union
 import torch
 
 from repro_torch import device as devices
-from repro_torch.cache import paged_kv
+from repro_torch.cache import kv_cache, paged_kv
 from repro_torch.models import dense, ssm
 
 FAMILIES = {"dense": dense, "ssm": ssm}
-
-
-def _ssm_cache_later():
-    return NotImplementedError(
-        "the ssm family runs without a cache only: its cached pass (state "
-        "and conv caches, trails, rollback) comes with a later slice")
 
 
 class Model:
@@ -51,38 +53,81 @@ class Model:
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         return FAMILIES[self.family].init(self.cfg, gen, dev)
 
-    def apply(self, params, tokens, cache=None, *, logits_slice=None,
-              max_live=None, tree=None):
+    def apply(self, params, tokens, cache=None, *, want_trail=False,
+              logits_slice=None, max_live=None, tree=None):
         """``cache=None`` runs the no-cache full-sequence pass and returns
-        (logits, None, {}). ``tree`` = (depths, bits) int32 [Q] runs a
-        stacked tree-verify pass (``core.tree``; dense family, paged
-        cache)."""
+        (logits, None, {}). ``want_trail``: ssm caches only — also return
+        the per-token state and conv trails ``rollback`` selects from.
+        ``max_live``: paged caches only. ``tree`` = (depths, bits) int32 [Q]
+        runs a stacked tree-verify pass (``core.tree``; dense family)."""
         if self.family == "ssm":
-            if cache is not None:
-                raise _ssm_cache_later()
             if tree is not None:
                 raise NotImplementedError(
                     f"tree-verify passes need a dense-family target (got {self.family!r})")
-            logits, _ = ssm.forward(self.cfg, params, tokens,
-                                    logits_slice=logits_slice)
-            return logits, None, {}
+            logits, new_cache = ssm.forward(self.cfg, params, tokens, cache,
+                                            logits_slice=logits_slice,
+                                            want_trail=want_trail)
+            return logits, new_cache, {}
         logits, new_cache = dense.forward(self.cfg, params, tokens, cache,
                                           logits_slice=logits_slice,
                                           max_live=max_live, tree=tree)
         return logits, new_cache, {}
 
+    # ----------------------------------------------------------------- cache
+    def cache_len(self, text_len: int) -> int:
+        """Cache capacity needed for ``text_len`` text positions (the text
+        families hold nothing else)."""
+        return text_len
+
+    def _kv_window(self, spec_slack):
+        w = self.cfg.sliding_window
+        return None if w is None else w + spec_slack
+
+    def init_cache(self, batch, max_len, spec_slack=8,
+                   dtype: Optional[torch.dtype] = None, device=None):
+        """dense: ring KV buffers [L, batch, W, Kv, D] with W = max_len
+        rounded up to a multiple of ``dense.RING_PAGE``; ssm: state
+        [L, batch, H, P, N] (fp32) and conv [L, batch, K-1, CH] caches.
+        Index 0."""
+        cfg = self.cfg
+        dtype = dtype or cfg.act_dtype
+        dev = devices.resolve(device)
+        if self.family == "ssm":
+            G, N, K = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
+            ch = cfg.d_inner + 2 * G * N
+            return {"state": torch.zeros((cfg.num_layers, batch, cfg.ssm_heads,
+                                          cfg.ssm_head_dim, N),
+                                         dtype=torch.float32, device=dev),
+                    "conv": torch.zeros((cfg.num_layers, batch, K - 1, ch),
+                                        dtype=dtype, device=dev),
+                    "index": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self._kv_window(spec_slack) is not None:
+            raise NotImplementedError(
+                "a windowed ring cache wraps; the ring is read through an "
+                "identity view that holds only while it does not")
+        W = -(-max_len // dense.RING_PAGE) * dense.RING_PAGE
+        return kv_cache.init_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
+                                   cfg.head_dim, dtype=dtype, device=dev)
+
     def init_paged_cache(self, batch, num_blocks, block_size,
                          max_blocks_per_row, dtype: Optional[torch.dtype] = None,
                          device=None):
-        """Block-pool KV cache for ragged continuous batching."""
+        """Block-pool KV cache for ragged continuous batching (KV families
+        only: recurrent state needs no paging)."""
         if self.family == "ssm":
-            raise _ssm_cache_later()
+            raise ValueError(f"paged KV cache unsupported for family {self.family!r}")
         cfg = self.cfg
         return paged_kv.init_cache(cfg.num_layers, batch, num_blocks,
                                    block_size, max_blocks_per_row,
                                    cfg.num_kv_heads, cfg.head_dim,
                                    dtype or cfg.act_dtype,
                                    devices.resolve(device))
+
+    # -------------------------------------------------------------- rollback
+    def rollback(self, cache, accepted_index, q_len):
+        if self.family == "ssm":
+            return ssm.rollback(cache, accepted_index, q_len)
+        return kv_cache.rollback(cache, accepted_index)
 
 
 def build_model(cfg) -> Model:

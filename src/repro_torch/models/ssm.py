@@ -1,24 +1,32 @@
-"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060): the no-cache
-path of ``repro/models/ssm.py``.
+"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060), port of
+``repro/models/ssm.py``.
 
 The sequence path is the chunked SSD algorithm (quadratic within chunks,
-linear recurrence across chunk states). With no cache the scan starts from
-a zero state and its final state is not needed, which is exactly the
-function of the fused scan kernel: ``ssm_mix`` calls ``kernels.ops.
-ssd_scan`` (the CUDA kernel on a CUDA tensor, the plain ``ssd_chunked``
-on a CPU tensor). ``ssd_chunked`` with an initial state and the final
-state is kept whole: it is the plain version and the tests' oracle.
+linear recurrence across chunk states): ``ssm_mix`` calls ``kernels.ops.
+ssd_scan`` (the CUDA kernel on a CUDA tensor, the plain ``ssd_chunked`` on
+a CPU tensor), from a zero state with no cache, and with a cache from the
+cached state, taking the final state back from the kernel. Decode is the
+token-by-token recurrence ``ssd_sequential`` on the cached state, used as
+in JAX whenever Q <= 16 or the caller wants the trail.
+
+Speculative rollback: an SSM state cannot be truncated like a KV ring, so
+a multi-token extend with ``want_trail`` (the verify pass, Q = gamma + 1)
+also returns per-token state and conv trails, and ``rollback`` selects the
+state at the accepted position.
 
 The JAX package stacks layer params on axis 0 and runs ``lax.scan``; here
 ``params["layers"]`` is a list of per-layer dicts and a Python loop runs
-them. The B/C group broadcast to heads is a stride-0 view (``expand``), not
-a copy: the kernel reads every operand through its strides. The cached
-path (``ssd_sequential``, the state and conv trails, ``rollback``) waits
-for a later slice.
+them, and a cached forward returns new state/conv tensors (stacked over
+layers, as the scan's outputs are), never updating the old ones: the
+stateful drafter keeps each draft step's state as its rollback snapshot.
+The B/C group broadcast to heads is a stride-0 view (``expand``), not a
+copy: the kernel reads every operand through its strides.
 
 API:
-  init(cfg, gen, device)                         -> params
-  forward(cfg, params, tokens, logits_slice=None) -> logits, None
+  init(cfg, gen, device)                                   -> params
+  forward(cfg, params, tokens, cache=None, logits_slice=None,
+          want_trail=False)                                -> logits, new_cache
+  rollback(cache, accepted_index, q_len)                   -> cache
 """
 from __future__ import annotations
 
@@ -123,14 +131,29 @@ def ssd_chunked(x, dA, Bm, Cm, chunk, init_state):
     return Y, final_state
 
 
+def ssd_sequential(x, dA, Bm, Cm, init_state):
+    """Token-by-token recurrence; returns (y [b,q,h,p], final state
+    [b,h,p,n], the per-token state trail [b,q,h,p,n])."""
+    state = init_state
+    ys, trail = [], []
+    for t in range(x.shape[1]):
+        state = torch.exp(dA[:, t])[..., None, None] * state \
+            + torch.einsum("bhp,bhn->bhpn", x[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cm[:, t], state))
+        trail.append(state)
+    return torch.stack(ys, dim=1), state, torch.stack(trail, dim=1)
+
+
 # ------------------------------------------------------------------- forward
 def _causal_conv(xBC, w, b, conv_cache=None):
-    """Depthwise causal conv. xBC: [B,Q,CH]; w: [K,CH]. Returns (out, the
-    last K-1 inputs). The cached branch waits for the cached SSM path."""
-    if conv_cache is not None:
-        raise NotImplementedError("the cached conv is not ported (no-cache path only)")
+    """Depthwise causal conv. xBC: [B,Q,CH]; w: [K,CH]; conv_cache:
+    [B,K-1,CH] or None (zero history). Returns (out, the last K-1 inputs:
+    the new conv cache)."""
     K = w.shape[0]
-    xfull = F.pad(xBC, (0, 0, K - 1, 0))
+    if conv_cache is not None:
+        xfull = torch.cat([conv_cache.to(xBC.dtype), xBC], dim=1)
+    else:
+        xfull = F.pad(xBC, (0, 0, K - 1, 0))
     # window sum: out[t] = sum_k w[k] * xfull[t+k]
     Q = xBC.shape[1]
     out = torch.zeros_like(xBC)
@@ -152,8 +175,11 @@ def _heads(m, B, Q, G, N, H):
     return m.expand(B, Q, G, H // G, N).reshape(B, Q, H, N)
 
 
-def ssm_mix(cfg, p, x):
-    """The mamba2 mixer, no cache (zero initial state)."""
+def ssm_mix(cfg, p, x, layer_cache=None, want_trail=False):
+    """The mamba2 mixer. layer_cache: {"state": [B,H,P,N], "conv":
+    [B,K-1,CH]} or None (zero state, no cache). Returns (x + out, the new
+    layer cache or None); with ``want_trail`` the new cache also holds
+    "state_trail" [B,Q,H,P,N] and "conv_trail" [B,Q,K-1,CH]."""
     from repro_torch.kernels import ops
     B, Q, _ = x.shape
     di, G, N, H, P = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
@@ -161,7 +187,8 @@ def ssm_mix(cfg, p, x):
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     zxbcdt = L.linear(p["in_proj"], h)
     z, xBC_raw, dt_raw = torch.split(zxbcdt, [di, di + 2 * G * N, H], dim=-1)
-    xBC, _ = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"])
+    conv_cache = layer_cache["conv"] if layer_cache is not None else None
+    xBC, new_conv = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"], conv_cache)
     xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     xs = xs.reshape(B, Q, H, P)
@@ -169,25 +196,71 @@ def ssm_mix(cfg, p, x):
     A = -torch.exp(p["A_log"])                                       # [H]
     dA = (dt * A).float()
     x_eff = xs.float() * dt[..., None]
-    y = ops.ssd_scan(x_eff, dA, _heads(Bm, B, Q, G, N, H),
-                     _heads(Cm, B, Q, G, N, H), chunk=cfg.ssm_chunk)
+    Bf, Cf = _heads(Bm, B, Q, G, N, H), _heads(Cm, B, Q, G, N, H)
+    trail = None
+    if layer_cache is None:
+        y = ops.ssd_scan(x_eff, dA, Bf, Cf, chunk=cfg.ssm_chunk)
+    else:
+        init_state = layer_cache["state"].float()
+        if Q <= 16 or want_trail:
+            y, final_state, trail = ssd_sequential(x_eff, dA, Bf, Cf, init_state)
+        else:
+            y, final_state = ops.ssd_scan(x_eff, dA, Bf, Cf, chunk=cfg.ssm_chunk,
+                                          init_state=init_state,
+                                          return_final_state=True)
     y = y + p["D"][:, None] * xs.float()
     y = y.reshape(B, Q, di).to(x.dtype)
     y = L.rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return x + L.linear(p["out_proj"], y)
+    out = x + L.linear(p["out_proj"], y)
+    if layer_cache is None:
+        return out, None
+    new_cache = {"state": final_state.to(layer_cache["state"].dtype),
+                 "conv": new_conv.to(layer_cache["conv"].dtype)}
+    if want_trail:
+        # conv trail: the conv cache as it would be after each new token
+        K = cfg.ssm_conv
+        xfull = torch.cat([conv_cache.to(x.dtype), xBC_raw], dim=1)
+        conv_trail = torch.stack([xfull[:, j + 1:j + K] for j in range(Q)], dim=1)
+        new_cache["state_trail"] = trail.to(layer_cache["state"].dtype)
+        new_cache["conv_trail"] = conv_trail.to(layer_cache["conv"].dtype)
+    return out, new_cache
 
 
-def forward(cfg, params, tokens, cache=None, *, logits_slice=None):
-    """tokens: [B, Q] int; the no-cache full-sequence pass (the paper's
-    no-cache mode). Returns (logits fp32, None)."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the cached SSM forward (state/conv caches, trails, rollback) "
-            "is not ported yet: a later slice adds it")
+def forward(cfg, params, tokens, cache=None, *, logits_slice=None,
+            want_trail=False):
+    """tokens: [B, Q] int. cache=None: the no-cache full-sequence pass (the
+    paper's no-cache mode), returns (logits fp32, None). cache=dict
+    ({"state", "conv", "index"}): extend from the cached state; returns the
+    new cache (new tensors, stacked over layers) with index + Q, and with
+    ``want_trail`` the per-token trails."""
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
-    for lp in params["layers"]:
-        x = ssm_mix(cfg, lp, x)
+    Q = x.shape[1]
+    new_layers = []
+    for l, lp in enumerate(params["layers"]):
+        lc = (None if cache is None else
+              {"state": cache["state"][l], "conv": cache["conv"][l]})
+        x, new_lc = ssm_mix(cfg, lp, x, lc, want_trail)
+        new_layers.append(new_lc)
+    new_cache = None
+    if cache is not None:
+        new_cache = {k: torch.stack([lc[k] for lc in new_layers])
+                     for k in new_layers[0]}
+        new_cache["index"] = cache["index"] + Q
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]
-    return L.unembed(params["embed"], x), None
+    return L.unembed(params["embed"], x), new_cache   # mamba2 ties embeddings
+
+
+def rollback(cache, accepted_index, q_len):
+    """Select the state at ``accepted_index`` from the verification trail
+    (``accepted_index`` and the cache's index are 0-dim tensors; the trail
+    position is gathered on the device)."""
+    old_index = cache["index"] - q_len
+    j = torch.clamp(accepted_index - old_index - 1, 0, q_len - 1)
+    j = torch.as_tensor(j, device=cache["state_trail"].device).long().reshape(1)
+    state = torch.index_select(cache["state_trail"], 2, j)[:, :, 0]
+    conv = torch.index_select(cache["conv_trail"], 2, j)[:, :, 0]
+    return {"state": state, "conv": conv,
+            "index": torch.as_tensor(accepted_index, dtype=torch.int32,
+                                     device=cache["index"].device)}

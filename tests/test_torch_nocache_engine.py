@@ -193,14 +193,20 @@ def test_round_spec_rejections_match_jax(commit, use_cache, policy):
 
 
 def test_unported_modes_raise(split_pair):
-    mt, md, pt, _ = split_pair["torch"]
-    with pytest.raises(NotImplementedError, match="ring"):
-        rounds.RoundSpec(gamma=GAMMA, commit="batch_min", use_cache=True)
-    with pytest.raises(NotImplementedError, match="ring"):
-        engine.SpecEngine(mt, md, engine.EngineConfig(use_cache=True))
-    with pytest.raises(NotImplementedError, match="ring"):
-        engine.autoregressive_generate(mt, pt, _prompts(1, 4, 0), 2,
-                                       use_cache=True)
+    """The cached modes run since the ring cache is ported (cached batch_min
+    rounds, ``SpecEngine(use_cache=True)``, cached AR, which equals the
+    no-cache AR); an unknown strategy and a 1-candidate multi-draft still
+    raise."""
+    mt, md, pt, pd = split_pair["torch"]
+    assert rounds.RoundSpec(gamma=GAMMA, commit="batch_min",
+                            use_cache=True).use_cache
+    prompt = _prompts(1, 4, 0)
+    toks, _ = engine.SpecEngine(mt, md, engine.EngineConfig(
+        gamma=GAMMA, use_cache=True)).generate(pt, pd, prompt, 6)
+    cached = engine.autoregressive_generate(mt, pt, prompt, 6, use_cache=True)
+    np.testing.assert_array_equal(toks[:, :10].numpy(), cached.numpy())
+    np.testing.assert_array_equal(
+        cached.numpy(), engine.autoregressive_generate(mt, pt, prompt, 6).numpy())
     with pytest.raises(ValueError, match="strategy"):
         engine.SpecEngine(mt, md, engine.EngineConfig(strategy="fused"))
     with pytest.raises(ValueError, match="k >= 2"):

@@ -1,8 +1,8 @@
 """The port's no-cache serving CLI (``repro_torch.launch.serve``): it serves
 AR and speculatively on the CPU when asked to, its gamma decision is the
 JAX planner's (Eq. (1) over 0..8 with the planner's prior c), gamma* = 0
-serves AR, speculative and AR serving give the same tokens, and the modes
-it does not port yet raise."""
+serves AR, speculative and AR serving give the same tokens, with or
+without the cache."""
 import os
 import pathlib
 import subprocess
@@ -70,8 +70,17 @@ def test_gamma_zero_serves_ar(capsys):
 
 
 def test_use_cache_raises():
-    with pytest.raises(NotImplementedError, match="ring"):
-        serve.main([*SMOKE, "--speculative", "--use-cache"])
+    """``--use-cache`` serves on the cached engine (it raised until the ring
+    cache was ported): the same tokens as the no-cache serve, spec and AR."""
+    argv = [*SMOKE, "--requests", "3", "--max-new", "9", "--prompt-len", "5"]
+    spec, s = serve.main(argv + ["--speculative", "--batch", "2", "--gamma",
+                                 "4", "--use-cache"])
+    nocache, _ = serve.main(argv + ["--speculative", "--batch", "2",
+                                    "--gamma", "4"])
+    ar, _ = serve.main(argv + ["--use-cache"])
+    np.testing.assert_array_equal(spec, nocache)
+    np.testing.assert_array_equal(ar, nocache)
+    assert s["waves"] == 2 and s["rounds"] > 0
 
 
 def test_cli_raises_without_a_device():

@@ -1,4 +1,5 @@
-"""Port parity for the Mamba-2 (ssm) family with no cache: the weight
+"""Port parity for the Mamba-2 (ssm) family with no cache (the cached
+path is ``test_torch_ssm_cached.py``): the weight
 bridge, the causal conv, the no-cache forward, ``SpecEngine(use_cache=
 False)`` (linear and multi-draft) and the ``launch.serve`` CLI, against
 ``repro`` on the ``mamba2-780m`` smoke config.
@@ -145,9 +146,14 @@ def test_causal_conv_matches_jax(dtype):
                                          for a in (xBC, w, b)), None)
     np.testing.assert_array_equal(out.float().numpy(), np.asarray(jout, np.float32))
     np.testing.assert_array_equal(tail.float().numpy(), np.asarray(jtail, np.float32))
-    with pytest.raises(NotImplementedError):
-        ssm._causal_conv(torch.zeros(1, 2, 3), torch.zeros(4, 3), torch.zeros(3),
-                         torch.zeros(1, 3, 3))
+    # with a conv cache (the cached path): the cache's K-1 rows lead the window
+    cache = rng.standard_normal((2, 3, 24)).astype(np.float32)
+    out, tail = ssm._causal_conv(*(torch.from_numpy(a).to(tdt)
+                                   for a in (xBC, w, b, cache)))
+    jout, jtail = jax_ssm._causal_conv(*(jnp.asarray(a, getattr(jnp, dtype))
+                                         for a in (xBC, w, b, cache)))
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(jout, np.float32))
+    np.testing.assert_array_equal(tail.float().numpy(), np.asarray(jtail, np.float32))
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["target", "drafter"])
@@ -229,11 +235,17 @@ def test_full_width_pair_is_the_registered_one():
 
 
 def test_cached_paths_raise_for_ssm(engine_pair):
+    """The cached ssm pass runs (state and conv caches; it raised until the
+    cached path was ported) and its last logits equal the no-cache pass's;
+    the ssm family has no paged cache (as in JAX) and no tree pass."""
     m, p = engine_pair["torch"][0], engine_pair["torch"][2]
-    toks = torch.zeros((1, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        m.apply(p, toks, {"index": torch.zeros((), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="later slice"):
+    toks = torch.from_numpy(_prompts(1, 3, seed=2))
+    cache = m.init_cache(1, 8, device="cpu")
+    logits, new, _ = m.apply(p, toks, cache)
+    assert int(new["index"]) == 3 and set(new) == {"state", "conv", "index"}
+    full, _, _ = m.apply(p, toks)
+    np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="paged KV cache unsupported"):
         m.init_paged_cache(2, 8, 4, 4, device="cpu")
     with pytest.raises(NotImplementedError, match="dense"):
         m.apply(p, toks, tree=(np.zeros(3, np.int32), np.zeros(3, np.int32)))
