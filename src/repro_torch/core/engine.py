@@ -119,8 +119,6 @@ class SpecEngine:
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, state, self._spec)
 
-    round_nocache = round     # JAX's name (here the config picks the mode)
-
     def prefill(self, params_t, params_d, prompt, max_len) -> RoundState:
         """The generation state for a [B, P] prompt in a [B, max_len]
         buffer. No cache: nothing is computed until the first round.

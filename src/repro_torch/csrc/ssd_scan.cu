@@ -40,8 +40,9 @@
 //    - A state item: (batch row, head, chunk that has a successor, 64 state
 //      columns): the chunk's contribution X^T (B o exp(a_cs[Q-1] - a_cs)) to
 //      the next state, into an fp32 workspace [b, h, nsc, n, p4]. nsc =
-//      nc - 1, or nc when the final state is asked for: then the last,
-//      maybe partial, chunk has state items too (its real rows only).
+//      nc - 1, or nc for a call from a given state, which returns the final
+//      state: then the last, maybe partial, chunk has state items too (its
+//      real rows only).
 //    Both stream their operands through a ring of three shared-memory stage
 //    buffers filled by 16-byte cp.async (plain loads, none past a row's
 //    end, when a row is not 16-byte aligned or p or n is not a multiple of
@@ -53,11 +54,11 @@
 //    (state' = exp(a_cs[Q-1]) state + contribution, in chunk order), and
 //    adds exp(a_cs) o (C state^T) to y_diag for its rows, the k range split
 //    over four groups of warps. From a given state it starts at chunk 0
-//    with that state; for the final state, the blocks of the first row
-//    tile add the last chunk's contribution to the carried state and write
-//    it. A call with l <= chunk, no given state and no final state does not
-//    launch it: such a call, and every call that asks for neither, runs as
-//    before the state options existed.
+//    with that state, and the blocks of the first row tile then add the
+//    last chunk's contribution to the carried state and write it as the
+//    final state. A call from a zero state with l <= chunk does not launch
+//    it: such a call, and every call from a zero state, runs as before the
+//    state option existed.
 // Every product is register-tiled fp32 FFMA: a thread owns up to 4 x 4
 // outputs and reads its operands as float4s from shared memory, laid out so
 // a warp's reads are one or a few wavefronts. The plan
@@ -558,16 +559,16 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
 }
 
 // One block per (batch row, head, 64-row tile): walks chunks 1..nc-1
-// (0..nc-1 from a given state ``init`` [b, h, p, n], INIT), carrying the
+// (0..nc-1 from a given state ``init`` [b, h, p, n], STATE), carrying the
 // state, and adds exp(a_cs) o (C state^T) to its rows' y_diag. The product
 // runs 16 rows at a time with its k range split over four groups of two
 // warps (so a chunk of a few rows still keeps every warp busy); the four
-// partial sums are added in group order. With FINAL, the blocks of row tile
-// 0 write the final state to ``fin`` [b, h, p, n]: exp(a_cs[Q-1]) state +
-// the last chunk's contribution, the same update as between two chunks.
-// The options are template arguments, so a call with neither runs the code
-// it ran before they existed.
-template <bool INIT, bool FINAL>
+// partial sums are added in group order. With STATE, the blocks of row tile
+// 0 also write the final state to ``fin`` [b, h, p, n]: exp(a_cs[Q-1])
+// state + the last chunk's contribution, the same update as between two
+// chunks. The option is a template argument, so a call without a state
+// runs the code it ran before the option existed.
+template <bool STATE>
 __global__ void __launch_bounds__(kThreads)
 ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
                  float* __restrict__ y, const float* __restrict__ ws,
@@ -616,29 +617,29 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
       }
     }
   };
-  constexpr int kFirst = INIT ? 0 : 1;          // the first chunk the state reaches
+  constexpr int kFirst = STATE ? 0 : 1;         // the first chunk the state reaches
   const long long sp = (static_cast<long long>(bb) * s.H + hd) * s.P * s.N;
   for (int e = tid; e < kN * (kP + 4); e += kThreads) St[e] = 0.f;
   float decay = 0.f;                            // exp(a_cs[Q-1]) of the chunk before
-  if constexpr (INIT) {                         // St[k][p] = init[bb, hd, p, k]
+  if constexpr (STATE) {                        // St[k][p] = init[bb, hd, p, k]
     __syncthreads();
     for (int e = tid; e < s.P * s.N; e += kThreads)
       St[(e % s.N) * (kP + 4) + e / s.N] = init[sp + e];
   } else {
-    if (warp == 0)                              // chunk 0: full when nc > 1
-      chunk_cumsum(dA + bb * sa.b + hd * sa.h, sa.l, FINAL ? min(Q, s.L) : Q, acs, lane);
+    if (warp == 0)                              // chunk 0 is full: it has a successor
+      chunk_cumsum(dA + bb * sa.b + hd * sa.h, sa.l, Q, acs, lane);
     __syncthreads();
     decay = expf(acs[Q - 1]);
     __syncthreads();                            // acs of chunk 0 is read
   }
-  if (kFirst < s.nc) stage(kFirst);
+  stage(kFirst);
   const float* z = ws + (static_cast<long long>(bb) * s.H + hd) * s.nsc * s.N * s.P4;
   // the contributions and y_diag come from the first kernel
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   for (int c = kFirst; c < s.nc; ++c) {
     const int t0 = c * Q, nv = min(Q, s.L - t0);
     const float* zc = z + static_cast<long long>(c - 1) * s.N * s.P4;
-    if ((!INIT || c > 0) && 4 * tx < s.P) {     // 16 threads per state row, 16 rows a pass
+    if ((!STATE || c > 0) && 4 * tx < s.P) {    // 16 threads per state row, 16 rows a pass
       constexpr int kPasses = kN / (kThreads / 16);
       const int k1 = tid / 16;
       float4 zv[kPasses];
@@ -662,7 +663,7 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
       }
     }
     __syncthreads();                            // St, acs and Ct of chunk c are in place
-    const float next_decay = c + 1 < s.nc || FINAL ? expf(acs[Q - 1]) : 0.f;
+    const float next_decay = c + 1 < s.nc || STATE ? expf(acs[Q - 1]) : 0.f;
     for (int sub = 0; sub * kRowTile < min(kCarryRows, nv - r0); ++sub) {   // uniform
       const int i0 = sub * kRowTile;
       // y_diag of the epilogue's outputs, loaded before the product
@@ -714,7 +715,7 @@ ssd_carry_kernel(const float* __restrict__ dA, const float* __restrict__ Cm,
     decay = next_decay;
     if (c + 1 < s.nc) stage(c + 1);
   }
-  if constexpr (FINAL) {
+  if constexpr (STATE) {
     if (rt == 0) {                              // St is in place (a barrier above)
       const float* zl = z + static_cast<long long>(s.nc - 1) * s.N * s.P4;
       for (int e = tid; e < s.P * s.N; e += kThreads) {
@@ -771,10 +772,11 @@ bool aligned16(const void* ptr, const Strides& st, int width) {
 
 // x/y: [b, l, h, p]; dA: [b, l, h]; B/C: [b, l, h, n]; fp32; x, dA, B and C
 // read through the given element strides (batch, row, head, last axis; dA
-// has no last axis), y written contiguous. init_state (or null: a zero
-// state) and final_state (or null: not written): fp32 [b, h, p, n],
-// contiguous. ws: fp32 [b, h, nsc, n, p4] with p4 = p rounded up to 4 and
-// nsc = nc - 1, or nc with a final state (unused when nsc = 0). heads_per_block in
+// has no last axis), y written contiguous. init_state and final_state: both
+// fp32 [b, h, p, n], contiguous, the state the scan starts from and the one
+// it ends in; or both null (a zero state, no final state). ws: fp32
+// [b, h, nsc, n, p4] with p4 = p rounded up to 4 and nsc = nc - 1, or nc
+// with a given state (unused when nsc = 0). heads_per_block in
 // {1, 2, 4} divides h; above 1 the head strides of B and C must be 0.
 // 1 <= p <= 64, 1 <= n <= 128, 1 <= chunk <= 128. Returns a cudaError_t
 // (0 = launched).
@@ -791,8 +793,9 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
   const int hg = heads_per_block;
   if (b < 1 || l < 1 || h < 1 || p < 1 || p > kP || n < 1 || n > kN ||
       chunk < 1 || chunk > kQ || !(hg == 1 || hg == 2 || hg == 4) || h % hg != 0 ||
-      (hg > 1 && (b_sh != 0 || c_sh != 0)))
+      (hg > 1 && (b_sh != 0 || c_sh != 0)) || (init_state == nullptr) != (final_state == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool state = init_state != nullptr;
   Shape s{};
   s.B = b; s.L = l; s.H = h; s.P = p; s.N = n; s.Q = chunk;
   s.P4 = (p + 3) / 4 * 4;
@@ -804,11 +807,10 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
   s.tiles_full = (chunk + kRowTile - 1) / kRowTile;
   s.tiles_last = (s.last_rows + kRowTile - 1) / kRowTile;
   s.k_tiles = (n + kKTile - 1) / kKTile;
-  s.nsc = final_state != nullptr ? s.nc : s.nc - 1;
-  int carry_rows = 0;                           // the rows the carried state reaches
-  for (int c = init_state != nullptr ? 0 : 1; c < s.nc; ++c)
-    carry_rows = max(carry_rows, min(chunk, l - c * chunk));
-  s.carry_tiles = max((carry_rows + kCarryRows - 1) / kCarryRows, final_state != nullptr ? 1 : 0);
+  s.nsc = state ? s.nc : s.nc - 1;
+  // the rows the carried state reaches: chunks 1.., or 0.. from a given state
+  const int carry_rows = state ? min(chunk, l) : s.nc >= 3 ? chunk : s.last_rows;
+  s.carry_tiles = (carry_rows + kCarryRows - 1) / kCarryRows;
   const long long y_full = static_cast<long long>(b) * s.groups * s.full_chunks * s.tiles_full;
   const long long n_state = static_cast<long long>(b) * h * s.nsc * s.k_tiles;
   const long long y_last =
@@ -829,10 +831,8 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dA, const void* Bm,
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   int err = vec ? launch_chunk_hg<true>(s, blocks, x, dA, Bm, Cm, y, ws, sx, sa, sb, sc, st)
                 : launch_chunk_hg<false>(s, blocks, x, dA, Bm, Cm, y, ws, sx, sa, sb, sc, st);
-  if (err != 0 || s.carry_tiles == 0) return err;
-  auto carry = init_state != nullptr
-                   ? (final_state != nullptr ? ssd_carry_kernel<true, true> : ssd_carry_kernel<true, false>)
-                   : (final_state != nullptr ? ssd_carry_kernel<false, true> : ssd_carry_kernel<false, false>);
+  if (err != 0 || (s.nc == 1 && !state)) return err;
+  auto carry = state ? ssd_carry_kernel<true> : ssd_carry_kernel<false>;
   const size_t bytes = sizeof(float) * kCarryFloats;
   const cudaError_t cerr = set_smem(carry, bytes);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);

@@ -59,11 +59,8 @@ def tree_attention(q, k_pool, v_pool, block_table, index, depths, bits, *,
                                     max_live=max_live)
 
 
-def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None,
-             return_final_state=False):
-    """Fused chunked SSD scan: from a zero state (the mamba2 no-cache path)
-    or from ``init_state``, returning the final state on request (the
-    cached prefill); any l: the kernel treats rows past l as the zero
-    padding."""
-    return _ssd.ssd_scan(x, dA, Bm, Cm, chunk=chunk, init_state=init_state,
-                         return_final_state=return_final_state)
+def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None):
+    """Fused chunked SSD scan: y from a zero state (the mamba2 no-cache
+    path), or (y, final state) from ``init_state`` (the cached prefill);
+    any l: the kernel treats rows past l as the zero padding."""
+    return _ssd.ssd_scan(x, dA, Bm, Cm, chunk=chunk, init_state=init_state)

@@ -138,23 +138,20 @@ def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
     return out
 
 
-def ssd_scan_ref(x, dA, Bm, Cm, chunk=128, init_state=None,
-                 return_final_state=False):
-    """The model-level chunked SSD from ``init_state`` (None: a zero state),
-    y, or (y, final state) with ``return_final_state`` (any l: the tail is
-    zero-padded to a chunk multiple, which leaves the final state as it is,
-    and cut off again)."""
+def ssd_scan_ref(x, dA, Bm, Cm, chunk=128, init_state=None):
+    """The model-level chunked SSD: y from a zero state, or (y, final
+    state) from ``init_state`` (any l: the tail is zero-padded to a chunk
+    multiple, which leaves the final state as it is, and cut off again)."""
     b, l, h, p = x.shape
     n = Bm.shape[-1]
     init = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
             if init_state is None else init_state.float())
     y, final = ssd_chunked(x.float(), dA.float(), Bm.float(), Cm.float(),
                            chunk, init)
-    return (y, final) if return_final_state else y
+    return y if init_state is None else (y, final)
 
 
-def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
-                  return_final_state=False):
+def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None):
     """The SSD scan kernel's decomposition in plain PyTorch (fp32), item by
     item of ``plan`` (``kernels/ssd_scan.py::plan``; by default the plan on
     132 SMs): each y item forms the causal score tile C_i . B_j of its
@@ -165,9 +162,9 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
     64-row tile, the state is carried over the chunks in order
     (state' = exp(a_cs[Q-1]) state + contribution) and exp(a_cs) o (C
     state^T) is added to y_diag; from ``init_state`` the walk starts at
-    chunk 0 with it, and ``return_final_state`` also returns the carried
-    state updated by the last chunk's contribution (a state item over its
-    real rows). Chunks are zero-padded to whole 16-row
+    chunk 0 with it, and the call also returns the carried state updated
+    by the last chunk's contribution (a state item over its real rows),
+    as the kernel does. Chunks are zero-padded to whole 16-row
     tiles, and every product of a full chunk has shapes that depend on the
     chunk length alone, so a row's result does not depend on l (the
     property the kernel keeps). The sums run in PyTorch's order, not the
@@ -178,7 +175,7 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
     if plan is None:
         plan = ss.plan(b, l, h, p, n, chunk, 132,
                        shared=ss.shares_scores(Bm, Cm),
-                       init=init_state is not None, final=return_final_state)
+                       state=init_state is not None)
     dev = x.device
     Q, nc, RT = chunk, plan.chunks, ss.ROW_TILE
     R = -(-Q // RT) * RT                       # a chunk padded to whole row tiles
@@ -210,19 +207,20 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
             Sp = torch.where(vis, S * torch.exp(a[r0:r0 + RT, None] - a[None, :J]),
                              torch.zeros((), device=dev))
             y[bb, c * Q + r0:c * Q + J, hd] = (Sp @ X[c][bb, :J, hd])[:nr]
-    Z = torch.zeros((b, h, ss.state_chunks(plan, return_final_state), n, p),
+    given = init_state is not None
+    Z = torch.zeros((b, h, ss.state_chunks(nc, given), n, p),
                     dtype=torch.float32, device=dev)
-    for bb, hd, c, k0 in ss.state_items(plan, b, h, n, return_final_state):
+    for bb, hd, c, k0 in ss.state_items(plan, b, h, n, given):
         a = acs[c][bb, :Q, hd]
         xd = X[c][bb, :Q, hd] * torch.exp(a[Q - 1] - a)[:, None]         # [Q, p]
         Z[bb, hd, c, k0:k0 + ss.K_TILE] = (xd.T @ Bc[c][bb, :Q, hd, k0:k0 + ss.K_TILE]).T
     CR = ss.CARRY_ROWS
-    first = 0 if init_state is not None else 1
+    first = 0 if given else 1
     final = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
     for bb in range(b):
         for hd in range(h):
             for r0 in range(0, R, CR):
-                state = (init_state[bb, hd].float().T if init_state is not None
+                state = (init_state[bb, hd].float().T if given
                          else torch.zeros((n, p), dtype=torch.float32, device=dev))
                 decay = torch.exp(acs[0][bb, Q - 1, hd])
                 for c in range(first, nc):
@@ -239,6 +237,6 @@ def ssd_split_ref(x, dA, Bm, Cm, chunk=128, plan=None, init_state=None,
                     ea = torch.exp(acs[c][bb, r0:r0 + off.shape[0], hd])
                     t0 = c * Q + r0
                     y[bb, t0:t0 + off.shape[0], hd] += off * ea[:, None]
-                if r0 == 0 and return_final_state:
+                if r0 == 0 and given:
                     final[bb, hd] = (decay * state + Z[bb, hd, nc - 1]).T
-    return (y, final) if return_final_state else y
+    return (y, final) if given else y

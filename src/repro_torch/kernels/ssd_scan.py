@@ -13,15 +13,16 @@ launches the kernel — counting the launch in ``ssd_scan.launches`` — or
 raises on what the kernel does not take; it never falls back. The kernel
 reads every operand through its strides (no transposed or padded copies)
 and masks the ragged tail itself. A call runs two CUDA kernels when l >
-chunk or when it takes an initial state or returns the final one (the
+chunk or when it takes an initial state (the
 chunk kernel, then the carry kernel by programmatic dependent launch) and
 is counted once. ``plan`` lays out a call.
 
 The cached Mamba-2 prefill starts from the cached state and keeps the
-state after the last row: ``init_state`` is carried into chunk 0's rows by
-the carry kernel, and ``return_final_state`` adds the last chunk's
-contribution (its state item) to the carried state. A call that passes
-neither launches what it did before either existed.
+state after the last row, as JAX's ``ssd_chunked`` does: a call given an
+``init_state`` carries it into chunk 0's rows by the carry kernel and
+returns (y, final state), the final state being the carried state updated
+by the last chunk's contribution (its state item). A call without one
+launches what it did before the option existed.
 """
 from __future__ import annotations
 
@@ -74,38 +75,36 @@ def heads_per_block(b: int, h: int, chunk: int, sms: int, shared: bool) -> int:
 
 
 def plan(b: int, l: int, h: int, p: int, n: int, chunk: int, sms: int, *,
-         shared: bool = True, init: bool = False, final: bool = False) -> SsdPlan:
+         shared: bool = True, state: bool = False) -> SsdPlan:
     """The launch of one call: the chunk kernel's y items (the full chunks'
     first, then a partial last chunk's), then its state items, in the order
     the kernel decodes blockIdx.x; and the carry kernel's blocks.
     ``shared``: B and C are one group over the heads (head stride 0).
-    ``init``: the call starts from a given state, which the carry kernel
-    carries into chunk 0's rows too. ``final``: the call returns the final
-    state, so the last chunk has a state item as well, and a carry block
-    runs even when no row needs one."""
+    ``state``: the call starts from a given state, which the carry kernel
+    carries into chunk 0's rows too, and returns the final state, so the
+    last chunk has state items as well."""
     nc = -(-l // chunk)
     last = l - (nc - 1) * chunk
     hg = heads_per_block(b, h, chunk, sms, shared)
     full = nc if last == chunk else nc - 1
     y_blocks = b * (h // hg) * (full * len(row_tiles(chunk))
                                 + (last != chunk) * len(row_tiles(last)))
-    nsc = nc if final else nc - 1
+    nsc = state_chunks(nc, state)
     state_blocks = b * h * nsc * -(-n // K_TILE)
     # the rows the carried state reaches: chunks 1.., or 0.. from a given state
-    first = 0 if init else 1
+    first = 0 if state else 1
     carry_rows = max([min(chunk, l - c * chunk) for c in range(first, nc)],
                      default=0)
-    tiles = max(-(-carry_rows // CARRY_ROWS), 1 if final else 0)
-    carry_blocks = b * h * tiles
+    carry_blocks = b * h * -(-carry_rows // CARRY_ROWS)
     p4 = -(-p // 4) * 4                        # a state row: 16-byte aligned
     return SsdPlan(hg, ROW_TILE, nc, last, y_blocks, state_blocks, carry_blocks,
                    b * h * nsc * n * p4)
 
 
-def state_chunks(pl: SsdPlan, final: bool = False) -> int:
+def state_chunks(chunks: int, state: bool = False) -> int:
     """Chunks with state items: all but the last, or all of them when the
-    call returns the final state."""
-    return pl.chunks if final else pl.chunks - 1
+    call starts from a given state (and so returns the final state)."""
+    return chunks if state else chunks - 1
 
 
 def y_items(pl: SsdPlan, b: int, h: int, chunk: int):
@@ -124,13 +123,13 @@ def y_items(pl: SsdPlan, b: int, h: int, chunk: int):
     return items
 
 
-def state_items(pl: SsdPlan, b: int, h: int, n: int, final: bool = False):
-    """The state items of a plan (``final``: of a call that returns the
-    final state): (batch row, head, chunk, first column), mirroring
+def state_items(pl: SsdPlan, b: int, h: int, n: int, state: bool = False):
+    """The state items of a plan (``state``: of a call from a given state):
+    (batch row, head, chunk, first column), mirroring
     ``ssd_chunk_kernel``'s decoding of its state blocks for
     ``ref.ssd_split_ref`` (the kernel's own is held on the card)."""
     return [(bb, hd, c, kt * K_TILE) for bb in range(b) for hd in range(h)
-            for c in range(state_chunks(pl, final))
+            for c in range(state_chunks(pl.chunks, state))
             for kt in range(-(-n // K_TILE))]
 
 
@@ -140,16 +139,14 @@ def shares_scores(Bm, Cm) -> bool:
     return Bm.shape[2] == 1 or (Bm.stride(2) == 0 and Cm.stride(2) == 0)
 
 
-def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None,
-             return_final_state=False):
+def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None):
     """x: [b, l, h, p] (pre-multiplied by dt); dA: [b, l, h] log-decay;
-    Bm, Cm: [b, l, h, n]; all fp32; ``init_state``: fp32 [b, h, p, n] or
-    None (a zero state). Returns y [b, l, h, p] fp32, the scan with rows
-    past l read as zeros; with ``return_final_state``, (y, the state after
-    row l - 1, fp32 [b, h, p, n])."""
+    Bm, Cm: [b, l, h, n]; all fp32. Returns y [b, l, h, p] fp32, the scan
+    from a zero state with rows past l read as zeros; given ``init_state``
+    (fp32 [b, h, p, n]), (y, the state after row l - 1, fp32 [b, h, p,
+    n]) of the scan from it."""
     if x.device.type == "cpu":
-        return plain(x, dA, Bm, Cm, chunk=chunk, init_state=init_state,
-                     return_final_state=return_final_state)
+        return plain(x, dA, Bm, Cm, chunk=chunk, init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     b, l, h, p = x.shape
@@ -173,14 +170,12 @@ def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None,
                          f"{MAX_N} and chunk <= {MAX_CHUNK}; got p={p}, n={n}, "
                          f"chunk={chunk}")
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
-    if y.numel() == 0 and not return_final_state:
+    if y.numel() == 0 and init_state is None:
         return y
     init = None if init_state is None else init_state.contiguous()
-    final = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-             if return_final_state else None)
+    final = None if init is None else torch.empty_like(init)
     pl = plan(b, l, h, p, n, chunk, devices.sm_count(x.device),
-              shared=shares_scores(Bm, Cm), init=init is not None,
-              final=return_final_state)
+              shared=shares_scores(Bm, Cm), state=init is not None)
     ws = (torch.empty((pl.workspace,), dtype=torch.float32, device=x.device)
           if pl.workspace else None)
     lib = build.load("ssd_scan")
@@ -193,7 +188,7 @@ def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssd_scan_fwd")
     ssd_scan.launches += 1
-    return (y, final) if return_final_state else y
+    return y if final is None else (y, final)
 
 
 ssd_scan.launches = 0

@@ -17,8 +17,15 @@ positions as JAX's [old buffer ++ new tokens] read over ``slot_positions``
 (slots past index + Q are stale and hidden by the causal mask, as on the
 paged path). A ring that can wrap (a sliding window) is refused;
 ``Model.init_cache`` makes W a multiple of RING_PAGE at least max_len, and
-the engines never write past max_len, so index + Q <= W holds on their
-paths (it is not checked per call, which would cost a host sync).
+a row that is still generating never writes past max_len, so index + Q <= W
+holds for it (it is not checked per call, which would cost a host sync).
+One exception, kept from JAX: ``BatchedSpecEngine.generate`` runs every
+row until the slowest is done, so a row that has reached its length goes
+on committing and its ring wraps; the view then reads wrapped slots as old
+positions. The table bounds every read (the kernel and its plain version
+clamp the live range to the table's blocks), and the commits of such a row
+land past its length, so its returned tokens are unchanged; only its
+length and acceptance count go on growing, as in JAX.
 
 API:
   init(cfg, gen, device)                           -> params

@@ -15,12 +15,12 @@ unless the caller passes ``device="cpu"``. The dense family's
 of ``dense.RING_PAGE``, so the paged kernel can read it through an
 identity view (slots past max_len are never written); a windowed config's
 ring would wrap and is refused. The ssm family's is the recurrent state and
-conv caches; the state is kept in fp32 whatever the activation dtype (JAX
-keeps it in the activation dtype). A bf16 state is rounded after every
-cached step: cached AR rounds it once a token, a speculative round once a
-round (through the verify's trail), and the no-cache pass never, so the
-three drift apart. It has no paged cache (JAX has none either). The other
-families wait for later slices.
+conv caches, both in the activation dtype as in JAX. A bf16 state is
+rounded after every cached pass: cached AR rounds it once a token, a
+speculative round once a round (through the verify's trail), and the
+no-cache pass never, so the three drift apart at bf16 (not at fp32). It
+has no paged cache (JAX has none either). The other families wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -87,8 +87,7 @@ class Model:
                    dtype: Optional[torch.dtype] = None, device=None):
         """dense: ring KV buffers [L, batch, W, Kv, D] with W = max_len
         rounded up to a multiple of ``dense.RING_PAGE``; ssm: state
-        [L, batch, H, P, N] (fp32) and conv [L, batch, K-1, CH] caches.
-        Index 0."""
+        [L, batch, H, P, N] and conv [L, batch, K-1, CH] caches. Index 0."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
         dev = devices.resolve(device)
@@ -97,7 +96,7 @@ class Model:
             ch = cfg.d_inner + 2 * G * N
             return {"state": torch.zeros((cfg.num_layers, batch, cfg.ssm_heads,
                                           cfg.ssm_head_dim, N),
-                                         dtype=torch.float32, device=dev),
+                                         dtype=dtype, device=dev),
                     "conv": torch.zeros((cfg.num_layers, batch, K - 1, ch),
                                         dtype=dtype, device=dev),
                     "index": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -206,8 +206,7 @@ def ssm_mix(cfg, p, x, layer_cache=None, want_trail=False):
             y, final_state, trail = ssd_sequential(x_eff, dA, Bf, Cf, init_state)
         else:
             y, final_state = ops.ssd_scan(x_eff, dA, Bf, Cf, chunk=cfg.ssm_chunk,
-                                          init_state=init_state,
-                                          return_final_state=True)
+                                          init_state=init_state)
     y = y + p["D"][:, None] * xs.float()
     y = y.reshape(B, Q, di).to(x.dtype)
     y = L.rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)

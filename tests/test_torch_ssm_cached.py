@@ -108,41 +108,44 @@ def test_ssd_chunked_from_a_state_matches_jax(l, chunk):
                                    chunk, jnp.asarray(init))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(fin.numpy(), np.asarray(jfin), atol=1e-5, rtol=1e-5)
-    py, pfin = ss.ssd_scan(*args, chunk=chunk, init_state=torch.from_numpy(init),
-                           return_final_state=True)
+    py, pfin = ss.ssd_scan(*args, chunk=chunk, init_state=torch.from_numpy(init))
     assert torch.equal(py, y) and torch.equal(pfin, fin)
     Bv = torch.from_numpy(Bm[:, :, :1]).expand(2, l, 4, 16)    # stride-0 heads
     Cv = torch.from_numpy(Cm[:, :, :1]).expand(2, l, 4, 16)
-    for init_t in (None, torch.from_numpy(init)):
-        sy, sfin = ref.ssd_split_ref(args[0], args[1], Bv, Cv, chunk=chunk,
-                                     init_state=init_t, return_final_state=True)
-        wy, wfin = ss.ssd_scan(args[0], args[1], Bv, Cv, chunk=chunk,
-                               init_state=init_t, return_final_state=True)
-        np.testing.assert_allclose(sy.numpy(), wy.numpy(), atol=1e-5, rtol=1e-5)
-        np.testing.assert_allclose(sfin.numpy(), wfin.numpy(), atol=1e-5, rtol=1e-5)
+    sy = ref.ssd_split_ref(args[0], args[1], Bv, Cv, chunk=chunk)
+    wy = ss.ssd_scan(args[0], args[1], Bv, Cv, chunk=chunk)
+    np.testing.assert_allclose(sy.numpy(), wy.numpy(), atol=1e-5, rtol=1e-5)
+    sy, sfin = ref.ssd_split_ref(args[0], args[1], Bv, Cv, chunk=chunk,
+                                 init_state=torch.from_numpy(init))
+    wy, wfin = ss.ssd_scan(args[0], args[1], Bv, Cv, chunk=chunk,
+                           init_state=torch.from_numpy(init))
+    np.testing.assert_allclose(sy.numpy(), wy.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(sfin.numpy(), wfin.numpy(), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("init,final", [(False, False), (True, False),
-                                        (False, True), (True, True)])
-@pytest.mark.parametrize("l", [6, 63, 128, 134, 300])
-def test_plan_with_states_covers_what_the_carry_needs(l, init, final):
-    """A call with neither option plans what it did before they existed;
-    a final state adds the last chunk's state items (and one carry block
-    per head even at l <= chunk); an initial state carries into chunk 0."""
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("l", [6, 63, 127, 128, 129, 134, 256, 300, 384, 500])
+def test_plan_with_states_covers_what_the_carry_needs(l, state):
+    """A call from a zero state plans what it did before the option
+    existed; a call from a given state adds the last chunk's state items
+    (its final state) and carries into chunk 0, so every chunk's rows get
+    a carry block."""
     b, h, p, n, chunk = 2, 48, 64, 128, 128
-    pl = ss.plan(b, l, h, p, n, chunk, 132, init=init, final=final)
+    pl = ss.plan(b, l, h, p, n, chunk, 132, state=state)
     base = ss.plan(b, l, h, p, n, chunk, 132)
     nc = -(-l // chunk)
-    nsc = ss.state_chunks(pl, final)
-    assert nsc == (nc if final else nc - 1)
+    nsc = ss.state_chunks(nc, state)
+    assert nsc == (nc if state else nc - 1)
     assert pl.state_blocks == b * h * nsc * 2
     assert pl.workspace == b * h * nsc * n * p
-    assert {c for _, _, c, _ in ss.state_items(pl, b, h, n, final)} == set(range(nsc))
-    first = 0 if init else 1
+    assert {c for _, _, c, _ in ss.state_items(pl, b, h, n, state)} == set(range(nsc))
+    first = 0 if state else 1
     rows = max([min(chunk, l - c * chunk) for c in range(first, nc)], default=0)
-    assert pl.carry_blocks == b * h * max(-(-rows // ss.CARRY_ROWS), int(final))
+    assert pl.carry_blocks == b * h * -(-rows // ss.CARRY_ROWS)
     assert pl.y_blocks == base.y_blocks
-    if not (init or final):
+    if state:
+        assert pl.carry_blocks > 0
+    else:
         assert pl == base
 
 
@@ -228,24 +231,27 @@ def test_cached_forward_logits_match_jax(engine_pair, prefill):
         assert int(tc["index"]) == int(jc["index"]) == hi
 
 
-def test_state_cache_stays_fp32_under_a_bf16_config():
-    """The recurrent state is cached in fp32 whatever the activation dtype
-    (JAX keeps it in the activation dtype); the conv cache holds the bf16
-    activations it is made of, exactly."""
+def test_state_cache_keeps_the_activation_dtype_as_jax():
+    """Under a bf16 config the state and conv caches, and the trails, are
+    bf16 as JAX's are (``Model.init_cache`` and ``ssm_mix`` there); the
+    rollback selects the trail's entry unchanged."""
     cfg = registry.smoke_config(ARCH).replace(dtype="bfloat16",
                                               param_dtype="bfloat16")
     m = build_model(cfg)
     cache = m.init_cache(2, 16, device="cpu")
-    assert cache["state"].dtype == torch.float32
-    assert cache["conv"].dtype == torch.bfloat16
+    jcache = jax_build(jax_registry.smoke_config(ARCH).replace(
+        dtype="bfloat16", param_dtype="bfloat16")).init_cache(2, 16)
+    for name in ("state", "conv"):
+        assert str(cache[name].dtype) == f"torch.{jcache[name].dtype}"
+        assert tuple(cache[name].shape) == jcache[name].shape
+    assert cache["state"].dtype == cache["conv"].dtype == torch.bfloat16
     p = m.init(0, "cpu")
     toks = torch.from_numpy(_prompts(2, 5, seed=2))
     _, new, _ = m.apply(p, toks, cache, want_trail=True)
-    assert new["state"].dtype == new["state_trail"].dtype == torch.float32
+    assert new["state"].dtype == new["state_trail"].dtype == torch.bfloat16
     rolled = m.rollback(new, torch.tensor(3, dtype=torch.int32), 5)
-    assert rolled["state"].dtype == torch.float32
-    np.testing.assert_array_equal(rolled["state"].numpy(),
-                                  new["state_trail"][:, :, 2].numpy())
+    assert rolled["state"].dtype == torch.bfloat16
+    assert torch.equal(rolled["state"], new["state_trail"][:, :, 2])
 
 
 @pytest.mark.parametrize("P", [6, 21])

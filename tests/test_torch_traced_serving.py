@@ -228,7 +228,7 @@ def test_traced_round_commits_what_a_nocache_round_commits(pair):
     for k in range(3):
         js = jround(jpt, jpd, js, round=k)
         a = traced(pt, pd, a, round=k)
-        b = eng.round_nocache(pt, pd, b)
+        b = eng.round(pt, pd, b)
         _same_state(a, b, js)
     assert _spans(tr) == _spans(jtr)
 
