@@ -116,7 +116,16 @@
    ``BatchedSpecEngine.generate`` at B=4 (``"full_width_batched_ring"``:
    every row == its cached AR, exact launches); (c) ring tree rounds W=2,
    depth 4 (``"full_width_ring_tree"``: tree 28 a round, the drafter's
-   paged 16 * 4 a round + 16, the target's 28, tokens == AR).
+   paged 16 * 4 a round + 16, the target's 28, tokens == AR). Then
+   speculative sampling on the same traffic (``"phase":
+   "full_width_sampled"``, T = 1): the no-cache and the cached engine
+   through ``launch.serve.serve(greedy=False)``, each twice with one
+   ``TorchKey`` seed (the same tokens both times; flash launches rounds x
+   92 no-cache, paged rounds x 92 + waves x 44 cached, the argmax kernel
+   none), each profiled (``"profile_sampled_nocache"``,
+   ``"profile_sampled_cached"``) and set beside the greedy serve of this
+   call; then the cached engine with the target drafting for itself
+   (alpha_hat at least 0.9).
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
    heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
@@ -144,7 +153,13 @@
    counts on the card == on the CPU == cached AR on the card, one SSD
    launch per layer of each prefill) and the llama3.2-1b smoke pair through ``quantize_for_serving`` under
    ``act_quant`` with a static scale calibrated on the CPU
-   (``"smoke_w8a8_exactness"``).
+   (``"smoke_w8a8_exactness"``). Then speculative sampling at smoke width
+   (``"smoke_sampled_exactness"``: the cached, no-cache and ring-tree
+   engines and sampled cached AR, card == CPU under a key whose draws
+   are made on the host and copied to the card, partial accepts, no
+   argmax launch) and the acceptance rules' law on the card with the
+   device generator (``"sampled_lossless"``: 20,000 rows, first-token
+   total variation below 0.03 linear, 0.02 for a width-3 tree).
 10. Full width, through ``launch.serve`` with step 7's traffic: the paper's
    pair through ``quantize_for_serving`` under ``act_quant`` with a static
    scale from ``calibrate_act_scale`` over the linear inputs of one
@@ -167,7 +182,8 @@
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
-   10), the card line again and, last, ``{"ok": true, "device": {...}}``.
+   10 and the sampled serves' of step 7), the card line again and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -2046,10 +2062,13 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     (a near-tie that the two computations' last bits may break either
     way). Otherwise (Mamba-2 at bf16) both comparisons are readings: the
     bf16 state cache is rounded once a token by AR, once a round by the
-    spec serve and never by the no-cache serve, so the three drift apart,
-    as JAX's would; ``smoke_ssm_cached_exactness`` holds the cached
-    Mamba-2 path exactly at fp32. Then the same spec serve once more under
-    ``torch.profiler``."""
+    spec serve and never by the no-cache serve, so the three drift apart.
+    The reference does the same: JAX's own cached Mamba-2 engine parts from
+    its own cached AR at bf16 (tests/test_torch_ssm_bf16.py), so equality
+    is not what the reference gives, and the port is held to JAX mode by
+    mode on the CPU instead; ``smoke_ssm_cached_exactness`` holds the
+    cached Mamba-2 path exactly at fp32. Then the same spec serve once
+    more under ``torch.profiler``."""
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
     batch = 2
@@ -2118,6 +2137,8 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             "launches": s["launches"], "expected_launches": expect,
             "ar_launches": s_ar["launches"], "expected_ar_launches": expect_ar,
             "spec_equals_ar": same_ar, "exact": exact,
+            "ar_comparison": "check" if exact else
+            "reading: at bf16 the reference's cached spec parts from its cached AR too",
             "new_tokens_equal_ar": int(equal_ar.sum()),
             "in_vocab": bool(((spec >= 0) & (spec < cfg.vocab_size)).all()),
             "nocache_rounds": nocache["info"]["rounds"],
@@ -2142,7 +2163,8 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
         return st["rounds"], waves
     prof = profile(profile_phase, run, pt, pd, card)
     emit(cache_saving(phase, nocache, info, prof))
-    return {"launches": s["launches"], "tokens": spec, "ar": ar, "info": info}
+    return {"launches": s["launches"], "tokens": spec, "ar": ar, "info": info,
+            "profile": prof}
 
 
 def cache_saving(phase, nocache, cached, prof):
@@ -2173,7 +2195,8 @@ def full_width_cached(mt, md, pt, pd, cfg, card, nocache):
     draft_k=TREE_W)`` on the first 2 prompts: tree launches L_t a round,
     the drafter's paged launches GAMMA L_d a round (a root step on B rows,
     GAMMA - 1 chain steps on B W rows) + L_d for its prefill, the target's
-    L_t (its prefill; its passes are tree passes), tokens == cached AR's."""
+    L_t (its prefill; its passes are tree passes), tokens == cached AR's.
+    Returns the three parts' launches together, and part (a)'s dict."""
     from repro_torch.core.batched_engine import (BatchedEngineConfig,
                                                  BatchedSpecEngine)
     from repro_torch.core.engine import (EngineConfig, SpecEngine,
@@ -2264,7 +2287,253 @@ def full_width_cached(mt, md, pt, pd, cfg, card, nocache):
         raise SystemExit(f"full-width ring tree rounds failed: {info_c}")
     total = {name: a["launches"][name] + b_launch[name] + c_launch[name]
              for name in counters}
-    return total
+    return total, a
+
+
+def smoke_sampled_exactness():
+    """Speculative sampling at smoke width (the llama3.2-1b pair of
+    ``smoke_exactness``, fp32, weights drawn on the CPU and copied to the
+    card), gamma 4, T = 1, four prompt batches of B=2: the cached linear,
+    no-cache linear and ring-tree W=2 ``SpecEngine`` and sampled cached AR,
+    each on the card and on the CPU under a key whose draws are made on
+    the host and copied to the device (``HostKey``), so both sides draw
+    the same numbers: the tokens and counts must be equal, some rounds
+    must accept part of their drafts, the path's attention kernel must
+    launch and the argmax kernel must not (sampled verify is PyTorch)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    from repro_torch.models.model import build_model
+    from repro_torch.sampling.keys import TorchKey
+
+    class HostKey(TorchKey):
+        """A TorchKey drawing on the host's CPU generator; the draws are
+        copied to the tensor's device."""
+
+        def uniform(self, shape, minval=0.0, device="cpu"):
+            return super().uniform(shape, minval, "cpu").to(device)
+
+        def gumbel(self, shape, dtype=torch.float32, device="cpu"):
+            return super().gumbel(shape, dtype, "cpu").to(device)
+
+    gamma, P, new = 4, 12, 24
+    cfg = registry.smoke_config("llama3.2-1b")
+    cfg = cfg.replace(embed_init_scale=cfg.d_model ** -0.5)
+    mt = build_model(cfg)
+    md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
+    pt_cpu = mt.init(0, "cpu")
+    pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
+    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
+    prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, P)).astype(np.int32)
+               for seed in range(4)]
+    counters = kernel_counters()
+    paths = {"cached_linear": ({"use_cache": True}, "paged_attention"),
+             "nocache_linear": ({"use_cache": False}, "flash_attention"),
+             "ring_tree_w2": ({"use_cache": True, "draft_policy": "tree",
+                               "draft_k": 2}, "tree_attention")}
+    for path, (kw, kernel) in paths.items():
+        eng = SpecEngine(mt, md, EngineConfig(gamma=gamma, greedy=False,
+                                              temperature=1.0, **kw))
+        info = {"phase": "smoke_sampled_exactness", "path": path, "gamma": gamma,
+                "batch": 2, "prompt_len": P, "new_tokens": new, "rounds": 0,
+                "accepted": 0, "drafted": 0, "gpu_equals_cpu": True}
+        for fn in counters.values():
+            fn.launches = 0
+        for i, prompt in enumerate(prompts):
+            gpu, st_gpu = eng.generate(pt, pd, prompt, new, key=HostKey(100 + i))
+            cpu, st_cpu = eng.generate(pt_cpu, pd_cpu, prompt, new, key=HostKey(100 + i))
+            for k in ("rounds", "accepted", "drafted"):
+                info[k] += st_gpu[k]
+            info["gpu_equals_cpu"] &= bool(np.array_equal(gpu.cpu().numpy(), cpu.numpy())
+                                           and st_gpu == st_cpu)
+        torch.cuda.synchronize()
+        info["launches"] = {name: fn.launches for name, fn in counters.items()}
+        emit(info)
+        if not (info["gpu_equals_cpu"] and 0 < info["accepted"] < info["drafted"]
+                and info["launches"][kernel] > 0
+                and info["launches"]["blockwise_argmax"] == 0):
+            raise SystemExit(f"smoke-width sampled exactness failed: {info}")
+    same = []
+    for i, prompt in enumerate(prompts):
+        gpu = autoregressive_generate(mt, pt, prompt, new, greedy=False,
+                                      key=HostKey(200 + i), use_cache=True)
+        cpu = autoregressive_generate(mt, pt_cpu, prompt, new, greedy=False,
+                                      key=HostKey(200 + i), use_cache=True)
+        greedy = autoregressive_generate(mt, pt_cpu, prompt, new, use_cache=True)
+        same.append((bool(np.array_equal(gpu.cpu().numpy(), cpu.numpy())),
+                     bool(torch.equal(cpu, greedy))))
+    info = {"phase": "smoke_sampled_exactness", "path": "cached_ar",
+            "batch": 2, "prompt_len": P, "new_tokens": new,
+            "gpu_equals_cpu": all(a for a, _ in same),
+            "batches_equal_greedy": sum(b for _, b in same)}
+    emit(info)
+    if not info["gpu_equals_cpu"] or info["batches_equal_greedy"] == len(prompts):
+        raise SystemExit(f"smoke-width sampled AR failed: {info}")
+
+
+def sampled_lossless():
+    """The stochastic acceptance rules on the card with the port's own
+    key drawing on the device (``TorchKey``: a CUDA generator), one
+    batched call of N = 20,000 rows over V = 8: drafts i.i.d. from q, and
+    the first emitted token (an accepted draft or the residual resample)
+    must follow p: total variation below 0.03 for ``verify_stochastic``
+    and below 0.02 for ``verify_tree_stochastic`` at width 3 (the
+    thresholds of tests/test_acceptance.py and tests/test_tree_rounds.py).
+    The two calls' times are readings."""
+    from repro_torch.core import acceptance
+    from repro_torch.sampling.keys import TorchKey, categorical
+    N, V, W = 20000, 8, 3
+    rng = np.random.default_rng(31)
+
+    def logits(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 2).astype(np.float32)).cuda()
+
+    def tv(first, p):
+        emp = torch.bincount(first.long(), minlength=V).double() / N
+        return float(0.5 * (emp - torch.softmax(p.double(), -1)).abs().sum())
+
+    q_lin, p_lin = logits(V), logits(2, V)
+    kd, kv = TorchKey(3).split()
+    q = q_lin.expand(N, 1, V)
+    drafts = categorical(kd, q)
+
+    def linear():
+        return acceptance.verify_stochastic(kv, drafts, q, p_lin.expand(N, 2, V))
+    q_root, p_root = logits(V), logits(V)
+    kh, kt = TorchKey(4).split()
+    heads = categorical(kh, q_root.expand(N * W, V)).reshape(N, W, 1)
+    p_tree = torch.cat([p_root[None, None].expand(N, 1, V),
+                        torch.zeros((N, W, V), device="cuda")], dim=1)
+    slots = np.arange(1, W + 1)[:, None]
+
+    def tree():
+        return acceptance.verify_tree_stochastic(kt, heads, q_root.expand(N, W, 1, V),
+                                                 p_tree, slots)
+    res, res_t = linear(), tree()
+    timer = Timer()
+    info = {"phase": "sampled_lossless", "rows": N, "vocab": V, "width": W,
+            "device": str(res.out_tokens.device),
+            "tv_linear": tv(res.out_tokens[:, 0], p_lin[0]),
+            "accept_rate_linear": float(res.n_accepted.float().mean()),
+            "tv_tree": tv(res_t.out_tokens[:, 0], p_root),
+            "root_accept_rate_tree": float(res_t.n_accepted.float().mean()),
+            "winners": torch.bincount(res_t.winner.long(), minlength=W).tolist(),
+            "linear_ms": timer(linear), "tree_ms": timer(tree)}
+    emit(info)
+    if not (info["tv_linear"] < 0.03 and info["tv_tree"] < 0.02
+            and res.out_tokens.is_cuda and all(info["winners"])):
+        raise SystemExit(f"sampled acceptance is not lossless on the card: {info}")
+
+
+def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
+    """Speculative sampling at full width: the paper's pair (bf16) through
+    ``launch.serve.serve(greedy=False, temperature=1.0)`` with the greedy
+    serves' traffic (4 requests of 64 prompt + 64 new tokens, two waves of
+    2, gamma 4), the no-cache and the cached engine, each twice with one
+    ``TorchKey`` seed: the tokens must be the same both times, and every
+    kernel's count, set to 0 just before each serve and read just after,
+    what the path implies (no-cache: flash once per layer of every pass;
+    cached: paged attention once per layer of every pass and prefill; the
+    argmax kernel never). The cached engine once more with the target's own
+    weights as the drafter: p == q up to float order, so alpha_hat must be
+    at least 0.9. Each engine's sampled serve runs once more under
+    ``torch.profiler``; its line sets the readings (alpha_hat, rounds, wall
+    ms per round, launches per round, device busy ms per round and idle
+    share, peak memory, new tokens equal to the greedy serve's) beside the
+    greedy serve's of this call (``nocache``, ``cached``). Returns the
+    launches of the two sampled serves of each engine's first run."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.sampling.keys import TorchKey
+    counters = kernel_counters()
+    none = {name: 0 for name in counters}
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    prompts = nocache_prompts(cfg)
+    P, batch, seed = prompts.shape[1], 2, 21
+    for use_cache in (False, True):          # warm-up, not counted
+        serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=GAMMA,
+                        batch=batch, use_cache=use_cache, greedy=False,
+                        key=TorchKey(seed))
+    torch.cuda.synchronize()
+
+    def counted(use_cache, drafter, params_d):
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        toks, st = serve_cli.serve(mt, drafter, pt, params_d, prompts, NOCACHE_NEW,
+                                   gamma=GAMMA, batch=batch, use_cache=use_cache,
+                                   greedy=False, temperature=1.0, key=TorchKey(seed))
+        torch.cuda.synchronize()
+        st["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        st["launches"] = {name: fn.launches for name, fn in counters.items()}
+        return toks, st
+
+    def expected(use_cache, st, L_draft):
+        passes = st["rounds"] * (L_t + GAMMA * L_draft)
+        if use_cache:
+            return {**none, "paged_attention": passes + st["waves"] * (L_t + L_draft)}
+        return {**none, "flash_attention": passes}
+
+    def side(info, prof):
+        busy = prof["device_busy_s"]
+        return {"rounds": info["rounds"],
+                "mean_accepted_per_round": info["mean_accepted_per_round"],
+                "wall_ms_per_round": info["ms_per_round"],
+                "tokens_per_s": info["tokens_per_s"],
+                "peak_memory_gib": info["peak_memory_gib"],
+                "device_busy_ms_per_round": None if busy is None else busy / prof["rounds"] * 1e3,
+                "device_idle_share": prof["device_idle_share"],
+                "kernel_launches_per_round": prof["kernel_launches_per_round"]}
+
+    launches = dict(none)
+    for use_cache, greedy in ((False, nocache), (True, cached)):
+        engine = "cached" if use_cache else "nocache"
+        a, sa = counted(use_cache, md, pd)
+        b, sb = counted(use_cache, md, pd)
+        rounds = sa["rounds"]
+        want = expected(use_cache, sa, L_d)
+
+        def run():
+            _, st = serve_cli.serve(mt, md, pt, pd, prompts, NOCACHE_NEW, gamma=GAMMA,
+                                    batch=batch, use_cache=use_cache, greedy=False,
+                                    key=TorchKey(seed))
+            return st["rounds"], st["waves"] if use_cache else 0
+        prof = profile(f"profile_sampled_{engine}", run, pt, pd, card)
+        info = {"phase": "full_width_sampled", "engine": engine, "card": card,
+                "target": mt.cfg.name, "drafter": md.cfg.name, "dtype": mt.cfg.dtype,
+                "temperature": 1.0, "key": f"TorchKey({seed})",
+                "requests": len(prompts), "batch": batch, "waves": sa["waves"],
+                "prompt_len": P, "new_tokens": NOCACHE_NEW, "gamma": GAMMA,
+                "rounds": rounds, "alpha_hat": sa["alpha_hat"],
+                "mean_accepted_per_round": sa["accepted"] / rounds,
+                "ms_per_round": sa["seconds"] / rounds * 1e3,
+                "tokens_per_s": sa["tokens_per_s"],
+                "peak_memory_gib": sa["peak_memory_gib"],
+                "launches": sa["launches"], "expected_launches": want,
+                "second_run_launches": sb["launches"],
+                "same_seed_same_tokens": bool(np.array_equal(a, b)) and sa["rounds"] == sb["rounds"],
+                "in_vocab": bool(((a >= 0) & (a < cfg.vocab_size)).all()),
+                "new_tokens_equal_greedy": int((a[:, P:] == greedy["tokens"][:, P:]).sum()),
+                "new_tokens_total": int(a[:, P:].size)}
+        info["sampled"] = side(info, prof)
+        info["greedy"] = side(greedy["info"], greedy["profile"])
+        emit(info)
+        if not (info["same_seed_same_tokens"] and info["in_vocab"]
+                and sa["launches"] == want and sb["launches"] == expected(use_cache, sb, L_d)):
+            raise SystemExit(f"full-width sampled serve failed: {info}")
+        for name, n in sa["launches"].items():
+            launches[name] += n
+    # the target drafting for itself, cached
+    c, sc = counted(True, mt, pt)
+    info = {"phase": "full_width_sampled", "engine": "cached", "drafter": "target",
+            "card": card, "temperature": 1.0, "rounds": sc["rounds"],
+            "alpha_hat": sc["alpha_hat"], "ms_per_round": sc["seconds"] / sc["rounds"] * 1e3,
+            "peak_memory_gib": sc["peak_memory_gib"], "launches": sc["launches"],
+            "expected_launches": expected(True, sc, L_t),
+            "new_tokens_equal_greedy": int((c[:, P:] == cached["tokens"][:, P:]).sum())}
+    emit(info)
+    if sc["alpha_hat"] < 0.9 or sc["launches"] != info["expected_launches"]:
+        raise SystemExit(f"full-width sampled serve with the target as drafter failed: {info}")
+    return launches
 
 
 def full_width_w8a8(mt, md, pt, pd, cfg, card):
@@ -2517,6 +2786,8 @@ def main() -> int:
     smoke_nocache_exactness("mamba2-780m", "smoke_ssm_nocache_exactness")
     smoke_ssm_cached_exactness()
     smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True)
+    smoke_sampled_exactness()
+    sampled_lossless()
     from repro_torch.launch.cli_args import build_pair
     pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
     full_width(*pair, card)
@@ -2528,7 +2799,9 @@ def main() -> int:
     full_width_traced(*pair, card, chunked)
     del mt, md, pt, pd
     nocache = full_width_nocache(*pair, card)
-    cached_launches = full_width_cached(*pair, card, nocache)
+    cached_launches, cached = full_width_cached(*pair, card, nocache)
+    sampled_launches = full_width_sampled(*pair, card, nocache, cached)
+    del cached
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
     torch.cuda.empty_cache()
@@ -2537,8 +2810,10 @@ def main() -> int:
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
     # the cached paths' (full_width_cached parts a-c, the cached Mamba-2)
+    # and the sampled serves' (paged attention cached, flash no-cache)
     for name, n in cached_launches.items():
         launches[name] += n
+    launches["paged_attention"] += sampled_launches["paged_attention"]
     tree_launches["tree_attention"] += cached_launches["tree_attention"]
     launches["blockwise_argmax"] += ssm_cached["blockwise_argmax"]
     head = next(c for c in att if c["headline"])
@@ -2571,7 +2846,8 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:69",
-         "launches": nocache["launches"]["flash_attention"],
+         "launches": (nocache["launches"]["flash_attention"]
+                      + sampled_launches["flash_attention"]),
          "max_abs_err": max(c["max_abs_err"] for c in fl_cases),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],

@@ -1,4 +1,4 @@
-"""Per-row batched speculative decoding (port of the greedy part of
+"""Per-row batched speculative decoding (port of
 ``repro/core/batched_engine.py``).
 
 Every round runs ``rounds.spec_round`` with per-row commits: each row
@@ -9,7 +9,12 @@ an enabled tracer the engine also holds a ``rounds.TracedRound`` over the
 same spec (``traced_round``), which ``generate`` and the server run instead
 of ``round``.
 
-Invariant (tested): every row's output equals that row's own
+Sampling: greedy is the serving configuration; stochastic per-row
+acceptance is exact per row (each row is standard speculative sampling on
+its own stream) and available through ``BatchedEngineConfig(greedy=
+False)`` and ``generate(..., key=)`` (default ``TorchKey(0)``).
+
+Invariant (tested): every greedy row's output equals that row's own
 autoregressive greedy continuation, regardless of what other rows do.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ from repro_torch.core import rounds
 from repro_torch.core.engine import _prompt_on, init_rings, ring_slack
 from repro_torch.core.rounds import RoundState
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.sampling.keys import TorchKey
 
 KV_FAMILIES = ("dense",)
 
@@ -34,6 +40,8 @@ RowState = RoundState
 class BatchedEngineConfig:
     gamma: int = 4
     max_new_tokens: int = 32
+    greedy: bool = True
+    temperature: float = 1.0
     draft_policy: str = "linear"        # or "tree" (cached W-chain tree
     draft_k: int = 2                    # rounds; draft_k = tree width)
 
@@ -53,7 +61,8 @@ class BatchedSpecEngine:
         self.ecfg = ecfg
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._round_spec = rounds.RoundSpec(
-            gamma=ecfg.gamma, commit="per_row", use_cache=True,
+            gamma=ecfg.gamma, greedy=ecfg.greedy,
+            temperature=ecfg.temperature, commit="per_row", use_cache=True,
             policy=rounds.make_policy(ecfg.draft_policy, ecfg.draft_k))
         self.traced_round = (rounds.TracedRound(self.target, self.drafter,
                                                 self._round_spec, self.tracer)
@@ -63,10 +72,12 @@ class BatchedSpecEngine:
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, st, self._round_spec)
 
-    def generate(self, params_t, params_d, prompt, max_new_tokens=None):
+    def generate(self, params_t, params_d, prompt, max_new_tokens=None,
+                 key=None):
         """Per-row rounds on ring caches until every row has
-        ``max_new_tokens`` new tokens (default: the config's). Returns
-        (tokens [B, P + max_new + gamma + 2], lengths [B], stats)."""
+        ``max_new_tokens`` new tokens (default: the config's); sampled
+        rounds draw with ``key``. Returns (tokens [B, P + max_new + gamma
+        + 2], lengths [B], stats)."""
         e = self.ecfg
         max_new = max_new_tokens or e.max_new_tokens
         prompt = _prompt_on(prompt, params_t)
@@ -84,6 +95,7 @@ class BatchedSpecEngine:
                       length=torch.full((B,), P, dtype=torch.int32, device=dev),
                       dcache={**dcache, "index": row_index},
                       tcache={**tcache, "index": row_index.clone()},
+                      key=key if key is not None else TorchKey(0),
                       active=torch.ones((B,), dtype=torch.bool, device=dev),
                       n_rounds=torch.zeros((), dtype=torch.int32, device=dev),
                       n_accepted=torch.zeros((B,), dtype=torch.int32, device=dev),

@@ -1,5 +1,4 @@
-"""Single-stream speculative engine (port of the greedy part of
-``repro/core/engine.py``).
+"""Single-stream speculative engine (port of ``repro/core/engine.py``).
 
 ``SpecEngine`` is the batch-synchronized specialization of the round core
 (``core/rounds.py``): every round drafts, verifies and commits through
@@ -25,8 +24,15 @@ JAX's do: monolithic puts one ``generate`` span (phase "round") over the
 whole loop, synchronized before it closes, as over JAX's fused loop;
 modular runs each round as a ``rounds.TracedRound`` (draft/verify/commit
 spans tagged ``round=k``). ``autoregressive_generate`` is the
-non-speculative baseline, with or without a cache. Greedy only; sampling
-and placement wait for later slices.
+non-speculative baseline, with or without a cache.
+
+``EngineConfig(greedy=False, temperature=T)`` samples (speculative
+sampling: drafts drawn from the drafter, the stochastic acceptance rule,
+so the tokens follow the target's distribution); ``generate(key=)`` and
+``autoregressive_generate(key=)`` take a key (``sampling.keys``; default
+``TorchKey(0)``, where JAX defaults to ``PRNGKey(0)``), split as JAX
+splits its own, so a key handing out ``jax.random``'s bits replays JAX's
+tokens. Placement waits for a later slice.
 """
 from __future__ import annotations
 
@@ -38,8 +44,9 @@ from repro_torch import device as devices
 from repro_torch.cache.ops import RING
 from repro_torch.core import rounds
 from repro_torch.core.rounds import (RoundState, _slice_logits, _slice_tokens,
-                                     _write_col)
+                                     _write_col, next_token)
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.sampling.keys import TorchKey
 
 STRATEGIES = ("monolithic", "modular")
 STATEFUL_FAMILIES = ("ssm",)
@@ -48,10 +55,12 @@ STATEFUL_FAMILIES = ("ssm",)
 @dataclass(frozen=True)
 class EngineConfig:
     gamma: int = 4
+    greedy: bool = True                 # paper §IV uses greedy everywhere
+    temperature: float = 1.0
     use_cache: bool = False             # False = paper-faithful mode
     strategy: str = "monolithic"        # or "modular": the same host loop here
     draft_policy: str = "linear"        # "multi" (greedy no-cache only) or
-                                        # "tree" (cached)
+                                        # "tree" (cached, greedy or sampled)
     draft_k: int = 2                    # candidates per row for "multi";
                                         # tree width for "tree"
 
@@ -95,8 +104,8 @@ def _prompt_on(prompt, params):
 
 
 class SpecEngine:
-    """Drives a (target, drafter) pair with greedy speculative decoding on
-    the device of the parameters."""
+    """Drives a (target, drafter) pair with speculative decoding (greedy,
+    or speculative sampling) on the device of the parameters."""
 
     def __init__(self, target_model, drafter_model, ecfg: EngineConfig,
                  tracer=None):
@@ -109,7 +118,8 @@ class SpecEngine:
         self.d_stateful = drafter_model.family in STATEFUL_FAMILIES
         self._policy = rounds.make_policy(ecfg.draft_policy, ecfg.draft_k)
         self._spec = rounds.RoundSpec(
-            gamma=ecfg.gamma, commit="batch_min", use_cache=ecfg.use_cache,
+            gamma=ecfg.gamma, greedy=ecfg.greedy, temperature=ecfg.temperature,
+            commit="batch_min", use_cache=ecfg.use_cache,
             d_stateful=self.d_stateful and ecfg.use_cache, policy=self._policy)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._traced_round = None
@@ -119,10 +129,12 @@ class SpecEngine:
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, state, self._spec)
 
-    def prefill(self, params_t, params_d, prompt, max_len) -> RoundState:
+    def prefill(self, params_t, params_d, prompt, max_len,
+                key=None) -> RoundState:
         """The generation state for a [B, P] prompt in a [B, max_len]
-        buffer. No cache: nothing is computed until the first round.
-        Cached: both caches consume prompt[:, :-1] (``init_rings``)."""
+        buffer, carrying ``key`` (default ``TorchKey(0)``). No cache:
+        nothing is computed until the first round. Cached: both caches
+        consume prompt[:, :-1] (``init_rings``)."""
         prompt = _prompt_on(prompt, params_t)
         B, P = prompt.shape
         dev = prompt.device
@@ -133,6 +145,7 @@ class SpecEngine:
             return torch.zeros((), dtype=torch.int32, device=dev)
         st = RoundState(tokens=buf,
                         length=torch.full((), P, dtype=torch.int32, device=dev),
+                        key=key if key is not None else TorchKey(0),
                         n_rounds=zero(), n_accepted=zero(), n_drafted=zero())
         if not self.ecfg.use_cache:
             return st
@@ -145,12 +158,12 @@ class SpecEngine:
                            t_off=tcache["index"] - (P - 1),
                            d_off=dcache["index"] - (P - 1))
 
-    def generate(self, params_t, params_d, prompt, max_new_tokens):
+    def generate(self, params_t, params_d, prompt, max_new_tokens, key=None):
         """Returns (tokens [B, length], stats); the last round may commit
-        past ``P + max_new_tokens``."""
+        past ``P + max_new_tokens``. ``key`` feeds the sampled rounds."""
         B, P = prompt.shape
         max_len = P + max_new_tokens + self.ecfg.gamma + 2
-        state = self.prefill(params_t, params_d, prompt, max_len)
+        state = self.prefill(params_t, params_d, prompt, max_len, key)
         target_len = P + max_new_tokens
         if self.tracer.enabled and self.ecfg.strategy == "modular":
             # phase-split traced rounds (draft/verify/commit spans)
@@ -180,12 +193,16 @@ class SpecEngine:
 
 
 def autoregressive_generate(model, params, prompt, max_new_tokens, *,
+                            greedy=True, temperature=1.0, key=None,
                             use_cache=False):
-    """The non-speculative greedy baseline (the paper's 'standard
-    sampling') over a [B, P + max_new_tokens] buffer, returned whole. No
-    cache: ``max_new_tokens`` full-buffer passes. Cached: one prefill over
-    the prompt (its last position gives the first token), then one
-    single-token cached step per further token."""
+    """The non-speculative baseline (the paper's 'standard sampling') over
+    a [B, P + max_new_tokens] buffer, returned whole: each token the
+    argmax, or (``greedy=False``) a draw from softmax(logits /
+    temperature) with a child of ``key`` (default ``TorchKey(0)``; one
+    split per token, as in JAX). No cache: ``max_new_tokens`` full-buffer
+    passes. Cached: one prefill over the prompt (its last position gives
+    the first token), then one single-token cached step per further
+    token."""
     prompt = _prompt_on(prompt, params)
     B, P = prompt.shape
     dev = prompt.device
@@ -193,6 +210,7 @@ def autoregressive_generate(model, params, prompt, max_new_tokens, *,
     buf = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
     buf[:, :P] = prompt
     length = torch.full((), P, dtype=torch.int32, device=dev)
+    key = key if key is not None else TorchKey(0)
     if use_cache:
         cache = model.init_cache(B, model.cache_len(max_len), spec_slack=2,
                                  device=dev)
@@ -203,12 +221,14 @@ def autoregressive_generate(model, params, prompt, max_new_tokens, *,
                 logits, cache, _ = model.apply(
                     params, _slice_tokens(buf, length - 1, 1), cache,
                     logits_slice="last")
-            buf = _write_col(buf, length, torch.argmax(logits[:, -1], dim=-1))
+            nxt, key = next_token(logits[:, -1], greedy, temperature, key)
+            buf = _write_col(buf, length, nxt)
             length = length + 1
         return buf
     for _ in range(max_new_tokens):
         logits, _, _ = model.apply(params, buf)
         q = _slice_logits(logits, length - 1, 1)[:, 0]
-        buf = _write_col(buf, length, torch.argmax(q, dim=-1))
+        nxt, key = next_token(q, greedy, temperature, key)
+        buf = _write_col(buf, length, nxt)
         length = length + 1
     return buf

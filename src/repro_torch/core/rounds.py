@@ -1,7 +1,7 @@
 """The speculative round core: draft -> verify -> commit -> rollback
-(port of the greedy subset of ``repro/core/rounds.py``: cached linear and
-tree rounds on both cache layouts, with per-row or batch-synchronized
-commits, and no-cache batch-synchronized rounds).
+(port of ``repro/core/rounds.py``: cached linear and tree rounds on both
+cache layouts, with per-row or batch-synchronized commits, and no-cache
+batch-synchronized rounds; greedy or sampled).
 
 Every round of the paged server runs ``spec_round`` (or ``ar_round`` when
 the cost model says drafting does not pay). A cached round drafts gamma
@@ -39,6 +39,16 @@ Greedy verification dispatches by device: the fused CUDA argmax kernel
 JAX switch ``RoundSpec.fused_verify``, which could route a GPU tensor away
 from the kernel, is left out.
 
+Sampled rounds (``RoundSpec(greedy=False)``) draw every draft token from
+softmax(q / temperature) and verify with ``acceptance.verify_stochastic``
+(a tree: ``verify_tree_stochastic``, whose W root heads are i.i.d. draws),
+so the committed tokens follow the target's distribution exactly. The
+round threads ``RoundState.key`` (``sampling.keys``) and splits it where
+JAX splits its threefry key: once per sampled draft step (gamma + 1 steps
+for a stateful drafter), once for a tree's heads, once per verify; the
+next state carries what is left. The argmax kernel is not used there.
+Multi-draft stays greedy, as in JAX.
+
 A cached round stays on the device too: the round-level live bound
 (``_live0``; paged per-row rounds only) is a 0-dim device tensor handed to
 the attention kernel, and the stateful drafter's snapshot is picked on the
@@ -46,8 +56,7 @@ device (a paged tree round reads the lengths before its forks and the
 winners and new lengths after its commit, as in JAX). ``TracedRound`` runs
 the same three phases with a span around each and the device synchronized
 inside it, so a traced run commits exactly what ``spec_round`` commits.
-Sampled acceptance and sampled drafting, and the placed round runner, wait
-for later slices.
+The placed round runner waits for a later slice.
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from repro_torch.cache import paged_kv
 from repro_torch.core import acceptance
 from repro_torch.core.tree import chain_tree
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.sampling.keys import categorical
 
 
 COMMIT_MODES = ("batch_min", "per_row")
@@ -82,6 +92,7 @@ class RoundState(NamedTuple):
     length: torch.Tensor           # scalar or [B] committed tokens
     dcache: Any = None
     tcache: Any = None
+    key: Any = None                # sampling key (sampling.keys)
     active: Any = None             # [B] bool or None (= all rows live)
     n_rounds: Any = 0              # scalar
     n_accepted: Any = 0            # scalar (batch_min) or [B] (per_row)
@@ -99,6 +110,8 @@ class DraftOut(NamedTuple):
     dcache: Any = None
     cand_tokens: Any = None        # [B, K, T] no-cache candidate buffers
     snaps: Any = None              # stateful drafter: {leaf: [G+1, ...]} states
+    q_logits: Any = None           # [B, K, G, V] drafter logits (sampled)
+    key: Any = None                # the key left after drafting
 
 
 class VerifyOut(NamedTuple):
@@ -106,6 +119,7 @@ class VerifyOut(NamedTuple):
     res: Any                       # VerifyResult or TreeVerifyResult
     base_tokens: torch.Tensor      # [B, T] buffer the commit scatters into
     tcache: Any = None
+    key: Any = None                # the key left after verifying
 
 
 def _write_col(tokens, pos, vals):
@@ -206,6 +220,17 @@ def _take_candidate(x, win):
     return x[torch.arange(x.shape[0], device=x.device), win.long()]
 
 
+def next_token(q, greedy, temperature, key):
+    """The next token per row of logits q [N, V] and the key to carry:
+    q's argmax (greedy; the key is returned as it came), or a draw from
+    softmax(q / temperature) with the second child of ``key``, the first
+    being carried (JAX's ``k, ks = split(k)``)."""
+    if greedy:
+        return torch.argmax(q, dim=-1).to(torch.int32), key
+    key, ks = key.split()
+    return categorical(ks, q / temperature), key
+
+
 def _top_k(x, k):
     """[B, V] -> int32 [B, k]: the k largest entries per row, largest first
     and the lower index first among ties, as ``jax.lax.top_k`` orders them.
@@ -217,44 +242,60 @@ def _top_k(x, k):
 # ================================================================= policies
 @dataclass(frozen=True)
 class LinearDraftPolicy:
-    """Classic speculative sampling: ONE chain of gamma sequential greedy
-    draft steps per row — cached single-token drafter steps, or no-cache
-    full-buffer recomputes."""
+    """Classic speculative sampling: ONE chain of gamma sequential draft
+    steps per row — cached single-token drafter steps, or no-cache
+    full-buffer recomputes; greedy, or sampled (the drafter logits of
+    every step are kept for the verify)."""
     name: str = "linear"
 
     def draft_cached(self, drafter, params_d, state: RoundState, spec,
                      live0) -> DraftOut:
         t_last = _gather_last(state.tokens, state.length)
-        tok, cache = t_last, state.dcache
-        drafts, snaps = [], []
+        tok, cache, key = t_last, state.dcache, state.key
+        drafts, qs, snaps = [], [], []
         # +1 step for stateful drafters so the snapshot trail covers the
         # full-acceptance rollback target
         for i in range(spec.gamma + 1 if spec.d_stateful else spec.gamma):
             ml = None if live0 is None else live0 + i
             logits, cache, _ = drafter.apply(params_d, tok[:, None], cache,
                                              logits_slice="last", max_live=ml)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            tok, key = next_token(logits[:, -1], spec.greedy,
+                                  spec.temperature, key)
             drafts.append(tok)
+            if not spec.greedy:
+                qs.append(logits[:, -1])
             if spec.d_stateful:
                 snaps.append(_state_leaves(cache))
         drafts = torch.stack(drafts[:spec.gamma], dim=1)       # [B, G]
         if snaps:
             snaps = {k: torch.stack([s[k] for s in snaps]) for k in snaps[0]}
         return DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=cache,
-                        snaps=snaps or None)
+                        snaps=snaps or None, q_logits=_stack_q(qs, spec.gamma),
+                        key=key)
 
     def draft_nocache(self, drafter, params_d, state: RoundState,
                       spec) -> DraftOut:
         G = spec.gamma
         length = state.length
-        toks = state.tokens
+        toks, key = state.tokens, state.key
+        qs = []
         for i in range(G):
             logits, _, _ = drafter.apply(params_d, toks)
             pos = length - 1 + i
             q_i = _slice_logits(logits, pos, 1)[:, 0]           # [B, V]
-            toks = _write_col(toks, pos + 1, torch.argmax(q_i, dim=-1))
+            d_i, key = next_token(q_i, spec.greedy, spec.temperature, key)
+            toks = _write_col(toks, pos + 1, d_i)
+            if not spec.greedy:
+                qs.append(q_i)
         drafts = _slice_tokens(toks, length, G)
-        return DraftOut(drafts=drafts[:, None], cand_tokens=toks[:, None])
+        return DraftOut(drafts=drafts[:, None], cand_tokens=toks[:, None],
+                        q_logits=_stack_q(qs, G), key=key)
+
+
+def _stack_q(qs, G):
+    """The first G steps' drafter logits [B, V] -> [B, 1, G, V] (None when
+    greedy: nothing was kept)."""
+    return torch.stack(qs[:G], dim=1)[:, None] if qs else None
 
 
 @dataclass(frozen=True)
@@ -285,24 +326,30 @@ class MultiDraftPolicy:
             q_i = _slice_logits(lg, pos, 1)[:, 0]               # [B*K, V]
             cand = _write_col(cand, pos + 1, torch.argmax(q_i, dim=-1))
         drafts = _slice_tokens(cand, length, G).reshape(B, K, G)
-        return DraftOut(drafts=drafts, cand_tokens=cand.reshape(B, K, T))
+        return DraftOut(drafts=drafts, cand_tokens=cand.reshape(B, K, T),
+                        key=state.key)
 
 
 @dataclass(frozen=True)
 class TreeDraftPolicy:
-    """Tree drafting (greedy): ``width`` chains branching once at the root,
-    drafted against branch caches and verified in ONE stacked cached target
-    pass through tree attention (``Model.apply(tree=...)``).
+    """Tree drafting: ``width`` chains branching once at the root, drafted
+    against branch caches and verified in ONE stacked cached target pass
+    through tree attention (``Model.apply(tree=...)``).
 
     Draft: a root step consumes t_last and yields the root distribution q0:
     on the unbranched [B]-row drafter cache, which ``_replicate_rows`` then
     copies into W branch rows per row (a ring), or on every branch row of a
     pre-branched [B*W]-row paged cache (each branch's private tail block
     gets t_last's KV; the branch logits are identical, so row 0 of each
-    group is q0). The W chain heads are q0's top-W; each head then
-    continues as a LINEAR chain of greedy steps against its own branch, so
-    the drafter itself never needs tree attention. Width 1 runs on the
-    unbranched cache and drafts exactly what the linear policy drafts.
+    group is q0). The W chain heads are q0's top-W (greedy) or W i.i.d.
+    draws from softmax(q0 / temperature) (sampled: ONE categorical over
+    the row-repeated q0, which at width 1 is the linear round's first
+    draw; the i.i.d.-ness is what keeps multi-path rejection lossless);
+    each head then continues as a LINEAR chain against its own branch, so
+    the drafter itself never needs tree attention. Sampled, the drafter
+    logits are kept as [B, W, D, V], q0 at level 1 of every chain. Width 1
+    runs on the unbranched cache and drafts exactly what the linear policy
+    drafts.
     """
     name: str = "tree"
     width: int = 2
@@ -323,16 +370,29 @@ class TreeDraftPolicy:
                 max_live=live0)
             q0 = logits[:, -1]
             cache = _replicate_rows(cache, W)
-        tok = _top_k(q0, W).reshape(B * W)
-        chain = [tok]
+        key = state.key
+        if spec.greedy:
+            tok = _top_k(q0, W).reshape(B * W)
+        else:
+            key, ks = key.split()
+            tok = categorical(ks, torch.repeat_interleave(q0 / spec.temperature,
+                                                          W, dim=0))
+        chain, qs = [tok], []
         for i in range(D - 1):
             ml = None if live0 is None else live0 + 1 + i
             lg, cache, _ = drafter.apply(params_d, tok[:, None], cache,
                                          logits_slice="last", max_live=ml)
-            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+            tok, key = next_token(lg[:, -1], spec.greedy, spec.temperature, key)
             chain.append(tok)
+            if not spec.greedy:
+                qs.append(lg[:, -1].reshape(B, W, 1, -1))
         drafts = torch.stack(chain, dim=1).reshape(B, W, D)
-        return DraftOut(drafts=drafts, t_last=t_last, dcache=cache)
+        q_logits = None
+        if not spec.greedy:
+            q_logits = torch.cat([q0[:, None, None].expand(B, W, 1, q0.shape[-1]),
+                                  *qs], dim=2)                  # [B, W, D, V]
+        return DraftOut(drafts=drafts, t_last=t_last, dcache=cache,
+                        q_logits=q_logits, key=key)
 
 
 def make_policy(name: str, k: int = 2):
@@ -353,13 +413,17 @@ def make_policy(name: str, k: int = 2):
 # ===================================================================== spec
 @dataclass(frozen=True)
 class RoundSpec:
-    """Static parameterization of one greedy round. ``gamma`` is the chain
-    depth of a tree policy. The defaults are the paged server's cached
-    per-row round (JAX defaults to ``commit="batch_min"``); ``SpecEngine``
-    passes ``commit="batch_min"`` and its cache mode. ``d_stateful``: the
-    drafter carries recurrent state (ssm), rolled back to a draft step's
+    """Static parameterization of one round. ``gamma`` is the chain depth
+    of a tree policy. ``greedy=False`` samples at ``temperature`` (drafts
+    divide the logits by it as given; the verify clamps it at 1e-6, as
+    JAX's do). The defaults are the paged server's cached per-row greedy
+    round (JAX defaults to ``commit="batch_min"``); ``SpecEngine`` passes
+    ``commit="batch_min"`` and its cache mode. ``d_stateful``: the drafter
+    carries recurrent state (ssm), rolled back to a draft step's
     snapshot."""
     gamma: int = 4
+    greedy: bool = True
+    temperature: float = 1.0
     commit: str = "per_row"                # COMMIT_MODES
     use_cache: bool = True
     d_stateful: bool = False
@@ -371,8 +435,11 @@ class RoundSpec:
         if self.commit not in COMMIT_MODES:
             raise ValueError(f"commit must be one of {COMMIT_MODES}")
         name = getattr(self.policy, "name", "")
-        if name == "multi" and self.use_cache:
-            raise ValueError("multi-draft needs no-cache verification")
+        if name == "multi":
+            if not self.greedy:
+                raise ValueError("multi-draft is greedy-only")
+            if self.use_cache:
+                raise ValueError("multi-draft needs no-cache verification")
         if self.commit == "per_row" and not self.use_cache:
             raise ValueError("per-row commits need per-row cache indices "
                              "(use_cache=True)")
@@ -441,17 +508,36 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
         p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
                                            want_trail=True, max_live=ml,
                                            tree=(tree.depths, tree.bits))
-        res = acceptance.verify_tree_greedy(d.drafts, p_logits,
-                                            tree.chain_slots)
-        return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
+        key = d.key
+        if spec.greedy:
+            res = acceptance.verify_tree_greedy(d.drafts, p_logits,
+                                                tree.chain_slots)
+        else:
+            key, kv = key.split()
+            res = acceptance.verify_tree_stochastic(
+                kv, d.drafts, d.q_logits, p_logits, tree.chain_slots,
+                spec.temperature)
+        return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache,
+                         key=key)
     drafts = d.drafts[:, 0]
     verify_in = torch.cat([d.t_last[:, None], drafts], dim=1)
     live0 = _live0(state, spec)
     ml = None if live0 is None else live0 + spec.gamma
     p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
                                        want_trail=True, max_live=ml)
-    res = _greedy_verify(drafts, p_logits)
-    return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache)
+    res, key = _verify_linear(drafts, d, p_logits, spec)
+    return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache, key=key)
+
+
+def _verify_linear(drafts, d: DraftOut, p_logits, spec: RoundSpec):
+    """Acceptance of one chain per row: greedy through the argmax kernel's
+    wrapper, or sampled with a child of the draft's key. Returns (result,
+    the key to carry)."""
+    if spec.greedy:
+        return _greedy_verify(drafts, p_logits), d.key
+    key, kv = d.key.split()
+    return acceptance.verify_stochastic(kv, drafts, d.q_logits[:, 0], p_logits,
+                                        spec.temperature), key
 
 
 def _verify_recompute(target, params_t, state: RoundState, d: DraftOut,
@@ -463,15 +549,16 @@ def _verify_recompute(target, params_t, state: RoundState, d: DraftOut,
     B, K, T = d.cand_tokens.shape
     p_full, _, _ = target.apply(params_t, d.cand_tokens.reshape(B * K, T))
     p_logits = _slice_logits(p_full, state.length - 1, G + 1)  # [B*K, G+1, V]
-    res = _greedy_verify(d.drafts.reshape(B * K, G), p_logits)
+    res, key = _verify_linear(d.drafts.reshape(B * K, G), d, p_logits, spec)
     if K == 1:
-        return VerifyOut(res=res, base_tokens=d.cand_tokens[:, 0])
+        return VerifyOut(res=res, base_tokens=d.cand_tokens[:, 0], key=key)
     win = torch.argmax(res.n_emitted.reshape(B, K), dim=1)
     res = acceptance.VerifyResult(
         _take_candidate(res.n_accepted.reshape(B, K), win),
         _take_candidate(res.out_tokens.reshape(B, K, G + 1), win),
         _take_candidate(res.n_emitted.reshape(B, K), win))
-    return VerifyOut(res=res, base_tokens=_take_candidate(d.cand_tokens, win))
+    return VerifyOut(res=res, base_tokens=_take_candidate(d.cand_tokens, win),
+                     key=key)
 
 
 def _scatter_commit(tokens, length, out_tokens, n_eff, gamma):
@@ -540,7 +627,7 @@ def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
         dcache = cache_ops.ops_for(dcache).rollback(dcache, new_len - 1)
     return state._replace(
         tokens=tokens, length=new_len, dcache=dcache, tcache=tcache,
-        n_rounds=state.n_rounds + 1,
+        key=v.key, n_rounds=state.n_rounds + 1,
         n_accepted=state.n_accepted + torch.where(active, res.n_accepted, zero),
         n_drafted=state.n_drafted + spec.drafted_per_round)
 
@@ -562,7 +649,7 @@ def _commit_batch_min(target, state: RoundState, d: DraftOut, v: VerifyOut,
     new_len = state.length + n_commit
     n_acc = n_commit - 1
     st = state._replace(
-        tokens=tokens, length=new_len, n_rounds=state.n_rounds + 1,
+        tokens=tokens, length=new_len, key=v.key, n_rounds=state.n_rounds + 1,
         n_accepted=state.n_accepted + n_acc,
         n_drafted=state.n_drafted + spec.drafted_per_round)
     if not spec.use_cache:

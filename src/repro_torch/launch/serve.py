@@ -33,6 +33,7 @@ from repro_torch.core.engine import (STRATEGIES, EngineConfig, SpecEngine,
                                      autoregressive_generate)
 from repro_torch.launch import cli_args
 from repro_torch.obs import clock
+from repro_torch.sampling.keys import TorchKey
 
 DEFAULT_COST_COEFFICIENT = 0.25   # the planner's prior c (api/planner.py)
 GAMMA_MAX = 8                     # the planner's default gamma_max
@@ -46,37 +47,45 @@ def choose_gamma(alpha: float, cost_coefficient=None) -> int:
 
 
 def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
-          batch, strategy="monolithic", tracer=None, use_cache=False):
+          batch, strategy="monolithic", tracer=None, use_cache=False,
+          greedy=True, temperature=1.0, key=None):
     """Serve the [R, P] ``prompts`` wave by wave, ``batch`` requests per
     wave: ``SpecEngine`` rounds for gamma >= 1 (traced by ``tracer``),
     ``autoregressive_generate`` for gamma 0; no cache, or cached with
-    ``use_cache``. Returns (tokens [R, P + max_new] numpy, stats)."""
+    ``use_cache``. ``greedy=False`` samples at ``temperature``, wave i
+    with the i-th child of ``key`` (default ``TorchKey(0)``); the CLI
+    serves greedily, as JAX's does. Returns (tokens [R, P + max_new]
+    numpy, stats)."""
     prompts = np.asarray(prompts, np.int32)
     R, P = prompts.shape
-    eng = (SpecEngine(target, drafter, EngineConfig(gamma=gamma,
-                                                    use_cache=use_cache,
-                                                    strategy=strategy),
-                      tracer=tracer)
+    waves = -(-R // batch)
+    keys = (key if key is not None else TorchKey(0)).split(waves)
+    eng = (SpecEngine(target, drafter, EngineConfig(
+               gamma=gamma, greedy=greedy, temperature=temperature,
+               use_cache=use_cache, strategy=strategy), tracer=tracer)
            if gamma else None)
     out = np.zeros((R, P + max_new), np.int32)
     totals = {"rounds": 0, "accepted": 0, "drafted": 0}
     latencies = []
     t0 = clock.perf()
-    for i in range(0, R, batch):
+    for w, i in enumerate(range(0, R, batch)):
         wave = prompts[i:i + batch]
         if eng is None:
             toks = autoregressive_generate(target, params_t, wave, max_new,
-                                           use_cache=use_cache)
+                                           greedy=greedy,
+                                           temperature=temperature,
+                                           key=keys[w], use_cache=use_cache)
             st = {"rounds": max_new, "accepted": 0, "drafted": 0}
         else:
-            toks, st = eng.generate(params_t, params_d, wave, max_new)
+            toks, st = eng.generate(params_t, params_d, wave, max_new,
+                                    key=keys[w])
         # the last round may commit past the budget: trim to it
         out[i:i + len(wave)] = toks[:, :P + max_new].cpu().numpy()
         for key in totals:
             totals[key] += st[key]
         latencies += [clock.perf() - t0] * len(wave)
     seconds = clock.perf() - t0
-    stats = {**totals, "requests": R, "waves": -(-R // batch),
+    stats = {**totals, "requests": R, "waves": waves,
              "gamma": gamma, "generated": R * max_new, "seconds": seconds,
              "tokens_per_s": R * max_new / seconds,
              "mean_latency_s": float(np.mean(latencies)),

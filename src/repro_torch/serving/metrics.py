@@ -1,11 +1,14 @@
 """Serving telemetry: per-request latency/throughput and acceptance-rate
 statistics for the paged speculative server (port of
 ``repro/serving/metrics.py`` less the degradation log and the per-request
-acceptance histograms, which the fault and watchdog paths record).
+acceptance histograms, which the fault and watchdog paths record, and the
+front end's ``queue_wait``/``decode_tps``).
 
 Two consumers:
-  * operators — ``summary()`` aggregates tokens/s, latency and the per-round
-    acceptance histogram (the serving-time estimate of the paper's α);
+  * operators — ``summary()`` aggregates tokens/s, latency, the per-round
+    acceptance histogram (the serving-time estimate of the paper's α) and
+    the SLO outcome: ``deadline_met`` per deadline-carrying request and
+    ``goodput``, the share of them that met it;
   * the scheduler — ``alpha_hat()`` feeds the cost model's gamma/AR decision.
 
 A preempted request stays open: its record keeps the queue wait and TTFT of
@@ -51,6 +54,15 @@ class RequestRecord:
         if self.first_token_t is None:
             return None
         return self.first_token_t - self.submitted
+
+    @property
+    def deadline_met(self) -> Optional[bool]:
+        """Whether the request completed by its deadline (None = no
+        deadline)."""
+        if self.deadline is None:
+            return None
+        return (not self.cancelled and self.completed > 0.0
+                and self.completed <= self.deadline)
 
 
 class ServingMetrics:
@@ -210,6 +222,13 @@ class ServingMetrics:
         ttft = [r.ttft for r in self.completed if r.ttft is not None]
         wall = ((self._t_last - self._t0)
                 if self._t0 is not None and self._t_last is not None else 0.0)
+        # per-request deadline outcomes over every terminal deadline-
+        # carrying request: expired and failed ones count as unmet, so
+        # goodput does not improve by dropping doomed work
+        deadline_met = {r.rid: r.deadline_met for r in self.completed
+                        if r.deadline is not None}
+        deadline_met.update({r.rid: False for r in self.expired + self.failed
+                             if r.deadline is not None})
         return {
             "requests_completed": len(self.completed),
             "requests_cancelled": len(self.cancelled),
@@ -227,6 +246,9 @@ class ServingMetrics:
             "mean_ttft_s": float(np.mean(ttft)) if ttft else None,
             "p50_ttft_s": float(np.percentile(ttft, 50)) if ttft else None,
             "p95_ttft_s": float(np.percentile(ttft, 95)) if ttft else None,
+            "deadline_met": deadline_met,
+            "goodput": (sum(bool(v) for v in deadline_met.values())
+                        / len(deadline_met) if deadline_met else None),
             "rounds": self.n_rounds,
             "spec_rounds": self.n_spec_rounds,
             "alpha_hat": self._alpha,

@@ -32,7 +32,8 @@ COUNT_KEYS = ("requests_completed", "requests_cancelled", "requests_rejected",
               "requests_expired", "requests_failed", "n_preemptions",
               "recompute_tokens", "total_generated_tokens", "rounds",
               "spec_rounds", "alpha_hat", "prefill_tokens",
-              "prefix_hit_tokens", "prefix_hit_rate", "chunks_per_prefill")
+              "prefix_hit_tokens", "prefix_hit_rate", "chunks_per_prefill",
+              "deadline_met", "goodput")
 
 
 @contextlib.contextmanager
@@ -86,27 +87,31 @@ BASE = dict(max_batch=3, block_size=4, num_blocks=96, max_blocks_per_row=12,
             gamma_max=6, prefill_buckets=(8, 16, 32))
 
 
-def servers(pair, gamma, **cfg):
-    """The port's server and JAX's on one config; JAX's watchdog cannot
-    trip, so a slow CPU round cannot turn it to AR."""
+def servers(pair, gamma, now=None, **cfg):
+    """The port's server and JAX's on one config (and one metrics clock
+    ``now``, when given); JAX's watchdog cannot trip, so a slow CPU round
+    cannot turn it to AR."""
     mt, md, pt, pd = pair["torch"]
     jt, jd, jpt, jpd = pair["jax"]
     cfg = {**BASE, **cfg}
+    clocks = {} if now is None else {"now": now}
     port = PagedSpecServer(mt, md, pt, pd, SchedulerConfig(**cfg), gamma=gamma,
-                           device="cpu")
+                           device="cpu", **clocks)
     ref = JaxServer(jt, jd, jpt, jpd, JaxConfig(**cfg), gamma=gamma,
-                    watchdog=RoundWatchdog(slow_factor=float("inf")))
+                    watchdog=RoundWatchdog(slow_factor=float("inf")), **clocks)
     return port, ref
 
 
-def lockstep(port, ref, reqs, on_step=None):
-    """Submit ``reqs`` to both servers and step them together until both
-    idle; ``on_step(k, port)`` may return rids to cancel (in both) before
-    step k. After every step the step-info and the allocators must agree.
-    Returns the port's step-infos and each server's tokens by rid."""
+def lockstep(port, ref, reqs, on_step=None, deadlines=None):
+    """Submit ``reqs`` to both servers (request i with ``deadlines[i]``,
+    when given) and step them together until both idle; ``on_step(k,
+    port)`` may return rids to cancel (in both) before step k. After every
+    step the step-info and the allocators must agree. Returns the port's
+    step-infos and each server's tokens by rid."""
     for i, (p, new) in enumerate(reqs):
-        port.submit(ServeRequest(i, p, new))
-        ref.submit(JaxRequest(i, p, new))
+        d = None if deadlines is None else deadlines[i]
+        port.submit(ServeRequest(i, p, new, deadline=d))
+        ref.submit(JaxRequest(i, p, new, deadline=d))
     infos, k = [], 0
     while True:
         for rid in (on_step(k, port) if on_step else ()):
