@@ -125,7 +125,20 @@
    none), each profiled (``"profile_sampled_nocache"``,
    ``"profile_sampled_cached"``) and set beside the greedy serve of this
    call; then the cached engine with the target drafting for itself
-   (alpha_hat at least 0.9).
+   (alpha_hat at least 0.9). Then the paper's planner and the ``Session``
+   facade on the same pair (``"phase": "full_width_session"``): (a) the
+   serve-paged CLI's spec for step 4's 8 ragged requests on the planner's
+   block-8 geometry, gamma pinned to 4 (tokens == step 4's block-16
+   serve) and adaptive (tokens == its AR serve), exact paged and argmax
+   launches; (b) the serve CLI's no-cache plan, which step 7's no-cache
+   serve ran (``launch.serve.serve`` plans its waves and runs them through
+   ``Session.generate``); (c) a per-row plan (tokens == the B=4
+   ``BatchedSpecEngine.generate``); (d) an adaptive single-stream cached
+   plan (tokens == cached AR, its gamma trace printed); (e) a pinned tree
+   plan (tokens == cached AR, 28 tree launches a round); (f) (a)'s pinned
+   plan traced and re-planned from its drift monitor
+   (``respec_from_drift``): c and gamma for the prior, the roofline and
+   the measured c; the new plan must carry the measured c.
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
    heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
@@ -182,7 +195,8 @@
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
-   10 and the sampled serves' of step 7), the card line again and, last,
+   10 and the sampled serves' and the Session phase's of step 7), the card
+   line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
@@ -1312,7 +1326,7 @@ def full_width(mt, md, pt, pd, cfg, card):
         srv, _ = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
         return srv.total_rounds, srv.n_prefills
     profile("profile", run, pt, pd, card)
-    return launches
+    return launches, {"reqs": reqs, "tokens": done, "ar": out_ar}
 
 
 def chunked_trace(cfg, n=12):
@@ -2196,7 +2210,8 @@ def full_width_cached(mt, md, pt, pd, cfg, card, nocache):
     the drafter's paged launches GAMMA L_d a round (a root step on B rows,
     GAMMA - 1 chain steps on B W rows) + L_d for its prefill, the target's
     L_t (its prefill; its passes are tree passes), tokens == cached AR's.
-    Returns the three parts' launches together, and part (a)'s dict."""
+    Returns the three parts' launches together, and part (a)'s dict with
+    (b)'s tokens under ``"batched"``."""
     from repro_torch.core.batched_engine import (BatchedEngineConfig,
                                                  BatchedSpecEngine)
     from repro_torch.core.engine import (EngineConfig, SpecEngine,
@@ -2287,7 +2302,7 @@ def full_width_cached(mt, md, pt, pd, cfg, card, nocache):
         raise SystemExit(f"full-width ring tree rounds failed: {info_c}")
     total = {name: a["launches"][name] + b_launch[name] + c_launch[name]
              for name in counters}
-    return total, a
+    return total, {**a, "batched": toks}
 
 
 def smoke_sampled_exactness():
@@ -2534,6 +2549,225 @@ def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
     if sc["alpha_hat"] < 0.9 or sc["launches"] != info["expected_launches"]:
         raise SystemExit(f"full-width sampled serve with the target as drafter failed: {info}")
     return launches
+
+
+def full_width_session(mt, md, pt, pd, cfg, card, linear, nocache, cached):
+    """The paper's planner and the Session facade at full width on the
+    paper's pair (bf16; ``"phase": "full_width_session"``): each part plans
+    with ``repro_torch.api.Planner`` and runs through ``Session`` on the
+    card, every kernel's count set to 0 just before the run and read just
+    after, and must give the tokens it is held to with exact launches.
+    (a) The serve-paged CLI's spec (streaming, ``full_width``'s 8 ragged
+    requests, alpha 0.8, no c: the prior) on the planner's own geometry
+    (block 8: the card's paged phases so far ran block 16): gamma pinned to
+    GAMMA, tokens == ``full_width``'s block-16 serve; gamma adaptive (the
+    scheduler's online Eq. (1)), tokens == its AR serve; paged launches
+    from each round's gamma (``path_launches``), the argmax once per
+    speculative round. (b) The serve CLI's no-cache plan: ``launch.serve.
+    serve`` plans its waves (``serve_plan``) and runs them through
+    ``Session.generate``, so ``full_width_nocache`` ran it; its tokens
+    equal AR's there and its flash launches are rounds x 92, read here.
+    (c) A per-row plan (cached, modular, the 4 no-cache prompts at B=4):
+    tokens == ``BatchedSpecEngine.generate``'s (``full_width_cached`` b).
+    (d) An adaptive single-stream cached plan (the first prompt): tokens
+    == cached AR's; prints the gamma trace. (e) A pinned tree plan
+    (``draft_policy="tree"``, ``draft_k=TREE_W``; depth = the planner's
+    gamma*): tokens == cached AR's, tree launches L_t a round. (f) The
+    loop: (a)'s pinned plan served traced; ``respec_from_drift(spec,
+    drift, alpha=sess.alpha_hat)`` re-plans with the measured c, which the
+    new plan must carry; prints c and gamma* for the prior, the planner's
+    roofline c for ``llama3.2-3b`` and the measured c. Returns the phase's
+    launches."""
+    import dataclasses
+
+    from repro_torch.api import (DeploymentSpec, Planner, Session,
+                                 respec_from_drift)
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import ServeRequest
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    total = {name: 0 for name in counters}
+    none = dict(total)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        for n, v in launches.items():
+            total[n] += v
+        return out, time.perf_counter() - t0, launches
+
+    def pinned(plan, gamma):
+        return dataclasses.replace(plan, gamma=dataclasses.replace(
+            plan.gamma, gamma=gamma, adaptive=False, candidates=()))
+
+    def check(info, ok):
+        emit(info)
+        if not ok:
+            raise SystemExit(f"full-width Session part failed: {info}")
+
+    # (a) the serve-paged plan, pinned and adaptive; (f) traced
+    reqs = linear["reqs"]
+    spec = DeploymentSpec(batch_size=4, prompt_lens=tuple(len(p) for p, _ in reqs),
+                          max_new=tuple(n for _, n in reqs), streaming=True,
+                          adaptive_gamma=True)
+    plan = Planner(spec).plan()
+
+    def paged(part, plan, want, tracer=None):
+        sess = Session(mt, md, pt, pd, plan, max_batch=4, tracer=tracer)
+        done, wall, launches = counted(lambda: sess.serve(
+            [ServeRequest(i, p, n) for i, (p, n) in enumerate(reqs)]))
+        srv = sess.backend.server
+        got = {r.rid: r.tokens for r in done}
+        expect = path_launches(srv, counters, L_t, L_d)
+        gammas = [e.gamma for e in srv.events.events()]
+        info = {"phase": "full_width_session", "part": part, "card": card,
+                "backend": sess.backend_name, "block_size": srv.scfg.block_size,
+                "num_blocks": srv.scfg.num_blocks,
+                "max_blocks_per_row": srv.scfg.max_blocks_per_row,
+                "prefill_buckets": list(srv.scfg.prefill_buckets),
+                "plan_gamma": plan.gamma.gamma, "adaptive": plan.gamma.adaptive,
+                "rounds": srv.total_rounds, "prefills": srv.n_prefills,
+                "gammas": gammas, "wall_s": wall,
+                "ms_per_round": wall / srv.total_rounds * 1e3,
+                "alpha_hat": sess.alpha_hat, "launches": launches,
+                "expected_launches": expect,
+                "argmax_per_spec_round": launches["blockwise_argmax"]
+                / max(sum(1 for g in gammas if g > 0), 1),
+                "tokens_equal": sorted(got) == list(range(len(reqs))) and all(
+                    np.array_equal(got[i], want[i]) for i in range(len(reqs)))}
+        return sess, info, info["tokens_equal"] and launches == expect
+
+    a_plan = pinned(plan, GAMMA)
+    _, info, ok = paged("a_pinned", a_plan, linear["tokens"])
+    check({**info, "plan_cache": dataclasses.asdict(plan.cache)}, ok)
+    _, info, ok = paged("a_adaptive", plan, linear["ar"])
+    check(info, ok)
+
+    # (b) the serve CLI's no-cache plan, run by full_width_nocache
+    b_plan = serve_cli.serve_plan(2, NOCACHE_PROMPT, NOCACHE_NEW, gamma=GAMMA)
+    b_backend = Session(mt, md, pt, pd, b_plan, max_batch=2).backend_name
+    nc = nocache["info"]
+    info = {"phase": "full_width_session", "part": "b_nocache_cli_plan",
+            "card": card, "backend": b_backend, "strategy": b_plan.strategy,
+            "use_cache": b_plan.use_cache, "gamma": b_plan.gamma.gamma,
+            "cli_default_gamma": serve_cli.serve_plan(
+                2, NOCACHE_PROMPT, NOCACHE_NEW).gamma.gamma,
+            "rounds": nc["rounds"], "flash_launches": nc["launches"]["flash_attention"],
+            "expected_flash": nc["expected_launches"]["flash_attention"],
+            "spec_equals_ar": nc["spec_equals_ar"]}
+    check(info, b_backend == "engine" and nc["spec_equals_ar"]
+          and info["flash_launches"] == info["expected_flash"])
+
+    prompts = nocache_prompts(cfg)
+    P = prompts.shape[1]
+
+    # (c) a per-row plan
+    c_plan = pinned(Planner(DeploymentSpec(
+        batch_size=len(prompts), prompt_lens=(P,), max_new=NOCACHE_NEW,
+        strategy="modular", adaptive_gamma=False)).plan(), GAMMA)
+    sess = Session(mt, md, pt, pd, c_plan)
+    (toks, lengths, st), wall, launches = counted(
+        lambda: sess.generate_batch(prompts, NOCACHE_NEW))
+    rounds = st["rounds"]
+    expect = {**none, "paged_attention": rounds * (GAMMA * L_d + L_t) + L_t + L_d,
+              "blockwise_argmax": rounds}
+    same = bool(np.array_equal(toks.cpu().numpy()[:, :P + NOCACHE_NEW],
+                               cached["batched"][:, :P + NOCACHE_NEW]))
+    check({"phase": "full_width_session", "part": "c_per_row", "card": card,
+           "backend": sess.backend_name, "batch": len(prompts), "gamma": GAMMA,
+           "rounds": rounds, "wall_s": wall, "alpha_hat": st["alpha_hat"],
+           "launches": launches, "expected_launches": expect,
+           "tokens_equal_batched_engine": same},
+          sess.backend_name == "per_row" and same and launches == expect)
+
+    # (d) an adaptive single-stream cached plan
+    d_plan = Planner(DeploymentSpec(batch_size=1, prompt_lens=(P,),
+                                    max_new=NOCACHE_NEW,
+                                    adaptive_gamma=True)).plan()
+    sess = Session(mt, md, pt, pd, d_plan)
+    (toks, st), wall, launches = counted(
+        lambda: sess.generate(prompts[:1], NOCACHE_NEW))
+    trace = st["gamma_trace"]
+    expect = {**none, "paged_attention": sum(g * L_d + L_t for g in trace) + L_t + L_d,
+              "blockwise_argmax": len(trace)}
+    same = bool(np.array_equal(toks.cpu().numpy()[:, :P + NOCACHE_NEW],
+                               cached["ar"][:1]))
+    check({"phase": "full_width_session", "part": "d_adaptive_cached",
+           "card": card, "backend": sess.backend_name,
+           "candidates": list(d_plan.gamma.candidates), "gamma_trace": trace,
+           "rounds": st["rounds"], "wall_s": wall,
+           "ms_per_round": wall / st["rounds"] * 1e3,
+           "accepted": st["accepted"], "drafted": st["drafted"],
+           "alpha_ema": sess.alpha_hat, "launches": launches,
+           "expected_launches": expect, "tokens_equal_cached_ar": same},
+          sess.backend_name == "engine" and same and launches == expect
+          and len(trace) == st["rounds"])
+
+    # (e) a pinned tree plan
+    e_plan = Planner(DeploymentSpec(batch_size=1, prompt_lens=(P,),
+                                    max_new=NOCACHE_NEW, draft_policy="tree",
+                                    draft_k=TREE_W, adaptive_gamma=False)).plan()
+    depth = e_plan.gamma.gamma
+    sess = Session(mt, md, pt, pd, e_plan)
+    (toks, st), wall, launches = counted(
+        lambda: sess.generate(prompts[:1], NOCACHE_NEW))
+    rounds = st["rounds"]
+    expect = {**none, "tree_attention": L_t * rounds,
+              "paged_attention": depth * L_d * rounds + L_d + L_t,
+              "blockwise_argmax": rounds}
+    same = bool(np.array_equal(toks.cpu().numpy()[:, :P + NOCACHE_NEW],
+                               cached["ar"][:1]))
+    check({"phase": "full_width_session", "part": "e_tree", "card": card,
+           "backend": sess.backend_name, "draft_policy": e_plan.draft_policy,
+           "width": e_plan.draft_k, "depth": depth, "strategy": e_plan.strategy,
+           "rounds": rounds, "accepted": st["accepted"], "wall_s": wall,
+           "ms_per_round": wall / rounds * 1e3,
+           "tree_per_round": launches["tree_attention"] / rounds,
+           "launches": launches, "expected_launches": expect,
+           "tokens_equal_cached_ar": same},
+          e_plan.draft_policy == "tree" and same and launches == expect)
+
+    # (f) the loop: a traced run of (a)'s pinned plan, re-planned from its
+    # drift monitor
+    tracer = Tracer()
+    sess, info, ok = paged("f_traced", a_plan, linear["tokens"], tracer)
+    drift = sess.telemetry()["drift"]
+    ev = drift.evidence() if drift is not None and drift.calibrated else None
+    check({**info, "drift_evidence": ev}, ok and ev is not None)
+    respec = respec_from_drift(spec, drift, alpha=sess.alpha_hat)
+    measured = Planner(respec).plan()
+    prior = Planner(dataclasses.replace(respec, t_draft=None, t_target=None)).plan()
+    roofline = Planner(dataclasses.replace(respec, t_draft=None, t_target=None,
+                                           arch="llama3.2-3b")).plan()
+
+    def at_prior_alpha(s):
+        return Planner(dataclasses.replace(s, alpha=spec.alpha)).plan().gamma.gamma
+    loop = {"phase": "full_width_session", "part": "f_loop", "card": card,
+            "alpha_spec": spec.alpha, "alpha_measured": respec.alpha,
+            "c": {"prior": prior.cost_coefficient,
+                  "roofline_llama3.2-3b": roofline.cost_coefficient,
+                  "measured": measured.cost_coefficient},
+            "gamma_at_measured_alpha": {"prior": prior.gamma.gamma,
+                                        "roofline_llama3.2-3b": roofline.gamma.gamma,
+                                        "measured": measured.gamma.gamma},
+            "gamma_at_spec_alpha": {
+                "prior": at_prior_alpha(dataclasses.replace(respec, t_draft=None,
+                                                            t_target=None)),
+                "roofline_llama3.2-3b": at_prior_alpha(dataclasses.replace(
+                    respec, t_draft=None, t_target=None, arch="llama3.2-3b")),
+                "measured": at_prior_alpha(respec)},
+            "measured_rationale": measured.rationale[0],
+            "replanned_c_equals_measured": measured.cost_coefficient == ev["c"],
+            "phase_s": time.perf_counter() - t_phase}
+    check(loop, loop["replanned_c_equals_measured"]
+          and prior.cost_coefficient == 0.25)
+    return total
 
 
 def full_width_w8a8(mt, md, pt, pd, cfg, card):
@@ -2790,7 +3024,7 @@ def main() -> int:
     sampled_lossless()
     from repro_torch.launch.cli_args import build_pair
     pair = build_pair("llama3.2-3b", smoke=False, device="cuda")
-    full_width(*pair, card)
+    _, linear = full_width(*pair, card)
     tree_launches = full_width_tree(*pair, card)
     mt, md, pt, pd, cfg = pair
     buffer_invariance(mt, pt, cfg, card)
@@ -2801,7 +3035,8 @@ def main() -> int:
     nocache = full_width_nocache(*pair, card)
     cached_launches, cached = full_width_cached(*pair, card, nocache)
     sampled_launches = full_width_sampled(*pair, card, nocache, cached)
-    del cached
+    session_launches = full_width_session(*pair, card, linear, nocache, cached)
+    del cached, linear
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
     torch.cuda.empty_cache()
@@ -2809,12 +3044,16 @@ def main() -> int:
 
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
-    # the cached paths' (full_width_cached parts a-c, the cached Mamba-2)
-    # and the sampled serves' (paged attention cached, flash no-cache)
+    # the cached paths' (full_width_cached parts a-c, the cached Mamba-2),
+    # the sampled serves' (paged attention cached, flash no-cache) and the
+    # Session phase's (paged attention, the argmax, tree attention)
     for name, n in cached_launches.items():
         launches[name] += n
+    for name in ("paged_attention", "blockwise_argmax"):
+        launches[name] += session_launches[name]
     launches["paged_attention"] += sampled_launches["paged_attention"]
-    tree_launches["tree_attention"] += cached_launches["tree_attention"]
+    tree_launches["tree_attention"] += (cached_launches["tree_attention"]
+                                        + session_launches["tree_attention"])
     launches["blockwise_argmax"] += ssm_cached["blockwise_argmax"]
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])

@@ -34,9 +34,10 @@ def add_spec_args(ap: argparse.ArgumentParser, *, gamma: int = None
     """The JAX CLI's speculation flags, less ``--placement`` (placement is
     not ported)."""
     ap.add_argument("--gamma", type=int, default=gamma,
-                    help="draft length (default: the cost-model decision)")
+                    help="draft length (default: the planner's cost-model "
+                         "decision)")
     ap.add_argument("--alpha", type=float, default=0.8,
-                    help="expected acceptance rate fed to the gamma decision")
+                    help="expected acceptance rate fed to the planner")
     ap.add_argument("--cost-coefficient", type=float, default=None,
                     help="c = t_draft/t_target fed to the gamma decision")
     return ap
@@ -66,33 +67,34 @@ def add_prefill_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return ap
 
 
-def apply_prefill_args(scfg, args):
-    """Fold ``--prefill-chunk``/``--prefix-cache`` into a
-    ``SchedulerConfig`` (the JAX CLI folds them into the plan's cache
-    layout; the port has no planner yet)."""
+def apply_prefill_args(plan, args):
+    """Fold ``--prefill-chunk``/``--prefix-cache`` into the plan's cache
+    layout (paged plans only; a no-op when neither flag is set)."""
     chunk = getattr(args, "prefill_chunk", None)
     prefix = bool(getattr(args, "prefix_cache", False))
     if chunk is None and not prefix:
-        return scfg
-    return dataclasses.replace(scfg, prefill_chunk=chunk, prefix_cache=prefix)
+        return plan
+    return dataclasses.replace(plan, cache=dataclasses.replace(
+        plan.cache, prefill_chunk=chunk, prefix_cache=prefix))
 
 
-def apply_overcommit_arg(scfg, overcommit, max_new: int):
-    """Fold ``--overcommit`` into a ``SchedulerConfig``. On the bucketed
-    path a preempted request re-prefills its committed prefix (up to the
-    largest prompt + ``max_new`` - 1 tokens), so the buckets are extended
-    by doubling until they cover it, as JAX's planner does; the chunked
-    path needs no bucket cover."""
+def apply_overcommit_arg(plan, overcommit):
+    """Fold ``--overcommit`` into the plan's cache layout. With bucketed
+    prefill, overcommitted admission must be able to re-prefill a preempted
+    request's committed prefix (up to prompt + max_new - 1 tokens), so the
+    buckets are extended by doubling until they cover it, as the planner
+    does when IT decides to overcommit (api/planner.py). Chunked-prefill
+    plans skip the extension: any resume length is a sequence of chunks."""
     if overcommit is None or overcommit <= 1.0:
-        return scfg
-    scfg = dataclasses.replace(scfg, overcommit=float(overcommit))
-    if not scfg.chunked:
-        buckets = list(scfg.prefill_buckets)
-        resume_max = buckets[-1] + max_new - 1
+        return plan
+    cache = dataclasses.replace(plan.cache, overcommit=float(overcommit))
+    if cache.prefill_chunk is None and not cache.prefix_cache:
+        buckets = list(cache.prefill_buckets)
+        resume_max = buckets[-1] + plan.max_new - 1
         while buckets[-1] < resume_max:
             buckets.append(buckets[-1] * 2)
-        scfg = dataclasses.replace(scfg, prefill_buckets=tuple(buckets))
-    return scfg
+        cache = dataclasses.replace(cache, prefill_buckets=tuple(buckets))
+    return dataclasses.replace(plan, cache=cache)
 
 
 def report_robustness(server):
@@ -141,13 +143,12 @@ def make_tracer(args):
     return Tracer(enabled=args.trace_out is not None)
 
 
-def report_telemetry(tracer, server, args):
-    """Post-run telemetry: export the Chrome trace, print the per-phase
-    breakdown and, for a paged ``server``, any cost-model drift alerts and
-    the measured c. No-op when tracing is off. (The JAX CLI reads the
-    tracer and drift monitor from its ``Session``; the port has none yet,
-    so it takes them from the tracer and the server; ``server`` is None
-    for the no-cache engine, which has no drift monitor.)"""
+def report_telemetry(sess, args):
+    """Post-run telemetry of a ``Session``: export the Chrome trace, print
+    the per-phase breakdown and, on the paged backend, any cost-model drift
+    alerts and the measured c. No-op when tracing is off."""
+    tel = sess.telemetry()
+    tracer = tel["tracer"]
     if args.trace_out and tracer.enabled:
         tracer.export(args.trace_out)
         totals = tracer.phase_totals()
@@ -155,7 +156,7 @@ def report_telemetry(tracer, server, args):
                               for k, v in sorted(totals.items()))
         print(f"trace: {tracer.count()} spans -> {args.trace_out} "
               f"({breakdown})")
-    drift = getattr(server, "drift", None)
+    drift = tel.get("drift")
     if drift is not None and drift.calibrated:
         for msg in drift.alerts():
             print(f"drift: {msg}")

@@ -1,97 +1,109 @@
 """Serving CLI: batched speculative (or plain) decoding of synthetic
-requests on ``SpecEngine`` (port of ``repro/launch/serve.py``).
+requests (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu --speculative [--use-cache]
 
 serves ``--requests`` synthetic prompts of ``--prompt-len`` tokens,
-``--max-new`` new tokens each, wave by wave (``--batch`` requests per wave)
-on ``SpecEngine``, in the paper's no-cache mode or, with ``--use-cache``,
-on the cached engine (ring KV caches, or the state caches of
-``--arch mamba2-780m``); without ``--speculative`` it serves all requests
-as one autoregressive batch, cached or not. It runs on the GPU unless
-``--device cpu`` is given.
+``--max-new`` new tokens each, wave by wave (``--batch`` requests per
+wave), in the paper's no-cache mode or, with ``--use-cache``, on ring KV
+caches (or the state caches of ``--arch mamba2-780m``); without
+``--speculative`` it serves all requests as one autoregressive batch,
+cached or not. It runs on the GPU unless ``--device cpu`` is given.
 
-The JAX CLI asks the ``Planner`` for gamma. Until the API facade is
-ported, this one takes the same Eq. (1) decision directly
-(``choose_gamma``: gamma* over 0..8 at the given alpha and c, with the
-planner's prior c = 0.25); gamma* = 0 serves AR, as the planner's plan
-does, and ``--gamma`` forces the draft length. Its ``alpha_hat`` is the
-run's accepted / drafted (the JAX CLI prints its gamma controller's
-moving average, which comes with the facade). ``--trace-out PATH`` traces the speculative
-serve (one ``generate`` span per wave under ``--strategy monolithic``,
-draft/verify/commit spans per round under ``modular``) and writes the
-Chrome trace to PATH.
+The CLI plans with ``repro_torch.api.Planner`` and executes through the
+``Session`` facade, as the JAX CLI does: the planner's Eq. (1) decision
+picks gamma from ``--alpha`` and ``--cost-coefficient`` (its prior c when
+none is given; gamma* = 0 serves AR), ``--gamma`` forces the draft
+length, and omitting ``--speculative`` forces AR. The printed
+``alpha_hat`` is the session's acceptance moving average.
+``--trace-out PATH`` traces the speculative serve (one ``generate`` span
+per wave under ``--strategy monolithic``, draft/verify/commit spans per
+round under ``modular``) and writes the Chrome trace to PATH.
+
+``serve()`` is the same path as a function: it plans the waves with gamma
+pinned and runs them through ``Session.generate``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
-from repro_torch.core import cost_model
-from repro_torch.core.engine import (STRATEGIES, EngineConfig, SpecEngine,
-                                     autoregressive_generate)
+from repro_torch.api import DeploymentSpec, ExecutionPlan, Planner, Session
+from repro_torch.core.engine import STRATEGIES
 from repro_torch.launch import cli_args
 from repro_torch.obs import clock
 from repro_torch.sampling.keys import TorchKey
 
-DEFAULT_COST_COEFFICIENT = 0.25   # the planner's prior c (api/planner.py)
-GAMMA_MAX = 8                     # the planner's default gamma_max
+
+def serve_plan(batch, prompt_len, max_new, *, gamma=None, alpha=0.8,
+               cost_coefficient=None, use_cache=False,
+               strategy="monolithic", greedy=True,
+               temperature=1.0) -> ExecutionPlan:
+    """The plan of a serve: the Planner's for waves of ``batch`` uniform
+    requests with a fixed (non-adaptive) gamma; ``gamma`` forces the draft
+    length (0 = AR), None keeps the planner's Eq. (1) gamma*."""
+    plan = Planner(DeploymentSpec(
+        batch_size=batch, prompt_lens=(prompt_len,), max_new=max_new,
+        alpha=alpha, cost_coefficient=cost_coefficient, adaptive_gamma=False,
+        use_cache=use_cache, strategy=strategy, greedy=greedy,
+        temperature=temperature)).plan()
+    if gamma is None:
+        return plan
+    return dataclasses.replace(
+        plan, gamma=dataclasses.replace(plan.gamma, gamma=gamma))
 
 
-def choose_gamma(alpha: float, cost_coefficient=None) -> int:
-    """The planner's decision ④: Eq. (1) gamma* over 0..GAMMA_MAX
-    (0 = speculation does not pay: serve AR)."""
-    c = DEFAULT_COST_COEFFICIENT if cost_coefficient is None else cost_coefficient
-    return cost_model.optimal_gamma(alpha, c, GAMMA_MAX)[0]
-
-
-def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
-          batch, strategy="monolithic", tracer=None, use_cache=False,
-          greedy=True, temperature=1.0, key=None):
-    """Serve the [R, P] ``prompts`` wave by wave, ``batch`` requests per
-    wave: ``SpecEngine`` rounds for gamma >= 1 (traced by ``tracer``),
-    ``autoregressive_generate`` for gamma 0; no cache, or cached with
-    ``use_cache``. ``greedy=False`` samples at ``temperature``, wave i
-    with the i-th child of ``key`` (default ``TorchKey(0)``); the CLI
-    serves greedily, as JAX's does. Returns (tokens [R, P + max_new]
-    numpy, stats)."""
+def serve_waves(sess: Session, prompts, max_new, batch, key=None):
+    """Serve the [R, P] ``prompts`` through ``sess``, ``batch`` requests per
+    wave, wave i with the i-th child of ``key`` (default ``TorchKey(0)``;
+    sampled plans draw from it). Returns (tokens [R, P + max_new] numpy,
+    stats)."""
     prompts = np.asarray(prompts, np.int32)
     R, P = prompts.shape
     waves = -(-R // batch)
     keys = (key if key is not None else TorchKey(0)).split(waves)
-    eng = (SpecEngine(target, drafter, EngineConfig(
-               gamma=gamma, greedy=greedy, temperature=temperature,
-               use_cache=use_cache, strategy=strategy), tracer=tracer)
-           if gamma else None)
     out = np.zeros((R, P + max_new), np.int32)
     totals = {"rounds": 0, "accepted": 0, "drafted": 0}
     latencies = []
     t0 = clock.perf()
     for w, i in enumerate(range(0, R, batch)):
         wave = prompts[i:i + batch]
-        if eng is None:
-            toks = autoregressive_generate(target, params_t, wave, max_new,
-                                           greedy=greedy,
-                                           temperature=temperature,
-                                           key=keys[w], use_cache=use_cache)
-            st = {"rounds": max_new, "accepted": 0, "drafted": 0}
-        else:
-            toks, st = eng.generate(params_t, params_d, wave, max_new,
-                                    key=keys[w])
+        toks, st = sess.generate(wave, max_new, key=keys[w])
         # the last round may commit past the budget: trim to it
         out[i:i + len(wave)] = toks[:, :P + max_new].cpu().numpy()
-        for key in totals:
-            totals[key] += st[key]
+        for name in totals:
+            totals[name] += st[name]
         latencies += [clock.perf() - t0] * len(wave)
     seconds = clock.perf() - t0
     stats = {**totals, "requests": R, "waves": waves,
-             "gamma": gamma, "generated": R * max_new, "seconds": seconds,
-             "tokens_per_s": R * max_new / seconds,
+             "gamma": sess.plan.gamma.gamma, "generated": R * max_new,
+             "seconds": seconds, "tokens_per_s": R * max_new / seconds,
              "mean_latency_s": float(np.mean(latencies)),
              "alpha_hat": (totals["accepted"] / totals["drafted"]
                            if totals["drafted"] else None)}
     return out, stats
+
+
+def serve(target, drafter, params_t, params_d, prompts, max_new, *, gamma,
+          batch, strategy="monolithic", tracer=None, use_cache=False,
+          greedy=True, temperature=1.0, key=None):
+    """Serve the [R, P] ``prompts`` wave by wave, ``batch`` requests per
+    wave, through a ``Session`` on ``serve_plan``'s plan with ``gamma``
+    pinned (speculative rounds for gamma >= 1, traced by ``tracer``;
+    autoregressive for gamma 0), no cache or cached with ``use_cache``, on
+    the params' device. ``greedy=False`` samples at ``temperature``, wave i
+    with the i-th child of ``key``. Returns (tokens [R, P + max_new] numpy,
+    stats)."""
+    prompts = np.asarray(prompts, np.int32)
+    plan = serve_plan(batch, prompts.shape[1], max_new, gamma=gamma,
+                      use_cache=use_cache, strategy=strategy, greedy=greedy,
+                      temperature=temperature)
+    sess = Session(target, drafter, params_t, params_d, plan,
+                   max_batch=batch, tracer=tracer,
+                   device=params_t["embed"]["table"].device)
+    return serve_waves(sess, prompts, max_new, batch, key=key)
 
 
 def main(argv=None):
@@ -112,31 +124,34 @@ def main(argv=None):
                                                 args.device)
     rng = np.random.default_rng(0)
     R, P, new = args.requests, args.prompt_len, args.max_new
+    # CLI overrides trump the planner: --gamma forces the draft length and
+    # omitting --speculative forces the AR path (gamma 0); with neither,
+    # the planner's Eq. (1) decision stands
+    plan = serve_plan(args.batch, P, new,
+                      gamma=args.gamma if args.speculative else 0,
+                      alpha=args.alpha, cost_coefficient=args.cost_coefficient,
+                      use_cache=args.use_cache, strategy=args.strategy)
+    sess = Session(mt, md, pt, pd, plan, max_batch=args.batch,
+                   tracer=cli_args.make_tracer(args), device=args.device)
     if not args.speculative:
         # plain autoregressive serving baseline (one fixed batch)
         prompts = rng.integers(0, cfg_t.vocab_size, (R, P))
-        toks, s = serve(mt, md, pt, pd, prompts, new, gamma=0, batch=R,
-                        use_cache=args.use_cache)
+        toks, s = serve_waves(sess, prompts, new, batch=R)
         print(f"AR served {R} x {new} tokens in {s['seconds']:.2f}s "
               f"({R * new / s['seconds']:.1f} tok/s)")
         return toks, s
 
-    gamma = (args.gamma if args.gamma is not None
-             else choose_gamma(args.alpha, args.cost_coefficient))
     prompts = np.stack([rng.integers(0, cfg_t.vocab_size, P)
                         for _ in range(R)])
-    tracer = cli_args.make_tracer(args)
-    toks, s = serve(mt, md, pt, pd, prompts, new, gamma=gamma,
-                    batch=args.batch, strategy=args.strategy, tracer=tracer,
-                    use_cache=args.use_cache)
-    alpha = s["alpha_hat"]
+    toks, s = serve_waves(sess, prompts, new, args.batch)
+    alpha = sess.alpha_hat
     print(f"speculative served {R} requests, {s['generated']} tokens in "
           f"{s['seconds']:.2f}s ({s['tokens_per_s']:.1f} tok/s aggregate, "
           f"mean latency {s['mean_latency_s'] * 1e3:.0f}ms, "
           f"alpha_hat={float('nan') if alpha is None else alpha:.2f}, "
-          f"gamma={gamma}, strategy={args.strategy}, cache={args.use_cache}, "
-          f"backend=engine)")
-    cli_args.report_telemetry(tracer, None, args)
+          f"gamma={plan.gamma.gamma}, strategy={plan.strategy}, "
+          f"cache={args.use_cache}, backend={sess.backend_name})")
+    cli_args.report_telemetry(sess, args)
     return toks, s
 
 

@@ -16,6 +16,7 @@ id, queue depth, live rows) and allocator tables at every step, the same
 tokens and metrics counts, and the same tokens as its own bucketed (cold)
 path. Last, the CLI. Preemption, cancellation, cached-block immutability
 and the wrap corner are in ``tests/test_torch_serving_lifecycle.py``."""
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -254,13 +255,19 @@ def test_cli_serves_chunked_with_prefix_cache_and_overcommit(capsys):
 
 
 def test_cli_extends_buckets_for_bucketed_overcommit():
+    """``--overcommit`` folds into the plan's cache layout: on the bucketed
+    path the buckets grow to cover a resumed prefix (largest bucket +
+    max_new - 1), on the chunked path they stay."""
+    from repro_torch.api import CacheLayout, ExecutionPlan
     from repro_torch.launch import cli_args
-    scfg = SchedulerConfig(prefill_buckets=(8, 16))
-    assert cli_args.apply_overcommit_arg(scfg, 1.0, 24) is scfg
-    out = cli_args.apply_overcommit_arg(scfg, 2.0, 24)
+    plan = ExecutionPlan(batching="continuous", max_new=24,
+                         cache=CacheLayout(kind="paged", prefill_buckets=(8, 16)))
+    assert cli_args.apply_overcommit_arg(plan, 1.0) is plan
+    out = cli_args.apply_overcommit_arg(plan, 2.0).cache
     assert out.overcommit == 2.0 and out.prefill_buckets == (8, 16, 32, 64)
-    chunked = SchedulerConfig(prefill_buckets=(8, 16), prefill_chunk=4)
-    assert cli_args.apply_overcommit_arg(chunked, 2.0, 24).prefill_buckets == (8, 16)
+    chunked = dataclasses.replace(plan, cache=dataclasses.replace(
+        plan.cache, prefill_chunk=4))
+    assert cli_args.apply_overcommit_arg(chunked, 2.0).cache.prefill_buckets == (8, 16)
 
 
 def test_cli_subprocess_on_the_cpu():

@@ -1,8 +1,8 @@
 """The port's no-cache serving CLI (``repro_torch.launch.serve``): it serves
 AR and speculatively on the CPU when asked to, its gamma decision is the
-JAX planner's (Eq. (1) over 0..8 with the planner's prior c), gamma* = 0
-serves AR, speculative and AR serving give the same tokens, with or
-without the cache."""
+port's planner's, which is the JAX planner's (Eq. (1) over 0..8 with the
+planner's prior c), gamma* = 0 serves AR, speculative and AR serving give
+the same tokens, with or without the cache."""
 import os
 import pathlib
 import subprocess
@@ -13,7 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.api import DeploymentSpec, Planner  # noqa: E402
+from repro.api import DeploymentSpec as JaxSpec  # noqa: E402
+from repro.api import Planner as JaxPlanner  # noqa: E402
+from repro_torch.api import DeploymentSpec, Planner  # noqa: E402
 from repro_torch.launch import cli_args, serve  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -24,10 +26,15 @@ SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"]
 @pytest.mark.parametrize("c", [None, 0.05, 0.25, 0.5, 0.9])
 def test_gamma_decision_is_the_planners(alpha, c):
     """The grid holds both sides of the decision: gamma* = 0 (alpha 0.1,
-    c 0.5) and gamma* > 0 (alpha 0.8, the prior c)."""
-    want = Planner(DeploymentSpec(alpha=alpha,
-                                  cost_coefficient=c)).plan().gamma.gamma
-    assert serve.choose_gamma(alpha, c) == want
+    c 0.5) and gamma* > 0 (alpha 0.8, the prior c). The CLI's plan takes
+    the port's planner's gamma, and that plan is JAX's, string for
+    string."""
+    got = Planner(DeploymentSpec(alpha=alpha, cost_coefficient=c)).plan()
+    want = JaxPlanner(JaxSpec(alpha=alpha, cost_coefficient=c)).plan()
+    assert got.gamma.gamma == want.gamma.gamma
+    assert got.to_json() == want.to_json()
+    assert serve.serve_plan(1, 8, 32, alpha=alpha,
+                            cost_coefficient=c).gamma.gamma == want.gamma.gamma
 
 
 def test_cli_serves_speculatively_on_the_cpu():
