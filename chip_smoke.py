@@ -138,7 +138,21 @@
    plan (tokens == cached AR, 28 tree launches a round); (f) (a)'s pinned
    plan traced and re-planned from its drift monitor
    (``respec_from_drift``): c and gamma for the prior, the roofline and
-   the measured c; the new plan must carry the measured c.
+   the measured c; the new plan must carry the measured c. Then
+   plan-carried placement and the paged server's robustness layer
+   (``"phase": "full_width_placed"``): (a) the default plan lowers to
+   DEGENERATE, the CLI's ``1x1`` to the shared-device placement (both
+   roles on cuda:0), ``2x6`` to the degenerate fallback; (b) the placed
+   cached engine through ``Session``, overlap off and on, beside the
+   unplaced one (tokens and rounds == the cached serve's, exact launches
+   with one discarded round a wave under overlap; wall per round a
+   reading); (c) the placed ``BatchedSpecEngine`` (tokens == (b) of the
+   cached phase); (d) the placed paged server on step 4's trace (tokens ==
+   step 4's, the audit balanced); (e) a seeded chaos serve under
+   overcommit (tokens == step 4's, the pool whole, an injected drafter
+   failure degraded to AR), a corrupt-output serve (the poisoned requests
+   fail with the reason, the survivors exact), and a paged kernel made to
+   fail inside a round: ``step()`` raises, nothing degrades.
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
    heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
@@ -195,8 +209,8 @@
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
-   10 and the sampled serves' and the Session phase's of step 7), the card
-   line again and, last,
+   10 and the sampled serves', the Session phase's and the placed phase's
+   of step 7), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
@@ -2770,6 +2784,235 @@ def full_width_session(mt, md, pt, pd, cfg, card, linear, nocache, cached):
     return total
 
 
+CHAOS_SEED = 6        # FaultPlan.seeded: a drafter failure at step 2, a
+                      # delay at 3, seizures at 3-5 (before any watchdog
+                      # trip can pin the batch to AR)
+
+
+def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
+    """Plan-carried placement and the paged server's robustness layer at
+    full width on the paper's pair (bf16; ``"phase": "full_width_placed"``),
+    every kernel's count set to 0 just before each run and read just after.
+    (a) Lowering on one card: the default plan lowers to DEGENERATE; the
+    CLI's ``1x1`` to the shared-device placement (heterogeneous,
+    overlapping, both roles on cuda:0; its ``describe()`` printed); ``2x6``
+    falls back to the degenerate lowering with its note. (b) The placed
+    cached ``SpecEngine`` through ``Session`` on the no-cache traffic (two
+    waves of 2), overlap off and on, beside the unplaced serve: tokens and
+    rounds == ``full_width_cached`` (a), paged launches rounds x
+    92 + waves x 44 and an argmax a round, plus one discarded round a wave
+    (92 paged, 1 argmax) under overlap; wall per round of each (a
+    reading). (c) The placed ``BatchedSpecEngine`` (B=4): tokens ==
+    ``full_width_cached`` (b). (d) The placed ``PagedSpecServer`` on
+    ``full_width``'s trace, block 16: tokens == ``full_width``'s, exact
+    launches, the audit balanced after the drain. (e) Chaos on the same
+    trace under overcommit 2.0 on 40 blocks with ``FaultPlan.seeded(
+    CHAOS_SEED)`` (delays, drafter failures, seizures): every request
+    completes with the clean tokens, the pool whole, at least one
+    "injected drafter failure" degradation (the degradation list printed);
+    a ``FaultPlan(corrupt_rounds={1, 2})`` serve on (d)'s geometry fails
+    the poisoned requests with the corrupt-token reason and its survivors
+    keep the clean tokens; then the paged wrapper is made to raise
+    ``RuntimeError`` for one call inside a speculative round: ``step()``
+    must raise and no degradation be logged. Returns the phase's
+    launches."""
+    import dataclasses
+
+    from repro_torch.api import PlacementPlan, Session, lower, lower_or_degenerate
+    from repro_torch.device import visible
+    from repro_torch.api.placement import DEGENERATE, PlacementError
+    from repro_torch.core.batched_engine import (BatchedEngineConfig,
+                                                 BatchedSpecEngine)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.cli_args import apply_placement_arg
+    from repro_torch.serving import (FaultPlan, PagedSpecServer,
+                                     SchedulerConfig, ServeRequest)
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    per_round, per_wave = GAMMA * L_d + L_t, L_t + L_d
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    total = {name: 0 for name in counters}
+    none = dict(total)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        for n, v in launches.items():
+            total[n] += v
+        return out, time.perf_counter() - t0, launches
+
+    def check(info, ok):
+        emit(info)
+        if not ok:
+            raise SystemExit(f"full-width placed part failed: {info}")
+
+    # (a) lowering on one card
+    prompts = nocache_prompts(cfg)
+    P, batch = prompts.shape[1], 2
+    base = serve_cli.serve_plan(batch, P, NOCACHE_NEW, gamma=GAMMA, use_cache=True)
+    one = apply_placement_arg(base, "1x1")
+    shared = lower(one.placement)
+    two_six = apply_placement_arg(base, "2x6").placement
+    try:
+        lower(two_six)
+        raised = False
+    except PlacementError:
+        raised = True
+    fallback = lower_or_degenerate(two_six)
+    first = visible()[0]
+    check({"phase": "full_width_placed", "part": "a_lowering", "card": card,
+           "visible": [str(d) for d in visible()],
+           "roles_on": [str(shared.drafter.device), str(shared.target.device)],
+           "default": lower(PlacementPlan()).describe(),
+           "1x1": shared.describe(), "2x6": fallback.describe()},
+          lower(PlacementPlan()) is DEGENERATE and shared.heterogeneous
+          and not shared.disjoint and shared.overlap
+          and shared.drafter.device == shared.target.device == first
+          and raised and not fallback.heterogeneous
+          and fallback.note.startswith("degenerate fallback: "))
+
+    # (b) the placed cached engine, overlap off and on, beside the unplaced
+    waves = -(-len(prompts) // batch)
+    plans = {"placed": dataclasses.replace(one, placement=dataclasses.replace(
+                 one.placement, overlap=False)),
+             "placed_overlap": one, "unplaced": base}
+    want, want_rounds = cached["tokens"], cached["info"]["rounds"]
+    walls = {}
+    for name in plans:
+        sess = Session(mt, md, pt, pd, plans[name], max_batch=batch)
+        eng_placed = sess.backend._engine(GAMMA).placement is not None
+        (toks, st), wall, launches = counted(
+            lambda: serve_cli.serve_waves(sess, prompts, NOCACHE_NEW, batch))
+        rounds = st["rounds"]
+        extra = waves if name == "placed_overlap" else 0
+        expect = {**none, "paged_attention": (rounds + extra) * per_round
+                  + waves * per_wave, "blockwise_argmax": rounds + extra}
+        walls[name] = wall / rounds * 1e3
+        check({"phase": "full_width_placed", "part": f"b_{name}", "card": card,
+               "placement": sess.placement.describe(), "engine_placed": eng_placed,
+               "waves": waves, "rounds": rounds, "wall_s": wall,
+               "ms_per_round": wall / rounds * 1e3, "launches": launches,
+               "expected_launches": expect,
+               "tokens_equal_cached": bool(np.array_equal(toks, want)),
+               "rounds_equal_cached": rounds == want_rounds},
+              np.array_equal(toks, want) and rounds == want_rounds
+              and launches == expect and eng_placed == (name != "unplaced"))
+    emit({"phase": "full_width_placed", "part": "b_wall_per_round_ms",
+          "card": card, "reading": walls})
+
+    # (c) the placed per-row engine, B = 4
+    eng = BatchedSpecEngine(mt, md, BatchedEngineConfig(gamma=GAMMA),
+                            placement=shared)
+    (toks, lengths, st), wall, launches = counted(
+        lambda: eng.generate(pt, pd, prompts, NOCACHE_NEW))
+    rounds = st["rounds"]
+    expect = {**none, "paged_attention": rounds * per_round + per_wave,
+              "blockwise_argmax": rounds}
+    same = bool(np.array_equal(toks.cpu().numpy()[:, :P + NOCACHE_NEW],
+                               cached["batched"][:, :P + NOCACHE_NEW]))
+    check({"phase": "full_width_placed", "part": "c_per_row", "card": card,
+           "batch": len(prompts), "rounds": rounds, "wall_s": wall,
+           "placed": eng.placed_round is not None, "launches": launches,
+           "expected_launches": expect, "tokens_equal_batched_engine": same},
+          same and launches == expect and eng.placed_round is not None)
+
+    # (d) the placed paged server on the linear trace, block 16
+    reqs = linear["reqs"]
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+
+    def paged(scfg, faults=None, placement=shared, reqs=reqs):
+        srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA,
+                              placement=placement, faults=faults, device="cuda")
+        for i, (prompt, new) in enumerate(reqs):
+            srv.submit(ServeRequest(i, prompt, new))
+        return srv, {r.rid: r.tokens for r in srv.run()}
+
+    def equal(got, want, rids):
+        return sorted(got) == sorted(rids) and all(
+            np.array_equal(got[i], want[i]) for i in rids)
+    (srv, got), wall, launches = counted(lambda: paged(scfg))
+    expect = path_launches(srv, counters, L_t, L_d)
+    census = audited(srv)
+    same = equal(got, linear["tokens"], range(len(reqs)))
+    check({"phase": "full_width_placed", "part": "d_paged", "card": card,
+           "placed": srv.placement is not None, "rounds": srv.total_rounds,
+           "prefills": srv.n_prefills, "wall_s": wall,
+           "ms_per_round": wall / srv.total_rounds * 1e3, "launches": launches,
+           "expected_launches": expect, "census": census,
+           "tokens_equal_full_width": same},
+          same and launches == expect and srv.placement is not None)
+
+    # (e) chaos: seeded faults under overcommit, then corrupt output, then
+    # a failing kernel, which must raise rather than degrade
+    plan = FaultPlan.seeded(CHAOS_SEED, horizon=256, p_delay=0.2, delay_s=0.05,
+                            p_drafter=0.15, p_seize=0.2, max_seize=3)
+    oc = dataclasses.replace(scfg, num_blocks=28, overcommit=2.0)
+    (srv, got), wall, launches = counted(lambda: paged(oc, plan))
+    expect = path_launches(srv, counters, L_t, L_d)
+    s = srv.metrics.summary()
+    srv.alloc.release_seized()
+    census = audited(srv)
+    degr = [[r, why] for r, why in srv.metrics.degradations]
+    terminal = (s["requests_completed"] == len(reqs) and not srv.metrics.requests
+                and not srv.sched.queue and all(r is None for r in srv._slots))
+    same = equal(got, linear["tokens"], range(len(reqs)))
+    check({"phase": "full_width_placed", "part": "e_chaos", "card": card,
+           "faults": plan.describe(), "steps": srv.total_steps,
+           "rounds": srv.total_rounds, "spec_rounds": s["spec_rounds"],
+           "preemptions": s["n_preemptions"], "degradations": degr,
+           "degraded_rounds": sum(e.degraded for e in srv.events.events()),
+           "fault_delays": sum(e.fault_delay > 0 for e in srv.events.events()),
+           "watchdog_trips": srv.watchdog.n_trips, "wall_s": wall,
+           "launches": launches, "expected_launches": expect, "census": census,
+           "all_terminal": terminal, "tokens_equal_clean": same},
+          same and terminal and launches == expect and any(
+              "injected drafter failure" in why for _, why in degr))
+    corrupt = FaultPlan(corrupt_rounds=frozenset({1, 2}))
+    (srv, got), wall, launches = counted(lambda: paged(scfg, corrupt))
+    expect = path_launches(srv, counters, L_t, L_d)
+    failed = [[r.rid, r.failed] for r in srv.metrics.failed]
+    census = audited(srv)
+    survivors = [i for i in range(len(reqs)) if i not in {f[0] for f in failed}]
+    s = srv.metrics.summary()
+    check({"phase": "full_width_placed", "part": "e_corrupt", "card": card,
+           "failed": failed, "completed": s["requests_completed"],
+           "launches": launches, "expected_launches": expect, "census": census,
+           "survivors_equal_clean": equal(got, linear["tokens"], survivors)},
+          failed and all("corrupt token id" in why for _, why in failed)
+          and s["requests_completed"] + len(failed) == len(reqs)
+          and equal(got, linear["tokens"], survivors) and launches == expect)
+    srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA, placement=shared,
+                          device="cuda")
+    for i, (prompt, new) in enumerate(reqs[:4]):
+        srv.submit(ServeRequest(i, prompt, new))
+    real = pa.paged_flash_attention
+
+    def failing(*args, **kw):
+        pa.paged_flash_attention = real
+        raise RuntimeError("paged attention kernel failed (injected)")
+    (_, _, launches) = counted(srv.step)
+    pa.paged_flash_attention = failing
+    try:
+        srv.step()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        pa.paged_flash_attention = real
+    check({"phase": "full_width_placed", "part": "e_no_fallback", "card": card,
+           "raised": raised, "degradations": srv.metrics.degradations,
+           "first_step_launches": launches, "phase_s": time.perf_counter() - t_phase},
+          raised == "paged attention kernel failed (injected)"
+          and srv.metrics.degradations == [] and pa.paged_flash_attention is real)
+    return total
+
+
 def full_width_w8a8(mt, md, pt, pd, cfg, card):
     """The paper's w8a8 deployment of the pair: both models through
     ``quantize_for_serving``, every forward under ``act_quant`` with a
@@ -3036,6 +3279,7 @@ def main() -> int:
     cached_launches, cached = full_width_cached(*pair, card, nocache)
     sampled_launches = full_width_sampled(*pair, card, nocache, cached)
     session_launches = full_width_session(*pair, card, linear, nocache, cached)
+    placed_launches = full_width_placed(*pair, card, linear, cached)
     del cached, linear
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
@@ -3045,12 +3289,13 @@ def main() -> int:
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
     # the cached paths' (full_width_cached parts a-c, the cached Mamba-2),
-    # the sampled serves' (paged attention cached, flash no-cache) and the
-    # Session phase's (paged attention, the argmax, tree attention)
+    # the sampled serves' (paged attention cached, flash no-cache), the
+    # Session phase's (paged attention, the argmax, tree attention) and the
+    # placed phase's (paged attention, the argmax)
     for name, n in cached_launches.items():
         launches[name] += n
     for name in ("paged_attention", "blockwise_argmax"):
-        launches[name] += session_launches[name]
+        launches[name] += session_launches[name] + placed_launches[name]
     launches["paged_attention"] += sampled_launches["paged_attention"]
     tree_launches["tree_attention"] += (cached_launches["tree_attention"]
                                         + session_launches["tree_attention"])

@@ -82,11 +82,13 @@ class EngineBackend:
     name = "engine"
 
     def __init__(self, target, drafter, params_t, params_d,
-                 plan: ExecutionPlan, max_batch: int = 8, tracer=None):
+                 plan: ExecutionPlan, max_batch: int = 8, placement=None,
+                 tracer=None):
         self.target, self.drafter = target, drafter
         self.params_t, self.params_d = params_t, params_d
         self.plan = plan
         self.max_batch = max_batch
+        self.placement = placement
         self.tracer = tracer
         self.controller = GammaController(plan.gamma, plan.cost_coefficient)
         self._engines: Dict[int, SpecEngine] = {}
@@ -100,7 +102,7 @@ class EngineBackend:
                              temperature=p.temperature, use_cache=p.use_cache,
                              strategy=p.strategy,
                              draft_policy=p.draft_policy, draft_k=p.draft_k),
-                tracer=self.tracer)
+                placement=self.placement, tracer=self.tracer)
         return self._engines[gamma]
 
     # ----------------------------------------------------------------- paths
@@ -183,11 +185,13 @@ class PerRowBackend:
     name = "per_row"
 
     def __init__(self, target, drafter, params_t, params_d,
-                 plan: ExecutionPlan, max_batch: int = 8, tracer=None):
+                 plan: ExecutionPlan, max_batch: int = 8, placement=None,
+                 tracer=None):
         self.target, self.drafter = target, drafter
         self.params_t, self.params_d = params_t, params_d
         self.plan = plan
         self.max_batch = max_batch
+        self.placement = placement
         self.tracer = tracer
         # gamma is consulted at batch boundaries, where the AR path is
         # reachable (g==0 branch below) — let the controller downgrade
@@ -203,7 +207,7 @@ class PerRowBackend:
                 BatchedEngineConfig(gamma=gamma, max_new_tokens=p.max_new,
                                     draft_policy=p.draft_policy,
                                     draft_k=p.draft_k),
-                tracer=self.tracer)
+                placement=self.placement, tracer=self.tracer)
         return self._engines[gamma]
 
     def generate_batch(self, prompts, max_new=None):
@@ -249,9 +253,10 @@ class PagedBackend:
     name = "paged"
 
     def __init__(self, target, drafter, params_t, params_d,
-                 plan: ExecutionPlan, max_batch: int = 4, tracer=None,
-                 device=None):
+                 plan: ExecutionPlan, max_batch: int = 4, placement=None,
+                 tracer=None, faults=None, device=None):
         self.plan = plan
+        self.placement = placement
         cache = plan.cache
         scfg = SchedulerConfig(
             max_batch=max_batch, block_size=cache.block_size,
@@ -267,7 +272,8 @@ class PagedBackend:
         gamma_override = None if plan.gamma.adaptive else plan.gamma.gamma
         self.server = PagedSpecServer(target, drafter, params_t, params_d,
                                       scfg, gamma=gamma_override,
-                                      tracer=tracer, device=device)
+                                      placement=placement, tracer=tracer,
+                                      faults=faults, device=device)
 
     @property
     def metrics(self):

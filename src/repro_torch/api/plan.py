@@ -163,8 +163,7 @@ class PlacementPlan:
     target submesh still verifies — the paper's idle-PU elimination);
     ``predicted_round_time`` is the overlapped-round cost term the planner
     scored the mapping with, in t_target units (0.0 = unscored).
-    The port records it; a ``Session`` runs both roles on its one device
-    until placement is ported (``session.placement.note`` says so).
+    ``api/placement.py`` lowers it to per-role devices.
     """
     drafter: SubmeshSpec = SubmeshSpec()
     target: SubmeshSpec = SubmeshSpec()

@@ -17,54 +17,30 @@ gamma*=0. A Session runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises when no GPU is visible; the params must
 already live on its device.
 
+The plan's PlacementPlan is lowered to per-role devices
+(``api/placement.py``) over the session device's visible list and handed
+to the backend; a plan whose submeshes do not fit runs degenerately, with
+the reason on ``session.placement.note``.
+
 Not yet ported: the continuous backend and ``serve_async`` (the front end,
 ROADMAP.md Queue 1 item 4: a plan that selects the continuous backend
-raises, it does not fall back) and the role -> device lowering of the
-plan's placement (Queue 1 item 2c: ``session.placement`` is a degenerate
-record, both roles on the session's device).
+raises, it does not fall back).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from repro_torch import device as devices
+from repro_torch.api import placement as placement_mod
 from repro_torch.api.backends import (EngineBackend, PagedBackend,
                                       PerRowBackend, SpecBackend)
-from repro_torch.api.plan import DeploymentSpec, ExecutionPlan, SubmeshSpec
+from repro_torch.api.plan import DeploymentSpec, ExecutionPlan
 from repro_torch.api.planner import Planner
 from repro_torch.core.batched_engine import KV_FAMILIES
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving import ServeRequest
-
-
-@dataclass(frozen=True)
-class DegeneratePlacement:
-    """Where a Session runs the plan's two roles: both on its one device.
-    ``drafter``/``target`` are the plan's submeshes, recorded; ``note``
-    says why they are not realized."""
-    device: torch.device
-    drafter: SubmeshSpec
-    target: SubmeshSpec
-    note: str
-
-    heterogeneous = False
-
-    def describe(self) -> str:
-        return f"placement: degenerate (both roles on {self.device}) — {self.note}"
-
-
-def _degenerate(plan: ExecutionPlan, device: torch.device) -> DegeneratePlacement:
-    pl = plan.placement
-    note = ("per-role device lowering is not ported (ROADMAP.md, Queue 1 "
-            "item 2c)")
-    if pl.heterogeneous:
-        note = (f"degenerate fallback: the plan maps drafter@{pl.drafter.name} "
-                f"target@{pl.target.name}; {note}")
-    return DegeneratePlacement(device, pl.drafter, pl.target, note)
 
 
 def _select_backend(plan: ExecutionPlan, target, drafter) -> str:
@@ -97,11 +73,17 @@ class Session:
 
     def __init__(self, target, drafter, params_t, params_d,
                  plan: ExecutionPlan, *, max_batch: Optional[int] = None,
-                 tracer=None, device=None):
-        """``tracer``: a ``repro_torch.obs.Tracer`` the Session owns for
-        its lifetime and threads through the backend (None = disabled
-        tracing, which is free). An ENABLED tracer switches speculative
-        rounds onto the phase-split traced execution — inspect via
+                 placement=None, tracer=None, device=None):
+        """``placement``: a pre-lowered ``api.placement.Placement``; None
+        lowers the plan's PlacementPlan over the session device's visible
+        devices (``lower_or_degenerate``: plans whose submeshes do not fit
+        fall back to the degenerate lowering, with the reason on
+        ``session.placement.note``).
+
+        ``tracer``: a ``repro_torch.obs.Tracer`` the Session owns for its
+        lifetime and threads through the backend (None = disabled tracing,
+        which is free). An ENABLED tracer switches speculative rounds onto
+        the phase-split traced execution — inspect via
         ``session.telemetry()``. ``device``: ``cuda`` unless ``"cpu"`` is
         passed; raises when no GPU is visible."""
         self.device = devices.resolve(device)
@@ -109,7 +91,10 @@ class Session:
         self.params_t, self.params_d = params_t, params_d
         self.plan = plan
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self.placement = _degenerate(plan, self.device)
+        if placement is None:
+            placement = placement_mod.lower_or_degenerate(
+                plan.placement, devices.visible(self.device))
+        self.placement = placement
         self.backend_name = _select_backend(plan, target, drafter)
         if self.backend_name == "continuous":
             raise NotImplementedError(
@@ -124,7 +109,8 @@ class Session:
         # its pools and state on the session's device
         self.backend: SpecBackend = self._BACKENDS[self.backend_name](
             target, drafter, params_t, params_d, plan, max_batch=max_batch,
-            tracer=self.tracer, **({"device": self.device} if paged else {}))
+            placement=placement, tracer=self.tracer,
+            **({"device": self.device} if paged else {}))
 
     # --------------------------------------------------------- construction
     @classmethod

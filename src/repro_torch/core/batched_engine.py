@@ -7,7 +7,10 @@ commits its OWN accepted prefix, so throughput tracks each row's own alpha.
 vector); ``serving.paged_server`` drives ``round`` on paged caches. With
 an enabled tracer the engine also holds a ``rounds.TracedRound`` over the
 same spec (``traced_round``), which ``generate`` and the server run instead
-of ``round``.
+of ``round``. With a heterogeneous ``placement`` (``api/placement.py``) it
+holds a ``rounds.PlacedRound`` instead (``placed_round``: draft on the
+drafter's device, verify and commit on the target's), which ``generate``
+and the paged server run; a placed round's spans do not synchronize.
 
 Sampling: greedy is the serving configuration; stochastic per-row
 acceptance is exact per row (each row is standard speculative sampling on
@@ -48,10 +51,12 @@ class BatchedEngineConfig:
 
 class BatchedSpecEngine:
     def __init__(self, target_model, drafter_model, ecfg: BatchedEngineConfig,
-                 tracer=None):
-        """An ENABLED ``tracer`` (repro_torch.obs) builds ``traced_round``,
-        the phase-split round with draft/verify/commit spans; otherwise it
-        stays None and tracing adds no sync and no launch."""
+                 placement=None, tracer=None):
+        """``placement``: run per-row rounds placed (``placed_round``,
+        linear cached rounds only, as ``PlacedRound`` checks). Otherwise an
+        ENABLED ``tracer`` (repro_torch.obs) builds ``traced_round``, the
+        phase-split round with draft/verify/commit spans; with neither both
+        stay None and tracing adds no sync and no launch."""
         if (target_model.family not in KV_FAMILIES
                 or drafter_model.family not in KV_FAMILIES):
             raise ValueError("per-row speculation needs KV-cache families, got "
@@ -64,9 +69,16 @@ class BatchedSpecEngine:
             gamma=ecfg.gamma, greedy=ecfg.greedy,
             temperature=ecfg.temperature, commit="per_row", use_cache=True,
             policy=rounds.make_policy(ecfg.draft_policy, ecfg.draft_k))
-        self.traced_round = (rounds.TracedRound(self.target, self.drafter,
-                                                self._round_spec, self.tracer)
-                             if self.tracer.enabled else None)
+        self.placement = (placement if placement is not None
+                          and placement.heterogeneous else None)
+        self.placed_round = self.traced_round = None
+        if self.placement is not None:
+            self.placed_round = rounds.PlacedRound(
+                self.target, self.drafter, self._round_spec, self.placement,
+                tracer=self.tracer)
+        elif self.tracer.enabled:
+            self.traced_round = rounds.TracedRound(
+                self.target, self.drafter, self._round_spec, self.tracer)
 
     def round(self, params_t, params_d, st: RowState) -> RowState:
         return rounds.spec_round(self.target, self.drafter, params_t,
@@ -100,7 +112,13 @@ class BatchedSpecEngine:
                       n_rounds=torch.zeros((), dtype=torch.int32, device=dev),
                       n_accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
                       n_drafted=torch.zeros((), dtype=torch.int32, device=dev))
-        round_fn = self.traced_round or self.round
+        if self.placement is not None:
+            params_t = self.placement.target.put_params(self.target, params_t)
+            params_d = self.placement.drafter.put_params(self.drafter,
+                                                         params_d)
+            st = rounds.place_state(st, self.placement, self.target,
+                                    self.drafter)
+        round_fn = self.placed_round or self.traced_round or self.round
         target_len = P + max_new
         while int(st.length.min()) < target_len:
             st = round_fn(params_t, params_d, st)

@@ -32,7 +32,16 @@ so the tokens follow the target's distribution); ``generate(key=)`` and
 ``autoregressive_generate(key=)`` take a key (``sampling.keys``; default
 ``TorchKey(0)``, where JAX defaults to ``PRNGKey(0)``), split as JAX
 splits its own, so a key handing out ``jax.random``'s bits replays JAX's
-tokens. Placement waits for a later slice.
+tokens.
+
+``SpecEngine(placement=)`` (``api/placement.py``, lowered from the plan's
+PlacementPlan) runs cached linear generation on ``rounds.PlacedRound``:
+the draft on the drafter's device, verify and commit on the target's, the
+gamma-token package handed across. With the plan's ``overlap`` armed, the
+loop dispatches round k+1 before the host waits for round k's committed
+length. The placed path takes precedence over either strategy; what it
+cannot run (no-cache, multi or tree drafts, stateful drafters) keeps the
+unplaced path, and ``placement_note`` says why.
 """
 from __future__ import annotations
 
@@ -105,10 +114,11 @@ def _prompt_on(prompt, params):
 
 class SpecEngine:
     """Drives a (target, drafter) pair with speculative decoding (greedy,
-    or speculative sampling) on the device of the parameters."""
+    or speculative sampling) on the device of the parameters, or placed
+    (``placement``; see the module docstring)."""
 
     def __init__(self, target_model, drafter_model, ecfg: EngineConfig,
-                 tracer=None):
+                 placement=None, tracer=None):
         if ecfg.strategy not in STRATEGIES:
             raise ValueError(f"strategy must be one of {STRATEGIES}, "
                              f"got {ecfg.strategy!r}")
@@ -123,6 +133,22 @@ class SpecEngine:
             d_stateful=self.d_stateful and ecfg.use_cache, policy=self._policy)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._traced_round = None
+        self.placement = None
+        self.placement_note = ""
+        self._placed_round = None
+        if placement is not None and placement.heterogeneous:
+            if not ecfg.use_cache:
+                self.placement_note = "no-cache rounds are single-mesh"
+            elif ecfg.draft_policy != "linear":
+                self.placement_note = (f"{ecfg.draft_policy}-draft rounds "
+                                       "are single-mesh")
+            elif self.d_stateful:
+                self.placement_note = "stateful drafters are single-mesh"
+            else:
+                self.placement = placement
+                self._placed_round = rounds.PlacedRound(
+                    self.target, self.drafter, self._spec, placement,
+                    tracer=self.tracer)
 
     def round(self, params_t, params_d, state: RoundState) -> RoundState:
         """ONE round in the engine's cache mode."""
@@ -158,6 +184,36 @@ class SpecEngine:
                            t_off=tcache["index"] - (P - 1),
                            d_off=dcache["index"] - (P - 1))
 
+    def _generate_placed(self, params_t, params_d, state, target_len):
+        """Round loop on the placed round. Params are pinned onto their
+        role's device (the same tensors when already there). With
+        ``placement.overlap`` the loop runs one round ahead: round k+1 is
+        dispatched before the host blocks on round k's committed length, so
+        the card has the next round queued while the host waits, at the
+        cost of one extra round at the end, whose result is discarded. That
+        round writes the caches in place past the returned state's length
+        (masked, and the caches are dropped after the loop); the returned
+        state's tokens, length and counters are its own tensors."""
+        pm = self.placement
+        params_t = pm.target.put_params(self.target, params_t)
+        params_d = pm.drafter.put_params(self.drafter, params_d)
+        state = rounds.place_state(state, pm, self.target, self.drafter)
+        placed = self._placed_round
+        if pm.overlap:
+            k = 0
+            prev = state
+            pending = placed(params_t, params_d, prev, round=k)
+            while int(prev.length) < target_len:
+                k += 1
+                prev = pending
+                pending = placed(params_t, params_d, prev, round=k)
+            return prev
+        k = 0
+        while int(state.length) < target_len:
+            state = placed(params_t, params_d, state, round=k)
+            k += 1
+        return state
+
     def generate(self, params_t, params_d, prompt, max_new_tokens, key=None):
         """Returns (tokens [B, length], stats); the last round may commit
         past ``P + max_new_tokens``. ``key`` feeds the sampled rounds."""
@@ -165,7 +221,10 @@ class SpecEngine:
         max_len = P + max_new_tokens + self.ecfg.gamma + 2
         state = self.prefill(params_t, params_d, prompt, max_len, key)
         target_len = P + max_new_tokens
-        if self.tracer.enabled and self.ecfg.strategy == "modular":
+        if self._placed_round is not None:
+            state = self._generate_placed(params_t, params_d, state,
+                                          target_len)
+        elif self.tracer.enabled and self.ecfg.strategy == "modular":
             # phase-split traced rounds (draft/verify/commit spans)
             if self._traced_round is None:
                 self._traced_round = rounds.TracedRound(

@@ -180,10 +180,9 @@ class DesignSpace:
 # ---------------------------------------------------------------------------
 # The reference's named submesh descriptors, copied verbatim: the planner's
 # placement decision ranks mappings over these names, so a plan records the
-# same drafter/target choice in either package. Here they are descriptors
-# only: nothing maps a role to CUDA devices until placement is ported
-# (ROADMAP.md, Queue 1 item 2c); a Session runs both roles on its one
-# device and says so on ``session.placement.note``.
+# same drafter/target choice in either package. ``api/placement.py`` lowers
+# the chosen pair to CUDA devices; on one card a plan of these sizes falls
+# back to the degenerate lowering and ``session.placement.note`` says why.
 def default_drafter_options() -> List[Submesh]:
     """Candidate drafter submeshes — the 'v' dimension of the paper's space."""
     return [

@@ -56,7 +56,12 @@ device (a paged tree round reads the lengths before its forks and the
 winners and new lengths after its commit, as in JAX). ``TracedRound`` runs
 the same three phases with a span around each and the device synchronized
 inside it, so a traced run commits exactly what ``spec_round`` commits.
-The placed round runner waits for a later slice.
+
+``PlacedRound`` runs the same phases with plan-carried placement
+(``api/placement.py``): the draft on the drafter's device, the gamma-token
+package handed across, verify and commit on the target's device, the
+drafter rollback back on the drafter's. Its spans measure host dispatch,
+not device time (it never synchronizes).
 """
 from __future__ import annotations
 
@@ -611,7 +616,8 @@ def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
     """Commit each row's accepted prefix + roll both caches back. A drafter
     cache pre-branched for a tree round is left to ``PagedTreeRound``,
-    which adopts each row's winning branch."""
+    which adopts each row's winning branch; a placed round's (None) to
+    ``PlacedRound``."""
     res = v.res
     B = state.tokens.shape[0]
     active = (state.active if state.active is not None
@@ -623,7 +629,7 @@ def _commit_rows(state: RoundState, d: DraftOut, v: VerifyOut,
     new_len = state.length + n_eff                           # PER ROW
     tcache = cache_ops.ops_for(v.tcache).rollback(v.tcache, new_len - 1)
     dcache = d.dcache
-    if not _is_paged_branched(dcache, B):
+    if dcache is not None and not _is_paged_branched(dcache, B):
         dcache = cache_ops.ops_for(dcache).rollback(dcache, new_len - 1)
     return state._replace(
         tokens=tokens, length=new_len, dcache=dcache, tcache=tcache,
@@ -656,6 +662,8 @@ def _commit_batch_min(target, state: RoundState, d: DraftOut, v: VerifyOut,
         return st
     tcache = target.rollback(v.tcache, new_len - 1 + state.t_off,
                              q_len or spec.gamma + 1)
+    if d.dcache is None:                   # placed round: drafter-side rollback
+        return st._replace(dcache=None, tcache=tcache)
     if spec.d_stateful:
         # snapshot j = state after consuming j+1 inputs; we need n_acc+1
         dcache = _restore_state_leaves(d.dcache, d.snaps, n_acc)
@@ -670,7 +678,12 @@ def _commit_batch_min(target, state: RoundState, d: DraftOut, v: VerifyOut,
 def commit_phase(target, state: RoundState, d: DraftOut, v: VerifyOut,
                  spec: RoundSpec) -> RoundState:
     """Phase 3: commit the accepted prefix (per row, or the batch minimum)
-    + roll the caches back."""
+    + roll the caches back.
+
+    ``d.dcache is None`` marks a PLACED round (the drafter cache lives on
+    the drafter's device): the drafter rollback is skipped here and run
+    there by ``PlacedRound``; the committed state carries ``dcache=None``
+    until the round reattaches it."""
     if getattr(spec.policy, "name", "") == "tree":
         return _tree_commit(target, state, d, v, spec)
     if spec.commit == "batch_min":
@@ -773,6 +786,133 @@ def ar_round(target, params_t, state: RoundState) -> RoundState:
     tcache = ops_t.rollback(tcache, new_len - 1)
     return state._replace(tokens=tokens, length=new_len, tcache=tcache,
                           n_rounds=state.n_rounds + 1)
+
+
+# =========================================================== placed execution
+def place_state(state: RoundState, placement, target_model=None,
+                drafter_model=None) -> RoundState:
+    """Pin a RoundState onto a realized Placement (api/placement.py): the
+    drafter cache moves to the drafter's device, everything else — tokens,
+    lengths, target cache, counters — to the target's (where verify and
+    commit run). No-op for the degenerate lowering. ``.to`` of a tensor
+    already on the device returns it: on a shared-device lowering the
+    placed state shares its tensors with the input."""
+    if not placement.heterogeneous:
+        return state
+    B = state.tokens.shape[0]
+    dcache = (placement.drafter.put_cache(drafter_model, state.dcache, B)
+              if drafter_model is not None
+              else placement.to_drafter(state.dcache))
+    tcache = (placement.target.put_cache(target_model, state.tcache, B)
+              if target_model is not None
+              else placement.to_target(state.tcache))
+    rest = placement.to_target(state._replace(dcache=None, tcache=None))
+    return rest._replace(dcache=dcache, tcache=tcache)
+
+
+class PlacedRound:
+    """ONE speculative round with plan-carried placement: the same three
+    phases as ``spec_round``, split at the draft/verify handoff —
+
+        drafter's device : draft (``draft_phase``'s policy) + drafter rollback
+        target's device  : verify + commit (``verify_phase``/``commit_phase``)
+
+    with the gamma-token package (gamma drafts + the last committed token;
+    plus the drafter logits and the key in sampled mode) moved across
+    between them, the paper's tiny PU-to-PU handoff. The key is a host
+    object (``sampling.keys``), so its handoff moves nothing; its draws are
+    made on the device of the logits they perturb.
+
+    PyTorch launches are asynchronous and nothing in the round waits for
+    the card, so the host can enqueue the drafter rollback and the NEXT
+    round while this verify still runs (``SpecEngine``'s overlap loop).
+
+    Token identity: the phases run the SAME code ``spec_round`` composes,
+    so a placed round commits exactly the tokens the unplaced round would;
+    only device residency and dispatch order change. The caches update in
+    place, as everywhere in the port; the tokens, lengths and counters of
+    the returned state are new tensors (``_scatter_commit`` returns a new
+    buffer), so a caller may read a prior state's after dispatching the
+    next round — never its caches.
+
+    Supported: cached linear rounds (both commit modes, greedy or sampled)
+    with KV-family drafters. Multi-draft, tree, no-cache rounds and
+    stateful drafters keep the unplaced path.
+    """
+
+    def __init__(self, target, drafter, spec: RoundSpec, placement,
+                 tracer=None):
+        if getattr(spec.policy, "k", 1) > 1 \
+                or getattr(spec.policy, "name", "") != "linear":
+            raise ValueError("placed rounds are linear-draft only")
+        if not spec.use_cache:
+            raise ValueError("placed rounds need cached execution "
+                             "(no-cache rounds recompute on one buffer)")
+        if spec.d_stateful:
+            raise ValueError("placed rounds need KV-family drafters "
+                             "(state-trail rollback is single-device)")
+        self.target, self.drafter = target, drafter
+        self.spec, self.placement = spec, placement
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+
+    def _draft(self, params_d, t_last, length, dcache, key, active):
+        """The draft on the drafter's device. The cached linear draft reads
+        ONLY the last committed token from the buffer, so a [B] vector is
+        the whole visible prefix (the real ``length`` feeds the paged
+        live-block bound)."""
+        sp = self.spec
+        live0 = None
+        if sp.commit == "per_row":
+            live0 = cache_ops.ops_for(dcache).live_bound(length, active)
+        st = RoundState(tokens=t_last[:, None],
+                        length=torch.ones((), dtype=torch.int32,
+                                          device=t_last.device),
+                        dcache=dcache, key=key, active=active)
+        d = sp.policy.draft_cached(self.drafter, params_d, st, sp, live0)
+        q = None if sp.greedy else d.q_logits[:, 0]
+        return d.drafts[:, 0], q, d.dcache, d.key
+
+    def _verify_commit(self, params_t, state, tcache, drafts, t_last,
+                       q_logits, key):
+        state = state._replace(tcache=tcache)
+        d = DraftOut(drafts=drafts[:, None], t_last=t_last, dcache=None,
+                     q_logits=None if q_logits is None else q_logits[:, None],
+                     key=key)
+        v = verify_phase(self.target, params_t, state, d, self.spec)
+        return commit_phase(self.target, state, d, v, self.spec)
+
+    def __call__(self, params_t, params_d, state: RoundState,
+                 **tags) -> RoundState:
+        # the spans do NOT synchronize: a placed span measures host enqueue
+        # and transfer time (kind "dispatch"/"handoff"); per-phase device
+        # time comes from the phase-split TracedRound
+        pm, tr = self.placement, self.tracer
+        # last committed token + row lengths -> drafter's device: a [B]
+        # vector each, never the [B, T] buffer
+        t_last_t = _gather_last(state.tokens, state.length)
+        with tr.span("draft.dispatch", phase="draft", role="drafter",
+                     kind="dispatch", **tags):
+            t_last_d, length_d, active_d, key_d, d_off_d = pm.to_drafter(
+                (t_last_t, state.length, state.active, state.key,
+                 state.d_off))
+            drafts, q_log, dcache, key2 = self._draft(
+                params_d, t_last_d, length_d, state.dcache, key_d, active_d)
+        # the gamma-token handoff -> target's device
+        with tr.span("handoff", phase="handoff", role="target",
+                     kind="handoff", **tags):
+            drafts_t, q_t, key_t = pm.to_target((drafts, q_log, key2))
+        with tr.span("verify_commit.dispatch", phase="verify", role="target",
+                     kind="dispatch", **tags):
+            new = self._verify_commit(
+                params_t, state._replace(dcache=None, tcache=None),
+                state.tcache, drafts_t, t_last_t, q_t, key_t)
+        # commit result -> drafter's device; its rollback is enqueued there
+        with tr.span("rollback.dispatch", phase="commit", role="drafter",
+                     kind="dispatch", **tags):
+            new_len_d = pm.to_drafter(new.length)
+            dcache = cache_ops.ops_for(dcache).rollback(dcache,
+                                                        new_len_d - 1 + d_off_d)
+        return new._replace(dcache=dcache)
 
 
 class PagedTreeRound:

@@ -44,3 +44,13 @@ def synchronize(device: torch.device):
     return, so on the CPU there is nothing to wait for."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def visible(device: Optional[Union[str, torch.device]] = None) -> list:
+    """The devices a placement carves its roles from: every visible CUDA
+    device for ``cuda`` (the default; raises when none is visible), else
+    the one device asked for (``"cpu"``)."""
+    dev = resolve(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]

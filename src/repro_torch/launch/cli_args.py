@@ -31,8 +31,6 @@ def add_traffic_args(ap: argparse.ArgumentParser, *, requests: int = 8,
 
 def add_spec_args(ap: argparse.ArgumentParser, *, gamma: int = None
                   ) -> argparse.ArgumentParser:
-    """The JAX CLI's speculation flags, less ``--placement`` (placement is
-    not ported)."""
     ap.add_argument("--gamma", type=int, default=gamma,
                     help="draft length (default: the planner's cost-model "
                          "decision)")
@@ -40,19 +38,50 @@ def add_spec_args(ap: argparse.ArgumentParser, *, gamma: int = None
                     help="expected acceptance rate fed to the planner")
     ap.add_argument("--cost-coefficient", type=float, default=None,
                     help="c = t_draft/t_target fed to the gamma decision")
+    ap.add_argument("--placement", default=None, metavar="DxT",
+                    help="force a heterogeneous placement: drafter on D "
+                         "devices, target on T (e.g. '1x1': both roles on "
+                         "device 0, the shared-device lowering). The plan's "
+                         "PlacementPlan is lowered to per-role devices by "
+                         "repro_torch.api.placement; a plan that needs more "
+                         "devices than are visible runs degenerately, with "
+                         "the reason printed.")
     return ap
 
 
 def add_robustness_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The JAX CLI's ``--overcommit`` (``--faults-seed`` waits for the
-    fault plan)."""
     ap.add_argument("--overcommit", type=float, default=1.0,
                     help="admission reservation divisor (>1.0 admits on "
                          "expected demand instead of the worst case; a dry "
                          "pool before a round evicts the most-slack row, "
                          "which re-prefills its committed prefix when it is "
                          "admitted again)")
+    ap.add_argument("--faults-seed", type=int, default=None,
+                    help="inject a seeded chaos FaultPlan (virtual round "
+                         "delays, drafter failures, transient pool "
+                         "seizures) into the paged server")
     return ap
+
+
+def make_fault_plan(seed):
+    """A seeded chaos FaultPlan from ``--faults-seed`` (None = no faults)."""
+    if seed is None:
+        return None
+    from repro_torch.serving import FaultPlan
+    return FaultPlan.seeded(int(seed))
+
+
+def apply_placement_arg(plan, placement_arg):
+    """Replace the plan's PlacementPlan from a ``DxT`` CLI string (overlap
+    armed: the placed runtime's lookahead dispatch). None = no-op."""
+    if not placement_arg:
+        return plan
+    from repro_torch.api.plan import PlacementPlan, SubmeshSpec
+    d, t = (int(x) for x in placement_arg.lower().split("x"))
+    return dataclasses.replace(plan, placement=PlacementPlan(
+        drafter=SubmeshSpec(f"d{d}", ("dx",), (d,)),
+        target=SubmeshSpec(f"t{t}", ("tx",), (t,)),
+        overlap=True))
 
 
 def add_prefill_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -98,13 +127,14 @@ def apply_overcommit_arg(plan, overcommit):
 
 
 def report_robustness(server):
-    """Post-run preemption/expiry/failure counters, printed only when
-    something happened."""
+    """Post-run preemption/degradation/expiry/failure counters, printed
+    only when something happened."""
     s = server.metrics.summary()
-    if (s["n_preemptions"] or s["requests_cancelled"]
+    if (s["n_preemptions"] or s["degradations"] or s["requests_cancelled"]
             or s["requests_expired"] or s["requests_failed"]):
         print(f"robustness: preemptions={s['n_preemptions']} "
               f"(recompute_tokens={s['recompute_tokens']}), "
+              f"degradations={s['degradations']}, "
               f"cancelled={s['requests_cancelled']}, "
               f"expired={s['requests_expired']}, "
               f"failed={s['requests_failed']}")

@@ -1,7 +1,7 @@
 """Serving CLI: batched speculative (or plain) decoding of synthetic
 requests (port of ``repro/launch/serve.py``).
 
-    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu --speculative [--use-cache]
+    python -m repro_torch.launch.serve --arch llama3.2-1b --smoke --device cpu --speculative [--use-cache] [--placement DxT]
 
 serves ``--requests`` synthetic prompts of ``--prompt-len`` tokens,
 ``--max-new`` new tokens each, wave by wave (``--batch`` requests per
@@ -19,6 +19,10 @@ length, and omitting ``--speculative`` forces AR. The printed
 ``--trace-out PATH`` traces the speculative serve (one ``generate`` span
 per wave under ``--strategy monolithic``, draft/verify/commit spans per
 round under ``modular``) and writes the Chrome trace to PATH.
+``--placement DxT`` lowers a drafter-on-D, target-on-T placement and
+prints it; with ``--use-cache`` the engine then runs placed rounds with
+the lookahead dispatch (``1x1`` on one card: both roles on device 0), and
+a plan the placed round cannot run keeps the unplaced path.
 
 ``serve()`` is the same path as a function: it plans the waves with gamma
 pinned and runs them through ``Session.generate``.
@@ -131,8 +135,11 @@ def main(argv=None):
                       gamma=args.gamma if args.speculative else 0,
                       alpha=args.alpha, cost_coefficient=args.cost_coefficient,
                       use_cache=args.use_cache, strategy=args.strategy)
+    plan = cli_args.apply_placement_arg(plan, args.placement)
     sess = Session(mt, md, pt, pd, plan, max_batch=args.batch,
                    tracer=cli_args.make_tracer(args), device=args.device)
+    if args.placement:
+        print(sess.placement.describe())
     if not args.speculative:
         # plain autoregressive serving baseline (one fixed batch)
         prompts = rng.integers(0, cfg_t.vocab_size, (R, P))

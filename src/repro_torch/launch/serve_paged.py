@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.serve_paged --arch llama3.2-3b [--smoke] [--device cpu]
         [--prefill-chunk N] [--prefix-cache] [--overcommit F]
+        [--placement DxT] [--faults-seed S]
 
 serves a stream of synthetic requests with mixed prompt lengths and
 per-request decode budgets on the paged speculative server. It runs on the
@@ -22,9 +23,13 @@ model unless ``--gamma`` pins gamma. ``--trace-out PATH`` traces the run
 (draft/verify/commit/prefill/serve spans) and writes the Chrome trace to
 PATH; the drift monitor's measured c then drives the gamma decision. After
 the run it prints the prefill counters, when any occurred the
-preemptions, and with ``--trace-out`` the phase breakdown, drift alerts
-and the measured c. ``--placement`` and ``--faults-seed`` wait for the
-placement and fault-plan ports.
+preemptions and degradations, and with ``--trace-out`` the phase
+breakdown, drift alerts and the measured c. ``--placement DxT`` lowers a
+drafter-on-D, target-on-T placement (``1x1`` on one card: both roles on
+device 0) and prints it; ``--faults-seed S`` injects
+``FaultPlan.seeded(S)`` (virtual delays, drafter failures, pool seizures;
+the batch degrades to AR and the tokens stay the clean run's) and prints
+it.
 """
 from __future__ import annotations
 
@@ -86,14 +91,21 @@ def main(argv=None):
                                   max_blocks_per_row=args.max_blocks_per_row),
         gamma=(plan.gamma if args.gamma is None else
                dataclasses.replace(plan.gamma, gamma=args.gamma)))
+    plan = cli_args.apply_placement_arg(plan, args.placement)
     plan = cli_args.apply_prefill_args(plan, args)
     plan = cli_args.apply_overcommit_arg(plan, args.overcommit)
     sess = Session(mt, md, pt, pd, plan, max_batch=args.batch,
                    tracer=cli_args.make_tracer(args), device=args.device)
+    if args.placement:
+        print(sess.placement.describe())
     if sess.backend_name != "paged":
         raise SystemExit(
             f"--arch {args.arch} (family {mt.family!r}) cannot take the paged "
             f"backend (KV-cache families only) — use repro_torch.launch.serve")
+    fault_plan = cli_args.make_fault_plan(args.faults_seed)
+    if fault_plan is not None:
+        sess.backend.server.inject_faults(fault_plan)
+        print(f"chaos: {fault_plan.describe()}")
 
     t0 = clock.wall()
     done = sess.serve(reqs)

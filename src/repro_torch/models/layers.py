@@ -113,7 +113,14 @@ def with_f32_table(p):
 
 
 def embed(p, tokens):
-    return p["table"][tokens]
+    """Rows of the table. An id outside [0, vocab) embeds as NaN, as JAX's
+    ``jnp.take`` fills it: a corrupted token poisons its own row's logits
+    (which the serving output guard then fails) instead of faulting the
+    card with an out-of-range gather."""
+    table = p["table"]
+    ok = (tokens >= 0) & (tokens < table.shape[0])
+    x = table[torch.where(ok, tokens, torch.zeros_like(tokens))]
+    return x.masked_fill(~ok[..., None], float("nan"))
 
 
 def unembed(p, x):

@@ -6,9 +6,10 @@ what the scheduler decided (gamma), what the verify did (per-row accepted
 draft tokens), what it cost (host wall time, per-phase times when the run
 is traced) and what it moved (KV blocks read / written).
 ``RoundEventLog.alpha_hat()`` reproduces ``ServingMetrics.alpha_hat()``
-exactly (the same per-row EMA). The port's server fills ``t_handoff`` with
-None (no placement) and ``degraded``/``fault_delay`` with False/0.0 (no
-fault plan or watchdog yet); the fields stay so an event has JAX's schema.
+exactly (the same per-row EMA). ``degraded`` marks a round of a batch the
+fault plan or the watchdog turned to AR, and ``fault_delay`` the virtual
+straggle the fault plan added to ``t_round``; ``t_handoff`` stays None, as
+JAX's server leaves it.
 
 Events stream to JSONL (``stream_to`` for online appends, ``to_jsonl`` for
 a post-hoc dump), one JSON object per line.

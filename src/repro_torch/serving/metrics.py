@@ -1,8 +1,8 @@
 """Serving telemetry: per-request latency/throughput and acceptance-rate
 statistics for the paged speculative server (port of
-``repro/serving/metrics.py`` less the degradation log and the per-request
-acceptance histograms, which the fault and watchdog paths record, and the
-front end's ``queue_wait``/``decode_tps``).
+``repro/serving/metrics.py`` less the per-request acceptance histograms
+and the front end's ``queue_wait``/``decode_tps``). ``degradations`` logs
+each batch the fault plan or the watchdog turned to AR.
 
 Two consumers:
   * operators — ``summary()`` aggregates tokens/s, latency, the per-round
@@ -85,6 +85,7 @@ class ServingMetrics:
         self.failed: List[RequestRecord] = []
         self.n_preemptions = 0
         self.recompute_tokens = 0   # generated tokens evicted -> re-prefilled
+        self.degradations: List[Tuple[int, str]] = []  # (round, reason)
         self._t0: Optional[float] = None
         self._t_last: Optional[float] = None
         self.total_generated = 0
@@ -190,6 +191,11 @@ class ServingMetrics:
         total = self.prefill_tokens + self.prefix_hit_tokens
         return self.prefix_hit_tokens / total if total else None
 
+    def degrade(self, round_idx: int, reason: str):
+        """A batch fell back from speculative to AR rounds (watchdog trip or
+        drafter failure) — a quality-of-service event, not a request event."""
+        self.degradations.append((int(round_idx), reason))
+
     # --------------------------------------------------------------- rounds
     def record_round(self, n_accepted, gamma: int, active=None, rids=None):
         """n_accepted: [B] accepted draft tokens this round; ``active`` masks
@@ -237,6 +243,7 @@ class ServingMetrics:
             "requests_failed": len(self.failed),
             "n_preemptions": self.n_preemptions,
             "recompute_tokens": self.recompute_tokens,
+            "degradations": len(self.degradations),
             "total_generated_tokens": self.total_generated,
             "aggregate_tokens_per_s": (self.total_generated / wall
                                        if wall > 0 else None),

@@ -41,14 +41,32 @@ whose measured c (t_draft per token / t_target) drives the gamma decision
 unless ``cost_coefficient`` pins it. A disabled tracer (the default) adds
 no sync and no launch.
 
-A failing speculative round raises: the JAX server degrades such a round
-to AR, which here would hide a kernel that fails. Placement, fault
-injection and the watchdog wait for later slices (so an event's
-``degraded`` is False and its ``fault_delay`` 0.0). Two more differences
-from the JAX server: the last chunk of a prefill runs at its true length,
-not padded to the chunk (no padding is ever written, so none can wrap onto
-the row's last block), and the drafter's prefill unembeds only its last
-position.
+Placement (``placement``, ``api/placement.py``): each role's params,
+block pool and block table live on its own device, each role's prefill
+runs there, speculative rounds run as ``rounds.PlacedRound`` (draft on the
+drafter's device, verify and commit on the target's) and AR rounds run on
+the target's with the drafter cache detached. The two roles always get
+separate block-table tensors then, even on a shared device, so nothing one
+role writes can reach the other's table.
+
+Robustness: ``faults`` (serving/faults.py) injects a seeded schedule keyed
+by the step index (``total_steps``): pool seizures and releases before the
+step, an injected ``DrafterFault`` raised before the speculative round,
+virtual delays added to the round's time, and corruption of a committed
+token after it (the output guard then fails that request). ``watchdog``
+(serving/watchdog.py) degrades the batch to AR after straggling
+speculative rounds. A degraded batch stays on AR until it drains
+(``_batch_drained``), and each degradation is logged in
+``metrics.degradations`` and marked on its events. The port degrades only
+on a ``DrafterFault`` and on the watchdog's trip; any other exception in
+the round propagates out of ``step()``. The JAX server degrades on every
+exception, which here would turn a failing CUDA kernel into a silent AR
+run.
+
+Two more differences from the JAX server: the last chunk of a prefill runs
+at its true length, not padded to the chunk (no padding is ever written,
+so none can wrap onto the row's last block), and the drafter's prefill
+unembeds only its last position.
 
 Invariant (tested): every completed request's tokens equal that prompt's
 standalone greedy AR continuation, regardless of its neighbours' lengths,
@@ -73,8 +91,10 @@ from repro_torch.obs import clock
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.events import RoundEvent, RoundEventLog
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.faults import NO_FAULTS, DrafterFault, FaultPlan
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig, ServeRequest
+from repro_torch.serving.watchdog import RoundWatchdog
 
 
 def _set_rows(state: RowState, b: int, **fields) -> RowState:
@@ -105,20 +125,36 @@ class PagedSpecServer:
                  gamma: Optional[int] = None,
                  alpha: Optional[float] = None,
                  cost_coefficient: Optional[float] = None,
-                 tracer=None, now=clock.wall, device=None):
+                 placement=None, tracer=None,
+                 faults: Optional[FaultPlan] = None,
+                 watchdog: Optional[RoundWatchdog] = None,
+                 now=clock.wall, device=None):
         """``gamma``/``alpha``/``cost_coefficient`` override the scheduler's
         cost-model decision (None = decide online from telemetry; c then
-        comes from the drift monitor once it has evidence). ``tracer``: see
-        the module docstring. The server's state lives on ``device``
-        (``cuda`` unless the caller asks for the CPU); the params must
-        already be there."""
+        comes from the drift monitor once it has evidence). ``placement``,
+        ``faults`` (default ``NO_FAULTS``) and ``watchdog`` (default
+        ``RoundWatchdog()``): see the module docstring; ``tracer`` too. The
+        server's state lives on ``device`` (``cuda`` unless the caller asks
+        for the CPU), each role's on its placed device; the params must
+        already be on ``device``."""
         if target.family not in KV_FAMILIES or drafter.family not in KV_FAMILIES:
             raise ValueError("paged speculative serving needs KV-cache families")
         self.device = devices.resolve(device)
         self.target, self.drafter = target, drafter
+        self.placement = (placement if placement is not None
+                          and placement.heterogeneous else None)
+        if self.placement is not None:
+            params_t = self.placement.target.put_params(target, params_t)
+            params_d = self.placement.drafter.put_params(drafter, params_d)
         self.params_t, self.params_d = params_t, params_d
+        # each role's device: its placed one, else the server's
+        pm = self.placement
+        self.dev_t = (pm.target.device if pm is not None else None) or self.device
+        self.dev_d = (pm.drafter.device if pm is not None else None) or self.device
         self.scfg = scfg or SchedulerConfig()
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.faults = faults if faults is not None else NO_FAULTS
+        self.watchdog = watchdog if watchdog is not None else RoundWatchdog()
         self.metrics = ServingMetrics(gamma_max=self.scfg.gamma_max, now=now)
         self.events = RoundEventLog(alpha_ema=self.metrics.alpha_ema)
         self.drift: Optional[DriftMonitor] = None  # built at first spec round
@@ -157,10 +193,16 @@ class PagedSpecServer:
         self._engines: Dict[int, BatchedSpecEngine] = {}
         self._table_version = -1    # last allocator.version pushed to device
         self.gamma = None           # decided at batch formation
+        self._degraded = False      # watchdog/fault AR pin (one-way until
+                                    # the batch drains and re-forms)
         self._vocab = int(target.cfg.vocab_size)  # output-guard bound
         self._failed_pending: List[int] = []
         self.done: List[ServeRequest] = []
         self.total_rounds = 0
+        self.total_steps = 0        # step() calls incl. idle steps: the
+                                    # fault plan's index (it advances when no
+                                    # round runs, so seized blocks keyed to a
+                                    # later step always come back)
         self.n_prefills = 0         # bucketed prefills run (one forward each)
         self.n_prefill_chunks = 0   # chunk programs run (one forward each)
         # paged-attention read accounting (kv_traffic()): per-round KV
@@ -176,33 +218,52 @@ class PagedSpecServer:
     def submit(self, req: ServeRequest):
         self.sched.submit(req)
 
+    def inject_faults(self, plan: FaultPlan):
+        """Swap the fault schedule in (chaos runs; safe before the first
+        step)."""
+        self.faults = plan
+
     def _engine(self, gamma: int) -> BatchedSpecEngine:
         if gamma not in self._engines:
             self._engines[gamma] = BatchedSpecEngine(
                 self.target, self.drafter, BatchedEngineConfig(gamma=gamma),
-                tracer=self.tracer)
+                placement=self.placement, tracer=self.tracer)
         return self._engines[gamma]
 
     def _empty_state(self) -> RowState:
-        B, dev = self.B, self.device
+        B, dev = self.B, self.dev_t
         geom = dict(num_blocks=self.scfg.num_blocks,
                     block_size=self.scfg.block_size,
                     max_blocks_per_row=self.scfg.max_blocks_per_row)
-        return RowState(
+        st = RowState(
             tokens=torch.zeros((B, self.T), dtype=torch.int32, device=dev),
             length=torch.ones((B,), dtype=torch.int32, device=dev),  # length-1 >= 0
-            dcache=PAGED.init(self.drafter, B, device=dev, **geom),
-            tcache=PAGED.init(self.target, B, device=dev, **geom),
+            dcache=PAGED.init(self.drafter, B, device=self.dev_d, **geom),
+            tcache=PAGED.init(self.target, B, device=self.dev_t, **geom),
             active=torch.zeros((B,), dtype=torch.bool, device=dev),
             n_rounds=torch.zeros((), dtype=torch.int32, device=dev),
             n_accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
             n_drafted=torch.zeros((), dtype=torch.int32, device=dev))
+        if self.placement is not None:
+            st = rounds.place_state(st, self.placement, self.target,
+                                    self.drafter)
+        return st
+
+    def _tables(self, host: np.ndarray):
+        """Device copies of a host block table (rows) for (target, drafter):
+        one shared tensor unplaced; placed, two independent uploads, one on
+        each role's device, so that neither role's table is the other's."""
+        if self.placement is None:
+            table = torch.from_numpy(host).to(self.device)
+            return table, table
+        return (self.placement.to_target(torch.from_numpy(host.copy())),
+                self.placement.to_drafter(torch.from_numpy(host.copy())))
 
     def _sync_tables(self, state: RowState) -> RowState:
         """Push the host block table to the device, only when the allocator
         or the mid-prefill set changed since the last push. Mid-prefill rows
         go as NULL, so the rounds' writes at their stale index land in the
-        null block. Both caches share the one device table."""
+        null block. Unplaced, both caches share the one device table."""
         masked = frozenset(self._masked)
         if (self._table_version == self.alloc.version
                 and self._table_masked == masked):
@@ -212,29 +273,35 @@ class PagedSpecServer:
         host = self.alloc.table.copy()
         if masked:
             host[sorted(masked)] = NULL_BLOCK
-        table = torch.from_numpy(host).to(self.device)
-        return state._replace(tcache={**state.tcache, "block_table": table},
-                              dcache={**state.dcache, "block_table": table})
+        t_table, d_table = self._tables(host)
+        return state._replace(tcache={**state.tcache, "block_table": t_table},
+                              dcache={**state.dcache, "block_table": d_table})
 
     def _row_views(self, state: RowState, b: int, start: int):
         """One-row views of both caches for a prefill of row ``b`` from
         position ``start``: the row's TRUE table (the pushed one may have
-        it nulled), uploaded from the allocator, and the pools shared."""
-        table = torch.from_numpy(self.alloc.table[b:b + 1].copy()).to(self.device)
-        index = torch.full((1,), start, dtype=torch.int32, device=self.device)
-        return ({**state.tcache, "block_table": table, "index": index},
-                {**state.dcache, "block_table": table, "index": index})
+        it nulled), uploaded from the allocator, and the pools shared; each
+        on its role's device."""
+        t_table, d_table = self._tables(self.alloc.table[b:b + 1].copy())
+        return ({**state.tcache, "block_table": t_table,
+                 "index": torch.full((1,), start, dtype=torch.int32,
+                                     device=self.dev_t)},
+                {**state.dcache, "block_table": d_table,
+                 "index": torch.full((1,), start, dtype=torch.int32,
+                                     device=self.dev_d)})
 
     def _forward_prefill(self, state: RowState, b: int, toks: np.ndarray,
                          start: int) -> torch.Tensor:
         """Write the KV of ``toks`` (positions start..) into both pools for
-        row ``b``; returns the 0-dim device flag "the target's logits are
-        all finite" (the caller pulls it). The drafter's prefill logits are
-        never read: it unembeds only the last position."""
+        row ``b``, each role's prefill on its own device; returns the 0-dim
+        device flag "the target's logits are all finite" (the caller pulls
+        it). The drafter's prefill logits are never read: it unembeds only
+        the last position."""
         tview, dview = self._row_views(state, b, start)
-        x = torch.from_numpy(np.ascontiguousarray(toks[None])).to(self.device)
-        logits, _, _ = self.target.apply(self.params_t, x, tview)
-        self.drafter.apply(self.params_d, x, dview, logits_slice="last")
+        x = torch.from_numpy(np.ascontiguousarray(toks[None]))
+        logits, _, _ = self.target.apply(self.params_t, x.to(self.dev_t), tview)
+        self.drafter.apply(self.params_d, x.to(self.dev_d), dview,
+                           logits_slice="last")
         return torch.isfinite(logits).all()
 
     # -------------------------------------------------------------- prefill
@@ -256,12 +323,13 @@ class PagedSpecServer:
                               rid=req.rid, prompt_len=P):
             ok = self._forward_prefill(state, row, padded[:-1], 0)
             if self.tracer.enabled:
-                devices.synchronize(self.device)
+                for dev in {self.dev_t, self.dev_d}:
+                    devices.synchronize(dev)
         ok = bool(ok)
         self.n_prefills += 1
         tokens = state.tokens.clone()
         tokens[row] = 0
-        tokens[row, :P] = torch.from_numpy(prompt).to(self.device)
+        tokens[row, :P] = torch.from_numpy(prompt).to(self.dev_t)
         # target_len counts from the ORIGINAL prompt: a resumed request
         # only owes the rest of its decode budget
         self._target_len[row] = req.prompt_len + req.max_new
@@ -300,7 +368,7 @@ class PagedSpecServer:
         self._masked.add(b)
         tokens = state.tokens.clone()
         tokens[b] = 0
-        tokens[b, :P] = torch.from_numpy(prompt).to(self.device)
+        tokens[b, :P] = torch.from_numpy(prompt).to(self.dev_t)
         # reset the device length: the slot's previous occupant left its
         # final length behind, which must not read as instant completion
         return _set_rows(state._replace(tokens=tokens), b, length=1, active=False)
@@ -398,7 +466,12 @@ class PagedSpecServer:
     # ------------------------------------------------------------- AR round
     def _ar_round(self, state: RowState) -> RowState:
         """gamma* = 0 fallback: one committed token per active row per round,
-        target model only."""
+        target model only. Placed, it runs on the target's device with the
+        drafter cache detached and reattached untouched."""
+        if self.placement is not None:
+            out = rounds.ar_round(self.target, self.params_t,
+                                  state._replace(dcache=None))
+            return out._replace(dcache=state.dcache)
         return rounds.ar_round(self.target, self.params_t, state)
 
     # -------------------------------------------------------------- serving
@@ -442,18 +515,39 @@ class PagedSpecServer:
             toks = state.tokens[b, :self._target_len[b]].cpu().numpy()
             gen = toks[req.prompt_len:]
             if ((gen < 0) | (gen >= self._vocab)).any():
-                self.alloc.free_row(b)
-                self.metrics.fail(req.rid,
-                                  f"corrupt token id outside [0, {self._vocab})",
-                                  n_generated=len(gen))
-                self._failed_pending.append(req.rid)
+                self._fail_row(b, req, int(self._target_len[b]))
             else:
                 req.tokens = toks
                 self.sched.release(b, req)
                 self.done.append(req)
-            self._slots[b] = None
+                self._slots[b] = None
             state = _set_rows(state, b, active=False)
         return self._sync_tables(self._refill(state, lengths))
+
+    def _fail_row(self, b: int, req: ServeRequest, cur: int):
+        """Terminal-failure teardown of an in-flight row with a corrupt
+        committed token: blocks freed, reason recorded, rid queued for the
+        step-info. The caller clears the row's active flag."""
+        self.alloc.free_row(b)
+        self.metrics.fail(req.rid,
+                          f"corrupt token id outside [0, {self._vocab})",
+                          n_generated=max(cur - req.prompt_len, 0))
+        self._failed_pending.append(req.rid)
+        self._slots[b] = None
+
+    def _corrupt_one_row(self, lengths):
+        """Fault injection: poison the newest committed token of the first
+        emitting row to an out-of-vocab id; the output guard must fail that
+        request instead of returning the garbage."""
+        for b, req in enumerate(self._slots):
+            if req is None:
+                continue
+            cur = int(min(lengths[b], self._target_len[b]))
+            if cur > req.prompt_len:
+                tokens = self._state.tokens.clone()
+                tokens[b, cur - 1] = self._vocab
+                self._state = self._state._replace(tokens=tokens)
+                return
 
     # ----------------------------------------------------------- preemption
     def _committed(self, b: int) -> int:
@@ -593,7 +687,7 @@ class PagedSpecServer:
 
     def _record_event(self, prev_len, lengths, active, rids, t_round,
                       phase_t, blocks_read, blocks_written, queue_depth,
-                      n_preempted, n_expired, n_failed):
+                      n_preempted, n_expired, n_failed, fault_delay):
         """One RoundEvent per round (always, traced or not) + a drift
         observation per speculative round (phase times when traced)."""
         emitted = lengths - prev_len
@@ -613,6 +707,7 @@ class PagedSpecServer:
             blocks_read=blocks_read, blocks_written=blocks_written,
             rids=live_rids, t_wall=clock.wall(), queue_depth=queue_depth,
             n_preempted=n_preempted, n_expired=n_expired, n_failed=n_failed,
+            degraded=self._degraded, fault_delay=fault_delay,
             prefill_tokens=self._round_prefill_tokens,
             prefill_chunks=self._round_prefill_chunks, t_prefill=t_prefill,
             prefix_hit_rate=self.metrics.prefix_hit_rate()))
@@ -671,6 +766,14 @@ class PagedSpecServer:
                 pass
             return self.done
 
+    def _batch_drained(self):
+        """The current batch is over: the next admission re-forms it (and
+        re-decides gamma; no live row carries stale drafter KV then). The
+        degradation and the watchdog recover with the batch."""
+        self._batch_formed = False
+        self._degraded = False
+        self.watchdog.reset()
+
     def _drain_failed(self) -> List[int]:
         out, self._failed_pending = self._failed_pending, []
         return out
@@ -688,16 +791,24 @@ class PagedSpecServer:
                 "queue_depth": len(self.sched.queue), "n_live": 0}
 
     def step(self) -> Optional[Dict]:
-        """ONE serving round: process cancellations, admit/refill (expiring
-        doomed queue heads), advance one prefill chunk, decide gamma,
-        enforce block capacity (preempting victims under overcommit), run
-        one round, record telemetry, harvest finished rows. Returns None
-        when idle, else a step-info dict: finished / cancelled / expired /
-        failed / preempted (evicted and re-queued, not terminal) rids, the
-        round id (None when no round ran), queue depth and live rows."""
+        """ONE serving round: apply the step's pool faults, process
+        cancellations, admit/refill (expiring doomed queue heads), advance
+        one prefill chunk, decide gamma, enforce block capacity (preempting
+        victims under overcommit), run one round (AR when degraded), record
+        telemetry, harvest finished rows. Returns None when idle, else a
+        step-info dict: finished / cancelled / expired / failed / preempted
+        (evicted and re-queued, not terminal) rids, the round id (None when
+        no round ran), queue depth and live rows."""
         if self._state is None:
             self._state = self._empty_state()
             self._lengths = self._state.length.cpu().numpy().astype(np.int64)
+        step_idx = self.total_steps
+        self.total_steps += 1
+        delta = self.faults.pool_delta(step_idx)
+        if delta > 0:
+            self.alloc.seize(delta)
+        elif delta < 0:
+            self.alloc.release_seized(-delta)
         cancelled = self._process_cancels()
         self._round_prefill_tokens = 0
         self._round_prefill_chunks = 0
@@ -708,9 +819,7 @@ class PagedSpecServer:
         self._state = self._sync_tables(self._advance_prefills(self._state))
         expired = self.sched.drain_expired()
         if not any(r is not None for r in self._slots):
-            # the batch is over: the next admission re-forms it and
-            # re-decides gamma
-            self._batch_formed = False
+            self._batch_drained()
             failed = self._drain_failed()
             if cancelled or expired or failed or self.sched.has_work():
                 return self._idle_info(cancelled, expired, failed,
@@ -732,6 +841,10 @@ class PagedSpecServer:
             self.gamma, _ = self.sched.choose_gamma(
                 self._alpha_override, self._c_override or self._measured_c())
         self._batch_formed = True
+        if self._degraded:
+            # degradation wins over a pinned gamma: a tripped watchdog or a
+            # failed drafter keeps the batch on AR until it drains
+            self.gamma = 0
 
         # overcommit: grow every live row to this round's demand, evicting
         # victims when the pool is dry
@@ -740,7 +853,7 @@ class PagedSpecServer:
         self._state = self._sync_tables(self._state)
         if not any(r is not None for r in self._slots):
             # extreme pressure evicted the whole batch; deliver and retry
-            self._batch_formed = False
+            self._batch_drained()
             return self._idle_info(cancelled, expired, self._drain_failed(),
                                    preempted)
 
@@ -750,28 +863,57 @@ class PagedSpecServer:
         t0 = self.tracer.clock()
         if self.gamma > 0:
             eng = self._engine(self.gamma)
-            if eng.traced_round is not None:
-                self._state = eng.traced_round(
-                    self.params_t, self.params_d, self._state,
-                    round=self.total_rounds, gamma=self.gamma)
-                phase_t = eng.traced_round.last_phase_times
-            else:
-                self._state = eng.round(self.params_t, self.params_d,
-                                        self._state)
+            try:
+                # the injected drafter failure raises BEFORE the round (the
+                # state is intact) and recovers as a real one would
+                if self.faults.drafter_fails(step_idx):
+                    raise DrafterFault(
+                        f"injected drafter failure at step {step_idx}")
+                if eng.placed_round is not None:
+                    self._state = eng.placed_round(
+                        self.params_t, self.params_d, self._state)
+                elif eng.traced_round is not None:
+                    self._state = eng.traced_round(
+                        self.params_t, self.params_d, self._state,
+                        round=self.total_rounds, gamma=self.gamma)
+                    phase_t = eng.traced_round.last_phase_times
+                else:
+                    self._state = eng.round(self.params_t, self.params_d,
+                                            self._state)
+            except DrafterFault as e:
+                # degrade the batch to AR (one-way until it drains) instead
+                # of wedging the server; any other exception propagates
+                self.metrics.degrade(self.total_rounds,
+                                     f"spec round failed: {e}")
+                self._degraded = True
+                self.gamma = 0
+                with self.tracer.span("ar_round", phase="verify",
+                                      role="target", round=self.total_rounds):
+                    self._state = self._ar_round(self._state)
         else:
             with self.tracer.span("ar_round", phase="verify",
                                   role="target", round=self.total_rounds):
                 self._state = self._ar_round(self._state)
                 if self.tracer.enabled:
-                    devices.synchronize(self.device)
+                    devices.synchronize(self.dev_t)
+        # account AFTER the round, so a degraded round is charged as the AR
+        # round that ran
         blocks_read, blocks_written = self._account_round(prev_len)
         self.total_rounds += 1
         # ONE host sync per round: lengths + active in a single pull
         snap = torch.stack([self._state.length,
                             self._state.active.to(torch.int32)]).cpu().numpy()
         lengths, active = snap[0].astype(np.int64), snap[1].astype(bool)
-        t_round = self.tracer.clock() - t0      # dispatch -> sync
+        fault_delay = self.faults.round_delay(step_idx)
+        # dispatch -> sync, plus the injected virtual straggle, if any
+        t_round = self.tracer.clock() - t0 + fault_delay
+        if self.gamma > 0 and self.watchdog.observe(t_round):
+            self.metrics.degrade(self.total_rounds,
+                                 "watchdog: straggling speculative rounds")
+            self._degraded = True  # takes effect next round
         self._lengths = lengths
+        if self.faults.corrupts(step_idx):
+            self._corrupt_one_row(lengths)
         emitted = lengths - prev_len
         rids = [r.rid if r is not None else None for r in self._slots]
         self.metrics.record_round(np.maximum(emitted - 1, 0), self.gamma,
@@ -790,7 +932,7 @@ class PagedSpecServer:
         self._record_event(prev_len, ev_lengths, active, rids, t_round,
                            phase_t, blocks_read, blocks_written, queue_depth,
                            n_preempted=len(preempted), n_expired=len(expired),
-                           n_failed=len(failed))
+                           n_failed=len(failed), fault_delay=fault_delay)
         return {"finished": [r.rid for r in self.done[done_before:]],
                 "cancelled": cancelled,
                 "expired": expired,

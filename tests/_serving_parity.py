@@ -25,12 +25,14 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import registry
 from repro_torch.models.model import build_model
 from repro_torch.serving import PagedSpecServer, SchedulerConfig, ServeRequest
+from repro_torch.serving import RoundWatchdog as PortWatchdog
 
 STEP_KEYS = ("finished", "cancelled", "expired", "failed", "preempted",
              "round", "queue_depth", "n_live")
 COUNT_KEYS = ("requests_completed", "requests_cancelled", "requests_rejected",
               "requests_expired", "requests_failed", "n_preemptions",
-              "recompute_tokens", "total_generated_tokens", "rounds",
+              "recompute_tokens", "degradations", "total_generated_tokens",
+              "rounds",
               "spec_rounds", "alpha_hat", "prefill_tokens",
               "prefix_hit_tokens", "prefix_hit_rate", "chunks_per_prefill",
               "deadline_met", "goodput")
@@ -89,14 +91,16 @@ BASE = dict(max_batch=3, block_size=4, num_blocks=96, max_blocks_per_row=12,
 
 def servers(pair, gamma, now=None, **cfg):
     """The port's server and JAX's on one config (and one metrics clock
-    ``now``, when given); JAX's watchdog cannot trip, so a slow CPU round
-    cannot turn it to AR."""
+    ``now``, when given); neither watchdog can trip, so a slow CPU round
+    cannot turn either to AR."""
     mt, md, pt, pd = pair["torch"]
     jt, jd, jpt, jpd = pair["jax"]
     cfg = {**BASE, **cfg}
     clocks = {} if now is None else {"now": now}
     port = PagedSpecServer(mt, md, pt, pd, SchedulerConfig(**cfg), gamma=gamma,
-                           device="cpu", **clocks)
+                           device="cpu",
+                           watchdog=PortWatchdog(slow_factor=float("inf")),
+                           **clocks)
     ref = JaxServer(jt, jd, jpt, jpd, JaxConfig(**cfg), gamma=gamma,
                     watchdog=RoundWatchdog(slow_factor=float("inf")), **clocks)
     return port, ref

@@ -20,12 +20,13 @@ from repro.configs import registry as jax_registry  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
 from repro.serving import PagedSpecServer as JaxServer  # noqa: E402
 from repro.serving import SchedulerConfig as JaxConfig  # noqa: E402
+from repro.serving import RoundWatchdog as JaxWatchdog  # noqa: E402
 from repro.serving import ServeRequest as JaxRequest  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.serving import (PagedSpecServer, SchedulerConfig,  # noqa: E402
-                                 ServeRequest)
+from repro_torch.serving import (PagedSpecServer, RoundWatchdog,  # noqa: E402
+                                 SchedulerConfig, ServeRequest)
 
 GOLD = json.loads((pathlib.Path(__file__).parent / "goldens"
                    / "rounds_parity.json").read_text())
@@ -56,8 +57,11 @@ def _prompts():
 
 def _serve_port(pair, gamma):
     mt, md, pt, pd = pair["torch"]
+    # the watchdog reads the host clock: it must not turn a round slowed by
+    # other processes to AR, which would change the round count
     srv = PagedSpecServer(mt, md, pt, pd, SchedulerConfig(max_batch=2),
-                          gamma=gamma, device="cpu")
+                          gamma=gamma, device="cpu",
+                          watchdog=RoundWatchdog(slow_factor=float("inf")))
     for i, (p, new) in enumerate(_prompts()):
         srv.submit(ServeRequest(i, p, new))
     done = {r.rid: np.asarray(r.tokens) for r in srv.run()}
@@ -79,7 +83,8 @@ def test_matches_golden(served):
 
 def test_matches_live_jax_server(pair, served):
     jt, jd, jpt, jpd = pair["jax"]
-    srv = JaxServer(jt, jd, jpt, jpd, JaxConfig(max_batch=2), gamma=GAMMA)
+    srv = JaxServer(jt, jd, jpt, jpd, JaxConfig(max_batch=2), gamma=GAMMA,
+                    watchdog=JaxWatchdog(slow_factor=float("inf")))
     for i, (p, new) in enumerate(_prompts()):
         srv.submit(JaxRequest(i, p, new))
     want = {r.rid: np.asarray(r.tokens) for r in srv.run()}

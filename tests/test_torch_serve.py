@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _serving_parity import one_torch_thread  # noqa: E402
 from repro.api import DeploymentSpec as JaxSpec  # noqa: E402
 from repro.api import Planner as JaxPlanner  # noqa: E402
 from repro_torch.api import DeploymentSpec, Planner  # noqa: E402
@@ -20,6 +21,12 @@ from repro_torch.launch import cli_args, serve  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SMOKE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 @pytest.mark.parametrize("alpha", [0.1, 0.3, 0.6, 0.8, 0.95])
@@ -95,3 +102,46 @@ def test_cli_raises_without_a_device():
         pytest.skip("a CUDA device is visible, so the default device exists")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "llama3.2-1b", "--smoke", "--requests", "1"])
+
+
+def test_cli_placement_serves_the_unplaced_tokens(capsys):
+    """``serve --use-cache --placement 1x1``: the shared-device lowering
+    (printed as JAX prints it on one device) runs the placed cached engine
+    with the lookahead dispatch, and serves the unplaced tokens."""
+    from repro.api import placement as jax_placement
+    from repro.launch.cli_args import apply_placement_arg as jax_apply
+    argv = [*SMOKE, "--requests", "3", "--max-new", "9", "--prompt-len", "5",
+            "--speculative", "--batch", "2", "--gamma", "4", "--use-cache"]
+    placed, s = serve.main(argv + ["--placement", "1x1"])
+    out = capsys.readouterr().out
+    plain, s_plain = serve.main(argv)
+    np.testing.assert_array_equal(placed, plain)
+    assert s["rounds"] == s_plain["rounds"]
+    want = jax_placement.lower(jax_apply(JaxPlanner(JaxSpec()).plan(),
+                                         "1x1").placement).describe()
+    assert out.splitlines()[0] == want
+    assert "overlap-dispatch" in want
+
+
+def test_paged_cli_placement_and_chaos_serve_the_clean_tokens(capsys):
+    """``serve_paged --placement 1x1 --faults-seed 0``: prints the placement
+    and the chaos line, runs placed under the seeded plan (its first steps
+    seize a block and delay a round; its first drafter failure falls past
+    this short run), and serves the clean run's tokens with the pool
+    whole."""
+    from repro.serving import FaultPlan as JaxFaultPlan
+    from repro_torch.launch import serve_paged
+    argv = [*SMOKE, "--requests", "4", "--gamma", "3"]
+    srv = serve_paged.main(argv + ["--placement", "1x1", "--faults-seed", "0"])
+    out = capsys.readouterr().out.splitlines()
+    clean = serve_paged.main(argv)
+    assert out[0].startswith("placement: drafter@d1[1 dev: 0] target@t1[1 dev: 0]")
+    assert out[1] == f"chaos: {JaxFaultPlan.seeded(0).describe()}"
+    assert srv.placement is not None and srv.faults.seed == 0
+    assert [e.fault_delay > 0 for e in srv.events.events()][3]
+    want = {r.rid: r.tokens for r in clean.done}
+    assert sorted(r.rid for r in srv.done) == sorted(want)
+    for r in srv.done:
+        np.testing.assert_array_equal(r.tokens, want[r.rid])
+    srv.alloc.release_seized()
+    assert srv.alloc.audit()["live"] == 0
