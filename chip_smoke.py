@@ -152,7 +152,23 @@
    overcommit (tokens == step 4's, the pool whole, an injected drafter
    failure degraded to AR), a corrupt-output serve (the poisoned requests
    fail with the reason, the survivors exact), and a paged kernel made to
-   fail inside a round: ``step()`` raises, nothing degrades.
+   fail inside a round: ``step()`` raises, nothing degrades. Then the
+   streaming front end and the continuous ring server (``"phase":
+   "full_width_frontend"``): (a) ``Session.serve_async`` replays
+   ``poisson_trace(12, 4.0)`` (prompts 16-120, 32-64 new, deadlines
+   from the synchronous serve's wall per round) on step 4's geometry, γ 4:
+   streams == ``PagedSpecServer.run`` of the same requests (or a first
+   difference at a near-tie within one bf16 step), exact paged and argmax
+   launches, some deadlines met and some missed; it prints TTFT, TPOT and
+   queue-wait p50/p95, goodput, queue depth, tok/s and wall per round
+   beside the synchronous serve's; (b) a stream dropped after 2 tokens at
+   batch 1: the queued request takes the row, exact, the census balanced;
+   (c) one-slot stream queues and a slow consumer: exact; (d) the uniform
+   ring-continuous plan through ``Session`` (6 prompts of 64 + 64, batch 4,
+   two refills): tokens == ``BatchedSpecEngine.generate``'s and cached
+   AR's, paged launches rounds x 92 + prefills x 44, an argmax a round;
+   (e) (d) placed ``1x1``, the same; (f) the ``serve_async`` CLI on the
+   card at smoke width, rc 0.
 8. The last two kernels against their plain versions: the SSD scan at the
    Mamba-2 smoke shape, the main path's target (48 heads) and drafter (24
    heads) shapes at T = 134, 1100 rows (9 chunks of state carry), the
@@ -209,8 +225,8 @@
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
-   10 and the sampled serves', the Session phase's and the placed phase's
-   of step 7), the card line again and, last,
+   10 and the sampled serves', the Session phase's, the placed phase's
+   and the front-end phase's of step 7), the card line again and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
@@ -221,6 +237,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -3013,6 +3030,276 @@ def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
     return total
 
 
+def full_width_frontend(mt, md, pt, pd, cfg, card):
+    """The streaming front end and the continuous ring server at full width
+    on the paper's pair (bf16; ``"phase": "full_width_frontend"``), every
+    kernel's count set to 0 just before each run and read just after.
+    (a) ``Session.serve_async`` on the linear paged geometry (batch 4,
+    gamma pinned to GAMMA, block 16) replays ``poisson_trace(12, 4.0)``
+    (prompts 16-120, 32-64 new) open loop; deadlines from the synchronous
+    serve's wall per round (base 2 rounds, slope a round per GAMMA + 1
+    tokens), so the early requests meet theirs and queued ones miss. The
+    streams must equal ``PagedSpecServer.run`` of the same requests, or
+    differ first where the synchronous run's top-2 margin sits within one
+    bf16 step; paged launches rounds x (L_t + GAMMA L_d) + prefills x (L_t
+    + L_d), an argmax per round, all rounds speculative; at least one
+    deadline met and one missed. Prints TTFT, TPOT and queue-wait p50/p95,
+    goodput, queue depth mean/max, aggregate tok/s and wall per round
+    beside the synchronous serve's. (b) Batch 1: a stream dropped after 2
+    tokens; the queued request is admitted into the freed row and its
+    tokens are (a)'s; the census balanced. (c) ``max_stream_queue=1`` and a
+    consumer sleeping 5 ms a token: (a)'s tokens. (d) ``Session`` on the
+    uniform ring-continuous plan (6 prompts of 64 + 64, batch 4, gamma
+    GAMMA: two slots refilled): tokens == ``BatchedSpecEngine.generate``'s
+    and cached AR's on the same prompts; paged launches rounds x (L_t +
+    GAMMA L_d) + prefills x (L_t + L_d) (the bootstrap and each refill a
+    prefill of both models), an argmax per round; wall per round. (e) (d)
+    placed ``1x1``: the same tokens and launch identity. (f) ``python -m
+    repro_torch.launch.serve_async --arch llama3.2-1b --smoke --quiet`` on
+    the card: rc 0. Returns the phase's launches."""
+    import asyncio
+    import dataclasses
+
+    from repro_torch.api import DeploymentSpec, Planner, Session
+    from repro_torch.core.batched_engine import (BatchedEngineConfig,
+                                                 BatchedSpecEngine)
+    from repro_torch.core.engine import autoregressive_generate
+    from repro_torch.launch.cli_args import apply_placement_arg
+    from repro_torch.serving import PagedSpecServer, SchedulerConfig
+    from repro_torch.serving.frontend import (AsyncSpecServer, poisson_trace,
+                                              replay)
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    t_phase = time.perf_counter()
+    counters = kernel_counters()
+    total = {name: 0 for name in counters}
+    none = dict(total)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        for n, v in launches.items():
+            total[n] += v
+        return out, time.perf_counter() - t0, launches
+
+    def check(info, ok):
+        emit(info)
+        if not ok:
+            raise SystemExit(f"full-width front-end part failed: {info}")
+
+    def expected(rounds, prefills, spec_rounds):
+        return {**none, "paged_attention": rounds * (L_t + GAMMA * L_d)
+                + prefills * (L_t + L_d), "blockwise_argmax": spec_rounds}
+
+    def pct(xs, q):
+        xs = [x for x in xs if x is not None]
+        return float(np.percentile(xs, q)) if xs else None
+
+    def explained(got, want, P):
+        """None when the streamed tokens ``got`` equal ``want[P:]`` (``want``:
+        a synchronous run's prompt + new tokens); else the position where
+        they first differ, with the top-2 margin of the synchronous
+        context's logits there (no-cache forward) and whether the
+        difference is the deliberate kind: a near-tie within one bf16
+        step, the stream complete."""
+        n = len(want) - P
+        diff = np.flatnonzero(got[:n] != want[P:P + len(got)])
+        if len(got) == n and not len(diff):
+            return None
+        pos = P + (int(diff[0]) if len(diff) else min(len(got), n))
+        ctx = torch.from_numpy(want[None, :pos].astype(np.int64)).cuda()
+        with torch.no_grad():
+            margin = top2_margin(mt.apply(pt, ctx)[0][0, -1])
+        return {"position": pos, "streamed": len(got), "margin": margin,
+                "deliberate": bool(len(diff)) and len(got) == n
+                and margin["margin"] <= margin["bf16_step"]}
+
+    # (a) the open-loop replay beside the synchronous serve
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+    shape = dict(prompt_lens=(16, 120), max_news=(32, 64))
+    trace = poisson_trace(12, 4.0, cfg.vocab_size, seed=0, **shape)
+    reqs = [(t.prompt, t.max_new) for t in trace]
+    (sync, want), sync_wall, sync_launches = counted(
+        lambda: serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda"))
+    sync_round_s = sync_wall / sync.total_rounds
+    slo = dict(slo_base_s=2 * sync_round_s,
+               slo_per_token_s=sync_round_s / (GAMMA + 1))
+    trace = poisson_trace(12, 4.0, cfg.vocab_size, seed=0, **shape, **slo)
+    spec = DeploymentSpec(batch_size=4, prompt_lens=tuple(len(p) for p, _ in reqs),
+                          max_new=tuple(n for _, n in reqs), streaming=True,
+                          adaptive_gamma=False)
+    plan = Planner(spec).plan()
+    plan = dataclasses.replace(
+        plan, batching="continuous",
+        cache=dataclasses.replace(plan.cache, kind="paged", block_size=16,
+                                  num_blocks=256, max_blocks_per_row=16),
+        gamma=dataclasses.replace(plan.gamma, gamma=GAMMA, adaptive=False,
+                                  candidates=()))
+    sess = Session(mt, md, pt, pd, plan, max_batch=4)
+
+    async def open_loop():
+        async with sess.serve_async() as front:
+            return await asyncio.wait_for(replay(front, trace), timeout=300)
+    records, wall, launches = counted(lambda: asyncio.run(open_loop()))
+    srv = sess.backend.server
+    s = srv.metrics.summary()
+    diffs = {r["rid"]: explained(r["tokens"], want[r["rid"]],
+                                 len(reqs[r["rid"]][0])) for r in records}
+    diffs = {rid: d for rid, d in diffs.items() if d is not None}
+    met = [r["deadline_met"] for r in records]
+    waits = [rec.queue_wait for rec in srv.metrics.completed]
+    depths = [ev.queue_depth for ev in srv.events.events()]
+    n_tok = sum(r["n_tokens"] for r in records)
+    expect = expected(srv.total_rounds, srv.n_prefills, s["spec_rounds"])
+    census = audited(srv)
+    check({"phase": "full_width_frontend", "part": "a_open_loop", "card": card,
+           "requests": len(trace), "rate_rps": 4.0, "slo": slo,
+           "backend": sess.backend_name, "rounds": srv.total_rounds,
+           "spec_rounds": s["spec_rounds"], "prefills": srv.n_prefills,
+           "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+           "ms_per_round": wall / srv.total_rounds * 1e3,
+           "sync_ms_per_round": sync_round_s * 1e3,
+           "sync_rounds": sync.total_rounds, "sync_wall_s": sync_wall,
+           "sync_tokens_per_s": sum(n for _, n in reqs) / sync_wall,
+           "ttft_p50_s": pct([r["ttft_s"] for r in records], 50),
+           "ttft_p95_s": pct([r["ttft_s"] for r in records], 95),
+           "tpot_p50_s": pct([r["tpot_s"] for r in records], 50),
+           "tpot_p95_s": pct([r["tpot_s"] for r in records], 95),
+           "queue_wait_p50_s": pct(waits, 50), "queue_wait_p95_s": pct(waits, 95),
+           "server_ttft_p50_s": s["p50_ttft_s"], "server_ttft_p95_s": s["p95_ttft_s"],
+           "deadlines_met": sum(map(bool, met)), "goodput": s["goodput"],
+           "queue_depth_mean": float(np.mean(depths)), "queue_depth_max": max(depths),
+           "launches": launches, "expected_launches": expect,
+           "sync_launches": sync_launches, "census": census,
+           "streams_equal_sync": not diffs, "differences": diffs},
+          all(d["deliberate"] for d in diffs.values())
+          and len(records) == len(trace) and launches == expect
+          and s["spec_rounds"] == srv.total_rounds
+          and 0 < sum(map(bool, met)) < len(met))
+
+    # (b) a stream dropped after 2 tokens frees the row for the queued one
+    one = dataclasses.replace(scfg, max_batch=1)
+    srv = PagedSpecServer(mt, md, pt, pd, one, gamma=GAMMA, device="cuda")
+    (pa, na), (pb, nb) = reqs[0], reqs[1]
+
+    async def drop():
+        async with AsyncSpecServer(srv) as front:
+            sa = await front.submit(pa, na)
+            sb = await front.submit(pb, nb)
+            got_a = []
+            async for tok in sa:
+                got_a.append(tok)
+                if len(got_a) >= 2:
+                    break
+            await sa.aclose()
+            got_b = await asyncio.wait_for(_drain(sb), timeout=120)
+            return np.asarray(got_a, np.int32), np.asarray(got_b, np.int32)
+    (got_a, got_b), wall, launches = counted(lambda: asyncio.run(drop()))
+    m = srv.metrics.summary()
+    expect = expected(srv.total_rounds, srv.n_prefills, m["spec_rounds"])
+    census = audited(srv)
+    diff_b = explained(got_b, want[1], len(pb))
+    check({"phase": "full_width_frontend", "part": "b_drop", "card": card,
+           "dropped_after": len(got_a), "cancelled": m["requests_cancelled"],
+           "completed": m["requests_completed"],
+           "cancelled_generated": srv.metrics.cancelled[0].n_generated,
+           "rounds": srv.total_rounds, "launches": launches,
+           "expected_launches": expect, "census": census,
+           "dropped_prefix_equal": bool(np.array_equal(got_a, want[0][len(pa):len(pa) + 2])),
+           "readmitted_equal": diff_b is None, "difference": diff_b},
+          len(got_a) == 2 and np.array_equal(got_a, want[0][len(pa):len(pa) + 2])
+          and (diff_b is None or diff_b["deliberate"])
+          and m["requests_cancelled"] == 1 and m["requests_completed"] == 1
+          and launches == expect)
+
+    # (c) backpressure: one-slot stream queues, a slow consumer
+    srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA, device="cuda")
+
+    async def slow():
+        async with AsyncSpecServer(srv, max_stream_queue=1) as front:
+            streams = [await front.submit(p, n) for p, n in reqs[2:4]]
+
+            async def sip(stream):
+                got = []
+                async for tok in stream:
+                    got.append(tok)
+                    await asyncio.sleep(0.005)
+                return np.asarray(got, np.int32)
+            return await asyncio.wait_for(
+                asyncio.gather(*(sip(x) for x in streams)), timeout=120)
+    got, wall, launches = counted(lambda: asyncio.run(slow()))
+    m = srv.metrics.summary()
+    expect = expected(srv.total_rounds, srv.n_prefills, m["spec_rounds"])
+    diffs = [explained(g, want[2 + i], len(reqs[2 + i][0]))
+             for i, g in enumerate(got)]
+    check({"phase": "full_width_frontend", "part": "c_backpressure",
+           "card": card, "max_stream_queue": 1, "consumer_sleep_s": 0.005,
+           "rounds": srv.total_rounds, "wall_s": wall, "launches": launches,
+           "expected_launches": expect, "differences": diffs},
+          all(d is None or d["deliberate"] for d in diffs) and launches == expect)
+
+    # (d) the uniform ring-continuous plan, slots refilled; (e) placed 1x1
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (6, NOCACHE_PROMPT)).astype(np.int32)
+    new = NOCACHE_NEW
+    eng = BatchedSpecEngine(mt, md, BatchedEngineConfig(gamma=GAMMA))
+    toks, _, _ = eng.generate(pt, pd, prompts, new)
+    batched = toks.cpu().numpy()[:, :NOCACHE_PROMPT + new]
+    ar = autoregressive_generate(mt, pt, prompts, new, use_cache=True).cpu().numpy()
+    base = Planner(DeploymentSpec(batch_size=4, prompt_lens=(NOCACHE_PROMPT,),
+                                  max_new=new, streaming=True,
+                                  adaptive_gamma=False)).plan()
+    base = dataclasses.replace(base, gamma=dataclasses.replace(
+        base.gamma, gamma=GAMMA, adaptive=False, candidates=()))
+    walls = {}
+    for part, plan in (("d_continuous", base),
+                       ("e_continuous_placed", apply_placement_arg(base, "1x1"))):
+        sess = Session(mt, md, pt, pd, plan, max_batch=4)
+        done, wall, launches = counted(lambda: sess.serve(
+            [sess.request(p, new, rid=i) for i, p in enumerate(prompts)]))
+        be = sess.backend
+        got = np.stack([r.tokens for r in sorted(done, key=lambda r: r.rid)])
+        expect = expected(be.total_rounds, be.n_prefills, be.total_rounds)
+        walls[part] = wall / be.total_rounds * 1e3
+        check({"phase": "full_width_frontend", "part": part, "card": card,
+               "backend": sess.backend_name, "plan_cache": plan.cache.kind,
+               "placement": sess.placement.describe(), "requests": len(prompts),
+               "batch": 4, "rounds": be.total_rounds, "prefills": be.n_prefills,
+               "wall_s": wall, "ms_per_round": walls[part],
+               "tokens_per_s": len(prompts) * new / wall,
+               "launches": launches, "expected_launches": expect,
+               "tokens_equal_batched_engine": bool(np.array_equal(got, batched)),
+               "tokens_equal_cached_ar": bool(np.array_equal(got, ar))},
+              sess.backend_name == "continuous" and plan.cache.kind == "ring"
+              and be.n_prefills == 1 + len(prompts) - 4
+              and np.array_equal(got, batched) and np.array_equal(got, ar)
+              and launches == expect
+              and sess.placement.heterogeneous == (part != "d_continuous"))
+
+    # (f) the CLI on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_async", "--arch",
+         "llama3.2-1b", "--smoke", "--quiet"], capture_output=True, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        timeout=300)
+    check({"phase": "full_width_frontend", "part": "f_cli", "card": card,
+           "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+           "stdout": proc.stdout.strip().splitlines()[:3],
+           "stderr": proc.stderr.strip().splitlines()[-3:],
+           "phase_s": time.perf_counter() - t_phase},
+          proc.returncode == 0 and "replayed 8 requests" in proc.stdout)
+    return total
+
+
+async def _drain(stream):
+    return np.asarray([t async for t in stream], np.int32)
+
+
 def full_width_w8a8(mt, md, pt, pd, cfg, card):
     """The paper's w8a8 deployment of the pair: both models through
     ``quantize_for_serving``, every forward under ``act_quant`` with a
@@ -3280,6 +3567,7 @@ def main() -> int:
     sampled_launches = full_width_sampled(*pair, card, nocache, cached)
     session_launches = full_width_session(*pair, card, linear, nocache, cached)
     placed_launches = full_width_placed(*pair, card, linear, cached)
+    frontend_launches = full_width_frontend(*pair, card)
     del cached, linear
     w8a8_launches = full_width_w8a8(*pair, card)
     del pair
@@ -3290,12 +3578,13 @@ def main() -> int:
     # attention and the argmax, the tree phase, the no-cache serves) plus
     # the cached paths' (full_width_cached parts a-c, the cached Mamba-2),
     # the sampled serves' (paged attention cached, flash no-cache), the
-    # Session phase's (paged attention, the argmax, tree attention) and the
-    # placed phase's (paged attention, the argmax)
+    # Session phase's (paged attention, the argmax, tree attention), the
+    # placed phase's and the front-end phase's (paged attention, the argmax)
     for name, n in cached_launches.items():
         launches[name] += n
     for name in ("paged_attention", "blockwise_argmax"):
-        launches[name] += session_launches[name] + placed_launches[name]
+        launches[name] += (session_launches[name] + placed_launches[name]
+                           + frontend_launches[name])
     launches["paged_attention"] += sampled_launches["paged_attention"]
     tree_launches["tree_attention"] += (cached_launches["tree_attention"]
                                         + session_launches["tree_attention"])

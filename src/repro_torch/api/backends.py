@@ -2,15 +2,13 @@
 ``repro/api/backends.py``).
 
 The port's execution paths — the batch-synchronized ``SpecEngine``, the
-per-row ``BatchedSpecEngine``, the paged ``PagedSpecServer`` and the plain
-autoregressive fallback — sit behind one ``SpecBackend`` protocol here. A
-backend executes a frozen ExecutionPlan; it makes NO speculation decisions
-of its own beyond the plan's runtime-feedback hook (api/feedback.py).
-Requests use ``serving.ServeRequest`` as the common currency.
-
-The continuous backend (``ContinuousSpecServer``) and the paged backend's
-async front end wait for the front end's port (ROADMAP.md, Queue 1 item
-4); ``Session`` raises for a plan that selects the former.
+per-row ``BatchedSpecEngine``, the fixed-shape ``ContinuousSpecServer``,
+the paged ``PagedSpecServer`` (with its async streaming front end) and the
+plain autoregressive fallback — sit behind one ``SpecBackend`` protocol
+here. A backend executes a frozen ExecutionPlan; it makes NO speculation
+decisions of its own beyond the plan's runtime-feedback hook
+(api/feedback.py). Requests use ``serving.ServeRequest`` as the common
+currency.
 """
 from __future__ import annotations
 
@@ -244,6 +242,73 @@ class PerRowBackend:
         return _serve_grouped(self, requests, self.max_batch)
 
 
+# ======================================================== continuous (fixed)
+class ContinuousBackend:
+    """ContinuousSpecServer: fixed-shape slot refill, uniform (P, max_new).
+    Runs on the device of the params (each role's, when placed).
+    ``total_rounds`` and ``n_prefills`` sum its servers' counts."""
+    name = "continuous"
+
+    def __init__(self, target, drafter, params_t, params_d,
+                 plan: ExecutionPlan, max_batch: int = 4, placement=None,
+                 tracer=None):
+        self.target, self.drafter = target, drafter
+        self.params_t, self.params_d = params_t, params_d
+        self.plan = plan
+        self.max_batch = max_batch
+        self.placement = placement
+        self.tracer = tracer
+        # consulted per uniform group, where the g==0 AR branch is reachable
+        self.controller = GammaController(plan.gamma, plan.cost_coefficient,
+                                          allow_ar=True)
+        self._engines: Dict[int, BatchedSpecEngine] = {}  # shared across waves
+        self.total_rounds = 0
+        self.n_prefills = 0
+
+    def _engine(self, gamma: int) -> BatchedSpecEngine:
+        if gamma not in self._engines:
+            self._engines[gamma] = BatchedSpecEngine(
+                self.target, self.drafter, BatchedEngineConfig(gamma=gamma),
+                placement=self.placement, tracer=self.tracer)
+        return self._engines[gamma]
+
+    def serve(self, requests):
+        from repro_torch.launch.continuous import (ContinuousSpecServer,
+                                                   StreamRequest)
+        out: List[ServeRequest] = []
+        for (P, max_new), group in _group_uniform(requests).items():
+            g = self.controller.gamma()
+            if g == 0:
+                out.extend(_serve_ar(self, group))
+                continue
+            srv = ContinuousSpecServer(
+                self.target, self.drafter, self.params_t, self.params_d,
+                batch=min(self.max_batch, len(group)), prompt_len=P,
+                max_new=max_new, gamma=g, engine=self._engine(g),
+                placement=self.placement, tracer=self.tracer)
+            for r in group:
+                srv.submit(StreamRequest(r.rid, np.asarray(r.prompt, np.int32)))
+            by_rid = {r.rid: r for r in group}
+            for s in srv.run():
+                req = by_rid[s.rid]
+                req.tokens = s.tokens
+                out.append(req)
+            self.controller.observe(srv.n_accepted_total, srv.n_drafted_total)
+            self.total_rounds += srv.total_rounds
+            self.n_prefills += srv.n_prefills
+        return out
+
+    def generate_batch(self, prompts, max_new=None):
+        max_new = self.plan.max_new if max_new is None else max_new
+        done = self.serve(_as_requests(prompts, max_new))
+        toks, lens = _stack_results(done, len(done))
+        return toks, lens, {"speculative": self.plan.speculative}
+
+    def generate(self, prompt, max_new=None, key=None):
+        toks, lens, stats = self.generate_batch(prompt, max_new)
+        return toks[:, :int(lens.min())], stats
+
+
 # ============================================================ paged serving
 class PagedBackend:
     """PagedSpecServer: ragged continuous batching over a shared block pool.
@@ -288,11 +353,11 @@ class PagedBackend:
         return self.server.drift
 
     def serve_async(self, **kw):
-        """The async streaming front end is not ported yet."""
-        raise NotImplementedError(
-            "serve_async needs the async front end (serving/frontend), which "
-            "the port has not ported yet (ROADMAP.md, Queue 1 item 4); use "
-            "serve()")
+        """The async streaming front end over this backend's paged server
+        (serving/frontend): an un-started AsyncSpecServer — enter it with
+        ``async with`` (or await .start()) from a running event loop."""
+        from repro_torch.serving.frontend import AsyncSpecServer
+        return AsyncSpecServer(self.server, **kw)
 
     def serve(self, requests):
         for r in requests:
@@ -341,9 +406,8 @@ def _serve_grouped(backend, requests, max_batch: int) -> List[ServeRequest]:
 
 
 def _serve_ar(backend, group) -> List[ServeRequest]:
-    """AR-serve a uniform group on the target only (gamma*=0 plans); the
-    continuous backend's AR branch, kept for its port (ROADMAP.md, Queue 1
-    item 4)."""
+    """AR-serve a uniform group on the target only (gamma*=0 plans): the
+    continuous backend's AR branch."""
     prompts = np.stack([np.asarray(r.prompt, np.int32) for r in group])
     toks = autoregressive_generate(backend.target, backend.params_t, prompts,
                                    group[0].max_new,

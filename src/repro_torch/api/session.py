@@ -11,9 +11,9 @@ paths:
     done = sess.serve(requests)          # or .generate(...) / .generate_batch(...)
 
 The plan's (batching, cache) pair picks the backend: SpecEngine,
-BatchedSpecEngine or PagedSpecServer (each a shell over the round core,
-core/rounds.py), or the plain-AR fallback when the cost model emitted
-gamma*=0. A Session runs on ``cuda`` unless the caller passes
+BatchedSpecEngine, ContinuousSpecServer or PagedSpecServer (each a shell
+over the round core, core/rounds.py), or the plain-AR fallback when the
+cost model emitted gamma*=0. A Session runs on ``cuda`` unless the caller passes
 ``device="cpu"``, and raises when no GPU is visible; the params must
 already live on its device.
 
@@ -21,10 +21,6 @@ The plan's PlacementPlan is lowered to per-role devices
 (``api/placement.py``) over the session device's visible list and handed
 to the backend; a plan whose submeshes do not fit runs degenerately, with
 the reason on ``session.placement.note``.
-
-Not yet ported: the continuous backend and ``serve_async`` (the front end,
-ROADMAP.md Queue 1 item 4: a plan that selects the continuous backend
-raises, it does not fall back).
 """
 from __future__ import annotations
 
@@ -34,8 +30,8 @@ import numpy as np
 
 from repro_torch import device as devices
 from repro_torch.api import placement as placement_mod
-from repro_torch.api.backends import (EngineBackend, PagedBackend,
-                                      PerRowBackend, SpecBackend)
+from repro_torch.api.backends import (ContinuousBackend, EngineBackend,
+                                      PagedBackend, PerRowBackend, SpecBackend)
 from repro_torch.api.plan import DeploymentSpec, ExecutionPlan
 from repro_torch.api.planner import Planner
 from repro_torch.core.batched_engine import KV_FAMILIES
@@ -69,7 +65,7 @@ class Session:
     """Facade executing one ExecutionPlan on a (target, drafter) pair."""
 
     _BACKENDS = {"engine": EngineBackend, "per_row": PerRowBackend,
-                 "paged": PagedBackend}
+                 "continuous": ContinuousBackend, "paged": PagedBackend}
 
     def __init__(self, target, drafter, params_t, params_d,
                  plan: ExecutionPlan, *, max_batch: Optional[int] = None,
@@ -96,17 +92,11 @@ class Session:
                 plan.placement, devices.visible(self.device))
         self.placement = placement
         self.backend_name = _select_backend(plan, target, drafter)
-        if self.backend_name == "continuous":
-            raise NotImplementedError(
-                "the plan selects the continuous backend (ContinuousSpecServer"
-                "), which waits for the front end's port (ROADMAP.md, Queue 1 "
-                "item 4); re-plan with a paged cache (ragged traffic) or "
-                "without streaming")
         paged = self.backend_name == "paged"
         if max_batch is None:
-            max_batch = 4 if paged else 8
-        # the engines run where the params live; the paged server holds
-        # its pools and state on the session's device
+            max_batch = 4 if self.backend_name in ("continuous", "paged") else 8
+        # the engines and the continuous server run where the params live;
+        # the paged server holds its pools and state on the session's device
         self.backend: SpecBackend = self._BACKENDS[self.backend_name](
             target, drafter, params_t, params_d, plan, max_batch=max_batch,
             placement=placement, tracer=self.tracer,
@@ -140,9 +130,19 @@ class Session:
         return self.backend.serve(reqs)
 
     def serve_async(self, **kw):
-        """Open-system streaming entry point (paged plans only). The async
-        front end is not ported: on a paged plan this raises
-        NotImplementedError (ROADMAP.md, Queue 1 item 4)."""
+        """Open-system streaming entry point (paged plans only): returns an
+        un-started ``serving.frontend.AsyncSpecServer`` over this session's
+        paged server. Use from a running event loop:
+
+            async with sess.serve_async() as front:
+                stream = await front.submit(prompt, max_new, deadline_s=1.0)
+                async for tok in stream: ...
+
+        Per-request deadlines drive the scheduler's EDF admission and the
+        deadline-met/goodput metrics; dropping a stream cancels its request
+        and frees its KV blocks mid-generation. Keyword args pass through to
+        AsyncSpecServer (``max_stream_queue`` = backpressure bound, ``now``
+        = injectable clock)."""
         if self.backend_name != "paged":
             raise ValueError(
                 f"serve_async needs the paged backend (plan selected "

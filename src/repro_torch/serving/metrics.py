@@ -1,8 +1,7 @@
 """Serving telemetry: per-request latency/throughput and acceptance-rate
 statistics for the paged speculative server (port of
-``repro/serving/metrics.py`` less the per-request acceptance histograms
-and the front end's ``queue_wait``/``decode_tps``). ``degradations`` logs
-each batch the fault plan or the watchdog turned to AR.
+``repro/serving/metrics.py``). ``degradations`` logs each batch the fault
+plan or the watchdog turned to AR.
 
 Two consumers:
   * operators — ``summary()`` aggregates tokens/s, latency, the per-round
@@ -35,6 +34,7 @@ class RequestRecord:
     submitted: float = 0.0
     started: float = 0.0      # prefill time (admission)
     completed: float = 0.0
+    n_rounds: int = 0
     n_generated: Optional[int] = None  # actual tokens produced (<= max_new)
     first_token_t: Optional[float] = None  # when the first token committed
     deadline: Optional[float] = None       # absolute SLO deadline (clock domain)
@@ -56,6 +56,11 @@ class RequestRecord:
         return self.first_token_t - self.submitted
 
     @property
+    def queue_wait(self) -> float:
+        """Submission -> admission (the scheduler-queue component of TTFT)."""
+        return self.started - self.submitted
+
+    @property
     def deadline_met(self) -> Optional[bool]:
         """Whether the request completed by its deadline (None = no
         deadline)."""
@@ -63,6 +68,12 @@ class RequestRecord:
             return None
         return (not self.cancelled and self.completed > 0.0
                 and self.completed <= self.deadline)
+
+    @property
+    def decode_tps(self) -> float:
+        n = self.n_generated if self.n_generated is not None else self.max_new
+        dt = self.completed - self.started
+        return n / dt if dt > 0 else float("nan")
 
 
 class ServingMetrics:
@@ -75,6 +86,7 @@ class ServingMetrics:
         self.now = now
         self._alpha: Optional[float] = None
         self.accept_hist = np.zeros(gamma_max + 1, np.int64)  # n_accepted/round
+        self.row_hists: Dict[int, np.ndarray] = {}            # rid -> histogram
         self.n_rounds = 0
         self.n_spec_rounds = 0
         self.requests: Dict[int, RequestRecord] = {}
@@ -97,8 +109,14 @@ class ServingMetrics:
 
     # ------------------------------------------------------------- requests
     def submit(self, rid: int, prompt_len: int, max_new: int,
-               deadline: Optional[float] = None):
-        rec = RequestRecord(rid, prompt_len, max_new, submitted=self.now(),
+               deadline: Optional[float] = None,
+               submitted: Optional[float] = None):
+        """``deadline`` is absolute in the metrics clock domain; ``submitted``
+        lets an async front end stamp the true arrival time even when the
+        request reaches the scheduler a round later."""
+        rec = RequestRecord(rid, prompt_len, max_new,
+                            submitted=(self.now() if submitted is None
+                                       else submitted),
                             deadline=deadline)
         self.requests[rid] = rec
         return rec
@@ -199,7 +217,8 @@ class ServingMetrics:
     # --------------------------------------------------------------- rounds
     def record_round(self, n_accepted, gamma: int, active=None, rids=None):
         """n_accepted: [B] accepted draft tokens this round; ``active`` masks
-        live rows."""
+        live rows; ``rids`` maps rows to request ids for the per-request
+        histograms (``row_hists``)."""
         n_accepted = np.asarray(n_accepted)
         active = (np.asarray(active) if active is not None
                   else np.ones_like(n_accepted, bool))
@@ -207,10 +226,16 @@ class ServingMetrics:
         if gamma <= 0:
             return
         self.n_spec_rounds += 1
-        for acc, live in zip(n_accepted, active):
+        for b, (acc, live) in enumerate(zip(n_accepted, active)):
             if not live:
                 continue
-            self.accept_hist[int(min(max(acc, 0), self.gamma_max))] += 1
+            a = int(min(max(acc, 0), self.gamma_max))
+            self.accept_hist[a] += 1
+            if rids is not None and rids[b] is not None:
+                h = self.row_hists.setdefault(rids[b],
+                                              np.zeros(self.gamma_max + 1,
+                                                       np.int64))
+                h[a] += 1
             # alpha uses the UNCLAMPED acceptance (the clamp only bounds the
             # histogram bins)
             alpha_round = max(float(acc), 0.0) / gamma

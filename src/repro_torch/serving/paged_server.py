@@ -30,7 +30,9 @@ re-admission prefills again (greedy decode then continues byte-identically).
 ``cancel(rid)`` tears a request down at the start of the next step.
 
 A round pulls ``length`` and ``active`` to the host once; nothing else in
-it syncs unless tracing is on. Every round records one ``RoundEvent``
+it syncs unless tracing is on or a streaming front end set
+``collect_streams`` (then the token buffer comes over in one more pull
+when a row committed, and each streamed token passes the output guard). Every round records one ``RoundEvent``
 (``events``), charges its KV block reads (``kv_traffic``) and, when
 speculative, feeds the cost-model ``DriftMonitor`` (``drift``), traced or
 not. An ENABLED ``tracer`` (repro_torch.obs) runs speculative rounds as
@@ -197,6 +199,9 @@ class PagedSpecServer:
                                     # the batch drains and re-forms)
         self._vocab = int(target.cfg.vocab_size)  # output-guard bound
         self._failed_pending: List[int] = []
+        # the per-round token harvest for streaming front ends; off, a round
+        # pulls no token to the host
+        self.collect_streams = False
         self.done: List[ServeRequest] = []
         self.total_rounds = 0
         self.total_steps = 0        # step() calls incl. idle steps: the
@@ -549,6 +554,33 @@ class PagedSpecServer:
                 self._state = self._state._replace(tokens=tokens)
                 return
 
+    def _harvest_streams(self, prev_len, lengths) -> Dict[int, np.ndarray]:
+        """Newly committed tokens per live request this round (committed ==
+        final: verify accepted them, so streaming is exact). TTFT is stamped
+        here on every path; the tokens come to the host, in one pull for
+        all emitting rows, only when ``collect_streams`` is set. Streamed
+        tokens pass the output guard first: a token outside the vocabulary
+        fails the request instead of reaching a client."""
+        streams: Dict[int, np.ndarray] = {}
+        tok_host = None
+        for b, req in enumerate(self._slots):
+            if req is None or b in self._masked:
+                continue        # mid-prefill: nothing committed yet
+            cur = int(min(lengths[b], self._target_len[b]))
+            if cur > req.prompt_len:
+                self.metrics.first_token(req.rid)   # idempotent
+            if not self.collect_streams or cur <= int(prev_len[b]):
+                continue
+            if tok_host is None:
+                tok_host = self._state.tokens.cpu().numpy()
+            new = tok_host[b, int(prev_len[b]):cur].copy()
+            if ((new < 0) | (new >= self._vocab)).any():
+                self._fail_row(b, req, cur)
+                self._state = _set_rows(self._state, b, active=False)
+                continue
+            streams[req.rid] = new
+        return streams
+
     # ----------------------------------------------------------- preemption
     def _committed(self, b: int) -> int:
         return int(min(self._lengths[b], self._target_len[b]))
@@ -786,8 +818,9 @@ class PagedSpecServer:
 
     def _idle_info(self, cancelled, expired, failed, preempted) -> Dict:
         """The step-info of a step in which no round ran."""
-        return {"finished": [], "cancelled": cancelled, "expired": expired,
-                "failed": failed, "preempted": preempted, "round": None,
+        return {"streams": {}, "finished": [], "cancelled": cancelled,
+                "expired": expired, "failed": failed, "preempted": preempted,
+                "round": None,
                 "queue_depth": len(self.sched.queue), "n_live": 0}
 
     def step(self) -> Optional[Dict]:
@@ -796,9 +829,13 @@ class PagedSpecServer:
         one prefill chunk, decide gamma, enforce block capacity (preempting
         victims under overcommit), run one round (AR when degraded), record
         telemetry, harvest finished rows. Returns None when idle, else a
-        step-info dict: finished / cancelled / expired / failed / preempted
-        (evicted and re-queued, not terminal) rids, the round id (None when
-        no round ran), queue depth and live rows."""
+        step-info dict: ``streams`` ({rid: tokens committed this round},
+        filled only when ``collect_streams`` is set), finished / cancelled /
+        expired / failed / preempted (evicted and re-queued, not terminal)
+        rids, the round id (None when no round ran; the stream events join
+        the round events through it), queue depth and live rows. ``run()``
+        is ``while step() is not None``: the synchronous and the streaming
+        paths share this one loop, which keeps their tokens identical."""
         if self._state is None:
             self._state = self._empty_state()
             self._lengths = self._state.length.cpu().numpy().astype(np.int64)
@@ -918,10 +955,7 @@ class PagedSpecServer:
         rids = [r.rid if r is not None else None for r in self._slots]
         self.metrics.record_round(np.maximum(emitted - 1, 0), self.gamma,
                                   active, rids)
-        for b, req in enumerate(self._slots):
-            if (req is not None and b not in self._masked
-                    and self._committed(b) > req.prompt_len):
-                self.metrics.first_token(req.rid)
+        streams = self._harvest_streams(prev_len, lengths)
         # _harvest's refill writes newly admitted rows into ``lengths``;
         # the event must see THIS round's commit
         ev_lengths = lengths.copy()
@@ -933,7 +967,8 @@ class PagedSpecServer:
                            phase_t, blocks_read, blocks_written, queue_depth,
                            n_preempted=len(preempted), n_expired=len(expired),
                            n_failed=len(failed), fault_delay=fault_delay)
-        return {"finished": [r.rid for r in self.done[done_before:]],
+        return {"streams": streams,
+                "finished": [r.rid for r in self.done[done_before:]],
                 "cancelled": cancelled,
                 "expired": expired,
                 "failed": failed,

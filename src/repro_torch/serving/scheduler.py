@@ -153,10 +153,12 @@ class Scheduler:
             self.metrics.reject(req.rid, str(e))
             raise
 
-    def submit(self, req: ServeRequest):
+    def submit(self, req: ServeRequest, submitted: Optional[float] = None):
+        """``submitted``: the true arrival time, when an async front end
+        hands the request over a round after it arrived."""
         self.validate(req)
         self.metrics.submit(req.rid, req.prompt_len, req.max_new,
-                            deadline=req.deadline)
+                            deadline=req.deadline, submitted=submitted)
         self.queue.append(req)
 
     def demand_tokens(self, req: ServeRequest) -> int:

@@ -3,7 +3,7 @@
 the smoke-width pair in both frameworks, a shared-prefix trace, and
 ``lockstep``, which steps the port's ``PagedSpecServer`` and
 ``repro.serving.PagedSpecServer`` together and compares them after every
-step.
+step (their streams too, when both collect them).
 
 The pair: the ``llama3.2-3b`` smoke target with embedding std d**-0.5 and
 a one-layer ``llama3.2-1b``-smoke drafter sharing its first layer, so
@@ -110,8 +110,10 @@ def lockstep(port, ref, reqs, on_step=None, deadlines=None):
     """Submit ``reqs`` to both servers (request i with ``deadlines[i]``,
     when given) and step them together until both idle; ``on_step(k,
     port)`` may return rids to cancel (in both) before step k. After every
-    step the step-info and the allocators must agree. Returns the port's
-    step-infos and each server's tokens by rid."""
+    step the step-info and the allocators must agree, and, when both
+    servers collect streams, each step's ``streams`` (rid -> tokens
+    committed that step). Returns the port's step-infos and each server's
+    tokens by rid."""
     for i, (p, new) in enumerate(reqs):
         d = None if deadlines is None else deadlines[i]
         port.submit(ServeRequest(i, p, new, deadline=d))
@@ -127,6 +129,11 @@ def lockstep(port, ref, reqs, on_step=None, deadlines=None):
             break
         assert {key: a[key] for key in STEP_KEYS} == \
             {key: b[key] for key in STEP_KEYS}, k
+        if port.collect_streams and ref.collect_streams:
+            assert sorted(a["streams"]) == sorted(b["streams"]), k
+            for rid, toks in b["streams"].items():
+                np.testing.assert_array_equal(a["streams"][rid], toks,
+                                              err_msg=f"step {k} rid {rid}")
         np.testing.assert_array_equal(port.alloc.table, ref.alloc.table)
         assert list(port.alloc.free) == list(ref.alloc.free)
         assert port.alloc.cached == ref.alloc.cached

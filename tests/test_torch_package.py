@@ -46,6 +46,21 @@ def test_port_avoids_the_ci_guarded_names():
             assert name not in text, f"{path}: {name}"
 
 
+def test_frontend_is_seeded_and_clock_injected():
+    """CI's front-end determinism rule (``.github/workflows/ci.yml``, over
+    ``src/repro/serving/frontend``) held on the port's copy: seeded numpy
+    Generators only, and time only through the injectable obs clock."""
+    import re
+    rule = re.compile(r"import time|from time import|"
+                      r"np\.random\.(seed|random)\(|default_rng\(\)")
+    files = sorted((ROOT / "src" / "repro_torch" / "serving" / "frontend")
+                   .rglob("*.py"))
+    assert len(files) == 3
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not rule.search(line), f"{path.name}:{n}: {line}"
+
+
 def _need_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible, so the default device exists")
@@ -66,11 +81,28 @@ def test_server_and_model_raise_without_a_device():
         m.init_paged_cache(2, 8, 4, 4)
 
 
-def test_cli_raises_without_a_device():
+@pytest.mark.parametrize("cli", ["serve_paged", "serve_async", "continuous"])
+def test_cli_raises_without_a_device(cli):
     _need_no_cuda()
-    from repro_torch.launch import serve_paged
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{cli}")
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve_paged.main(["--arch", "llama3.2-1b", "--smoke", "--requests", "1"])
+        mod.main(["--arch", "llama3.2-1b", "--smoke", "--requests", "1"])
+
+
+def test_frontend_and_continuous_server_raise_without_a_device():
+    _need_no_cuda()
+    from repro_torch.api import DeploymentSpec, Planner, Session
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+    m = build_model(registry.smoke_config("llama3.2-1b"))
+    params = m.init(0, "cpu")
+    for kw in (dict(prompt_lens=(6,), max_new=6),
+               dict(prompt_lens=(5, 9), max_new=(4, 6))):
+        plan = Planner(DeploymentSpec(batch_size=2, streaming=True,
+                                      cost_coefficient=0.2, **kw)).plan()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Session(m, m, params, params, plan)
 
 
 def test_cli_serves_on_the_cpu_when_asked():

@@ -14,8 +14,9 @@ engines and server under the ``d1``/``t1`` shared-device lowering, which
 needs only the one JAX CPU device (``SHARED``), on the split pair of
 ``tests/_serving_parity.py`` (its drafter is the target's first layers, so
 rounds accept part of their drafts): tokens, rounds and ``describe()``
-strings equal, overlap off and on. JAX's continuous-server case waits for
-the continuous server's port (ROADMAP.md, Queue 1 item 4)."""
+strings equal, overlap off and on. JAX's continuous-server case
+(``test_continuous_placed_matches_golden``) is held in
+``tests/test_torch_continuous.py``."""
 import dataclasses
 import json
 import pathlib

@@ -216,8 +216,18 @@ def test_chunked_server_matches_jax_and_its_cold_path(pair, cold, chunk,
     reqs = shared_prefix_trace()
     port, ref = servers(pair, gamma, prefill_chunk=chunk,
                          prefix_cache=prefix_cache)
+    streaming = prefix_cache and chunk == 8
+    port.collect_streams = ref.collect_streams = streaming
     infos, got, want = lockstep(port, ref, reqs)
     same_tokens(got, want)
+    if streaming:
+        # the streams, step by step equal to JAX's, add up to the tokens
+        for rid, toks in got.items():
+            streamed = [i["streams"][rid] for i in infos if rid in i["streams"]]
+            np.testing.assert_array_equal(np.concatenate(streamed),
+                                          toks[len(reqs[rid][0]):])
+    else:
+        assert all(i["streams"] == {} for i in infos)
     same_tokens(got, cold[gamma])
     same_metrics(port, ref)
     s = port.metrics.summary()

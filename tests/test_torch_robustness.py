@@ -236,12 +236,22 @@ def test_watchdog_trips_on_straggling_rounds_in_lockstep(pair):
 
 def test_corrupt_output_fails_request_cleanly_in_lockstep(pair):
     """The output guard: a poisoned committed token fails its request with
-    the reason recorded, the neighbours complete with the clean tokens."""
+    the reason recorded, the neighbours complete with the clean tokens.
+    Both servers collect streams, which lockstep holds equal step by step:
+    the guard runs on the streamed tokens, so no poisoned token is ever
+    streamed."""
     plan = FaultPlan(corrupt_rounds=frozenset({1, 2}))
     reqs = _trace([(6, 12), (9, 12), (5, 10)], seed=3)
     port, ref = _servers(pair, PLAIN, gamma=2, faults=plan)
-    _, got, want = lockstep(port, ref, reqs)
+    port.collect_streams = ref.collect_streams = True
+    infos, got, want = lockstep(port, ref, reqs)
     _same_outcome(port, ref, got, want)
+    vocab = port._vocab
+    for info in infos:
+        for toks in info["streams"].values():
+            assert ((toks >= 0) & (toks < vocab)).all()
+    failed = {rec.rid for rec in port.metrics.failed}
+    assert any(rid in i["failed"] for i in infos for rid in failed)
     assert len(port.metrics.failed) >= 1
     for rec in port.metrics.failed:
         assert "corrupt token id" in rec.failed

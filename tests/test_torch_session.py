@@ -1,15 +1,16 @@
 """The port's Session facade against ``repro.api.Session`` on bridged smoke
 weights, backend by backend (the counterparts of
 ``tests/test_api_plan.py``'s facade tests): the engine backend (single
-stream, the AR fallback, the adaptive loop), the per-row and paged
-backends; what the port does not run yet (the continuous backend,
-``serve_async``) raises; and both serving CLIs plan through the Planner.
+stream, the AR fallback, the adaptive loop), the per-row, continuous and
+paged backends, ``serve_async``; and both serving CLIs plan through the
+Planner.
 
 The pair is the ``llama3.2-1b`` smoke target with a drafter made of its
 first L-1 layers (the embedding drawn at std d**-0.5), so rounds accept
 part of their drafts and the adaptive gamma moves. Tokens, round counts,
 gamma traces and acceptance estimates are compared exactly.
 """
+import asyncio
 import dataclasses
 import os
 import pathlib
@@ -215,24 +216,29 @@ def test_session_paged_matches_jax(pair, gamma):
     np.testing.assert_array_equal(toks.numpy(), np.asarray(ar))
 
 
-# -------------------------------------------- plans the port does not run
+# --------------------------------------- the continuous backend, serve_async
 def test_infeasible_streaming_plan_serves_ar_not_spec(pair):
-    """gamma*=0 means AR: JAX serves the ring-continuous plan through its
-    continuous backend, which the port has not ported, so the port's
-    Session refuses it; the same plan pinned monolithic goes to the engine
-    backend, which serves JAX's AR tokens."""
+    """gamma*=0 means AR: the ring-continuous plan goes to the continuous
+    backend, whose AR branch serves JAX's tokens (JAX's Session serves the
+    same plan the same way); the same plan pinned monolithic goes to the
+    engine backend, which serves them too."""
     kw = dict(batch_size=2, prompt_lens=(6,), max_new=6, streaming=True,
               alpha=0.3, cost_coefficient=0.5, adaptive_gamma=None)
     plan, jplan = _plans(**kw)
     assert plan.to_json() == jplan.to_json()
     assert plan.gamma.gamma == 0 and not plan.gamma.adaptive
     assert not plan.speculative
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        api.Session(*pair["torch"], plan, device="cpu")
     prompts = _prompts(pair, (3, 6), 6)
     jsess = japi.Session(*pair["jax"], jplan, max_batch=2)
     want = {r.rid: r.tokens for r in jsess.serve(
         [JaxRequest(i, prompts[i], 6) for i in range(3)])}
+    sess = api.Session(*pair["torch"], plan, max_batch=2, device="cpu")
+    assert sess.backend_name == jsess.backend_name == "continuous"
+    done = sess.serve([ServeRequest(i, prompts[i], 6) for i in range(3)])
+    assert sorted(r.rid for r in done) == [0, 1, 2]
+    for r in done:
+        np.testing.assert_array_equal(r.tokens, np.asarray(want[r.rid]))
+    assert sess.backend.controller.gamma() == 0 and sess.alpha_hat is None
     mono, _ = _plans(**kw, strategy="monolithic")
     sess = api.Session(*pair["torch"], mono, max_batch=2, device="cpu")
     assert sess.backend_name == "engine"
@@ -251,21 +257,51 @@ def test_pinned_knobs_fall_back_to_engine_backend(pair):
 
 
 def test_continuous_plan_and_serve_async_raise(pair):
-    plan, _ = _plans(batch_size=2, prompt_lens=(6,), max_new=6, streaming=True)
+    """The ring-continuous plan serves JAX's tokens through the continuous
+    backend (with its acceptance fed to the controller as JAX feeds it);
+    ``serve_async`` on a paged plan returns an un-started front end that
+    streams the server's tokens; on a single-batch plan it raises JAX's
+    ValueError."""
+    plans = _plans(batch_size=2, prompt_lens=(6,), max_new=6, streaming=True)
+    plan, jplan = plans
     assert plan.batching == "continuous" and plan.cache.kind == "ring"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        api.Session(*pair["torch"], plan, device="cpu")
+    assert plan.speculative
+    sess, jsess = _sessions(pair, plans)
+    assert sess.backend_name == jsess.backend_name == "continuous"
+    prompts = _prompts(pair, (5, 6), 9)
+    done = {r.rid: r.tokens for r in sess.serve(
+        [ServeRequest(i, prompts[i], 6) for i in range(5)])}
+    want = {r.rid: np.asarray(r.tokens) for r in jsess.serve(
+        [JaxRequest(i, prompts[i], 6) for i in range(5)])}
+    assert sorted(done) == sorted(want) == list(range(5))
+    for rid in want:
+        np.testing.assert_array_equal(done[rid], want[rid])
+    assert sess.alpha_hat == pytest.approx(jsess.alpha_hat)
+    toks, lens, stats = sess.generate_batch(prompts[:2], 4)
+    assert lens.tolist() == [10, 10] and stats["speculative"]
     paged, _ = _plans(batch_size=2, prompt_lens=(5, 9), max_new=(4, 6),
                       streaming=True)
     sess = api.Session(*pair["torch"], paged, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        sess.serve_async()
+    front = sess.serve_async(max_stream_queue=2)
+    assert front.server is sess.backend.server and front._task is None
+
+    async def go():
+        async with front:
+            stream = await front.submit(prompts[0], 4)
+            return await asyncio.wait_for(
+                asyncio.gather(*[_collect(stream)]), timeout=60)
+    got, = asyncio.run(go())
+    np.testing.assert_array_equal(got, done[0][6:10])
     single, jsingle = _plans(batch_size=1)
     with pytest.raises(ValueError) as got:
         api.Session(*pair["torch"], single, device="cpu").serve_async()
     with pytest.raises(ValueError) as want:
         japi.Session(*pair["jax"], jsingle).serve_async()
     assert str(got.value) == str(want.value)
+
+
+async def _collect(stream):
+    return [t async for t in stream]
 
 
 def test_session_device_and_placement(pair):
@@ -294,7 +330,7 @@ def test_session_device_and_placement(pair):
 
 
 def test_serve_ar_helper_matches_jax(pair):
-    """The continuous backend's AR helper, kept for its port."""
+    """The continuous backend's AR helper."""
     plan, jplan = _plans(batch_size=2, cost_coefficient=1.5)
     prompts = _prompts(pair, (2, 6), 11)
 
