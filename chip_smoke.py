@@ -19,7 +19,8 @@
    and chain_tree(2, 4) with a window of 8, fp32 and bf16), one JSON line
    per case with the error, the tolerance, the kernel / plain / library /
    bound times in ms and the launch plan's key chunks and row tile. Then,
-   per head geometry and dtype, on one pool: the rows of a Q=5 paged call
+   per head geometry and dtype (these two, Granite's two and
+   DeepSeek-Coder 33B's), on one pool: the rows of a Q=5 paged call
    must be bit-equal to Q=1 calls at the same positions, and a width-1
    chain tree call to the causal call
    (``"case": "attention_q_invariance"``). Then paged attention as a
@@ -33,7 +34,15 @@
    identity view (``"case": "ring_view"``): bf16, B=2, a 144-slot ring,
    Q=1 and Q=5 at position 70 and Q=63 from 0, the 3B and 1B geometries,
    held against its plain version and against the concat read over
-   ``slot_positions`` that JAX's ring computes.
+   ``slot_positions`` that JAX's ring computes. Then paged attention at
+   the dense-family configs' head geometries (Granite 3.0 2B's target
+   32/8/64 and drafter 16/8/64, DeepSeek-Coder 33B's 56/8/128: 7 or 35
+   query rows per kv-head), Q 1 and 5, fp32 and bf16, as above; and over a
+   windowed ring that has wrapped (``"case": "ring_wrap"``: an 80-slot
+   ring, window 64, Q 1 and 5 from position 200, past two wraps, read
+   through the table over positions; the Granite geometries, fp32 and
+   bf16), held against its plain version and JAX's concat read, with
+   SDPA masked by the slots' positions as the library.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -221,13 +230,29 @@
    tokens against cached AR's and the no-cache serve's are readings (a
    bf16 state is rounded once a token by AR and once a round by the spec
    serve, so the two drift apart), profiled (``"profile_ssm_cached"``).
-11. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
+11. The dense-family configs at full width (bf16, seeded random weights,
+   each with its registered drafter): Granite 3.0 2B (``"phase":
+   "full_width_granite"``): step 4's linear paged trace through
+   ``PagedSpecServer``, the cached engine on step 7's no-cache traffic,
+   and the cached engine with a 64-token sliding window on 4 prompts of
+   120 + 64 new (80-slot rings: every prefill through the flash kernel,
+   the rings wrapping twice), each exact against AR with exact launch
+   counts and its peak memory. Then, after every earlier model is freed,
+   DeepSeek-Coder 33B (``"phase": "full_width_deepseek_33b"``): the card's
+   free memory against the reckoned bytes (the run raises if it lacks
+   them), 4 requests (prompts 16-64, 32 new, gamma 4) through
+   ``PagedSpecServer`` with exact launches and the peak memory; its tokens
+   are AR's up to each request's first near-tie (the random untied head's
+   top-2 gaps, ~0.1, lie within the spread of two bf16 evaluations of a
+   position, which the phase measures at each first difference); Llama 3
+   405B is only planned (``api.Planner``).
+12. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
    10 and the sampled serves', the Session phase's, the placed phase's
-   and the front-end phase's of step 7), the card line again and, last,
-   ``{"ok": true, "device": {...}}``.
+   and the front-end phase's of step 7, and step 11's spec serves'), the
+   card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -236,6 +261,7 @@ CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -1305,9 +1331,7 @@ def full_width(mt, md, pt, pd, cfg, card):
     L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
     scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
                            max_blocks_per_row=16)
-    rng = np.random.default_rng(0)
-    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 121))).astype(np.int32),
-             int(rng.integers(32, 65))) for _ in range(8)]
+    reqs = linear_trace(cfg)
     # warm-up (cuBLAS handles, allocator), not counted
     serve(mt, md, pt, pd, [(reqs[0][0][:16], 8)], scfg, GAMMA, "cuda")
     torch.cuda.synchronize()
@@ -2801,6 +2825,8 @@ def full_width_session(mt, md, pt, pd, cfg, card, linear, nocache, cached):
     return total
 
 
+CORRUPT_POOL_BLOCKS = 30  # (e)'s corrupt run: 29 blocks of 16 hold two
+                          # rows of the trace, so the pool cycles
 CHAOS_SEED = 6        # FaultPlan.seeded: a drafter failure at step 2, a
                       # delay at 3, seizures at 3-5 (before any watchdog
                       # trip can pin the batch to AR)
@@ -2827,9 +2853,10 @@ def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
     CHAOS_SEED)`` (delays, drafter failures, seizures): every request
     completes with the clean tokens, the pool whole, at least one
     "injected drafter failure" degradation (the degradation list printed);
-    a ``FaultPlan(corrupt_rounds={1, 2})`` serve on (d)'s geometry fails
-    the poisoned requests with the corrupt-token reason and its survivors
-    keep the clean tokens; then the paged wrapper is made to raise
+    a ``FaultPlan(corrupt_rounds={1, 2})`` serve on (d)'s geometry with a
+    pool of CORRUPT_POOL_BLOCKS fails the poisoned requests with the
+    corrupt-token reason, and its survivors, some of them in the failed
+    rows' freed blocks, keep the clean tokens; then the paged wrapper is made to raise
     ``RuntimeError`` for one call inside a speculative round: ``step()``
     must raise and no degradation be logged. Returns the phase's
     launches."""
@@ -2943,9 +2970,11 @@ def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
     scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
                            max_blocks_per_row=16)
 
-    def paged(scfg, faults=None, placement=shared, reqs=reqs):
+    def paged(scfg, faults=None, placement=shared, reqs=reqs, hook=None):
         srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA,
                               placement=placement, faults=faults, device="cuda")
+        if hook is not None:
+            hook(srv)
         for i, (prompt, new) in enumerate(reqs):
             srv.submit(ServeRequest(i, prompt, new))
         return srv, {r.rid: r.tokens for r in srv.run()}
@@ -2990,19 +3019,43 @@ def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
            "all_terminal": terminal, "tokens_equal_clean": same},
           same and terminal and launches == expect and any(
               "injected drafter failure" in why for _, why in degr))
+    # the corrupt run on a pool small enough that the requests admitted
+    # after a failure take the failed row's freed blocks (zeroed first)
     corrupt = FaultPlan(corrupt_rounds=frozenset({1, 2}))
-    (srv, got), wall, launches = counted(lambda: paged(scfg, corrupt))
+    reuse = {"failed_blocks": set(), "survivor_blocks": 0}
+
+    def spy(srv):
+        fail_row, release = srv._fail_row, srv.sched.release
+
+        def failing_row(b, req, cur):
+            alloc = srv.alloc
+            reuse["failed_blocks"].update(
+                int(x) for x in alloc.table[b, :int(alloc.n_alloc[b])])
+            fail_row(b, req, cur)
+
+        def released(b, req):
+            alloc = srv.alloc
+            held = {int(x) for x in alloc.table[b, :int(alloc.n_alloc[b])]}
+            reuse["survivor_blocks"] += len(held & reuse["failed_blocks"])
+            release(b, req)
+        srv._fail_row, srv.sched.release = failing_row, released
+    small = dataclasses.replace(scfg, num_blocks=CORRUPT_POOL_BLOCKS)
+    (srv, got), wall, launches = counted(lambda: paged(small, corrupt, hook=spy))
     expect = path_launches(srv, counters, L_t, L_d)
     failed = [[r.rid, r.failed] for r in srv.metrics.failed]
     census = audited(srv)
     survivors = [i for i in range(len(reqs)) if i not in {f[0] for f in failed}]
     s = srv.metrics.summary()
     check({"phase": "full_width_placed", "part": "e_corrupt", "card": card,
-           "failed": failed, "completed": s["requests_completed"],
+           "num_blocks": small.num_blocks, "failed": failed,
+           "completed": s["requests_completed"], "rounds": srv.total_rounds,
+           "failed_blocks": len(reuse["failed_blocks"]),
+           "failed_blocks_reused_by_survivors": reuse["survivor_blocks"],
            "launches": launches, "expected_launches": expect, "census": census,
            "survivors_equal_clean": equal(got, linear["tokens"], survivors)},
           failed and all("corrupt token id" in why for _, why in failed)
           and s["requests_completed"] + len(failed) == len(reqs)
+          and reuse["survivor_blocks"] > 0
           and equal(got, linear["tokens"], survivors) and launches == expect)
     srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=GAMMA, placement=shared,
                           device="cuda")
@@ -3036,12 +3089,14 @@ def full_width_frontend(mt, md, pt, pd, cfg, card):
     kernel's count set to 0 just before each run and read just after.
     (a) ``Session.serve_async`` on the linear paged geometry (batch 4,
     gamma pinned to GAMMA, block 16) replays ``poisson_trace(12, 4.0)``
-    (prompts 16-120, 32-64 new) open loop; deadlines from the synchronous
-    serve's wall per round (base 2 rounds, slope a round per GAMMA + 1
-    tokens), so the early requests meet theirs and queued ones miss. The
-    streams must equal ``PagedSpecServer.run`` of the same requests, or
-    differ first where the synchronous run's top-2 margin sits within one
-    bf16 step; paged launches rounds x (L_t + GAMMA L_d) + prefills x (L_t
+    (prompts 16-120, 32-64 new) open loop; the first 4 arrivals' deadline
+    is the synchronous serve's wall, the others' from its wall per round
+    (base 2 rounds, slope a round per GAMMA + 1 tokens), so the early
+    requests meet theirs and queued ones miss, or expire at admission and
+    stream nothing. The other streams must equal ``PagedSpecServer.run`` of
+    the same requests, or differ first where the synchronous run's top-2
+    margin sits within one bf16 step; a prefill per admitted request; paged
+    launches rounds x (L_t + GAMMA L_d) + prefills x (L_t
     + L_d), an argmax per round, all rounds speculative; at least one
     deadline met and one missed. Prints TTFT, TPOT and queue-wait p50/p95,
     goodput, queue depth mean/max, aggregate tok/s and wall per round
@@ -3129,6 +3184,14 @@ def full_width_frontend(mt, md, pt, pd, cfg, card):
     slo = dict(slo_base_s=2 * sync_round_s,
                slo_per_token_s=sync_round_s / (GAMMA + 1))
     trace = poisson_trace(12, 4.0, cfg.vocab_size, seed=0, **shape, **slo)
+    # the first max_batch arrivals find a free row: their deadline is the
+    # whole synchronous serve's wall, which one request alone meets even on
+    # a slowed host; the later ones keep the tight SLO, and those that queue
+    # miss it (or expire at admission, deadline already past)
+    early = sorted(trace, key=lambda t: t.arrival_s)[:scfg.max_batch]
+    early = {t.rid for t in early}
+    trace = [dataclasses.replace(t, deadline_s=sync_wall) if t.rid in early
+             else t for t in trace]
     spec = DeploymentSpec(batch_size=4, prompt_lens=tuple(len(p) for p, _ in reqs),
                           max_new=tuple(n for _, n in reqs), streaming=True,
                           adaptive_gamma=False)
@@ -3147,8 +3210,13 @@ def full_width_frontend(mt, md, pt, pd, cfg, card):
     records, wall, launches = counted(lambda: asyncio.run(open_loop()))
     srv = sess.backend.server
     s = srv.metrics.summary()
+    # a request whose deadline passed while it queued is expired at
+    # admission (EDF admission control): it streams nothing and is no
+    # difference of tokens; every other stream is held to the sync run's
+    expired = sorted(rec.rid for rec in srv.metrics.expired)
     diffs = {r["rid"]: explained(r["tokens"], want[r["rid"]],
-                                 len(reqs[r["rid"]][0])) for r in records}
+                                 len(reqs[r["rid"]][0]))
+             for r in records if r["rid"] not in expired}
     diffs = {rid: d for rid, d in diffs.items() if d is not None}
     met = [r["deadline_met"] for r in records]
     waits = [rec.queue_wait for rec in srv.metrics.completed]
@@ -3172,11 +3240,15 @@ def full_width_frontend(mt, md, pt, pd, cfg, card):
            "queue_wait_p50_s": pct(waits, 50), "queue_wait_p95_s": pct(waits, 95),
            "server_ttft_p50_s": s["p50_ttft_s"], "server_ttft_p95_s": s["p95_ttft_s"],
            "deadlines_met": sum(map(bool, met)), "goodput": s["goodput"],
+           "early_rids": sorted(early), "expired": expired,
            "queue_depth_mean": float(np.mean(depths)), "queue_depth_max": max(depths),
            "launches": launches, "expected_launches": expect,
            "sync_launches": sync_launches, "census": census,
            "streams_equal_sync": not diffs, "differences": diffs},
           all(d["deliberate"] for d in diffs.values())
+          and all(r["n_tokens"] == 0 for r in records if r["rid"] in expired)
+          and not early & set(expired)
+          and srv.n_prefills == len(trace) - len(expired)
           and len(records) == len(trace) and launches == expect
           and s["spec_rounds"] == srv.total_rounds
           and 0 < sum(map(bool, met)) < len(met))
@@ -3370,6 +3442,374 @@ def buffer_invariance(mt, pt, cfg, card):
     return info
 
 
+# ------------------------------------------------- the dense-family configs
+GRANITE_GEOMS = (("granite-3-2b", 32, 8, 64), ("granite-draft", 16, 8, 64))
+DEEPSEEK_GEOM = ("deepseek-coder-33b", 56, 8, 128)
+WRAP_WINDOW, WRAP_RING = 64, 80   # ring cases: window 64 + slack 6, rounded
+WRAP_START = 200                  # ... first query position, past two wraps
+GRANITE_WINDOW = 64               # the windowed cached Granite serve
+GRANITE_WINDOW_PROMPT = 120       # its prompts: each prefill is longer than
+                                  # the 80-slot ring
+
+
+def dense_config_cases(timer):
+    """Paged attention at the new configs' head geometries (Granite's
+    target and drafter, DeepSeek-Coder 33B's GQA 7: 7 or 35 query rows per
+    kv-head, a partial last row tile), Q 1 and GAMMA + 1, fp32 and bf16,
+    as ``attention_case`` runs the paper pair's."""
+    return [attention_case(timer, geom, H, Kv, D, Q, dtype)
+            for geom, H, Kv, D in GRANITE_GEOMS + (DEEPSEEK_GEOM,)
+            for Q in (1, GAMMA + 1)
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def wrap_ring_case(timer, name, H, Kv, D, Q, dtype):
+    """Paged attention over a windowed ring that has wrapped, as the cached
+    dense forward launches it (``"case": "ring_wrap"``): B=2, a ring of
+    WRAP_RING slots holding random stale keys everywhere, a window of
+    WRAP_WINDOW, Q new K/V written at WRAP_START.. with a 0-dim index, then
+    read through the table over positions (table[b, j] = b * W / 16 +
+    (j mod W / 16), as wide as the positions reached), the window passed to
+    the kernel. Held against its plain version on the same view and
+    against the concat attention over ``slot_positions`` that JAX's ring
+    read computes. Library: SDPA over the ring's W slots with the mask of
+    their positions (causal and window)."""
+    from repro_torch.cache import kv_cache
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import attention, dense
+    B, W, window, start = 2, WRAP_RING, WRAP_WINDOW, WRAP_START
+    positions = -(-(start + Q) // 16) * 16
+    g = torch.Generator(device="cuda").manual_seed(H * 613 + Q * 7 + D)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+    ring = {n: rnd(B, W, Kv, D) for n in "kv"}
+    k_new, v_new, q = rnd(B, Q, Kv, D), rnd(B, Q, Kv, D), rnd(B, Q, H, D)
+    idx = torch.tensor(start, dtype=torch.int32, device="cuda")
+    k_all, v_all, kv_pos, _ = kv_cache.extend(
+        {n: t.clone() for n, t in ring.items()}, k_new, v_new, idx)
+    q_pos = idx + torch.arange(Q, dtype=torch.int32, device="cuda")
+    concat = attention.attention(q, k_all, v_all, q_pos, kv_pos, window=window)
+    kv_cache.write(ring["k"], ring["v"], k_new, v_new, idx)
+    table = dense.ring_view_table(B, W, q.device, positions)
+    args = (q, dense.ring_view(ring["k"]), dense.ring_view(ring["v"]), table, idx)
+
+    out = pa.paged_flash_attention(*args, window=window)
+    ref = pa.plain(*args, window=window)
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype)
+    vs_concat = agreement(out, concat, dtype)
+
+    slot = kv_cache.slot_positions(W, idx, Q)                    # [W]
+    rel = q_pos[:, None] - slot[None, :]
+    mask = ((rel >= 0) & (rel < window) & (slot >= 0)[None, :])[None, None]
+    kg = ring["k"].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = ring["v"].permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    qg = q.permute(0, 2, 1, 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timer(lambda: pa.paged_flash_attention(*args, window=window))
+    plain_ms = timer(lambda: pa.plain(*args, window=window), iters=5)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask))
+
+    # least work: the window + Q - 1 keys and values some query of a row
+    # sees, read once per kv-head; q read and out written once; the table;
+    # 4 flops per (query head, visible key, d)
+    esz = q.element_size()
+    nbytes = (2 * q.numel() * esz + B * (window + Q - 1) * Kv * D * 2 * esz
+              + table.numel() * 4 + 4)
+    flops = 4 * H * D * B * sum(min(window, start + i + 1) for i in range(Q))
+    p = pa.plan(dtype, B, Q, H, Kv, D, 16, positions // 16)
+    case = {"case": "ring_wrap", "geometry": name, "Q": Q, "B": B,
+            "start": start, "ring_len": W, "window": window,
+            "positions": positions, "wraps": start // W,
+            "dtype": str(dtype).replace("torch.", ""), **agree,
+            "vs_concat": vs_concat, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, flops, dtype),
+            "chunks": p.chunks, "row_tile": p.row_tile}
+    emit(case)
+    if not (agree["ok"] and vs_concat["ok"]):
+        raise SystemExit(f"wrapped-ring attention disagrees: {case}")
+    return case
+
+
+def wrap_ring_cases(timer):
+    return [wrap_ring_case(timer, geom, H, Kv, D, Q, dtype)
+            for geom, H, Kv, D in GRANITE_GEOMS
+            for Q in (1, GAMMA + 1)
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def near_ties(mt, pt, spec, ar, reqs):
+    """For each request whose spec tokens part from AR's: at its first
+    difference p, the target's logits for the shared prefix evaluated two
+    ways in bf16, the no-cache pass (flash attention, the prefix's GEMM
+    shapes) and a cached decode step (a ring prefilled with the prefix but
+    its last token, then one paged step); ``spread``, their largest
+    difference over the vocabulary; and ``gap``, how far apart the two
+    tokens the serves chose lie in each. The difference is ``explained``
+    when a gap is within the spread: two evaluations of these logits in
+    this precision can order that pair either way."""
+    out = []
+    for i, (p, _) in enumerate(reqs):
+        diff = np.flatnonzero(spec[i] != ar[i])
+        if not len(diff):
+            continue
+        pos = int(diff[0])
+        ctx = torch.from_numpy(ar[i][:pos].astype(np.int64))[None].cuda()
+        with torch.no_grad():
+            full = mt.apply(pt, ctx)[0][0, -1].float()
+            ring = mt.init_cache(1, pos, device="cuda")
+            _, ring, _ = mt.apply(pt, ctx[:, :-1], ring)
+            step = mt.apply(pt, ctx[:, -1:], ring)[0][0, -1].float()
+        pair = [int(spec[i][pos]), int(ar[i][pos])]
+        spread = float((full - step).abs().max())
+        gaps = [abs(float(lg[pair[0]] - lg[pair[1]])) for lg in (full, step)]
+        out.append({"request": i, "position": pos, "new_token": pos - len(p),
+                    "tokens": pair, "spread": spread, "gaps": gaps,
+                    "nocache": top2_margin(full), "explained": min(gaps) <= spread})
+        del ring
+    return out
+
+
+def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True):
+    """``PagedSpecServer`` with gamma pinned to GAMMA on ``reqs``, every
+    kernel's count set to 0 just before and read just after (paged: rounds
+    x (L_t + GAMMA L_d) + prefills x (L_t + L_d), an argmax a round,
+    nothing else); then the same requests with AR rounds: every request
+    complete, in the vocabulary, == AR. With ``exact=False`` a request may
+    part from AR at a near-tie that ``near_ties`` explains (logits with
+    top-2 gaps within the spread of two bf16 evaluations); its tokens up to
+    there must be AR's. Returns (launches, info)."""
+    from repro_torch.obs import clock
+    counters = kernel_counters()
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    V = mt.cfg.vocab_size
+    serve(mt, md, pt, pd, [(reqs[0][0][:16], 8)], scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = clock.perf()
+    srv, done = serve(mt, md, pt, pd, reqs, scfg, GAMMA, "cuda")
+    torch.cuda.synchronize()
+    wall = clock.perf() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds, prefills = srv.total_rounds, srv.n_prefills
+    expect = {**{name: 0 for name in counters},
+              "paged_attention": rounds * (L_t + GAMMA * L_d) + prefills * (L_t + L_d),
+              "blockwise_argmax": rounds}
+    s = srv.metrics.summary()
+    complete = (len(done) == len(reqs) and s["requests_failed"] == 0 and all(
+        len(done[i]) == len(p) + new and ((done[i] >= 0) & (done[i] < V)).all()
+        and np.array_equal(done[i][:len(p)], p)
+        for i, (p, new) in enumerate(reqs)))
+    t0 = clock.perf()
+    ar_srv, out_ar = serve(mt, md, pt, pd, reqs, scfg, 0, "cuda")
+    torch.cuda.synchronize()
+    ar_wall = clock.perf() - t0
+    same_ar = all(np.array_equal(done[i], out_ar[i]) for i in range(len(reqs)))
+    ties = [] if same_ar else near_ties(mt, pt, done, out_ar, reqs)
+    new_equal = sum(int((done[i][len(p):] == out_ar[i][len(p):]).sum())
+                    for i, (p, _) in enumerate(reqs))
+    info = {"phase": phase, "part": "paged", "target": mt.cfg.name,
+            "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
+            "requests": len(reqs), "completed": len(done),
+            "generated_tokens": s["total_generated_tokens"], "wall_s": wall,
+            "tokens_per_s": s["total_generated_tokens"] / wall,
+            "rounds": rounds, "ms_per_round": wall / rounds * 1e3,
+            "prefills": prefills, "gamma": GAMMA, "alpha_hat": s["alpha_hat"],
+            "ar_rounds": ar_srv.total_rounds,
+            "ar_ms_per_round": ar_wall / ar_srv.total_rounds * 1e3,
+            "peak_memory_gib": peak, "launches": launches,
+            "expected_launches": expect, "all_complete_in_vocab": bool(complete),
+            "spec_equals_ar": same_ar, "exact": exact,
+            "new_tokens_equal_ar": new_equal,
+            "new_tokens_total": sum(new for _, new in reqs),
+            "differences_from_ar": ties}
+    emit(info)
+    agree = same_ar or (not exact and all(t["explained"] for t in ties))
+    if not (complete and agree and launches == expect):
+        raise SystemExit(f"{phase}: paged serving failed: {info}")
+    return launches, info
+
+
+def cached_exact(phase, part, mt, md, pt, pd, prompts, max_new, card,
+                 flash_prefill=False):
+    """The cached engine through ``launch.serve.serve(use_cache=True)``,
+    two waves of 2, gamma GAMMA, then cached AR on the same prompts, each
+    counted from 0: paged rounds x (GAMMA L_d + L_t), plus a paged prefill
+    per wave and model, or with ``flash_prefill`` (a windowed ring shorter
+    than the prompt) a flash prefill instead; an argmax a round; AR a
+    paged step per token past each wave's first, and its prefill paged or
+    flash. Tokens == cached AR's. Returns (launches, info)."""
+    from repro_torch.launch import serve as serve_cli
+    counters = kernel_counters()
+    none = {name: 0 for name in counters}
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    batch = 2
+    for gamma in (GAMMA, 0):                        # warm-up, not counted
+        serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
+                        batch=batch, use_cache=True)
+    torch.cuda.synchronize()
+
+    def counted(gamma):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        toks, st = serve_cli.serve(mt, md, pt, pd, prompts, max_new,
+                                   gamma=gamma, batch=batch, use_cache=True)
+        torch.cuda.synchronize()
+        st["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return toks, st, read_counts(counters)
+    spec, s, launches = counted(GAMMA)
+    ar, s_ar, ar_launches = counted(0)
+    rounds, waves, steps = s["rounds"], s["waves"], s_ar["rounds"]
+    pre = "flash_attention" if flash_prefill else "paged_attention"
+    expect = {**none, "paged_attention": rounds * (GAMMA * L_d + L_t),
+              "blockwise_argmax": rounds}
+    expect[pre] += waves * (L_t + L_d)
+    expect_ar = {**none, "paged_attention": (steps - s_ar["waves"]) * L_t}
+    expect_ar[pre] += s_ar["waves"] * L_t
+    P = prompts.shape[1]
+    ring = mt.init_cache(1, P + max_new + GAMMA + 2, spec_slack=GAMMA + 2,
+                         device="cuda")
+    same = bool(np.array_equal(spec, ar))
+    info = {"phase": phase, "part": part, "target": mt.cfg.name,
+            "drafter": md.cfg.name, "card": card, "window": mt.cfg.sliding_window,
+            "ring_len": ring["k"].shape[2],
+            "ring_positions": ring.get("positions", ring["k"].shape[2]),
+            "requests": len(prompts), "batch": batch, "waves": waves,
+            "prompt_len": P, "new_tokens": max_new, "gamma": GAMMA,
+            "rounds": rounds, "mean_accepted_per_round": s["accepted"] / rounds,
+            "wall_s": s["seconds"], "ms_per_round": s["seconds"] / rounds * 1e3,
+            "tokens_per_s": s["tokens_per_s"], "peak_memory_gib": s["peak_memory_gib"],
+            "ar_steps": steps, "ar_ms_per_step": s_ar["seconds"] / steps * 1e3,
+            "launches": launches, "expected_launches": expect,
+            "ar_launches": ar_launches, "expected_ar_launches": expect_ar,
+            "in_vocab": bool(((spec >= 0) & (spec < mt.cfg.vocab_size)).all()),
+            "spec_equals_ar": same}
+    del ring
+    emit(info)
+    if not (same and info["in_vocab"] and launches == expect
+            and ar_launches == expect_ar):
+        raise SystemExit(f"{phase} ({part}): cached serving failed: {info}")
+    return launches, info
+
+
+def linear_trace(cfg, n=8):
+    """``full_width``'s recipe: n requests, prompts 16-120, 32-64 new."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 121))).astype(np.int32),
+             int(rng.integers(32, 65))) for _ in range(n)]
+
+
+def full_width_granite(card):
+    """Granite 3.0 2B with its registered drafter at full width (bf16,
+    seeded random weights; ``"phase": "full_width_granite"``): (a) the
+    linear paged trace of step 4 (8 requests, prompts 16-120, 32-64 new,
+    batch 4, gamma 4, block 16) through ``PagedSpecServer``; (b) the cached
+    engine on the no-cache traffic (4 x (64 + 64), two waves of 2); (c) the
+    same engine with a sliding window of GRANITE_WINDOW (the same weights)
+    on 4 prompts of GRANITE_WINDOW_PROMPT tokens + 64 new: each ring holds
+    80 slots, so every prefill runs the flash kernel and the rings wrap
+    twice. Each exact against AR with exact launch counts. Returns the
+    three spec serves' launches together."""
+    from repro_torch.launch.cli_args import build_pair
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import SchedulerConfig
+    mt, md, pt, pd, cfg = build_pair("granite-3-2b", smoke=False, device="cuda")
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+    a, _ = paged_exact("full_width_granite", mt, md, pt, pd, linear_trace(cfg),
+                       scfg, card)
+    b, _ = cached_exact("full_width_granite", "cached", mt, md, pt, pd,
+                        nocache_prompts(cfg), NOCACHE_NEW, card)
+    mtw = build_model(cfg.replace(sliding_window=GRANITE_WINDOW))
+    mdw = build_model(md.cfg.replace(sliding_window=GRANITE_WINDOW))
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, GRANITE_WINDOW_PROMPT)).astype(np.int32)
+    c, info = cached_exact("full_width_granite", "windowed_cached", mtw, mdw,
+                           pt, pd, prompts, 64, card, flash_prefill=True)
+    if not (info["ring_len"] == WRAP_RING
+            and GRANITE_WINDOW_PROMPT + 64 > 2 * info["ring_len"]):
+        raise SystemExit(f"the windowed rings do not wrap twice: {info}")
+    return {name: a[name] + b[name] + c[name] for name in a}
+
+
+DEEPSEEK_POOL_BLOCKS = 64     # x 16 tokens x 253,952 B: 0.26 GB of target KV
+
+
+def full_width_deepseek_33b(card):
+    """DeepSeek-Coder 33B with its registered drafter at full width (bf16,
+    seeded random weights; ``"phase": "full_width_deepseek_33b"``), after
+    every earlier model is gone: ``torch.cuda.mem_get_info()`` first, and
+    the run raises if the card lacks the reckoned bytes (the two models'
+    bf16 weights by ``param_count``, the KV pools, the fp32 copy of the
+    head the unembedding makes, 2 GiB of activations). Then 4 requests
+    (prompts 16-64, 32 new, batch 4, gamma 4, block 16) through
+    ``PagedSpecServer``: exact launches, the peak memory printed, and the
+    tokens AR's up to each request's first near-tie. The random untied
+    head gives logits of ~3.5 with top-2 gaps of ~0.1, within reach of the
+    spread between two bf16 evaluations of one position (verify and AR
+    run their GEMMs at other M; the attention rows are bit-equal across Q,
+    ``attention_q_invariance``), so a difference must be one
+    ``near_ties`` explains. Also plans Llama 3 405B (``api.Planner`` on its
+    registry entry; it runs on no card here). Returns the spec serve's
+    launches."""
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.launch.cli_args import build_pair
+    from repro_torch.serving import SchedulerConfig
+    for arch in ("llama3-405b",):
+        plan = api.Planner(api.DeploymentSpec(arch=arch, batch_size=4,
+                                              prompt_lens=(64,), max_new=32)).plan()
+        emit({"phase": "full_width_deepseek_33b", "part": "planned_only",
+              "arch": arch, "plan": json.loads(plan.to_json())})
+    tgt, drf = (registry.config("deepseek-coder-33b"),
+                registry.drafter_config("deepseek-coder-33b"))
+    weights = 2 * (tgt.param_count() + drf.param_count())
+    kv_per_token = 2 * 2 * (tgt.num_layers + drf.num_layers) * 8 * 128
+    pools = DEEPSEEK_POOL_BLOCKS * 16 * kv_per_token
+    head = 4 * tgt.d_model * tgt.vocab_size
+    need = weights + pools + head + (2 << 30)
+    free, total = torch.cuda.mem_get_info()
+    info = {"phase": "full_width_deepseek_33b", "part": "memory", "card": card,
+            "free_bytes": free, "total_bytes": total, "weight_bytes": weights,
+            "kv_bytes_per_token": kv_per_token, "pool_bytes": pools,
+            "head_fp32_bytes": head, "reckoned_bytes": need}
+    emit(info)
+    if free < need:
+        raise SystemExit(f"the card lacks the reckoned bytes for the 33B pair: {info}")
+    torch.cuda.reset_peak_memory_stats()
+    mt, md, pt, pd, cfg = build_pair("deepseek-coder-33b", smoke=False,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 65))).astype(np.int32),
+             32) for _ in range(4)]
+    scfg = SchedulerConfig(max_batch=4, block_size=16,
+                           num_blocks=DEEPSEEK_POOL_BLOCKS, max_blocks_per_row=8)
+    launches, info = paged_exact("full_width_deepseek_33b", mt, md, pt, pd,
+                                 reqs, scfg, card, exact=False)
+    serve_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "full_width_deepseek_33b", "part": "memory_after",
+          "card": card, "init_max_memory_allocated_bytes": init_peak,
+          "serve_max_memory_allocated_bytes": serve_peak,
+          "max_memory_allocated_gib": max(init_peak, serve_peak) / 2**30,
+          "memory_allocated_bytes": torch.cuda.memory_allocated(),
+          "reckoned_bytes": need})
+    return launches
+
+
 def _union(intervals):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, None
@@ -3532,11 +3972,13 @@ def main() -> int:
     tree_cases += [tree_attention_case(timer, "chain_tree(2,4)",
                                        chain_tree(TREE_W, TREE_D), dtype, window=8)
                    for dtype in (torch.float32, torch.bfloat16)]
-    for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64)):
+    for geom, H, Kv, D in ((("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64))
+                           + GRANITE_GEOMS + (DEEPSEEK_GEOM,)):
         for dtype in (torch.float32, torch.bfloat16):
             q_invariance(geom, H, Kv, D, dtype)
     chunk_cases = paged_chunk_cases(timer)
     ring_cases = ring_view_cases(timer)
+    ring_cases += dense_config_cases(timer) + wrap_ring_cases(timer)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
     ssd += ssd_state_cases(timer)
@@ -3573,6 +4015,10 @@ def main() -> int:
     del pair
     torch.cuda.empty_cache()
     ssm_launches, ssm_cached = full_width_ssm(card)
+    granite_launches = full_width_granite(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek_launches = full_width_deepseek_33b(card)
 
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
@@ -3589,6 +4035,10 @@ def main() -> int:
     tree_launches["tree_attention"] += (cached_launches["tree_attention"]
                                         + session_launches["tree_attention"])
     launches["blockwise_argmax"] += ssm_cached["blockwise_argmax"]
+    # the dense-family configs' spec serves (paged, argmax; flash for the
+    # windowed rings' prefills)
+    for name in ("paged_attention", "blockwise_argmax"):
+        launches[name] += granite_launches[name] + deepseek_launches[name]
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
@@ -3620,7 +4070,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:69",
          "launches": (nocache["launches"]["flash_attention"]
-                      + sampled_launches["flash_attention"]),
+                      + sampled_launches["flash_attention"]
+                      + granite_launches["flash_attention"]),
          "max_abs_err": max(c["max_abs_err"] for c in fl_cases),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],

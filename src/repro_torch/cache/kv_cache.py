@@ -8,7 +8,8 @@ the port's paged pools:
     "k": [L, B, W, Kv, D],   # W = buffer length (= max_len, or window for SWA)
     "v": [L, B, W, Kv, D],
     "index": int32 0-dim or [B]   # committed tokens (shared by layers)
-  }
+    "positions": int   # only on a windowed ring with fewer slots than the
+  }                    # positions asked for: how far its read table reaches
 
 Token at absolute position p lives in slot p % W. Attention masks on
 positions, so rolling back rejected speculative tokens is just a smaller

@@ -6,7 +6,7 @@ Both layouts, the ring buffer (``kv_cache.py``) and the paged block pool
 engines are generic over layout: ``init`` allocates a model's buffers,
 ``write`` is the layer-level append the attention stack calls (in place on
 both layouts: the read side is the block-table-native kernel, over the
-pool or over an identity view of the ring), ``rollback`` is the O(1)
+pool or over a view of the ring as a pool of pages), ``rollback`` is the O(1)
 speculative rollback, ``live_bound`` the round-level live-token bound
 threaded into the paged block-scan reads (None for a ring: the kernel
 bounds each row by its own index), and ``compact`` moves a tree round's

@@ -1,8 +1,9 @@
 """Architecture registry: ``get(arch_id)`` -> module with config()/drafter_config()/smoke_config().
 
-The paper's pair (dense) and Mamba-2 (ssm) are ported so far; the other
-architectures of ``repro.configs.registry`` join with the slices that port
-their families.
+The paper's pair and the other dense configs (Granite 3.0 2B,
+DeepSeek-Coder 33B, Llama 3 405B) and Mamba-2 (ssm) are ported so far; the
+other architectures of ``repro.configs.registry`` join with the slices that
+port their families.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ ARCHS = (
     "llama3.2-1b",
     "llama3.2-3b",
     "mamba2-780m",
+    "granite-3-2b",
+    "deepseek-coder-33b",
+    "llama3-405b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -91,9 +91,12 @@ def init_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
     rings hold ``max_len - (gamma + 2) + slack`` positions, which adds what
     a tree round's span writes past a linear round's (JAX sizes them at
     ``max_len`` and lets the last tree round wrap its ring, reading that
-    round through a concat; the identity view needs the span to fit). The
-    prefills unembed only the last position: their logits are not used,
-    and the written caches are the same."""
+    round through a concat; the identity view needs the span to fit). A
+    windowed config's rings hold window + ``slack`` slots instead, as in
+    JAX, and wrap: the slack is what a round writes past the committed
+    length, so a round never evicts a key inside the window. The prefills
+    unembed only the last position: their logits are not used, and the
+    written caches are the same."""
     B, P = prompt.shape
     cap = max_len - (gamma + 2) + slack
     dev = prompt.device

@@ -26,7 +26,10 @@ but a round still forwards it. JAX leaves it at its final length, up to
 P + max_new + gamma, where a verify pass would write past W; the port
 rewinds a frozen row to length P (index P - 1), so its idle passes stay
 inside the ring. Its tokens were harvested when it finished, and nothing
-it computes afterwards is read, so nothing observable changes.
+it computes afterwards is read, so nothing observable changes. A windowed
+config's rings hold window + gamma + 2 slots (rounded up to the page) and
+wrap; they are read through a table over positions (``models.dense``),
+and copied into a slot with their ``positions`` entry checked equal.
 
 Two more differences from JAX: ``_insert_row`` names the ring leaves
 (``k``, ``v``, ``index``), copies slot b in place and raises on any leaf
@@ -62,6 +65,7 @@ from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.paged_server import _set_index, _set_rows
 
 RING_LEAVES = ("k", "v", "index")
+WINDOWED_RING_LEAVES = RING_LEAVES + ("positions",)   # + the table's reach
 
 
 @dataclass
@@ -154,10 +158,16 @@ class ContinuousSpecServer:
     def _put_ring(batched, one, b: int):
         """Row 0 of the one-row ring ``one`` into row ``b`` of ``batched``:
         k and v copied in place, the index vector copied and set. Raises on
-        a leaf that is not a ring's or whose shape does not match."""
-        if set(batched) != set(RING_LEAVES) or set(one) != set(RING_LEAVES):
-            raise ValueError(f"ring caches hold exactly {RING_LEAVES}, got "
+        a leaf that is not a ring's or whose shape does not match, and on
+        two windowed rings whose tables reach different positions."""
+        if not (set(batched) == set(one)
+                and set(one) in (set(RING_LEAVES), set(WINDOWED_RING_LEAVES))):
+            raise ValueError(f"ring caches hold exactly {RING_LEAVES} (and "
+                             f"'positions' when windowed), got "
                              f"{sorted(batched)} and {sorted(one)}")
+        if batched.get("positions") != one.get("positions"):
+            raise ValueError(f"windowed rings reaching {batched['positions']} "
+                             f"and {one['positions']} positions")
         for name in ("k", "v"):
             big, row = batched[name], one[name]
             if (row.dim() != big.dim() or row.shape[1] != 1

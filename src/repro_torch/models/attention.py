@@ -20,7 +20,7 @@ tensor the kernel (``repro_torch.kernels.paged_attention``).
 tree-verify span, with the causal mask replaced by ``_tree_mask``.
 
 Ring cache: the dense forward reads a ring buffer through the paged pair
-above, over an identity view of the ring (``models.dense``).
+above, over a view of the ring as a pool of pages (``models.dense``).
 ``attn_tree_ring`` is JAX's plain tree read over a ring (dense scores with
 the ``_tree_mask`` visibility), the reference that read is held against.
 """

@@ -8,24 +8,37 @@ stacked buffers in place. Three forwards: the no-cache full-sequence pass
 (the paper's no-cache mode; attention through ``attention_flash``), the
 paged-cache pass and the ring-cache pass (each plain or tree-verify).
 
-A ring cache is read through the paged kernel over an identity view: while
-the ring has not wrapped, slot p of row b holds position p, so a layer's
-[B, W, Kv, D] buffer is the block pool [B * W / RING_PAGE, RING_PAGE, Kv, D]
-with table[b, j] = b * W / RING_PAGE + j. A layer writes its Q new tokens
-into the ring first, then reads it like a paged pool: the same keys and
-positions as JAX's [old buffer ++ new tokens] read over ``slot_positions``
-(slots past index + Q are stale and hidden by the causal mask, as on the
-paged path). A ring that can wrap (a sliding window) is refused;
-``Model.init_cache`` makes W a multiple of RING_PAGE at least max_len, and
-a row that is still generating never writes past max_len, so index + Q <= W
-holds for it (it is not checked per call, which would cost a host sync).
-One exception, kept from JAX: ``BatchedSpecEngine.generate`` runs every
-row until the slowest is done, so a row that has reached its length goes
-on committing and its ring wraps; the view then reads wrapped slots as old
-positions. The table bounds every read (the kernel and its plain version
-clamp the live range to the table's blocks), and the commits of such a row
-land past its length, so its returned tokens are unchanged; only its
-length and acceptance count go on growing, as in JAX.
+A ring cache is read through the paged kernel over a view of the ring as
+a block pool: a layer's [B, W, Kv, D] buffer is the pool
+[B * W / RING_PAGE, RING_PAGE, Kv, D], and the table runs over positions,
+table[b, j] = b * W / RING_PAGE + (j mod W / RING_PAGE), so position p of
+row b is read from slot p mod W, where the ring wrote it. A layer writes its
+Q new tokens into the ring first, then reads it like a paged pool: the
+kernel's causal mask hides slots past index + Q, and the model's sliding
+window (``cfg.sliding_window``, not the padded ring) hides slots that hold
+positions older than it. That is JAX's [old buffer ++ new tokens] read over
+``slot_positions`` whenever the write evicts no key a query still sees:
+
+  * a ring that holds every position (no window, or W >= the positions
+    ``Model.init_cache`` was asked for) never wraps; the table is its
+    identity view and Q <= W is all that is asked;
+  * a windowed ring of W = window + slack slots (rounded up to RING_PAGE)
+    is exact for Q <= W - window + 1, which the engines' slack gives every
+    round (linear gamma + 1 against gamma + 2, a tree's span against span
+    + 1, AR 1 against 2). This is decided from shapes: the rounds read
+    nothing on the host;
+  * a longer call is a prefill: it reads the index once. Nothing wraps if
+    index + Q <= W; from index 0 with Q > W it is windowed causal attention
+    over its own tokens (``attention_flash``: the flash kernel on the card),
+    and the ring keeps the last W of them. Any other call raises.
+
+The table's width is the positions the ring was sized for (the cache's
+``positions`` entry, a windowed ring's only extra leaf). A per-row engine
+runs every row until the slowest is done (kept from JAX), so a finished
+row goes on committing past that: the kernel and its plain version clamp
+the live range to the table's blocks, its commits land past its length,
+and its returned tokens are unchanged; only its length and acceptance
+count go on growing, as in JAX.
 
 API:
   init(cfg, gen, device)                           -> params
@@ -79,15 +92,21 @@ def init(cfg, gen: torch.Generator, device):
 
 
 # ------------------------------------------------------------------- forward
-RING_PAGE = 16      # block size of a ring's identity view
+RING_PAGE = 16      # page size of a ring read as a block pool
 
 
-def ring_view_table(B, W, device):
-    """[B, W / RING_PAGE] int32 block table of a ring's identity view: row
-    b's page j is block b * W / RING_PAGE + j."""
+def ring_view_table(B, W, device, positions=None):
+    """[B, positions / RING_PAGE] int32 block table of a ring of W slots
+    read as a pool of RING_PAGE-slot pages: row b's column j is page
+    b * W / RING_PAGE + (j mod W / RING_PAGE), the page holding positions
+    16j .. 16j + 15 once they are written. ``positions`` (a multiple of
+    RING_PAGE; default W, the identity view) is how many positions the
+    table reaches."""
     n = W // RING_PAGE
+    cols = (positions or W) // RING_PAGE
     rows = torch.arange(B, dtype=torch.int32, device=device)[:, None] * n
-    return rows + torch.arange(n, dtype=torch.int32, device=device)
+    return rows + torch.remainder(
+        torch.arange(cols, dtype=torch.int32, device=device), n)
 
 
 def ring_view(buf):
@@ -97,11 +116,13 @@ def ring_view(buf):
 
 
 def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
-               max_live=None, tree=None, ring=False):
+               max_live=None, tree=None, ring=None):
     """Self-attention sub-block. ``layer_cache=None`` is the no-cache pass
     (q_pos = 0..Q-1 on both sides). Otherwise write this step's K/V into
     the cache (in place), then read it through ``block_table``: the pool's
-    own table, or for a ring (``ring=True``) its identity view's. ``tree``
+    own table, or for a ring (``ring="write"``) its view's. ``ring=
+    "flash"`` is a ring prefill from index 0 longer than the ring: windowed
+    causal attention over the call's own tokens, then the write. ``tree``
     = (depths, bits) int32 [Q] device tensors marks a stacked tree-verify
     pass (core/tree.py): q_pos already carries the depth offsets, the KV
     lands at contiguous slots index..index+Q-1, and visibility follows each
@@ -114,8 +135,10 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
     v = L.linear(p["v"], h).reshape(B, Q, cfg.num_kv_heads, hd)
     q = L.apply_rope(q, q_pos, cfg.rope_theta)
     k = L.apply_rope(k, q_pos, cfg.rope_theta)
-    if layer_cache is None:
+    if layer_cache is None or ring == "flash":
         o = attention_flash(q, k, v, window=window)
+        if layer_cache is not None:
+            RING.write(layer_cache, k, v, index)
         return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
     if ring:
         layer_cache = RING.write(layer_cache, k, v, index)
@@ -133,26 +156,44 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
 
 
 def dense_layer(cfg, p, x, q_pos, layer_cache, index, block_table,
-                max_live=None, tree=None, ring=False):
+                max_live=None, tree=None, ring=None):
     x = x + attn_block(cfg, p["attn"], x, q_pos, layer_cache, index,
                        cfg.sliding_window, block_table, max_live, tree, ring)
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
 
 
-def _check_ring(cfg, cache, Q) -> int:
-    """A ring the identity view can read: no window (a windowed ring wraps),
-    W a multiple of RING_PAGE, Q <= W. Returns W."""
-    W = cache["k"].shape[2]
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "a windowed ring cache wraps, and the ring is read through an "
-            "identity view that holds only while it does not")
+def ring_read(cfg, cache, Q, tree=None):
+    """How a forward of Q tokens reads the ring ``cache`` (see the module
+    docstring): ("write", table) writes first and reads through the table,
+    ("flash", table) is a prefill from index 0 longer than the ring. Rounds
+    are decided from shapes; only a call past W - window + 1 tokens reads
+    the index on the host. Raises on a call that would evict a key inside
+    the window."""
+    B, W = cache["k"].shape[1], cache["k"].shape[2]
     if W % RING_PAGE:
         raise ValueError(f"a ring buffer's length must be a multiple of "
                          f"{RING_PAGE} (Model.init_cache rounds it), got {W}")
-    if Q > W:
-        raise NotImplementedError(f"{Q} tokens would wrap a ring of {W} slots")
-    return W
+    positions = cache.get("positions", W)
+    dev = cache["k"].device
+    table = ring_view_table(B, W, dev, positions)
+    if positions <= W:
+        if Q > W:
+            raise NotImplementedError(f"{Q} tokens would wrap a ring of {W} "
+                                      "slots")
+        return "write", table
+    window = cfg.sliding_window
+    if window is None:
+        raise ValueError(f"a ring of {W} slots for {positions} positions "
+                         "needs a sliding window")
+    if Q <= W - window + 1:
+        return "write", table
+    first = int(cache["index"].max())
+    if first + Q <= W:
+        return "write", table
+    if first == 0 and tree is None:
+        return "flash", table
+    raise ValueError(f"{Q} tokens from position {first} would evict keys "
+                     f"inside the window of {window} from a ring of {W} slots")
 
 
 def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
@@ -174,7 +215,7 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
         raise ValueError("a tree-verify pass needs a cache")
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
     B, Q = x.shape[0], x.shape[1]
-    ring = cache is not None and "block_table" not in cache
+    ring = None
     if tree is not None:
         tree = tuple(torch.as_tensor(t, dtype=torch.int32, device=x.device)
                      for t in tree)
@@ -186,9 +227,9 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
         q_pos = offs
     else:
         index = cache["index"]
-        if ring:
-            W = _check_ring(cfg, cache, Q)
-            block_table, max_live = ring_view_table(B, W, x.device), None
+        if "block_table" not in cache:
+            ring, block_table = ring_read(cfg, cache, Q, tree)
+            max_live = None
         else:
             block_table = cache["block_table"]
         # index: scalar (shared) or [B] (per-row batched speculation)

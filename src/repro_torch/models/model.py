@@ -11,10 +11,13 @@ families).
 
 ``init``, ``init_cache`` and ``init_paged_cache`` allocate on ``cuda``
 unless the caller passes ``device="cpu"``. The dense family's
-``init_cache`` is a ring KV cache whose length is rounded up to a multiple
-of ``dense.RING_PAGE``, so the paged kernel can read it through an
-identity view (slots past max_len are never written); a windowed config's
-ring would wrap and is refused. The ssm family's is the recurrent state and
+``init_cache`` is a ring KV cache: max_len slots, or for a windowed config
+min(max_len, window + spec_slack) as in JAX, rounded up to a multiple of
+``dense.RING_PAGE`` so the paged kernel can read it as a pool of pages. A
+windowed ring with fewer slots than max_len wraps; it keeps how many
+positions its read table reaches (``positions``, max_len rounded up to the
+page), and the dense forward reads it through a table over positions
+(``models.dense``). The ssm family's is the recurrent state and
 conv caches, both in the activation dtype as in JAX. A bf16 state is
 rounded after every cached pass: cached AR rounds it once a token, a
 speculative round once a round (through the verify's trail), and the
@@ -85,9 +88,13 @@ class Model:
 
     def init_cache(self, batch, max_len, spec_slack=8,
                    dtype: Optional[torch.dtype] = None, device=None):
-        """dense: ring KV buffers [L, batch, W, Kv, D] with W = max_len
-        rounded up to a multiple of ``dense.RING_PAGE``; ssm: state
-        [L, batch, H, P, N] and conv [L, batch, K-1, CH] caches. Index 0."""
+        """dense: ring KV buffers [L, batch, W, Kv, D] with W = max_len, or
+        min(max_len, window + spec_slack) for a windowed config (JAX's
+        sizing; the slack covers what a round writes past the committed
+        length), rounded up to a multiple of ``dense.RING_PAGE``; a ring
+        with fewer slots than that many positions also holds
+        ``positions``. ssm: state [L, batch, H, P, N] and conv
+        [L, batch, K-1, CH] caches. Index 0."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
         dev = devices.resolve(device)
@@ -100,13 +107,15 @@ class Model:
                     "conv": torch.zeros((cfg.num_layers, batch, K - 1, ch),
                                         dtype=dtype, device=dev),
                     "index": torch.zeros((), dtype=torch.int32, device=dev)}
-        if self._kv_window(spec_slack) is not None:
-            raise NotImplementedError(
-                "a windowed ring cache wraps; the ring is read through an "
-                "identity view that holds only while it does not")
-        W = -(-max_len // dense.RING_PAGE) * dense.RING_PAGE
-        return kv_cache.init_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
-                                   cfg.head_dim, dtype=dtype, device=dev)
+        page = dense.RING_PAGE
+        W = kv_cache.buffer_len(max_len, self._kv_window(spec_slack))
+        W = -(-W // page) * page
+        cache = kv_cache.init_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
+                                    cfg.head_dim, dtype=dtype, device=dev)
+        positions = -(-max_len // page) * page
+        if positions > W:
+            cache["positions"] = positions
+        return cache
 
     def init_paged_cache(self, batch, num_blocks, block_size,
                          max_blocks_per_row, dtype: Optional[torch.dtype] = None,

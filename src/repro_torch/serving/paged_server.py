@@ -532,7 +532,25 @@ class PagedSpecServer:
     def _fail_row(self, b: int, req: ServeRequest, cur: int):
         """Terminal-failure teardown of an in-flight row with a corrupt
         committed token: blocks freed, reason recorded, rid queued for the
-        step-info. The caller clears the row's active flag."""
+        step-info. The caller clears the row's active flag.
+
+        Before the blocks go back to the free list, the K/V of each block the
+        row owns alone (refcount 1, not pinned by the prefix pool) is zeroed
+        in every layer of both roles' pools: the rounds between the
+        corruption and this guard fed the bad id, whose embedding is NaN, so
+        those blocks hold NaN K/V, and a later request that reads them as
+        masked stale slots would still turn NaN (0 x NaN). Cached, attached
+        and copy-on-write-shared blocks hold prompt KV other requests read,
+        and keep their bytes. JAX frees the blocks as they are."""
+        alloc = self.alloc
+        owned = [int(blk) for blk in alloc.table[b, :int(alloc.n_alloc[b])]
+                 if alloc.refcnt[blk] == 1 and int(blk) not in alloc.cached]
+        if owned and self._state is not None:
+            for cache in (self._state.tcache, self._state.dcache):
+                ids = torch.tensor(owned, dtype=torch.long,
+                                   device=cache["k"].device)
+                for name in ("k", "v"):
+                    cache[name].index_fill_(1, ids, 0)
         self.alloc.free_row(b)
         self.metrics.fail(req.rid,
                           f"corrupt token id outside [0, {self._vocab})",

@@ -73,6 +73,29 @@ def build_pair():
 
 
 
+def windowed_pair(window):
+    """The disagreeing ``llama3.2-1b`` smoke pair (the drafter is the
+    target's first layer, the embedding at std d**-0.5) with a sliding
+    window, in both frameworks, from one JAX init (the windowed-ring
+    tests)."""
+    jcfg = jax_registry.smoke_config("llama3.2-1b")
+    scale = jcfg.d_model ** -0.5
+    jcfg = jcfg.replace(embed_init_scale=scale, sliding_window=window)
+    cfg = registry.smoke_config("llama3.2-1b").replace(
+        embed_init_scale=scale, sliding_window=window)
+    jcfg_d = jcfg.replace(num_layers=jcfg.num_layers - 1, name="draft")
+    cfg_d = cfg.replace(num_layers=cfg.num_layers - 1, name="draft")
+    jt, jd = jax_build(jcfg), jax_build(jcfg_d)
+    jpt = jt.init(jax.random.PRNGKey(0))
+    jpd = {**jpt, "layers": jax.tree_util.tree_map(lambda a: a[:-1],
+                                                   jpt["layers"])}
+    to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)  # noqa: E731
+    return {"jax": (jt, jd, jpt, jpd),
+            "torch": (build_model(cfg), build_model(cfg_d),
+                      params_from_numpy(cfg, to_np(jpt), "cpu"),
+                      params_from_numpy(cfg_d, to_np(jpd), "cpu"))}
+
+
 def shared_prefix_trace(seed=0, n=8, system_len=18, suffix=(1, 8),
                         new=(4, 12), vocab=512):
     """The multi-client chat shape: one system prompt, then a unique

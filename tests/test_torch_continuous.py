@@ -156,13 +156,13 @@ def test_every_forwarded_row_stays_inside_its_ring(split_pair, monkeypatch):
     length (up to 30, as in JAX) would be forwarded past W: on these
     prompts such a row reaches index + Q = 33."""
     seen = []
-    real = dense._check_ring
+    real = dense.ring_read
 
-    def check(cfg, cache, Q):
-        W = real(cfg, cache, Q)
-        seen.append((int(cache["index"].max()) + Q, W))
-        return W
-    monkeypatch.setattr(dense, "_check_ring", check)
+    def check(cfg, cache, Q, tree=None):
+        out = real(cfg, cache, Q, tree)
+        seen.append((int(cache["index"].max()) + Q, cache["k"].shape[2]))
+        return out
+    monkeypatch.setattr(dense, "ring_read", check)
     prompts = _prompts(3, 6, seed=8)
     srv, done = _run(ContinuousSpecServer, StreamRequest, split_pair["torch"],
                      prompts, batch=2, prompt_len=6, max_new=20, gamma=4)

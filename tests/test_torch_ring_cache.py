@@ -3,8 +3,10 @@ bit against ``repro.cache.kv_cache`` (0-dim and [B] index, Q = 1, Q > 1,
 Q >= W, fp32 and int8 buffers), the ``RING`` cache ops against JAX's, the
 dense forward's identity-view read of a ring (the paged read over
 [B * W / 16, 16, Kv, D]) against JAX's concat attention over
-``slot_positions`` and against ``attn_tree_ring``, and the refusal of rings
-the view cannot read (a window, W not a multiple of the page, Q > W).
+``slot_positions`` and against ``attn_tree_ring``, and the refusal of calls
+the view cannot read (W not a multiple of the page, Q > W on a ring that
+holds every position, a call that would evict a key inside the window;
+windowed rings that wrap are held in tests/test_torch_windowed_ring.py).
 
 Buffers moved by the cache functions compare exactly; attention outputs
 compare at fp32 atol = rtol = 1e-5 (an online softmax over pages against
@@ -271,13 +273,18 @@ def test_rings_the_view_cannot_read_raise(models):
     params = m.init(0, "cpu")
     toks = torch.zeros((1, 3), dtype=torch.int32)
     windowed = build_model(cfg.replace(sliding_window=8))
-    with pytest.raises(NotImplementedError, match="window"):
-        windowed.init_cache(1, 40, device="cpu")
+    # a windowed ring is sized window + slack, rounded up to the page, and
+    # keeps how many positions its table reaches
+    wring = windowed.init_cache(1, 40, spec_slack=6, device="cpu")
+    assert wring["k"].shape[2] == 16 and wring["positions"] == 48
+    _, wring, _ = windowed.apply(params, toks, wring)
+    _, wring, _ = windowed.apply(params, torch.zeros((1, 9), dtype=torch.int32),
+                                 wring)               # 9 = 16 - 8 + 1 at 3
+    with pytest.raises(ValueError, match="evict"):    # 10 tokens at 12
+        windowed.apply(params, torch.zeros((1, 10), dtype=torch.int32), wring)
     ring = kv_cache.init_cache(cfg.num_layers, 1, 40, cfg.num_kv_heads,
                                cfg.head_dim, window=16, dtype=torch.float32,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        windowed.apply(params, toks, ring)
     with pytest.raises(NotImplementedError, match="wrap"):       # Q > W
         m.apply(params, torch.zeros((1, 17), dtype=torch.int32), ring)
     odd = kv_cache.init_cache(cfg.num_layers, 1, 20, cfg.num_kv_heads,

@@ -289,3 +289,79 @@ def test_other_round_failures_raise_where_jax_degrades(pair):
     ref.step()
     assert ref.metrics.degradations == [
         (0, "spec round failed: kernel launch failed")]
+
+
+# --------------------------------------- a failed row's KV and block reuse
+POISON = dict(PLAIN, max_batch=1, num_blocks=8)
+POISON_SHAPES = [(6, 12), (6, 12), (9, 10)]
+
+
+def _serve_alone(srv, reqs, request):
+    for i, (p, new) in enumerate(reqs):
+        srv.submit(request(i, p, new))
+    return {r.rid: np.asarray(r.tokens) for r in srv.run()}
+
+
+def test_a_failed_rows_kv_does_not_reach_the_next_request(pair):
+    """One row at a time on an 8-block pool: rid 0 is corrupted in round
+    1, fed its out-of-vocabulary id (NaN K/V) until its guard fails it,
+    and rid 1 is admitted into the same blocks. The port zeroes the blocks
+    the failed row owned before freeing them, so rid 1 completes with the
+    clean run's tokens. JAX frees them as they are, and its rid 1 reads
+    the stale NaN slots as masked keys (0 x NaN): it completes with other
+    tokens (a finding about the reference)."""
+    reqs = _trace(POISON_SHAPES, seed=3)
+    plan = FaultPlan(corrupt_rounds=frozenset({1}))
+    port, ref = _servers(pair, POISON, gamma=2, faults=plan)
+    got = _serve_alone(port, reqs, ServeRequest)
+    want = _serve_alone(ref, reqs, JaxRequest)
+    clean, _ = _servers(pair, POISON, gamma=2)
+    clean_tokens = _serve_alone(clean, reqs, ServeRequest)
+    assert [r.rid for r in port.metrics.failed] == [0]
+    assert [r.rid for r in ref.metrics.failed] == [0]
+    assert sorted(got) == sorted(want) == [1, 2]
+    for rid in (1, 2):
+        np.testing.assert_array_equal(got[rid], clean_tokens[rid])
+    # the reference's rid 1 reused the poisoned blocks and parted from the
+    # clean run (the clean serve is JAX's on this pair: the lockstep tests)
+    assert not np.array_equal(want[1], clean_tokens[1])
+    _pool_whole(port)
+
+
+def test_failing_a_row_zeroes_only_the_blocks_it_owns_alone(pair):
+    """The chunked server with the prefix pool: requests share a system
+    prompt, so a corrupted row holds cached (pinned) prompt blocks next to
+    blocks of its own. When its guard fails it, every block it owned alone
+    is zeroed in all four pools (target and drafter, K and V), and every
+    cached or shared block keeps its bytes."""
+    from _serving_parity import shared_prefix_trace
+    reqs = shared_prefix_trace(seed=2, n=4, system_len=12, suffix=(1, 4),
+                               new=(10, 12))
+    plan = FaultPlan(corrupt_rounds=frozenset({2}))
+    cfg = dict(PLAIN, max_batch=2, num_blocks=40, prefill_chunk=8,
+               prefix_cache=True)
+    port, _ = _servers(pair, cfg, gamma=2, faults=plan)
+    seen = []
+    real = port._fail_row
+
+    def spy(b, req, cur):
+        alloc, st = port.alloc, port._state
+        row = [int(x) for x in alloc.table[b, :int(alloc.n_alloc[b])]]
+        kept = [x for x in row if alloc.refcnt[x] > 1 or x in alloc.cached]
+        own = [x for x in row if x not in kept]
+        pools = [c[n] for c in (st.tcache, st.dcache) for n in ("k", "v")]
+        before = [p[:, kept].clone() for p in pools]
+        real(b, req, cur)
+        for p, was in zip(pools, before):
+            assert torch.equal(p[:, kept], was)
+            assert (p[:, own] == 0).all()
+        seen.append((own, kept))
+    port._fail_row = spy
+    for i, (p, new) in enumerate(reqs):
+        port.submit(ServeRequest(i, p, new))
+    done = {r.rid: np.asarray(r.tokens) for r in port.run()}
+    assert len(seen) == 1 and seen[0][0] and seen[0][1]
+    clean, _ = _servers(pair, cfg, gamma=2)
+    clean_tokens = _serve_alone(clean, reqs, ServeRequest)
+    for rid, toks in done.items():
+        np.testing.assert_array_equal(toks, clean_tokens[rid])
