@@ -19,8 +19,8 @@
    and chain_tree(2, 4) with a window of 8, fp32 and bf16), one JSON line
    per case with the error, the tolerance, the kernel / plain / library /
    bound times in ms and the launch plan's key chunks and row tile. Then,
-   per head geometry and dtype (these two, Granite's two and
-   DeepSeek-Coder 33B's), on one pool: the rows of a Q=5 paged call
+   per head geometry and dtype (these two, Granite's two,
+   DeepSeek-Coder 33B's and Mixtral 8x7B's), on one pool: the rows of a Q=5 paged call
    must be bit-equal to Q=1 calls at the same positions, and a width-1
    chain tree call to the causal call
    (``"case": "attention_q_invariance"``). Then paged attention as a
@@ -37,7 +37,8 @@
    ``slot_positions`` that JAX's ring computes. Then paged attention at
    the dense-family configs' head geometries (Granite 3.0 2B's target
    32/8/64 and drafter 16/8/64, DeepSeek-Coder 33B's 56/8/128: 7 or 35
-   query rows per kv-head), Q 1 and 5, fp32 and bf16, as above; and over a
+   query rows per kv-head; Mixtral 8x7B's 32/8/128, whose drafter's is
+   Granite's), Q 1 and 5, fp32 and bf16, as above; and over a
    windowed ring that has wrapped (``"case": "ring_wrap"``: an 80-slot
    ring, window 64, Q 1 and 5 from position 200, past two wraps, read
    through the table over positions; the Granite geometries, fp32 and
@@ -245,13 +246,28 @@
    are AR's up to each request's first near-tie (the random untied head's
    top-2 gaps, ~0.1, lie within the spread of two bf16 evaluations of a
    position, which the phase measures at each first difference); Llama 3
-   405B is only planned (``api.Planner``).
+   405B is only planned (``api.Planner``). Last, the MoE family: Mixtral
+   8x7B with its registered drafter (``"phase": "full_width_moe"``) at full
+   width and depth on ``quantize_for_serving`` weights made layer by layer
+   (its 93.4 GB of bf16 weights exceed the card; the int8 ones take ~47
+   GB), bf16 activations, no act-quant: the free memory against the
+   reckoned bytes (the run raises if the card lacks them), then (a) 4
+   requests (prompts 16-64, 32 new, gamma 4, block 16) through
+   ``PagedSpecServer`` and (b) the cached engine on 2 prompts of 32 + 32
+   (one wave), each with exact launches (paged 64 a round, 40 a
+   prefill; an argmax a round) and held to AR of its mode up to each first
+   difference, which a logit near-tie or a router near-tie (the two
+   evaluations' expert choice or k-th probability gap, in some layer at a
+   generated position up to the difference) must explain; a short paged
+   serve under ``torch.profiler`` (``"profile_moe"``); Llama 4 Maverick is
+   only planned.
 12. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
    10 and the sampled serves', the Session phase's, the placed phase's
-   and the front-end phase's of step 7, and step 11's spec serves'), the
+   and the front-end phase's of step 7, and step 11's spec serves',
+   Mixtral's two included), the
    card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
@@ -3445,6 +3461,7 @@ def buffer_invariance(mt, pt, cfg, card):
 # ------------------------------------------------- the dense-family configs
 GRANITE_GEOMS = (("granite-3-2b", 32, 8, 64), ("granite-draft", 16, 8, 64))
 DEEPSEEK_GEOM = ("deepseek-coder-33b", 56, 8, 128)
+MIXTRAL_GEOM = ("mixtral-8x7b", 32, 8, 128)   # its drafter's is Granite's
 WRAP_WINDOW, WRAP_RING = 64, 80   # ring cases: window 64 + slack 6, rounded
 WRAP_START = 200                  # ... first query position, past two wraps
 GRANITE_WINDOW = 64               # the windowed cached Granite serve
@@ -3455,10 +3472,11 @@ GRANITE_WINDOW_PROMPT = 120       # its prompts: each prefill is longer than
 def dense_config_cases(timer):
     """Paged attention at the new configs' head geometries (Granite's
     target and drafter, DeepSeek-Coder 33B's GQA 7: 7 or 35 query rows per
-    kv-head, a partial last row tile), Q 1 and GAMMA + 1, fp32 and bf16,
-    as ``attention_case`` runs the paper pair's."""
+    kv-head, a partial last row tile; Mixtral 8x7B's GQA 4 at D 128), Q 1
+    and GAMMA + 1, fp32 and bf16, as ``attention_case`` runs the paper
+    pair's."""
     return [attention_case(timer, geom, H, Kv, D, Q, dtype)
-            for geom, H, Kv, D in GRANITE_GEOMS + (DEEPSEEK_GEOM,)
+            for geom, H, Kv, D in GRANITE_GEOMS + (DEEPSEEK_GEOM, MIXTRAL_GEOM)
             for Q in (1, GAMMA + 1)
             for dtype in (torch.float32, torch.bfloat16)]
 
@@ -3580,18 +3598,20 @@ def near_ties(mt, pt, spec, ar, reqs):
     return out
 
 
-def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True):
+def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True,
+                explain=near_ties):
     """``PagedSpecServer`` with gamma pinned to GAMMA on ``reqs``, every
     kernel's count set to 0 just before and read just after (paged: rounds
-    x (L_t + GAMMA L_d) + prefills x (L_t + L_d), an argmax a round,
-    nothing else); then the same requests with AR rounds: every request
-    complete, in the vocabulary, == AR. With ``exact=False`` a request may
-    part from AR at a near-tie that ``near_ties`` explains (logits with
-    top-2 gaps within the spread of two bf16 evaluations); its tokens up to
-    there must be AR's. Returns (launches, info)."""
+    x (L_t + GAMMA L_d) + prefills x (L_t + L_d), L the layers a forward
+    runs, an argmax a round, nothing else); then the same requests with AR
+    rounds: every request complete, in the vocabulary, == AR. With
+    ``exact=False`` a request may part from AR at a near-tie that
+    ``explain`` explains (``near_ties``: logits with top-2 gaps within the
+    spread of two bf16 evaluations); its tokens up to there must be AR's.
+    Returns (launches, info)."""
     from repro_torch.obs import clock
     counters = kernel_counters()
-    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    L_t, L_d = len(pt["layers"]), len(pd["layers"])
     V = mt.cfg.vocab_size
     serve(mt, md, pt, pd, [(reqs[0][0][:16], 8)], scfg, GAMMA, "cuda")
     torch.cuda.synchronize()
@@ -3617,7 +3637,7 @@ def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True):
     torch.cuda.synchronize()
     ar_wall = clock.perf() - t0
     same_ar = all(np.array_equal(done[i], out_ar[i]) for i in range(len(reqs)))
-    ties = [] if same_ar else near_ties(mt, pt, done, out_ar, reqs)
+    ties = [] if same_ar else explain(mt, pt, done, out_ar, reqs)
     new_equal = sum(int((done[i][len(p):] == out_ar[i][len(p):]).sum())
                     for i, (p, _) in enumerate(reqs))
     info = {"phase": phase, "part": "paged", "target": mt.cfg.name,
@@ -3643,18 +3663,20 @@ def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True):
 
 
 def cached_exact(phase, part, mt, md, pt, pd, prompts, max_new, card,
-                 flash_prefill=False):
+                 flash_prefill=False, exact=True, explain=near_ties):
     """The cached engine through ``launch.serve.serve(use_cache=True)``,
     two waves of 2, gamma GAMMA, then cached AR on the same prompts, each
     counted from 0: paged rounds x (GAMMA L_d + L_t), plus a paged prefill
     per wave and model, or with ``flash_prefill`` (a windowed ring shorter
     than the prompt) a flash prefill instead; an argmax a round; AR a
     paged step per token past each wave's first, and its prefill paged or
-    flash. Tokens == cached AR's. Returns (launches, info)."""
+    flash. Tokens == cached AR's, or with ``exact=False`` AR's up to each
+    row's first difference, which ``explain`` must explain, as in
+    ``paged_exact``. Returns (launches, info)."""
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
     none = {name: 0 for name in counters}
-    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    L_t, L_d = len(pt["layers"]), len(pd["layers"])
     batch = 2
     for gamma in (GAMMA, 0):                        # warm-up, not counted
         serve_cli.serve(mt, md, pt, pd, prompts[:batch], 4, gamma=gamma,
@@ -3682,6 +3704,8 @@ def cached_exact(phase, part, mt, md, pt, pd, prompts, max_new, card,
     ring = mt.init_cache(1, P + max_new + GAMMA + 2, spec_slack=GAMMA + 2,
                          device="cuda")
     same = bool(np.array_equal(spec, ar))
+    ties = [] if same else explain(mt, pt, spec, ar,
+                                   [(row[:P], max_new) for row in prompts])
     info = {"phase": phase, "part": part, "target": mt.cfg.name,
             "drafter": md.cfg.name, "card": card, "window": mt.cfg.sliding_window,
             "ring_len": ring["k"].shape[2],
@@ -3695,10 +3719,14 @@ def cached_exact(phase, part, mt, md, pt, pd, prompts, max_new, card,
             "launches": launches, "expected_launches": expect,
             "ar_launches": ar_launches, "expected_ar_launches": expect_ar,
             "in_vocab": bool(((spec >= 0) & (spec < mt.cfg.vocab_size)).all()),
-            "spec_equals_ar": same}
+            "spec_equals_ar": same, "exact": exact,
+            "new_tokens_equal_ar": int((spec[:, P:] == ar[:, P:]).sum()),
+            "new_tokens_total": int(spec[:, P:].size),
+            "differences_from_ar": ties}
     del ring
     emit(info)
-    if not (same and info["in_vocab"] and launches == expect
+    agree = same or (not exact and all(t["explained"] for t in ties))
+    if not (agree and info["in_vocab"] and launches == expect
             and ar_launches == expect_ar):
         raise SystemExit(f"{phase} ({part}): cached serving failed: {info}")
     return launches, info
@@ -3808,6 +3836,200 @@ def full_width_deepseek_33b(card):
           "memory_allocated_bytes": torch.cuda.memory_allocated(),
           "reckoned_bytes": need})
     return launches
+
+
+MOE_POOL_BLOCKS = 256         # x 16 tokens x 147,456 B: 0.60 GB of KV, both roles
+MOE_REQS = (4, 16, 64, 32)    # requests, prompt lengths 16..64, new tokens
+MOE_CACHED = (2, 32, 32)      # the cached engine: prompts (one wave), length, new
+
+
+def serving_bytes(cfg) -> int:
+    """Bytes of a KV-family config's ``quantize_for_serving`` weights,
+    reckoned from the config: int8 matmul weights with an fp32 scale per
+    output column (per expert for stacked experts), the bf16 embedding and
+    norms; the layers its blocks hold (``models.moe.n_layers``)."""
+    from repro_torch.models import moe
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def mats(shapes, n=1):
+        return sum(n * (k * m + 4 * m) for k, m in shapes)
+    attn = mats([(d, q), (d, kv), (d, kv), (q, d)]) + 2 * 2 * d
+    dense = attn + mats([(d, f), (d, f), (f, d)])
+    if cfg.family == "moe":
+        fs = cfg.num_shared_experts * f
+        moe_layer = (attn + mats([(d, f), (d, f), (f, d)], cfg.num_experts)
+                     + mats([(d, cfg.num_experts)])
+                     + (mats([(d, fs), (d, fs), (fs, d)]) if fs else 0))
+        m = moe.block_size(cfg)
+        layers = moe.n_blocks(cfg) * (moe_layer + (m - 1) * dense)
+    else:
+        layers = cfg.num_layers * dense
+    head = 0 if cfg.tie_embeddings else mats([(d, V)])
+    return layers + 2 * V * d + 2 * d + head
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def moe_near_ties(mt, pt, spec, ar, reqs):
+    """``near_ties`` for an MoE target, with its routing read on the same
+    two evaluations: at every generated position up to a request's first
+    difference (from the prompt's last token, the first one a round
+    computes, through the position whose logits chose the differing
+    token) and in every layer, each evaluation's router probabilities.
+    Verify passes and AR steps run their GEMMs at other M, so a layer's
+    router can pick other experts for one token in the two serves when its
+    k-th and (k+1)-th probabilities lie within the spread of two
+    evaluations; that token's hidden state, its KV and every later
+    position's logits then differ. A router near-tie at a position is one
+    where the two evaluations pick different experts, or the gap between
+    the k-th and (k+1)-th probability is within the spread of the
+    probabilities; a first difference is also explained by one at any of
+    those positions. The routing is read by wrapping ``models.moe.route``
+    for the call (the model has no hook)."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def route(cfg, p, xt):
+        out = real(cfg, p, xt)
+        seen.append(out[1].reshape(-1, out[1].shape[-1]).float())
+        return out
+    moe.route = route
+    try:
+        ties = near_ties(mt, pt, spec, ar, reqs)
+    finally:
+        moe.route = real
+    L, K = len(seen) // max(3 * len(ties), 1), mt.cfg.num_experts_per_tok
+    for n, t in enumerate(ties):
+        calls = seen[3 * L * n:3 * L * (n + 1)]
+        full = calls[:L]                                     # [pos, E] each
+        cached = [torch.cat([a, b]) for a, b in zip(calls[L:2 * L], calls[2 * L:])]
+        first = len(reqs[t["request"]][0]) - 1
+        router = []
+        for layer, (a, b) in enumerate(zip(full, cached)):
+            for pos in range(first, t["position"]):
+                sa, ia = a[pos].sort(descending=True, stable=True)
+                sb, ib = b[pos].sort(descending=True, stable=True)
+                spread = float((a[pos] - b[pos]).abs().max())
+                gap = min(float(sa[K - 1] - sa[K]), float(sb[K - 1] - sb[K]))
+                other = set(ia[:K].tolist()) != set(ib[:K].tolist())
+                router.append({"layer": layer, "position": pos, "gap": gap,
+                               "spread": spread, "other_experts": other,
+                               "tie": other or gap <= spread})
+        tied = [r for r in router if r["tie"]]
+        t["router_ties"] = tied
+        t["nearest_router"] = min(router, key=lambda r: r["gap"] - r["spread"],
+                                  default=None)
+        t["logit_explained"] = t["explained"]
+        t["explained"] = t["explained"] or bool(tied)
+    return ties
+
+
+def full_width_moe(card, arch="mixtral-8x7b"):
+    """Mixtral 8x7B with its registered drafter at full width and depth on
+    ``quantize_for_serving`` weights made layer by layer
+    (``quant.int8.init_for_serving``: each layer drawn in bf16, quantized
+    and its bf16 dropped, so the 93.4 GB of bf16 weights never exist
+    whole), bf16 activations, no act-quant (w8a16: the routed experts
+    dequantize per layer, as JAX does); ``"phase": "full_width_moe"``.
+    First ``torch.cuda.mem_get_info()`` against the reckoned bytes
+    (``serving_bytes`` for both models, one layer's experts dequantized at
+    once, the fp32 head an unembedding makes, the KV pool, 2 GiB of
+    activations, or the init's peak: one layer's bf16 weights and three
+    fp32 copies of its largest stacked weight while it is quantized); the
+    run raises if the card lacks them. Then (a) MOE_REQS through
+    ``PagedSpecServer`` (batch 4, gamma 4, block 16; prefills of at most
+    63 tokens: dropless routing) and (b) the cached engine on rings of
+    fewer than 4096 slots (the identity view; the window never wraps),
+    one wave of 2; between them (a)'s first two requests with 8 new
+    tokens under ``torch.profiler`` (``"phase": "profile_moe"``); each
+    with exact launches (paged 32 + 4 x 8 a round,
+    40 a prefill, an argmax a round, nothing else) and held to AR of the
+    same mode on the same params up to each first difference, which a
+    logit near-tie or a router near-tie must explain
+    (``moe_near_ties``). Also plans Llama 4 Maverick (``api.Planner``; it
+    fits no single card). Returns the spec serves' launches together."""
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+    from repro_torch.quant import int8 as q8
+    from repro_torch.serving import SchedulerConfig
+    plan = api.Planner(api.DeploymentSpec(
+        arch="llama4-maverick-400b-a17b", batch_size=4, prompt_lens=(64,),
+        max_new=32)).plan()
+    emit({"phase": "full_width_moe", "part": "planned_only",
+          "arch": "llama4-maverick-400b-a17b", "plan": json.loads(plan.to_json())})
+    tgt, drf = registry.config(arch), registry.drafter_config(arch)
+    weights = serving_bytes(tgt) + serving_bytes(drf)
+    kv_per_token = sum(2 * 2 * c.num_layers * c.num_kv_heads * c.head_dim
+                       for c in (tgt, drf))
+    pools = MOE_POOL_BLOCKS * 16 * kv_per_token
+    dequant = 3 * 2 * tgt.num_experts * tgt.d_model * tgt.d_ff
+    head = 4 * tgt.d_model * tgt.vocab_size
+    serve_need = weights + dequant + head + pools + (2 << 30)
+    layer_bf16 = (serving_bytes(tgt.replace(num_layers=1, vocab_size=0))
+                  - 2 * tgt.d_model)
+    init_need = (serving_bytes(tgt) + 2 * layer_bf16
+                 + 3 * 4 * tgt.num_experts * tgt.d_model * tgt.d_ff)
+    need = max(serve_need, init_need)
+    free, total = torch.cuda.mem_get_info()
+    info = {"phase": "full_width_moe", "part": "memory", "card": card,
+            "free_bytes": free, "total_bytes": total,
+            "target_int8_bytes": serving_bytes(tgt),
+            "drafter_int8_bytes": serving_bytes(drf),
+            "bf16_weight_bytes": 2 * (tgt.param_count() + drf.param_count()),
+            "dequant_bytes": dequant, "head_fp32_bytes": head,
+            "kv_bytes_per_token": kv_per_token, "pool_bytes": pools,
+            "serve_reckoned_bytes": serve_need, "init_reckoned_bytes": init_need,
+            "reckoned_bytes": need}
+    emit(info)
+    if free < need:
+        raise SystemExit(f"the card lacks the reckoned bytes for Mixtral: {info}")
+    from repro_torch.obs import clock
+    torch.cuda.reset_peak_memory_stats()
+    t0 = clock.perf()
+    mt, md = build_model(tgt), build_model(drf)
+    pt, pd = q8.init_for_serving(mt, 0, "cuda"), q8.init_for_serving(md, 7, "cuda")
+    torch.cuda.synchronize()
+    init = {"phase": "full_width_moe", "part": "init", "card": card,
+            "init_s": clock.perf() - t0,
+            "target_bytes": tree_bytes(pt), "drafter_bytes": tree_bytes(pd),
+            "init_max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "expert_dtype": str(pt["layers"][0]["moe"]["experts"]["gate"]["w_q"].dtype),
+            "layers": [len(pt["layers"]), len(pd["layers"])]}
+    emit(init)
+    n, lo, hi, new = MOE_REQS
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, tgt.vocab_size, int(rng.integers(lo, hi + 1))).astype(np.int32),
+             new) for _ in range(n)]
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=MOE_POOL_BLOCKS,
+                           max_blocks_per_row=8)
+    a, info_a = paged_exact("full_width_moe", mt, md, pt, pd, reqs, scfg, card,
+                            exact=False, explain=moe_near_ties)
+
+    def run():
+        srv, _ = serve(mt, md, pt, pd, [(p, 8) for p, _ in reqs[:2]], scfg,
+                       GAMMA, "cuda")
+        return srv.total_rounds, srv.n_prefills
+    profile("profile_moe", run, pt, pd, card)
+    n, P, new = MOE_CACHED
+    prompts = np.random.default_rng(7).integers(0, tgt.vocab_size, (n, P)).astype(np.int32)
+    b, info_b = cached_exact("full_width_moe", "cached", mt, md, pt, pd, prompts,
+                             new, card, exact=False, explain=moe_near_ties)
+    if info_b["ring_positions"] != info_b["ring_len"] or info_b["ring_len"] >= 4096:
+        raise SystemExit(f"the cached Mixtral rings are not an identity view: {info_b}")
+    emit({"phase": "full_width_moe", "part": "memory_after", "card": card,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "memory_allocated_bytes": torch.cuda.memory_allocated(),
+          "reckoned_bytes": need})
+    return {name: a[name] + b[name] for name in a}
 
 
 def _union(intervals):
@@ -3973,7 +4195,7 @@ def main() -> int:
                                        chain_tree(TREE_W, TREE_D), dtype, window=8)
                    for dtype in (torch.float32, torch.bfloat16)]
     for geom, H, Kv, D in ((("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64))
-                           + GRANITE_GEOMS + (DEEPSEEK_GEOM,)):
+                           + GRANITE_GEOMS + (DEEPSEEK_GEOM, MIXTRAL_GEOM)):
         for dtype in (torch.float32, torch.bfloat16):
             q_invariance(geom, H, Kv, D, dtype)
     chunk_cases = paged_chunk_cases(timer)
@@ -4019,6 +4241,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     deepseek_launches = full_width_deepseek_33b(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches = full_width_moe(card)
 
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
@@ -4038,7 +4263,8 @@ def main() -> int:
     # the dense-family configs' spec serves (paged, argmax; flash for the
     # windowed rings' prefills)
     for name in ("paged_attention", "blockwise_argmax"):
-        launches[name] += granite_launches[name] + deepseek_launches[name]
+        launches[name] += (granite_launches[name] + deepseek_launches[name]
+                           + moe_launches[name])
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])

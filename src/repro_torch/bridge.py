@@ -1,12 +1,17 @@
 """Weight bridge: JAX-initialised params (as numpy) -> the port's params.
 
-The JAX models (dense and ssm) keep their params as a nested dict with the
+The JAX models (dense, moe and ssm) keep their params as a nested dict with the
 layer params stacked on axis 0. A caller that holds both packages turns
 that tree into numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
 hands it here; this module itself never imports JAX. Layers are unstacked
 into a list of per-layer dicts; linear weights keep JAX's ``[d_in, d_out]``
 layout (and conv weights JAX's ``[K, CH]``), because the port computes as
 JAX does. Trees from ``quantize_for_serving`` cross too.
+
+The moe family stacks each block kind on its own (``layers["dense{j}"]``
+and ``layers["moe"]``, each [n_blocks, ...]; experts [E, ...] inside); the
+port's list interleaves them in forward order, ``dense0[i] ...
+dense{m-2}[i], moe[i]`` for block i (``models.moe``).
 
 Each leaf keeps its dtype class: fp32 leaves stay fp32 (the SSM's
 ``A_log``, ``D`` and ``dt_bias`` are fp32 whatever the param dtype, and
@@ -47,13 +52,28 @@ def params_from_numpy(cfg, tree, device=None):
         dt = torch.float32 if a.dtype == np.float32 else cfg.weight_dtype
         return torch.tensor(a.astype(np.float32), dtype=dt, device=dev)
 
-    n = _leaves(tree["layers"])[0].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
+    def layer(stack, i):
+        return _map(lambda a: to_torch(np.asarray(a)[i]), stack)
+
+    if cfg.family == "moe":
+        m = max(cfg.moe_every, 1)
+        kinds = [f"dense{j}" for j in range(m - 1)] + ["moe"]
+        if sorted(tree["layers"]) != sorted(kinds):
+            raise ValueError(f"moe tree holds blocks {sorted(tree['layers'])}, "
+                             f"config {kinds}")
+        n = _leaves(tree["layers"]["moe"])[0].shape[0]
+        if n != cfg.num_layers // m:
+            raise ValueError(f"tree has {n} blocks, config "
+                             f"{cfg.num_layers // m}")
+        layers = [layer(tree["layers"][k], i) for i in range(n) for k in kinds]
+    else:
+        n = _leaves(tree["layers"])[0].shape[0]
+        if n != cfg.num_layers:
+            raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
+        layers = [layer(tree["layers"], i) for i in range(n)]
     params = {
         "embed": {"table": to_torch(tree["embed"]["table"])},
-        "layers": [_map(lambda a, i=i: to_torch(np.asarray(a)[i]), tree["layers"])
-                   for i in range(n)],
+        "layers": layers,
         "final_norm": {"scale": to_torch(tree["final_norm"]["scale"])},
     }
     if cfg.tie_embeddings:

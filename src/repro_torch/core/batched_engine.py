@@ -32,7 +32,7 @@ from repro_torch.core.rounds import RoundState
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sampling.keys import TorchKey
 
-KV_FAMILIES = ("dense",)
+KV_FAMILIES = ("dense", "moe")
 
 # the per-row state IS the round core's state with [B] lengths and an
 # ``active`` mask

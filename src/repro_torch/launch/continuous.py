@@ -8,7 +8,7 @@ request queue at once — a one-row prefill whose ring KV is copied into the
 live batch caches — so the batch stays full and the per-row round's
 committed tokens per round become wall-clock throughput.
 
-Constraints: KV-cache families (the port's dense family); uniform
+Constraints: KV-cache families (the port's dense and moe families); uniform
 (prompt_len, max_new) per server instance; greedy acceptance. The paged
 server (``repro_torch.serving.PagedSpecServer``) lifts the uniform-shape
 constraint; this one stays the minimal fixed-shape path, and the

@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.batched_engine import KV_FAMILIES
 from repro_torch.launch import cli_args
 from repro_torch.obs import clock
 
@@ -60,7 +61,8 @@ def build_session(args):
     if sess.backend_name != "paged":
         raise SystemExit(
             f"--arch {args.arch} (family {mt.family!r}) cannot take the "
-            f"paged backend (KV-cache families only)")
+            f"paged backend (KV-cache families only: "
+            f"{', '.join(KV_FAMILIES)})")
     fault_plan = cli_args.make_fault_plan(args.faults_seed)
     if fault_plan is not None:
         sess.backend.server.inject_faults(fault_plan)

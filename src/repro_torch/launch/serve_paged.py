@@ -39,6 +39,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.api import DeploymentSpec, Planner, Session
+from repro_torch.core.batched_engine import KV_FAMILIES
 from repro_torch.launch import cli_args
 from repro_torch.obs import clock
 from repro_torch.serving import ServeRequest
@@ -101,7 +102,8 @@ def main(argv=None):
     if sess.backend_name != "paged":
         raise SystemExit(
             f"--arch {args.arch} (family {mt.family!r}) cannot take the paged "
-            f"backend (KV-cache families only) — use repro_torch.launch.serve")
+            f"backend (KV-cache families only: "
+            f"{', '.join(KV_FAMILIES)}) — use repro_torch.launch.serve")
     fault_plan = cli_args.make_fault_plan(args.faults_seed)
     if fault_plan is not None:
         sess.backend.server.inject_faults(fault_plan)

@@ -46,6 +46,8 @@ API:
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from repro_torch.cache.ops import PAGED, RING
@@ -196,6 +198,71 @@ def ring_read(cfg, cache, Q, tree=None):
                      f"inside the window of {window} from a ring of {W} slots")
 
 
+class Pass(NamedTuple):
+    """What every layer of one forward shares: the query positions, the
+    cache's index and block table (a ring's view table), the paged read's
+    live bound, the tree masks and how a ring is read (``ring_read``)."""
+    q_pos: torch.Tensor
+    index: Optional[torch.Tensor]
+    block_table: Optional[torch.Tensor]
+    max_live: object
+    tree: Optional[tuple]
+    ring: Optional[str]
+
+
+def begin(cfg, params, tokens, cache, max_live=None, tree=None):
+    """Embed ``tokens`` and settle how the forward reads ``cache``:
+    (x, Pass). Shared by the dense and MoE forwards."""
+    if cache is None and tree is not None:
+        raise ValueError("a tree-verify pass needs a cache")
+    x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
+    Q = x.shape[1]
+    ring = None
+    if tree is not None:
+        tree = tuple(torch.as_tensor(t, dtype=torch.int32, device=x.device)
+                     for t in tree)
+        offs = tree[0]
+    else:
+        offs = torch.arange(Q, dtype=torch.int32, device=x.device)
+    if cache is None:
+        return x, Pass(offs, None, None, max_live, tree, None)
+    index = cache["index"]
+    if "block_table" not in cache:
+        ring, block_table = ring_read(cfg, cache, Q, tree)
+        max_live = None
+    else:
+        block_table = cache["block_table"]
+    # index: scalar (shared) or [B] (per-row batched speculation)
+    q_pos = index[..., None] + offs if index.ndim else index + offs
+    return x, Pass(q_pos, index, block_table, max_live, tree, ring)
+
+
+def layer_cache(cache, l):
+    """Layer l's slice of the stacked K/V buffers (None without a cache)."""
+    return None if cache is None else {"k": cache["k"][l], "v": cache["v"][l]}
+
+
+def run_layer(cfg, lp, x, lc, ps: Pass):
+    return dense_layer(cfg, lp, x, ps.q_pos, lc, ps.index, ps.block_table,
+                       ps.max_live, ps.tree, ps.ring)
+
+
+def end(cfg, params, x, cache, logits_slice=None):
+    """Final norm and unembedding: (logits, the cache advanced past the
+    forward's tokens, or None without one)."""
+    Q = x.shape[1]
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if logits_slice == "last":
+        x = x[:, -1:]
+    if cfg.tie_embeddings:
+        logits = L.unembed(params["embed"], x)
+    else:
+        logits = L.linear(params["lm_head"], x.float())
+    if cache is None:
+        return logits, None
+    return logits, {**cache, "index": cache["index"] + Q}
+
+
 def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
             tree=None):
     """tokens: [B, Q] int.
@@ -211,41 +278,7 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
     (core/tree.py): RoPE positions become index + depths and attention
     follows the ancestor bitmasks. They become device tensors once here,
     not once per layer."""
-    if cache is None and tree is not None:
-        raise ValueError("a tree-verify pass needs a cache")
-    x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
-    B, Q = x.shape[0], x.shape[1]
-    ring = None
-    if tree is not None:
-        tree = tuple(torch.as_tensor(t, dtype=torch.int32, device=x.device)
-                     for t in tree)
-        offs = tree[0]
-    else:
-        offs = torch.arange(Q, dtype=torch.int32, device=x.device)
-    if cache is None:
-        index = block_table = None
-        q_pos = offs
-    else:
-        index = cache["index"]
-        if "block_table" not in cache:
-            ring, block_table = ring_read(cfg, cache, Q, tree)
-            max_live = None
-        else:
-            block_table = cache["block_table"]
-        # index: scalar (shared) or [B] (per-row batched speculation)
-        q_pos = index[..., None] + offs if index.ndim else index + offs
+    x, ps = begin(cfg, params, tokens, cache, max_live, tree)
     for l, lp in enumerate(params["layers"]):
-        layer_cache = (None if cache is None
-                       else {"k": cache["k"][l], "v": cache["v"][l]})
-        x = dense_layer(cfg, lp, x, q_pos, layer_cache, index, block_table,
-                        max_live, tree, ring)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if logits_slice == "last":
-        x = x[:, -1:]
-    if cfg.tie_embeddings:
-        logits = L.unembed(params["embed"], x)
-    else:
-        logits = L.linear(params["lm_head"], x.float())
-    if cache is None:
-        return logits, None
-    return logits, {**cache, "index": index + Q}
+        x = run_layer(cfg, lp, x, layer_cache(cache, l), ps)
+    return end(cfg, params, x, cache, logits_slice)

@@ -1,4 +1,4 @@
-"""Model API (port of ``repro/models/model.py``: the dense and ssm
+"""Model API (port of ``repro/models/model.py``: the dense, moe and ssm
 families).
 
   model = build_model(cfg)
@@ -18,12 +18,16 @@ windowed ring with fewer slots than max_len wraps; it keeps how many
 positions its read table reaches (``positions``, max_len rounded up to the
 page), and the dense forward reads it through a table over positions
 (``models.dense``). The ssm family's is the recurrent state and
-conv caches, both in the activation dtype as in JAX. A bf16 state is
+conv caches, both in the activation dtype as in JAX. The moe family's
+caches are the dense family's over the layers its blocks hold
+(``moe.n_layers``), one [L, ...] K and V buffer in forward order where JAX
+nests them by block kind (``models.moe``). A bf16 state is
 rounded after every cached pass: cached AR rounds it once a token, a
 speculative round once a round (through the verify's trail), and the
 no-cache pass never, so the three drift apart at bf16 (not at fp32). It
-has no paged cache (JAX has none either). The other families wait for
-later slices.
+has no paged cache (JAX has none either). ``apply`` returns the moe
+family's aux losses (load balance, router z) and ``{}`` for the others.
+The other families wait for later slices.
 """
 from __future__ import annotations
 
@@ -33,9 +37,9 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.cache import kv_cache, paged_kv
-from repro_torch.models import dense, ssm
+from repro_torch.models import dense, moe, ssm
 
-FAMILIES = {"dense": dense, "ssm": ssm}
+FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm}
 
 
 class Model:
@@ -47,14 +51,20 @@ class Model:
         self.cfg = cfg
         self.family = cfg.family
 
-    def init(self, seed: Union[int, torch.Generator], device=None):
+    def init(self, seed: Union[int, torch.Generator], device=None,
+             layer_fn=None):
         """Seeded random weights. ``seed`` is an int or a torch.Generator
-        on ``device``."""
+        on ``device``. ``layer_fn`` (moe family) maps each layer's params
+        as it is made, before the next layer is; the draws do not change."""
         dev = devices.resolve(device)
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-        return FAMILIES[self.family].init(self.cfg, gen, dev)
+        if layer_fn is None:
+            return FAMILIES[self.family].init(self.cfg, gen, dev)
+        if self.family != "moe":
+            raise NotImplementedError("layer_fn takes the moe family's layers")
+        return moe.init(self.cfg, gen, dev, layer_fn)
 
     def apply(self, params, tokens, cache=None, *, want_trail=False,
               logits_slice=None, max_live=None, tree=None):
@@ -63,10 +73,13 @@ class Model:
         the per-token state and conv trails ``rollback`` selects from.
         ``max_live``: paged caches only. ``tree`` = (depths, bits) int32 [Q]
         runs a stacked tree-verify pass (``core.tree``; dense family)."""
+        if tree is not None and self.family != "dense":
+            raise NotImplementedError(
+                f"tree-verify passes need a dense-family target (got {self.family!r})")
+        if self.family == "moe":
+            return moe.forward(self.cfg, params, tokens, cache,
+                               logits_slice=logits_slice, max_live=max_live)
         if self.family == "ssm":
-            if tree is not None:
-                raise NotImplementedError(
-                    f"tree-verify passes need a dense-family target (got {self.family!r})")
             logits, new_cache = ssm.forward(self.cfg, params, tokens, cache,
                                             logits_slice=logits_slice,
                                             want_trail=want_trail)
@@ -77,6 +90,12 @@ class Model:
         return logits, new_cache, {}
 
     # ----------------------------------------------------------------- cache
+    def _kv_layers(self):
+        """Layers holding KV: every layer, or the moe family's blocks'."""
+        if self.family == "moe":
+            return moe.n_layers(self.cfg)
+        return self.cfg.num_layers
+
     def cache_len(self, text_len: int) -> int:
         """Cache capacity needed for ``text_len`` text positions (the text
         families hold nothing else)."""
@@ -93,7 +112,8 @@ class Model:
         sizing; the slack covers what a round writes past the committed
         length), rounded up to a multiple of ``dense.RING_PAGE``; a ring
         with fewer slots than that many positions also holds
-        ``positions``. ssm: state [L, batch, H, P, N] and conv
+        ``positions`` (moe: the same over ``moe.n_layers`` layers). ssm:
+        state [L, batch, H, P, N] and conv
         [L, batch, K-1, CH] caches. Index 0."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
@@ -110,7 +130,7 @@ class Model:
         page = dense.RING_PAGE
         W = kv_cache.buffer_len(max_len, self._kv_window(spec_slack))
         W = -(-W // page) * page
-        cache = kv_cache.init_cache(cfg.num_layers, batch, W, cfg.num_kv_heads,
+        cache = kv_cache.init_cache(self._kv_layers(), batch, W, cfg.num_kv_heads,
                                     cfg.head_dim, dtype=dtype, device=dev)
         positions = -(-max_len // page) * page
         if positions > W:
@@ -125,7 +145,7 @@ class Model:
         if self.family == "ssm":
             raise ValueError(f"paged KV cache unsupported for family {self.family!r}")
         cfg = self.cfg
-        return paged_kv.init_cache(cfg.num_layers, batch, num_blocks,
+        return paged_kv.init_cache(self._kv_layers(), batch, num_blocks,
                                    block_size, max_blocks_per_row,
                                    cfg.num_kv_heads, cfg.head_dim,
                                    dtype or cfg.act_dtype,

@@ -19,8 +19,10 @@ scale would be another function. A static scale is made on the device
 
 The parameter trees hold per-layer lists where JAX stacks layers on axis
 0. ``quantize_params`` visits the entries of such a list together, as one
-stacked leaf, so its per-channel scales are shared across layers as JAX's
-are; ``quantize_for_serving`` reduces over K only and is per layer in both.
+stacked leaf (an MoE model's block kinds as separate stacks, as JAX stacks
+them), so its per-channel scales are shared across layers as JAX's are;
+``quantize_for_serving`` reduces over K only and is per layer (and per
+expert) in both.
 """
 from __future__ import annotations
 
@@ -60,11 +62,30 @@ def _is_matmul_weight(path_str: str, leaf) -> bool:
     return path_str.endswith("/w") and leaf.ndim >= 2
 
 
+def _structure(tree):
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in sorted(tree.items()))
+    return tuple(tree.shape)
+
+
+def _period(entries) -> int:
+    """The smallest p with entry i shaped as entry i + p for every i: the
+    layers of one JAX stack are entries r, r + p, ... (p = 1 for a dense
+    stack; ``moe_every`` for an MoE model's interleaved block kinds)."""
+    shapes = [_structure(e) for e in entries]
+    return next(p for p in range(1, len(entries) + 1)
+                if all(shapes[i] == shapes[i + p]
+                       for i in range(len(entries) - p)))
+
+
 def _map_stacked(nodes, path, fn):
     """Map ``fn(path, leaves) -> new leaves`` over parallel subtrees
-    ``nodes``. A list (the per-layer params) turns its entries into one
-    such parallel set, so a stacked leaf is handed to ``fn`` as the list of
-    its per-layer leaves; ``path`` is JAX's path string (no list index)."""
+    ``nodes``. A list (the per-layer params) turns its entries into such
+    parallel sets, one per JAX stack (``_period``), so a stacked leaf is
+    handed to ``fn`` as the list of its per-layer leaves; ``path`` is JAX's
+    path string without the list index (and without an MoE block kind's
+    key, ``dense{j}``/``moe``, which the port's flat list does not
+    hold)."""
     first = nodes[0]
     if isinstance(first, dict):
         out = [{} for _ in nodes]
@@ -76,7 +97,13 @@ def _map_stacked(nodes, path, fn):
     if isinstance(first, list):
         if len(nodes) != 1:
             raise ValueError(f"nested per-layer lists at {path!r}")
-        return [_map_stacked(first, path, fn)]
+        out = list(first)
+        p = _period(first) if first else 1
+        for r in range(p):
+            for i, v in zip(range(r, len(first), p),
+                            _map_stacked(first[r::p], path, fn)):
+                out[i] = v
+        return [out]
     return fn(path, nodes)
 
 
@@ -186,3 +213,13 @@ def quantize_for_serving(params):
         return node
 
     return walk(params)
+
+
+def init_for_serving(model, seed, device=None):
+    """``quantize_for_serving(model.init(seed, device))``, leaf for leaf,
+    made one layer at a time (moe family): each layer is drawn, quantized
+    and its float weights dropped before the next is drawn, so the float
+    model never exists whole (Mixtral 8x7B's 93.4 GB of bf16 weights exceed
+    an 80 GB card; its int8 weights fit). The draws are ``model.init``'s."""
+    params = model.init(seed, device, layer_fn=quantize_for_serving)
+    return quantize_for_serving(params)

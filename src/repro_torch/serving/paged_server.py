@@ -140,7 +140,9 @@ class PagedSpecServer:
         for the CPU), each role's on its placed device; the params must
         already be on ``device``."""
         if target.family not in KV_FAMILIES or drafter.family not in KV_FAMILIES:
-            raise ValueError("paged speculative serving needs KV-cache families")
+            raise ValueError("paged speculative serving needs KV-cache "
+                             f"families {KV_FAMILIES}, got "
+                             f"{target.family}/{drafter.family}")
         self.device = devices.resolve(device)
         self.target, self.drafter = target, drafter
         self.placement = (placement if placement is not None

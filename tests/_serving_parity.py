@@ -1,7 +1,7 @@
 """Shared pieces of the port's serving-lifecycle parity tests
 (tests/test_torch_prefix_cache.py, tests/test_torch_serving_lifecycle.py):
-the smoke-width pair in both frameworks, a shared-prefix trace, and
-``lockstep``, which steps the port's ``PagedSpecServer`` and
+the smoke-width pair in both frameworks (and the windowed and MoE pairs),
+a shared-prefix trace, and ``lockstep``, which steps the port's ``PagedSpecServer`` and
 ``repro.serving.PagedSpecServer`` together and compares them after every
 step (their streams too, when both collect them).
 
@@ -88,6 +88,37 @@ def windowed_pair(window):
     jt, jd = jax_build(jcfg), jax_build(jcfg_d)
     jpt = jt.init(jax.random.PRNGKey(0))
     jpd = {**jpt, "layers": jax.tree_util.tree_map(lambda a: a[:-1],
+                                                   jpt["layers"])}
+    to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)  # noqa: E731
+    return {"jax": (jt, jd, jpt, jpd),
+            "torch": (build_model(cfg), build_model(cfg_d),
+                      params_from_numpy(cfg, to_np(jpt), "cpu"),
+                      params_from_numpy(cfg_d, to_np(jpd), "cpu"))}
+
+
+def moe_pair(arch, window=None, blocks=None):
+    """An MoE smoke pair in both frameworks, from one JAX init: the
+    ``mixtral-8x7b`` or ``llama4-maverick-400b-a17b`` smoke target (with
+    ``blocks`` blocks of ``moe_every`` layers when given; ``sliding_window``
+    ``window`` when given) and a drafter that is the target's first block,
+    so drafts are rejected in some rounds. The embedding keeps its std-1
+    init: at std d**-0.5 the later MoE block outweighs the embedding and
+    the drafter almost never agrees (batch_min rounds of two rows then
+    accept nothing). fp32; the port's params cross the bridge."""
+    jcfg = jax_registry.smoke_config(arch)
+    cfg = registry.smoke_config(arch)
+    kw = {}
+    if window is not None:
+        kw["sliding_window"] = window
+    if blocks is not None:
+        kw["num_layers"] = blocks * max(jcfg.moe_every, 1)
+    jcfg, cfg = jcfg.replace(**kw), cfg.replace(**kw)
+    per = max(jcfg.moe_every, 1)
+    jcfg_d = jcfg.replace(num_layers=per, name="draft")
+    cfg_d = cfg.replace(num_layers=per, name="draft")
+    jt, jd = jax_build(jcfg), jax_build(jcfg_d)
+    jpt = jt.init(jax.random.PRNGKey(0))
+    jpd = {**jpt, "layers": jax.tree_util.tree_map(lambda a: a[:1],
                                                    jpt["layers"])}
     to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)  # noqa: E731
     return {"jax": (jt, jd, jpt, jpd),
