@@ -43,7 +43,14 @@
    ring, window 64, Q 1 and 5 from position 200, past two wraps, read
    through the table over positions; the Granite geometries, fp32 and
    bf16), held against its plain version and JAX's concat read, with
-   SDPA masked by the slots' positions as the library.
+   SDPA masked by the slots' positions as the library. After the int8
+   cases of step 8, the same cases at the hybrid family's geometries
+   (RecurrentGemma 2B's 10/1/256 and its drafter's 4/1/256: MQA at head
+   dim 256): paged attention at Q 1 and 5, the Q-invariance check (the
+   width-1 tree skipped: the tree entry takes D 64 and 128), the wrapped
+   ring, flash attention at B=2 and S=134, at S=2048 and with a window of
+   64 that binds at S=1100, fp32 and bf16; and the argmax at [10, 256000]
+   with planted ties.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -231,7 +238,21 @@
    tokens against cached AR's and the no-cache serve's are readings (a
    bf16 state is rounded once a token by AR and once a round by the spec
    serve, so the two drift apart), profiled (``"profile_ssm_cached"``).
-11. The dense-family configs at full width (bf16, seeded random weights,
+11. The hybrid family. At smoke width (``"phase":
+   "smoke_hybrid_exactness"``, after the cached Mamba-2 smoke phase): the
+   ``recurrentgemma-2b`` smoke pair (fp32, head_dim 64, local window 16),
+   prompts of 24 and 40, 40 new tokens, no-cache and cached: tokens on the
+   card == on the CPU == AR of the same mode, exact launches, partial
+   accepts (the 32-slot rings wrap; the 39-token prefills take the flash
+   route). At full width, after the Mamba-2 phases (``"phase":
+   "full_width_hybrid"``): RecurrentGemma 2B and its registered drafter
+   (bf16, full depth) on step 7's traffic through ``launch.serve``: (a) no
+   cache, flash launches rounds x (4 x 2 + 8), tokens == AR's up to a
+   near-tie, profiled (``"profile_hybrid"``); (b) cached
+   (``"full_width_hybrid_cached"``), paged launches rounds x (5 x 2 + 8) +
+   waves x 10, tokens against cached AR's and (a)'s as readings (bf16
+   state caches, as for Mamba-2), profiled (``"profile_hybrid_cached"``).
+12. The dense-family configs at full width (bf16, seeded random weights,
    each with its registered drafter): Granite 3.0 2B (``"phase":
    "full_width_granite"``): step 4's linear paged trace through
    ``PagedSpecServer``, the cached engine on step 7's no-cache traffic,
@@ -261,12 +282,13 @@
    generated position up to the difference) must explain; a short paged
    serve under ``torch.profiler`` (``"profile_moe"``); Llama 4 Maverick is
    only planned.
-12. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
+13. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
    [...]}`` line (six kernels; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
    10 and the sampled serves', the Session phase's, the placed phase's
-   and the front-end phase's of step 7, and step 11's spec serves',
+   and the front-end phase's of step 7, the hybrid serves of step 11
+   and step 12's spec serves',
    Mixtral's two included), the
    card line again and, last, ``{"ok": true, "device": {...}}``.
 
@@ -454,7 +476,8 @@ def q_invariance(name, H, Kv, D, dtype):
     the causal call, each with the serving path's live bound max(index) + Q
     as a device tensor. A row's arithmetic must not depend on Q or on the
     mask policy, so all must be bit-equal (spec == AR and tree == AR rest
-    on it)."""
+    on it). The tree entry takes head dims 64 and 128 only (no model with
+    D = 256 runs tree rounds): at 256 the width-1 tree is skipped."""
     from repro_torch.core.tree import chain_tree
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import tree_attention as ta
@@ -475,13 +498,15 @@ def q_invariance(name, H, Kv, D, dtype):
     steps = [pa.paged_flash_attention(q[:, i:i + 1].contiguous(), k, v, table,
                                       idx + i, max_live=live(i + 1))
              for i in range(Q)]
-    shape = chain_tree(1, Q - 1)
-    width1 = ta.tree_flash_attention(
-        q, k, v, table, idx, torch.from_numpy(shape.depths).cuda(),
-        torch.from_numpy(shape.bits).cuda(), max_live=live(Q))
+    tree_equal = None                  # skipped: the tree entry rejects D
+    if D in ta.TREE_HEAD_DIMS:
+        shape = chain_tree(1, Q - 1)
+        width1 = ta.tree_flash_attention(
+            q, k, v, table, idx, torch.from_numpy(shape.depths).cuda(),
+            torch.from_numpy(shape.bits).cuda(), max_live=live(Q))
+        tree_equal = bool(torch.equal(width1, verify))
     torch.cuda.synchronize()
     q_equal = [bool(torch.equal(s[:, 0], verify[:, i])) for i, s in enumerate(steps)]
-    tree_equal = bool(torch.equal(width1, verify))
     p = pa.plan(dtype, B, Q, H, Kv, D, BS, MB)
     case = {"case": "attention_q_invariance", "geometry": name, "Q": Q,
             "B": B, "dtype": str(dtype).replace("torch.", ""),
@@ -489,7 +514,7 @@ def q_invariance(name, H, Kv, D, dtype):
             "verify_rows_equal_q1": q_equal,
             "width1_tree_equals_causal": tree_equal}
     emit(case)
-    if not (all(q_equal) and tree_equal):
+    if not (all(q_equal) and tree_equal is not False):
         raise SystemExit(f"paged/tree attention rows depend on Q or the policy: {case}")
     return case
 
@@ -1505,6 +1530,25 @@ def prefill_invariance(mt, pt, cfg, card, P=600):
     return info
 
 
+def first_differences(mt, pt, spec, other, P):
+    """Each request whose new tokens in ``spec`` part from ``other``'s: its
+    first differing position, with the target's no-cache top-2 margin on
+    the shared context there; ``explained`` when the margin is within one
+    bf16 step of the top logit (a near-tie that two computations' last bits
+    may break either way)."""
+    out = []
+    for row in np.flatnonzero((spec[:, P:] != other[:, P:]).any(axis=1)):
+        pos = P + int(np.flatnonzero(spec[row, P:] != other[row, P:])[0])
+        ctx = torch.from_numpy(spec[row:row + 1, :pos].astype(np.int64)).cuda()
+        with torch.no_grad():
+            margin = top2_margin(mt.apply(pt, ctx)[0][0, -1])
+        out.append({"request": int(row), "position": pos,
+                    "tokens": [int(spec[row, pos]), int(other[row, pos])],
+                    "margin": margin,
+                    "explained": margin["margin"] <= margin["bf16_step"]})
+    return out
+
+
 def first_difference(a, b):
     """(rid, position) of the first token where two runs differ, or None."""
     for rid in sorted(a):
@@ -2044,15 +2088,17 @@ def nocache_prompts(cfg):
 
 
 def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
-                  quant=contextlib.nullcontext, extra=None):
+                  quant=contextlib.nullcontext, extra=None, near_ties=False):
     """The paper's no-cache mode at full width through ``launch.serve``: 4
     requests of 64 prompt + 64 new tokens, two waves of 2, gamma 4, every
     forward under ``quant()``. Every kernel's launch count is set to 0 just
     before each serve and read just after: ``per_pass`` maps a kernel to its
     launches in one (target, drafter) forward; every spec round runs GAMMA
     drafter passes, one target pass and one argmax launch, each AR step one
-    target pass, and no other kernel launches. Then the same spec serve
-    runs once more under ``torch.profiler``."""
+    target pass, and no other kernel launches. The tokens must equal
+    no-cache AR's; with ``near_ties`` a request may part from AR where
+    ``first_differences`` explains it by a near-tie. Then the same spec
+    serve runs once more under ``torch.profiler``."""
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
     R, batch = 4, 2
@@ -2087,6 +2133,8 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     expect_ar["blockwise_argmax"] = 0
     in_vocab = bool(((spec >= 0) & (spec < cfg.vocab_size)).all())
     same_ar = bool(np.array_equal(spec, ar))
+    diffs = ([] if same_ar or not near_ties
+             else first_differences(mt, pt, spec, ar, NOCACHE_PROMPT))
     info = {"phase": phase, "target": mt.cfg.name,
             "drafter": md.cfg.name, "dtype": mt.cfg.dtype, "card": card,
             **(extra or {}),
@@ -2095,6 +2143,7 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             "buffer_len": NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2,
             "gamma": GAMMA, "rounds": rounds,
             "mean_accepted_per_round": s["accepted"] / rounds,
+            "alpha_hat": s["alpha_hat"],
             "wall_s": s["seconds"], "ms_per_round": s["seconds"] / rounds * 1e3,
             "tokens_per_s": s["tokens_per_s"],
             "peak_memory_gib": s["peak_memory_gib"],
@@ -2104,11 +2153,13 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             "ar_peak_memory_gib": s_ar["peak_memory_gib"],
             "launches": s["launches"], "expected_launches": expect,
             "ar_launches": s_ar["launches"], "expected_ar_launches": expect_ar,
-            "spec_equals_ar": same_ar, "in_vocab": in_vocab}
+            "spec_equals_ar": same_ar, "in_vocab": in_vocab,
+            **({"differences_from_ar": diffs} if near_ties else {})}
     emit(info)
     if s["launches"] != expect or s_ar["launches"] != expect_ar:
         raise SystemExit(f"no-cache kernel launches differ from the path's: {info}")
-    if not (same_ar and in_vocab):
+    agree = same_ar or (near_ties and all(d["explained"] for d in diffs))
+    if not (agree and in_vocab):
         raise SystemExit(f"full-width no-cache tokens differ from AR: {info}")
 
     def run():
@@ -2154,6 +2205,7 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     mode on the CPU instead; ``smoke_ssm_cached_exactness`` holds the
     cached Mamba-2 path exactly at fp32. Then the same spec serve once
     more under ``torch.profiler``."""
+    from repro_torch.core.engine import STATEFUL_FAMILIES
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
     batch = 2
@@ -2178,7 +2230,7 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     spec, s = counted(GAMMA)
     ar, s_ar = counted(0)
     rounds, waves, steps = s["rounds"], s["waves"], s_ar["rounds"]
-    d_passes = GAMMA + 1 if md.cfg.family == "ssm" else GAMMA
+    d_passes = GAMMA + 1 if md.cfg.family in STATEFUL_FAMILIES else GAMMA
 
     def n(name, which):
         return per_pass.get(name, (0, 0, 0, 0))[which]
@@ -2192,19 +2244,7 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     same_ar = bool(np.array_equal(spec, ar))
 
     def differences(other):
-        """Each request's first new token that differs from ``other``'s,
-        with the no-cache target's top-2 margin on the shared context."""
-        out = []
-        for row in np.flatnonzero((spec[:, P:] != other[:, P:]).any(axis=1)):
-            pos = P + int(np.flatnonzero(spec[row, P:] != other[row, P:])[0])
-            ctx = torch.from_numpy(spec[row:row + 1, :pos].astype(np.int64)).cuda()
-            with torch.no_grad():
-                margin = top2_margin(mt.apply(pt, ctx)[0][0, -1])
-            out.append({"request": int(row), "position": pos,
-                        "tokens": [int(spec[row, pos]), int(other[row, pos])],
-                        "margin": margin,
-                        "explained": margin["margin"] <= margin["bf16_step"]})
-        return out
+        return first_differences(mt, pt, spec, other, P)
     nc = nocache["tokens"]
     equal = spec[:, P:] == nc[:, P:]
     equal_ar = spec[:, P:] == ar[:, P:]
@@ -2213,6 +2253,7 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             "batch": batch, "waves": waves, "prompt_len": P,
             "new_tokens": NOCACHE_NEW, "gamma": GAMMA, "rounds": rounds,
             "mean_accepted_per_round": s["accepted"] / rounds,
+            "alpha_hat": s["alpha_hat"],
             "wall_s": s["seconds"], "ms_per_round": s["seconds"] / rounds * 1e3,
             "tokens_per_s": s["tokens_per_s"],
             "peak_memory_gib": s["peak_memory_gib"],
@@ -2223,7 +2264,9 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             "ar_launches": s_ar["launches"], "expected_ar_launches": expect_ar,
             "spec_equals_ar": same_ar, "exact": exact,
             "ar_comparison": "check" if exact else
-            "reading: at bf16 the reference's cached spec parts from its cached AR too",
+            "reading: a bf16 state cache is rounded once a token by AR and once "
+            "a round by speculation (JAX's cached Mamba-2 parts from its own "
+            "cached AR too)",
             "new_tokens_equal_ar": int(equal_ar.sum()),
             "in_vocab": bool(((spec >= 0) & (spec < cfg.vocab_size)).all()),
             "nocache_rounds": nocache["info"]["rounds"],
@@ -4032,6 +4075,189 @@ def full_width_moe(card, arch="mixtral-8x7b"):
     return {name: a[name] + b[name] for name in a}
 
 
+# ------------------------------------------------------ the hybrid family
+HYBRID_GEOMS = (("recurrentgemma-2b", 10, 1, 256),     # MQA: 10 rows a kv-head
+                ("recurrentgemma-draft", 4, 1, 256))
+HYBRID_WINDOW = (1100, 64)        # flash case with a window that binds: S, window
+
+
+def argmax_wide_case(timer):
+    """The argmax kernel at the hybrid verify shape: 2 rows x (GAMMA + 1)
+    positions over RecurrentGemma's 256,000-token vocabulary (twice Llama
+    3's), ties planted in every row (the first maximum must win)."""
+    from repro_torch.kernels import spec_verify as sv
+    R, V = 2 * (GAMMA + 1), 256000
+    logits, first = planted_logits(R, V, 8)
+    out = sv.blockwise_argmax(logits)[:, 0]
+    ref = sv.plain(logits)[:, 0]
+    torch.cuda.synchronize()
+    err = float((out.long() - ref.long()).abs().max())
+    ok = err == 0 and bool((out == first).all())
+    ms = timer(lambda: sv.blockwise_argmax(logits))
+    plain_ms = timer(lambda: sv.plain(logits))
+    library_ms = timer(lambda: torch.argmax(logits, dim=-1))
+    case = {"case": "blockwise_argmax", "geometry": "recurrentgemma-2b",
+            "shape": [R, V], "dtype": "float32", "max_abs_err": err,
+            "atol": 0, "rtol": 0, "ok": ok, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "cluster": sv.plan(R, V).cluster,
+            **bound(logits.numel() * 4 + R * 4, R * V, torch.float32)}
+    emit(case)
+    if not ok:
+        raise SystemExit(f"argmax kernel disagrees with torch.argmax: {case}")
+    return case
+
+
+def hybrid_kernel_cases(timer):
+    """The kernels at the hybrid family's shapes (RecurrentGemma 2B and its
+    drafter: one kv-head, D = 256): paged attention at Q 1 and GAMMA + 1,
+    fp32 and bf16, as ``attention_case`` runs the paper pair's; the Q = 5
+    rows bit-equal to Q = 1 (``q_invariance``; the width-1 tree skipped,
+    the tree entry takes D 64 and 128); a windowed ring that has wrapped
+    (``wrap_ring_case``); no-cache flash attention at B = 2 and the main
+    path's S = 134, at S = 2048 and with a window of 64 that binds at S =
+    1100; the argmax at [10, 256000]. Returns (paged cases, flash cases,
+    the argmax case)."""
+    dtypes = (torch.float32, torch.bfloat16)
+    paged = [attention_case(timer, geom, H, Kv, D, Q, dtype)
+             for geom, H, Kv, D in HYBRID_GEOMS for Q in (1, GAMMA + 1)
+             for dtype in dtypes]
+    for geom, H, Kv, D in HYBRID_GEOMS:
+        for dtype in dtypes:
+            q_invariance(geom, H, Kv, D, dtype)
+    paged += [wrap_ring_case(timer, geom, H, Kv, D, Q, dtype)
+              for geom, H, Kv, D in HYBRID_GEOMS for Q in (1, GAMMA + 1)
+              for dtype in dtypes]
+    T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
+    flash = [flash_case(timer, *geom, T, dtype)
+             for geom in HYBRID_GEOMS for dtype in dtypes]
+    flash.append(flash_case(timer, *HYBRID_GEOMS[0], 2048, torch.bfloat16))
+    S, window = HYBRID_WINDOW
+    flash += [flash_case(timer, *HYBRID_GEOMS[0], S, dtype, window=window)
+              for dtype in dtypes]
+    return paged, flash, argmax_wide_case(timer)
+
+
+def hybrid_launches(L_t, L_d, rounds, prompt_len, ring_len, use_cache):
+    """A hybrid spec serve's kernel launches: no cache, flash per attention
+    unit of GAMMA drafter passes and one target pass a round; cached,
+    paged per attention unit of GAMMA + 1 stateful drafter steps and one
+    verify a round, plus each model's prefill of prompt_len - 1 tokens
+    (paged, or flash when it is longer than the ring); an argmax a
+    round."""
+    out = {"blockwise_argmax": rounds}
+    if not use_cache:
+        out["flash_attention"] = rounds * (GAMMA * L_d + L_t)
+        return out
+    pre = "flash_attention" if prompt_len - 1 > ring_len else "paged_attention"
+    out["paged_attention"] = rounds * ((GAMMA + 1) * L_d + L_t)
+    out[pre] = out.get(pre, 0) + L_t + L_d
+    return out
+
+
+def smoke_hybrid_exactness(arch="recurrentgemma-2b"):
+    """The hybrid family at smoke width (fp32, head_dim 64, local window
+    16, the drafter the target's first L-1 units, embedding std 0.3;
+    weights drawn on the CPU and copied to the card), gamma 4, B = 2, 40
+    new tokens, two prompt batches each of length 24 (the 32-slot rings
+    wrap as the rounds run) and 40 (each cached prefill of 39 tokens is
+    longer than the ring: the flash kernel's windowed route): the no-cache
+    engine and the cached one (ring KV in the attention units, state
+    caches in the RG-LRU units, the stateful drafter) on the card, the
+    same on the CPU, and AR of the same mode on the card must give
+    identical tokens and counts, the rounds replayed one at a time must
+    give them too, some round must commit part of its draft, and the spec
+    serves' launches on the card must be what the path implies
+    (``hybrid_launches``)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    from repro_torch.models import hybrid
+    from repro_torch.models.model import build_model
+    new = 40
+    cfg = registry.smoke_config(arch)
+    cfg = cfg.replace(embed_init_scale=0.3)    # the pair accepts part of its drafts
+    mt = build_model(cfg)
+    md = build_model(cfg.replace(num_layers=cfg.num_layers - 1, name="draft"))
+    pt_cpu = mt.init(0, "cpu")
+    pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
+    pt, pd = to_cuda(pt_cpu), to_cuda(pd_cpu)
+    counters = kernel_counters()
+    L_t, L_d = hybrid.n_attn(mt.cfg), hybrid.n_attn(md.cfg)
+    ring_len = mt.init_cache(1, 64 + new, GAMMA + 2, device="cpu")["k"].shape[2]
+    for use_cache in (False, True):
+        eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, use_cache=use_cache))
+        info = {"phase": "smoke_hybrid_exactness", "arch": arch,
+                "dtype": cfg.dtype, "use_cache": use_cache, "gamma": GAMMA,
+                "batch": 2, "prompt_lens": [24, 40], "new_tokens": new,
+                "local_window": cfg.local_window, "ring_len": ring_len,
+                "rounds": 0, "accepted": 0, "partial_accepts": 0,
+                "gpu_equals_cpu": True, "spec_equals_ar": True,
+                "replay_equals_generate": True, "launches_as_expected": True,
+                "launches": {}}
+        for P in (24, 40):
+            for seed in range(2):
+                prompt = np.random.default_rng(seed).integers(
+                    0, cfg.vocab_size, (2, P)).astype(np.int32)
+                zero_counts(counters)
+                gpu, st = eng.generate(pt, pd, prompt, new)
+                torch.cuda.synchronize()
+                launches = read_counts(counters)
+                want = {**{name: 0 for name in counters},
+                        **hybrid_launches(L_t, L_d, st["rounds"], P, ring_len,
+                                          use_cache)}
+                cpu, st_cpu = eng.generate(pt_cpu, pd_cpu, prompt, new)
+                ar = autoregressive_generate(mt, pt, prompt, new,
+                                             use_cache=use_cache).cpu().numpy()
+                replay, committed = _nocache_rounds(eng, pt, pd, prompt, new)
+                gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
+                info["rounds"] += st["rounds"]
+                info["accepted"] += st["accepted"]
+                info["partial_accepts"] += sum(0 < c - 1 < GAMMA for c in committed)
+                info["gpu_equals_cpu"] &= bool(np.array_equal(gpu, cpu) and st == st_cpu)
+                info["spec_equals_ar"] &= bool(np.array_equal(gpu[:, :P + new], ar))
+                info["replay_equals_generate"] &= bool(np.array_equal(replay, gpu))
+                info["launches_as_expected"] &= launches == want
+                for name, n in launches.items():
+                    info["launches"][name] = info["launches"].get(name, 0) + n
+        emit(info)
+        if not (info["gpu_equals_cpu"] and info["spec_equals_ar"]
+                and info["replay_equals_generate"]
+                and info["launches_as_expected"] and info["partial_accepts"]):
+            raise SystemExit(f"smoke-width hybrid exactness failed: {info}")
+
+
+def full_width_hybrid(card):
+    """RecurrentGemma 2B with its registered drafter at full width and
+    depth (bf16, seeded random weights; 8 and 2 attention units at D =
+    256, 18 and 6 RG-LRU units), gamma 4, step 7's traffic (4 requests of
+    64 + 64, two waves of 2) through ``launch.serve``. (a) No cache: flash
+    launches rounds x (GAMMA x 2 + 8), an argmax a round, no other kernel
+    (``nocache_phase``); tokens == no-cache AR's, or a first difference
+    that a near-tie explains; then ``"profile_hybrid"``. (b) Cached
+    (``cached_serve``): ring KV in the attention units (the 2048-token
+    window does not bind at 134 positions), state and conv caches in the
+    RG-LRU units, the stateful drafter's GAMMA + 1 steps a round: paged
+    launches rounds x ((GAMMA + 1) x 2 + 8) + waves x (8 + 2), an argmax a
+    round; its tokens against cached AR's and (a)'s are readings (the bf16
+    state is rounded once a token by AR and once a round by speculation,
+    as for Mamba-2), each first difference printed with its top-2 margin;
+    then ``"profile_hybrid_cached"``. Returns ((a)'s launches, (b)'s)."""
+    from repro_torch.launch.cli_args import build_pair
+    from repro_torch.models import hybrid
+    mt, md, pt, pd, cfg = build_pair("recurrentgemma-2b", smoke=False,
+                                     device="cuda")
+    A_t, A_d = hybrid.n_attn(mt.cfg), hybrid.n_attn(md.cfg)
+    nocache = nocache_phase("full_width_hybrid", "profile_hybrid", mt, md, pt,
+                            pd, cfg, card, {"flash_attention": (A_t, A_d)},
+                            near_ties=True)
+    cached = cached_serve("full_width_hybrid_cached", "profile_hybrid_cached",
+                          mt, md, pt, pd, cfg, card,
+                          {"paged_attention": (A_t, A_d, A_t, A_d)}, nocache,
+                          exact=False)
+    return nocache["launches"], cached["launches"]
+
+
 def _union(intervals):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, None
@@ -4206,6 +4432,7 @@ def main() -> int:
     ssd += ssd_state_cases(timer)
     ssd_l_invariance()
     i8 = int8_cases(timer)
+    hy_paged, hy_flash, hy_arg = hybrid_kernel_cases(timer)
     del timer
 
     smoke_exactness()
@@ -4213,6 +4440,7 @@ def main() -> int:
     smoke_nocache_exactness()
     smoke_nocache_exactness("mamba2-780m", "smoke_ssm_nocache_exactness")
     smoke_ssm_cached_exactness()
+    smoke_hybrid_exactness()
     smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True)
     smoke_sampled_exactness()
     sampled_lossless()
@@ -4237,6 +4465,11 @@ def main() -> int:
     del pair
     torch.cuda.empty_cache()
     ssm_launches, ssm_cached = full_width_ssm(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_nocache, hybrid_cached = full_width_hybrid(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     granite_launches = full_width_granite(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4265,6 +4498,11 @@ def main() -> int:
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += (granite_launches[name] + deepseek_launches[name]
                            + moe_launches[name])
+    # the hybrid family's spec serves (flash no-cache, paged cached, the
+    # argmax in both)
+    launches["paged_attention"] += hybrid_cached["paged_attention"]
+    launches["blockwise_argmax"] += (hybrid_nocache["blockwise_argmax"]
+                                     + hybrid_cached["blockwise_argmax"])
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
@@ -4273,7 +4511,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:87",
          "launches": launches["paged_attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases + ring_cases),
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in att + chunk_cases + ring_cases + hy_paged),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"]},
@@ -4281,7 +4520,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/spec_verify.cu",
          "replaces": "src/repro/kernels/spec_verify.py:42",
          "launches": launches["blockwise_argmax"],
-         "max_abs_err": arg["max_abs_err"], "ms": arg["kernel_ms"],
+         "max_abs_err": max(arg["max_abs_err"], hy_arg["max_abs_err"]),
+         "ms": arg["kernel_ms"],
          "plain_ms": arg["plain_ms"], "bound_ms": arg["bound_ms"],
          "bound_by": arg["bound_by"], "library_ms": arg["library_ms"]},
         {"name": "tree_attention", "route": "cuda",
@@ -4297,8 +4537,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:69",
          "launches": (nocache["launches"]["flash_attention"]
                       + sampled_launches["flash_attention"]
-                      + granite_launches["flash_attention"]),
-         "max_abs_err": max(c["max_abs_err"] for c in fl_cases),
+                      + granite_launches["flash_attention"]
+                      + hybrid_nocache["flash_attention"]),
+         "max_abs_err": max(c["max_abs_err"] for c in fl_cases + hy_flash),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
          "library_ms": fl_head["library_ms"]},

@@ -1,7 +1,7 @@
 """Weight bridge: JAX-initialised params (as numpy) -> the port's params.
 
-The JAX models (dense, moe and ssm) keep their params as a nested dict with the
-layer params stacked on axis 0. A caller that holds both packages turns
+The JAX models (dense, moe, ssm and hybrid) keep their params as a nested
+dict with the layer params stacked on axis 0. A caller that holds both packages turns
 that tree into numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
 hands it here; this module itself never imports JAX. Layers are unstacked
 into a list of per-layer dicts; linear weights keep JAX's ``[d_in, d_out]``
@@ -11,12 +11,17 @@ JAX does. Trees from ``quantize_for_serving`` cross too.
 The moe family stacks each block kind on its own (``layers["dense{j}"]``
 and ``layers["moe"]``, each [n_blocks, ...]; experts [E, ...] inside); the
 port's list interleaves them in forward order, ``dense0[i] ...
-dense{m-2}[i], moe[i]`` for block i (``models.moe``).
+dense{m-2}[i], moe[i]`` for block i (``models.moe``). The hybrid family
+stacks each unit of its pattern over the blocks (``blocks["u{j}_{kind}"]``,
+each [n_blocks, ...]) and keeps the leftover units in a ``tail`` list; the
+port's list is block i's units in pattern order, then the tail
+(``models.hybrid``).
 
 Each leaf keeps its dtype class: fp32 leaves stay fp32 (the SSM's
-``A_log``, ``D`` and ``dt_bias`` are fp32 whatever the param dtype, and
-rounding them would change the decay), integer leaves keep their type (the
-int8 ``w_q``), and the other float leaves (bf16) take ``cfg.weight_dtype``.
+``A_log``, ``D`` and ``dt_bias`` and the RG-LRU's ``lam`` are fp32
+whatever the param dtype, and rounding them would change the decay),
+integer leaves keep their type (the int8 ``w_q``), and the other float
+leaves (bf16) take ``cfg.weight_dtype``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devices
+from repro_torch.models import hybrid
 from repro_torch.models import layers as L
 
 
@@ -66,6 +72,8 @@ def params_from_numpy(cfg, tree, device=None):
             raise ValueError(f"tree has {n} blocks, config "
                              f"{cfg.num_layers // m}")
         layers = [layer(tree["layers"][k], i) for i in range(n) for k in kinds]
+    elif cfg.family == "hybrid":
+        layers = _hybrid_layers(cfg, tree, layer, to_torch)
     else:
         n = _leaves(tree["layers"])[0].shape[0]
         if n != cfg.num_layers:
@@ -76,8 +84,25 @@ def params_from_numpy(cfg, tree, device=None):
         "layers": layers,
         "final_norm": {"scale": to_torch(tree["final_norm"]["scale"])},
     }
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings or cfg.family == "hybrid":   # hybrid always ties
         params["embed"] = L.with_f32_table(params["embed"])
     else:
         params["lm_head"] = _map(to_torch, tree["lm_head"])
     return params
+
+
+def _hybrid_layers(cfg, tree, layer, to_torch):
+    """JAX's hybrid ``blocks`` (each unit stacked over the blocks) and
+    ``tail`` as the port's flat list of units in forward order."""
+    n_blocks, pat, tail = hybrid.layout(cfg)
+    keys = [f"u{j}_{kind}" for j, kind in enumerate(pat)]
+    if sorted(tree["blocks"]) != sorted(keys):
+        raise ValueError(f"hybrid tree holds units {sorted(tree['blocks'])}, "
+                         f"config {keys}")
+    n = _leaves(tree["blocks"])[0].shape[0]
+    got_tail = len(tree.get("tail", []))
+    if n != n_blocks or got_tail != len(tail):
+        raise ValueError(f"tree has {n} blocks and {got_tail} tail units, "
+                         f"config {n_blocks} and {len(tail)}")
+    layers = [layer(tree["blocks"][k], i) for i in range(n) for k in keys]
+    return layers + [_map(to_torch, unit) for unit in tree.get("tail", [])]

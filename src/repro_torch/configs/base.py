@@ -1,13 +1,14 @@
 """Model and input-shape configuration (port of ``repro/configs/base.py``).
 
 Same fields and defaults as the JAX ``ModelConfig`` for the dense
-(llama-style) and SSM (Mamba-2) families, with dtypes resolved to
-``torch`` dtypes, plus the MoE, hybrid and encoder-decoder fields that the
-analytic parameter count (``param_count``, ``active_param_count``) and the
-planner's roofline (``core/analytic_cost.py``) read. The models of those
-families, and the VLM and execution fields, wait for the slices that port
-them. ``ShapeConfig`` and ``INPUT_SHAPES`` are the four assigned input
-shapes the planner prices a model at.
+(llama-style), MoE, SSM (Mamba-2) and hybrid (RecurrentGemma) families,
+with dtypes resolved to ``torch`` dtypes, plus the encoder-decoder fields
+that the analytic parameter count (``param_count``,
+``active_param_count``) and the planner's roofline
+(``core/analytic_cost.py``) read. The encoder-decoder model, and the VLM
+and execution fields, wait for the slices that port them. ``ShapeConfig``
+and ``INPUT_SHAPES`` are the four assigned input shapes the planner
+prices a model at.
 """
 from __future__ import annotations
 

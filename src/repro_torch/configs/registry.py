@@ -1,8 +1,9 @@
 """Architecture registry: ``get(arch_id)`` -> module with config()/drafter_config()/smoke_config().
 
 The paper's pair and the other dense configs (Granite 3.0 2B,
-DeepSeek-Coder 33B, Llama 3 405B), Mamba-2 (ssm) and the MoE configs
-(Mixtral 8x7B, Llama 4 Maverick) are ported so far; the other
+DeepSeek-Coder 33B, Llama 3 405B), Mamba-2 (ssm), the MoE configs
+(Mixtral 8x7B, Llama 4 Maverick) and RecurrentGemma 2B (hybrid) are
+ported so far; the other
 architectures of ``repro.configs.registry`` join with the slices that port
 their families.
 """
@@ -19,6 +20,7 @@ ARCHS = (
     "llama3-405b",
     "mixtral-8x7b",
     "llama4-maverick-400b-a17b",
+    "recurrentgemma-2b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

@@ -10,11 +10,12 @@ paper's operating point. Two cache modes:
   * ``use_cache=False`` — paper-faithful (§IV: "no KV cache is enabled"):
     every forward recomputes the whole fixed-size token buffer;
     ``draft_policy="multi"`` (k-candidate drafting) is available.
-  * ``use_cache=True`` — the production path: ring KV caches (dense) or
-    recurrent state caches (ssm) filled by a prefill over the prompt, with
-    O(1) / trail rollback through the CacheOps seam (``repro_torch.cache.
-    ops``); ``draft_policy="tree"`` (ring rows replicated per branch) is
-    available, and an ssm drafter runs as a stateful drafter.
+  * ``use_cache=True`` — the production path: ring KV caches (dense),
+    recurrent state caches (ssm) or both (hybrid) filled by a prefill over
+    the prompt, with O(1) / trail rollback through the CacheOps seam
+    (``repro_torch.cache.ops``); ``draft_policy="tree"`` (ring rows
+    replicated per branch) is available, and an ssm or hybrid drafter runs
+    as a stateful drafter.
 
 Both strategies run one host loop of rounds, reading the committed length
 once per round: PyTorch runs eagerly, so JAX's "monolithic" strategy (the
@@ -54,11 +55,11 @@ from repro_torch.cache.ops import RING
 from repro_torch.core import rounds
 from repro_torch.core.rounds import (RoundState, _slice_logits, _slice_tokens,
                                      _write_col, next_token)
+from repro_torch.models.model import RECURRENT as STATEFUL_FAMILIES
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sampling.keys import TorchKey
 
 STRATEGIES = ("monolithic", "modular")
-STATEFUL_FAMILIES = ("ssm",)
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,7 @@ in ONE target pass over ``[t_last, d_1..d_gamma]``, commits each row's own
 accepted prefix plus the correction/bonus token (``per_row`` commits; or
 the batch minimum, ``batch_min``, as ``SpecEngine(use_cache=True)`` does)
 and rolls both caches back: by index for KV caches, through the verify
-pass's state trail for a recurrent (ssm) target, and for a stateful
+pass's state trail for a recurrent (ssm, hybrid) target, and for a stateful
 drafter (``RoundSpec.d_stateful``) to the state snapshot its draft steps
 kept (it drafts gamma + 1 steps so the trail covers a full accept).
 
@@ -424,7 +424,7 @@ class RoundSpec:
     JAX's do). The defaults are the paged server's cached per-row greedy
     round (JAX defaults to ``commit="batch_min"``); ``SpecEngine`` passes
     ``commit="batch_min"`` and its cache mode. ``d_stateful``: the drafter
-    carries recurrent state (ssm), rolled back to a draft step's
+    carries recurrent state (ssm, hybrid), rolled back to a draft step's
     snapshot."""
     gamma: int = 4
     greedy: bool = True

@@ -51,7 +51,12 @@
 // from shared memory, a two-stage ring — long causal walks at D = 128,
 // where each K/V fragment read from shared memory then feeds two products
 // (at 255 registers, with a few bytes of spill). 32-row tiles (2 warps)
-// were measured and were no faster at any shape (PERF.md).
+// were measured and were no faster at any shape (PERF.md). At D = 256
+// (RecurrentGemma's heads) the 64-row block keeps its three-stage ring,
+// (64 + 3 * 2 * 64) * 256 * 2 = 229,376 B of the 232,448 a block may take
+// (one block an SM), and reads Q from shared memory: kept in registers,
+// its 64 fragments would sit beside the 128 fp32 accumulators of the
+// 64 x 256 output tile.
 // The KV walk covers only the slabs some row of the tile can see: it stops
 // at the causal limit of the tile's last row (and at s_valid), and with a
 // window starts at the window of its first row. Keys outside that range are
@@ -75,7 +80,9 @@
 //
 // fp32 (the smoke models' type) keeps the CUDA-core kernel: TF32 or bf16
 // products would miss the plain version's 1e-4. It stages 32-key slabs in
-// shared memory as fp32 with scalar loads, each warp scoring 4 rows.
+// shared memory as fp32 with scalar loads, each warp scoring 4 rows; a
+// thread owns D / 128 output columns of a row at D = 256, and the slabs
+// take dynamic shared memory (84 KB there).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,6 +131,14 @@ __device__ __forceinline__ KvRange kv_range(int row0, int rows, int n_rows,
   return {lo, hi};
 }
 
+// the fp32 kernel's dynamic shared memory: the Q tile, a K/V slab and the
+// slab's weights (84 KB at D = 256, past the 48 KB of static)
+template <int D>
+constexpr int f32_smem_bytes() {
+  return static_cast<int>(sizeof(float)) *
+         (kF32Rows * (D + 1) + kF32Keys * (D + 1) + kF32Keys * D + kF32Rows * kF32Keys);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -131,13 +146,17 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            int Sq, int Skv, int H, int Kv, int s_valid,
                            int causal, int window, float scale) {
   constexpr int DP = D + 1;                          // padded K row stride
-  constexpr int kRowsPerPass = kF32Threads / D;      // 1 (D=128) or 2 (D=64)
-  constexpr int kAcc = kF32Rows / kRowsPerPass;      // acc registers per thread
+  // the threads that share a row's columns; each owns kCols of them
+  constexpr int kColThreads = D < kF32Threads ? D : kF32Threads;
+  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 2 (D=64) or 1
+  constexpr int kCols = D / kColThreads;                     // 1, or 2 (D=256)
+  constexpr int kAcc = kF32Rows / kRowsPerPass;      // rows per thread
 
-  __shared__ float q_s[kF32Rows * DP];
-  __shared__ float k_s[kF32Keys * DP];
-  __shared__ float v_s[kF32Keys * D];
-  __shared__ float p_s[kF32Rows * kF32Keys];         // this slab's weights
+  extern __shared__ float f32_smem[];
+  float* const q_s = f32_smem;                       // [kF32Rows][DP]
+  float* const k_s = q_s + kF32Rows * DP;            // [kF32Keys][DP]
+  float* const v_s = k_s + kF32Keys * DP;            // [kF32Keys][D]
+  float* const p_s = v_s + kF32Keys * D;             // this slab's weights
   __shared__ float a_s[kF32Rows];                    // this slab's rescale
   __shared__ float l_s[kF32Rows];                    // final denominators
 
@@ -168,11 +187,13 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     m_r[i] = kNegInf;
     l_r[i] = 0.f;
   }
-  const int d_own = tid % D;
-  const int r_own = tid / D;
-  float acc[kAcc];
+  const int d_own = tid % kColThreads;   // columns d_own + c * kColThreads
+  const int r_own = tid / kColThreads;
+  float acc[kAcc][kCols];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
   for (int j = kv.lo / kF32Keys * kF32Keys; j < kv.hi; j += kF32Keys) {
     __syncthreads();   // q_s is staged / the previous step is done with the slabs
@@ -220,10 +241,14 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     for (int i = 0; i < kAcc; ++i) {
       const int r = r_own + i * kRowsPerPass;
       const float* pr = p_s + r * kF32Keys;
-      float pv = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = d_own + c * kColThreads;
+        float pv = 0.f;
 #pragma unroll 8
-      for (int s = 0; s < kF32Keys; ++s) pv = fmaf(pr[s], v_s[s * D + d_own], pv);
-      acc[i] = acc[i] * a_s[r] + pv;
+        for (int s = 0; s < kF32Keys; ++s) pv = fmaf(pr[s], v_s[s * D + d], pv);
+        acc[i][c] = acc[i][c] * a_s[r] + pv;
+      }
     }
   }
 
@@ -239,8 +264,10 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     const int rg = row0 + r;
     if (rg < n_rows) {
       const int qi = rg / gq, g = rg % gq;
-      out[((static_cast<size_t>(b) * Sq + qi) * H + h * gq + g) * D + d_own] =
-          acc[i] / fmaxf(l_s[r], 1e-30f);
+      const float den = fmaxf(l_s[r], 1e-30f);
+      float* const dst = out + ((static_cast<size_t>(b) * Sq + qi) * H + h * gq + g) * D;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) dst[d_own + c * kColThreads] = acc[i][c] / den;
     }
   }
 }
@@ -304,7 +331,10 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kSlabBytes = kSlab * D * 2;
   constexpr int NT = D / 8;                // n8 tiles of the output
   constexpr int KT = D / 16;               // k16 steps of QK^T
-  constexpr bool kQInRegs = MT == 1;       // else re-read from shared memory
+  // Q fragments in registers at MT = 1 up to D = 128; else re-read from
+  // shared memory (at D = 256 they would take 64 registers beside the
+  // 128 of the output tile)
+  constexpr bool kQInRegs = MT == 1 && D <= 128;
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* const q_s = smem;
@@ -545,9 +575,17 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Skv, int H, int Kv, int s_valid, int causal,
                int window, float scale, cudaStream_t stream) {
+  constexpr int kSmem = f32_smem_bytes<D>();
+  static bool attribute_set = false;   // once per instantiation
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set = true;
+  }
   const int gq = H / Kv;
   const dim3 grid((Sq * gq + kF32Rows - 1) / kF32Rows, Kv, B);
-  flash_attention_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+  flash_attention_f32_kernel<D><<<grid, kF32Threads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, Kv,
       s_valid, causal, window, scale);
@@ -581,7 +619,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q/out: [B, Sq, H, D]; k/v: [B, Skv, Kv, D]; all contiguous, of one dtype
-// (0 = float32, 1 = bfloat16); H a multiple of Kv; D 64 or 128;
+// (0 = float32, 1 = bfloat16); H a multiple of Kv; D 64, 128 or 256;
 // 1 <= s_valid <= Skv; causal 0/1; window <= 0 means no window. row_tile is
 // the query rows per block: 16 for float32; 64, or 128 with D = 128, for
 // bfloat16 (whose pointers must be 16-byte aligned). Returns a cudaError_t
@@ -598,6 +636,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && row_tile == kF32Rows) {
     if (D == 64) return launch_f32<64>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128) return launch_f32<128>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 256) return launch_f32<256>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
   }
   if (dtype == 1) {
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -609,6 +648,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       return launch_bf16<128, 1, 3>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128 && row_tile == 128)
       return launch_bf16<128, 2, 2>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    // 64 rows, Q from shared memory, three stages: (64 + 3 * 2 * 64) * 256
+    // * 2 = 229,376 B of the 232,448 a block may take
+    if (D == 256 && row_tile == 64)
+      return launch_bf16<256, 1, 3>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

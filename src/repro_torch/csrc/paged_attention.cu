@@ -82,6 +82,12 @@
 // port's CUDA-core body: one block per (16-row tile, kv-head, row) walks every
 // live page with an online softmax in shared memory, scalar loads, fp32
 // math. TF32 or bf16 products would miss the plain version's 1e-4.
+//
+// Head dims 64, 128 and 256 (RecurrentGemma's). At D = 256 an fp32 thread
+// owns two output columns of a row, and the bf16 block's Q tile, K and V
+// (16 + 2 * 64 rows of 512 B: 72 KB) take dynamic shared memory; each
+// warp's quarter of the output is then 8 n8 tiles. The tree policy takes
+// 64 and 128 only: no model with D = 256 runs tree rounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -120,8 +126,11 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            const int* __restrict__ depths,
                            const int* __restrict__ bits) {
   constexpr int DP = D + 1;                       // padded shared row stride
-  constexpr int kRowsPerPass = kF32Threads / D;   // 1 (D=128) or 2 (D=64)
-  constexpr int kAcc = kF32Rows / kRowsPerPass;   // acc registers per thread
+  // the threads that share a row's columns; each owns kCols of them
+  constexpr int kColThreads = D < kF32Threads ? D : kF32Threads;
+  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 2 (D=64) or 1
+  constexpr int kCols = D / kColThreads;                     // 1, or 2 (D=256)
+  constexpr int kAcc = kF32Rows / kRowsPerPass;   // rows per thread
 
   const int row0 = blockIdx.x * kF32Rows;
   const int h = blockIdx.y;
@@ -167,11 +176,13 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     }
   }
 
-  const int d_own = tid % D;
-  const int r_own = tid / D;
-  float acc[kAcc];
+  const int d_own = tid % kColThreads;   // columns d_own + c * kColThreads
+  const int r_own = tid / kColThreads;
+  float acc[kAcc][kCols];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
 
   const int* tbl = block_table + static_cast<size_t>(b) * MB;
   for (int j = 0; j < live; ++j) {
@@ -240,9 +251,13 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     for (int i = 0; i < kAcc; ++i) {
       const int r = r_own + i * kRowsPerPass;
       const float* pr = p_s + r * BS;
-      float pv = 0.f;
-      for (int s = 0; s < BS; ++s) pv = fmaf(pr[s], v_s[s * DP + d_own], pv);
-      acc[i] = acc[i] * a_s[r] + pv;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = d_own + c * kColThreads;
+        float pv = 0.f;
+        for (int s = 0; s < BS; ++s) pv = fmaf(pr[s], v_s[s * DP + d], pv);
+        acc[i][c] = acc[i][c] * a_s[r] + pv;
+      }
     }
   }
   __syncthreads();
@@ -254,7 +269,9 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     if (rg < n_rows) {
       const int qi = rg / gq, g = rg % gq;
       const float den = fmaxf(l_s[r], 1e-30f);
-      out[((static_cast<size_t>(b) * Q + qi) * H + h * gq + g) * D + d_own] = acc[i] / den;
+      float* const dst = out + ((static_cast<size_t>(b) * Q + qi) * H + h * gq + g) * D;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) dst[d_own + c * kColThreads] = acc[i][c] / den;
     }
   }
 }
@@ -300,6 +317,11 @@ __device__ __forceinline__ uint32_t swz(int r, int ch) {
   return static_cast<uint32_t>(r * D * 2 + ((ch ^ (r & 7)) << 4));
 }
 
+template <int D>
+constexpr int bf16_smem_bytes() {
+  return (kRows + 2 * kChunk) * D * 2;   // the Q tile, the chunk's K and V
+}
+
 // The workspace of a split call: acc [B, Kv, n_rows, n_chunks, D] fp32,
 // then (m, l) [B, Kv, n_rows, n_chunks] as float2; m in log2 units.
 template <int D, bool kTree>
@@ -319,9 +341,11 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NTW = D / 8 / kWarps;           // this warp's n8 output tiles
   constexpr int kCopies = kChunk * CH / kThreads;   // K (or V) pieces per thread
 
-  __shared__ __align__(128) unsigned char q_s[kRows * D * 2];
-  __shared__ __align__(128) unsigned char k_s[kChunk * D * 2];
-  __shared__ __align__(128) unsigned char v_s[kChunk * D * 2];
+  // dynamic: 72 KB at D = 256 (bf16_smem_bytes), past the 48 KB of static
+  extern __shared__ __align__(128) unsigned char bf16_smem[];
+  unsigned char* const q_s = bf16_smem;                 // [kRows][D]
+  unsigned char* const k_s = q_s + kRows * D * 2;       // [kChunk][D]
+  unsigned char* const v_s = k_s + kChunk * D * 2;      // [kChunk][D]
 
   // the combine may be scheduled now; its griddepcontrol.wait still waits
   // for this whole grid to finish and its writes to land
@@ -587,8 +611,17 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
       static_cast<long long>((n_rows + kRows - 1) / kRows) * n_chunks;
   if (n_chunks != (MB * BS + kChunk - 1) / kChunk || blocks_x > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = bf16_smem_bytes<D>();
+  static bool attribute_set = false;   // once per instantiation
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_bf16_kernel<D, kTree>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attribute_set = true;
+  }
   paged_attention_bf16_kernel<D, kTree><<<dim3(static_cast<unsigned>(blocks_x), Kv, B),
-                                          kThreads, 0, stream>>>(
+                                          kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int*>(block_table),
       static_cast<const int*>(index), static_cast<const int*>(max_live),
@@ -631,6 +664,9 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                                 window, scale, st)
     if (D == 64) REPRO_PA_F32(64);
     if (D == 128) REPRO_PA_F32(128);
+    if constexpr (!kTree) {   // the tree policy takes 64 and 128 only
+      if (D == 256) REPRO_PA_F32(256);
+    }
 #undef REPRO_PA_F32
   }
   if (dtype == 1 && ws != nullptr) {
@@ -643,6 +679,9 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
                                  n_chunks, window, scale, st)
     if (D == 64) REPRO_PA_BF16(64);
     if (D == 128) REPRO_PA_BF16(128);
+    if constexpr (!kTree) {
+      if (D == 256) REPRO_PA_BF16(256);
+    }
 #undef REPRO_PA_BF16
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -650,7 +689,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// dtype: 0 = float32 (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks =
+// D: 64, 128 or 256. dtype: 0 = float32 (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks =
 // ceil(MB * BS / 64); ws a 16-byte aligned fp32 workspace of
 // B * Kv * Q * (H / Kv) * n_chunks * (D + 2) floats). window <= 0 means full
 // causal. max_live may be null (no cap). Returns a cudaError_t (0 =
@@ -668,7 +707,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
 }
 
 // The tree policy: q/out [B, span, H, D]; depths/bits int32 [span] (bits
-// already windowed on the span side); span <= 31. Other arguments as above.
+// already windowed on the span side); span <= 31; D 64 or 128. Other
+// arguments as above.
 extern "C" int tree_attention_fwd(const void* q, const void* k_pool,
                                   const void* v_pool, const void* block_table,
                                   const void* index, const void* max_live,

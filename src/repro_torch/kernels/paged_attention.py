@@ -60,11 +60,14 @@ def as_int32(x, shape, device):
     return t.expand(shape).contiguous() if t.shape != shape else t.contiguous()
 
 
-def check_args(what, q, k_pool, v_pool, scale, window):
+HEAD_DIMS = (64, 128, 256)   # the paged and flash kernels' instantiations
+
+
+def check_args(what, q, k_pool, v_pool, scale, window, head_dims=HEAD_DIMS):
     """The checks every attention kernel launch makes on the card (the two
     mask policies of ``paged_attention.cu``, and ``flash_attention.cu``
     with k/v in place of the pools): raises on what the kernel does not
-    take."""
+    take, a head dim outside ``head_dims`` included."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     if k_pool.device != q.device or v_pool.device != q.device:
@@ -79,8 +82,9 @@ def check_args(what, q, k_pool, v_pool, scale, window):
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"{what} kernel needs K/V of q's dtype "
                         f"{q.dtype}, got {k_pool.dtype}/{v_pool.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {D}")
+    if D not in head_dims:
+        raise ValueError(f"{what} kernel takes head_dim "
+                         f"{', '.join(map(str, head_dims))}, got {D}")
     if q.shape[2] % Kv or tuple(v_pool.shape) != tuple(k_pool.shape) \
             or k_pool.shape[3] != D:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k_pool.shape)}")

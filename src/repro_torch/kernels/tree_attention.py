@@ -20,6 +20,8 @@ from repro_torch.core.tree import MAX_SPAN
 from repro_torch.kernels.paged_attention import as_int32, check_args, launch
 from repro_torch.kernels.ref import tree_attention_ref as plain
 
+TREE_HEAD_DIMS = (64, 128)    # the tree policy's instantiations
+
 
 def fold_window(depths, bits, window):
     """Fold a sliding window's span side into the ancestor masks: slot t
@@ -44,7 +46,8 @@ def tree_flash_attention(q, k_pool, v_pool, block_table, index, depths, bits,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_table, index, depths, bits,
                      window=window, scale=scale, max_live=max_live)
-    check_args("tree attention", q, k_pool, v_pool, scale, window)
+    check_args("tree attention", q, k_pool, v_pool, scale, window,
+               head_dims=TREE_HEAD_DIMS)
     S = q.shape[1]
     if S > MAX_SPAN:
         raise ValueError(f"tree attention kernel takes a span of at most "

@@ -6,7 +6,8 @@ requests (port of ``repro/launch/serve.py``).
 serves ``--requests`` synthetic prompts of ``--prompt-len`` tokens,
 ``--max-new`` new tokens each, wave by wave (``--batch`` requests per
 wave), in the paper's no-cache mode or, with ``--use-cache``, on ring KV
-caches (or the state caches of ``--arch mamba2-780m``); without
+caches (or the state caches of ``--arch mamba2-780m``, or both for the
+hybrid ``--arch recurrentgemma-2b``); without
 ``--speculative`` it serves all requests as one autoregressive batch,
 cached or not. It runs on the GPU unless ``--device cpu`` is given.
 
@@ -117,8 +118,9 @@ def main(argv=None):
     cli_args.add_spec_args(ap)
     ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--use-cache", action="store_true",
-                    help="the cached engine (ring KV caches, or the ssm "
-                         "state caches) instead of the paper's no-cache mode")
+                    help="the cached engine (ring KV caches, the ssm state "
+                         "caches, or both for the hybrid family) instead of "
+                         "the paper's no-cache mode")
     ap.add_argument("--strategy", default="monolithic", choices=STRATEGIES)
     ap.add_argument("--batch", type=int, default=8)
     cli_args.add_trace_args(ap)

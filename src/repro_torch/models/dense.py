@@ -14,10 +14,11 @@ a block pool: a layer's [B, W, Kv, D] buffer is the pool
 table[b, j] = b * W / RING_PAGE + (j mod W / RING_PAGE), so position p of
 row b is read from slot p mod W, where the ring wrote it. A layer writes its
 Q new tokens into the ring first, then reads it like a paged pool: the
-kernel's causal mask hides slots past index + Q, and the model's sliding
-window (``cfg.sliding_window``, not the padded ring) hides slots that hold
-positions older than it. That is JAX's [old buffer ++ new tokens] read over
-``slot_positions`` whenever the write evicts no key a query still sees:
+kernel's causal mask hides slots past index + Q, and the model's window
+(``cfg.sliding_window``, or a hybrid model's ``cfg.local_window``; not the
+padded ring) hides slots that hold positions older than it. That is JAX's
+[old buffer ++ new tokens] read over ``slot_positions`` whenever the write
+evicts no key a query still sees:
 
   * a ring that holds every position (no window, or W >= the positions
     ``Model.init_cache`` was asked for) never wraps; the table is its
@@ -164,8 +165,9 @@ def dense_layer(cfg, p, x, q_pos, layer_cache, index, block_table,
     return x + L.swiglu(p["mlp"], L.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
 
 
-def ring_read(cfg, cache, Q, tree=None):
-    """How a forward of Q tokens reads the ring ``cache`` (see the module
+def ring_read(window, cache, Q, tree=None):
+    """How a forward of Q tokens reads the ring ``cache`` of a model whose
+    attention is windowed by ``window`` (None: full causal; see the module
     docstring): ("write", table) writes first and reads through the table,
     ("flash", table) is a prefill from index 0 longer than the ring. Rounds
     are decided from shapes; only a call past W - window + 1 tokens reads
@@ -183,7 +185,6 @@ def ring_read(cfg, cache, Q, tree=None):
             raise NotImplementedError(f"{Q} tokens would wrap a ring of {W} "
                                       "slots")
         return "write", table
-    window = cfg.sliding_window
     if window is None:
         raise ValueError(f"a ring of {W} slots for {positions} positions "
                          "needs a sliding window")
@@ -210,9 +211,10 @@ class Pass(NamedTuple):
     ring: Optional[str]
 
 
-def begin(cfg, params, tokens, cache, max_live=None, tree=None):
-    """Embed ``tokens`` and settle how the forward reads ``cache``:
-    (x, Pass). Shared by the dense and MoE forwards."""
+def begin(cfg, params, tokens, cache, window, max_live=None, tree=None):
+    """Embed ``tokens`` and settle how the forward reads ``cache``, whose
+    attention is windowed by ``window``: (x, Pass). Shared by the dense,
+    MoE and hybrid forwards."""
     if cache is None and tree is not None:
         raise ValueError("a tree-verify pass needs a cache")
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
@@ -228,7 +230,7 @@ def begin(cfg, params, tokens, cache, max_live=None, tree=None):
         return x, Pass(offs, None, None, max_live, tree, None)
     index = cache["index"]
     if "block_table" not in cache:
-        ring, block_table = ring_read(cfg, cache, Q, tree)
+        ring, block_table = ring_read(window, cache, Q, tree)
         max_live = None
     else:
         block_table = cache["block_table"]
@@ -278,7 +280,8 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
     (core/tree.py): RoPE positions become index + depths and attention
     follows the ancestor bitmasks. They become device tensors once here,
     not once per layer."""
-    x, ps = begin(cfg, params, tokens, cache, max_live, tree)
+    x, ps = begin(cfg, params, tokens, cache, cfg.sliding_window, max_live,
+                  tree)
     for l, lp in enumerate(params["layers"]):
         x = run_layer(cfg, lp, x, layer_cache(cache, l), ps)
     return end(cfg, params, x, cache, logits_slice)

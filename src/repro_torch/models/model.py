@@ -1,5 +1,5 @@
-"""Model API (port of ``repro/models/model.py``: the dense, moe and ssm
-families).
+"""Model API (port of ``repro/models/model.py``: the dense, moe, ssm and
+hybrid families).
 
   model = build_model(cfg)
   params = model.init(seed, device)
@@ -21,13 +21,17 @@ page), and the dense forward reads it through a table over positions
 conv caches, both in the activation dtype as in JAX. The moe family's
 caches are the dense family's over the layers its blocks hold
 (``moe.n_layers``), one [L, ...] K and V buffer in forward order where JAX
-nests them by block kind (``models.moe``). A bf16 state is
+nests them by block kind (``models.moe``). The hybrid family's cache is
+flat (``models.hybrid``): the recurrent units' state and conv stacks, in
+the activation dtype, beside a ring over its attention units, sized by
+``cfg.local_window`` + spec_slack as JAX sizes it. A bf16 state is
 rounded after every cached pass: cached AR rounds it once a token, a
 speculative round once a round (through the verify's trail), and the
-no-cache pass never, so the three drift apart at bf16 (not at fp32). It
-has no paged cache (JAX has none either). ``apply`` returns the moe
-family's aux losses (load balance, router z) and ``{}`` for the others.
-The other families wait for later slices.
+no-cache pass never, so the three drift apart at bf16 (not at fp32).
+Neither recurrent family has a paged cache (JAX has none either).
+``apply`` returns the moe family's aux losses (load balance, router z)
+and ``{}`` for the others. The VLM and encoder-decoder families wait for
+later slices.
 """
 from __future__ import annotations
 
@@ -37,9 +41,10 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.cache import kv_cache, paged_kv
-from repro_torch.models import dense, moe, ssm
+from repro_torch.models import dense, hybrid, moe, ssm
 
-FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm}
+FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid}
+RECURRENT = ("ssm", "hybrid")     # families with state caches and trails
 
 
 class Model:
@@ -69,8 +74,9 @@ class Model:
     def apply(self, params, tokens, cache=None, *, want_trail=False,
               logits_slice=None, max_live=None, tree=None):
         """``cache=None`` runs the no-cache full-sequence pass and returns
-        (logits, None, {}). ``want_trail``: ssm caches only — also return
-        the per-token state and conv trails ``rollback`` selects from.
+        (logits, None, {}). ``want_trail``: ssm and hybrid caches only —
+        also return the per-token state and conv trails ``rollback``
+        selects from.
         ``max_live``: paged caches only. ``tree`` = (depths, bits) int32 [Q]
         runs a stacked tree-verify pass (``core.tree``; dense family)."""
         if tree is not None and self.family != "dense":
@@ -79,10 +85,11 @@ class Model:
         if self.family == "moe":
             return moe.forward(self.cfg, params, tokens, cache,
                                logits_slice=logits_slice, max_live=max_live)
-        if self.family == "ssm":
-            logits, new_cache = ssm.forward(self.cfg, params, tokens, cache,
-                                            logits_slice=logits_slice,
-                                            want_trail=want_trail)
+        if self.family in RECURRENT:
+            fwd = FAMILIES[self.family].forward
+            logits, new_cache = fwd(self.cfg, params, tokens, cache,
+                                    logits_slice=logits_slice,
+                                    want_trail=want_trail)
             return logits, new_cache, {}
         logits, new_cache = dense.forward(self.cfg, params, tokens, cache,
                                           logits_slice=logits_slice,
@@ -114,7 +121,9 @@ class Model:
         with fewer slots than that many positions also holds
         ``positions`` (moe: the same over ``moe.n_layers`` layers). ssm:
         state [L, batch, H, P, N] and conv
-        [L, batch, K-1, CH] caches. Index 0."""
+        [L, batch, K-1, CH] caches. hybrid: state [L_rec, batch, W] and
+        conv [L_rec, batch, 3, W], and the dense ring over its L_attn
+        attention units with ``cfg.local_window`` as the window. Index 0."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
         dev = devices.resolve(device)
@@ -127,10 +136,22 @@ class Model:
                     "conv": torch.zeros((cfg.num_layers, batch, K - 1, ch),
                                         dtype=dtype, device=dev),
                     "index": torch.zeros((), dtype=torch.int32, device=dev)}
+        if self.family == "hybrid":
+            ring = self._ring(hybrid.n_attn(cfg), batch, max_len,
+                              cfg.local_window + spec_slack, dtype, dev)
+            return {**hybrid.init_state(cfg, batch, dtype, dev), **ring}
+        return self._ring(self._kv_layers(), batch, max_len,
+                          self._kv_window(spec_slack), dtype, dev)
+
+    def _ring(self, n_layers, batch, max_len, window, dtype, dev):
+        """Ring K/V buffers over ``n_layers`` layers: buffer_len(max_len,
+        window) slots rounded up to a multiple of ``dense.RING_PAGE``, and
+        ``positions`` when that is fewer than max_len (rounded up)."""
+        cfg = self.cfg
         page = dense.RING_PAGE
-        W = kv_cache.buffer_len(max_len, self._kv_window(spec_slack))
+        W = kv_cache.buffer_len(max_len, window)
         W = -(-W // page) * page
-        cache = kv_cache.init_cache(self._kv_layers(), batch, W, cfg.num_kv_heads,
+        cache = kv_cache.init_cache(n_layers, batch, W, cfg.num_kv_heads,
                                     cfg.head_dim, dtype=dtype, device=dev)
         positions = -(-max_len // page) * page
         if positions > W:
@@ -142,7 +163,7 @@ class Model:
                          device=None):
         """Block-pool KV cache for ragged continuous batching (KV families
         only: recurrent state needs no paging)."""
-        if self.family == "ssm":
+        if self.family in RECURRENT:
             raise ValueError(f"paged KV cache unsupported for family {self.family!r}")
         cfg = self.cfg
         return paged_kv.init_cache(self._kv_layers(), batch, num_blocks,
@@ -153,8 +174,8 @@ class Model:
 
     # -------------------------------------------------------------- rollback
     def rollback(self, cache, accepted_index, q_len):
-        if self.family == "ssm":
-            return ssm.rollback(cache, accepted_index, q_len)
+        if self.family in RECURRENT:
+            return FAMILIES[self.family].rollback(cache, accepted_index, q_len)
         return kv_cache.rollback(cache, accepted_index)
 
 

@@ -220,7 +220,8 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None):
     """As ``dense.forward`` (no tree passes), over the blocks' layers; also
     returns the aux losses averaged over the blocks (NaN with none, as in
     JAX)."""
-    x, ps = dense.begin(cfg, params, tokens, cache, max_live)
+    x, ps = dense.begin(cfg, params, tokens, cache, cfg.sliding_window,
+                        max_live)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     rz = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(params["layers"]):

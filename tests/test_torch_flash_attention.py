@@ -156,11 +156,11 @@ def _bf16_weights_attention(q, k, v):
 
 
 @pytest.mark.parametrize("S", [134, 2048])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_bf16_weights_stay_within_the_card_tolerance(S, D):
     """Rounding P to bf16 (the kernel's PV operand) keeps the output within
     chip_smoke.py's bf16 tolerance of the fp32 plain version, at the main
-    path's length and the longest case's, for both head widths."""
+    path's length and the longest case's, for every head width."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(S + D, 1, S, S, 4, 2, D,
                                                      "bfloat16"))
     got = _bf16_weights_attention(q, k, v)
@@ -180,7 +180,7 @@ def test_plan_covers_every_query_row_once():
     @hyp.given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
                B=st.integers(1, 8), Sq=st.integers(1, 4096),
                Kv=st.integers(1, 16), gq=st.integers(1, 8),
-               D=st.sampled_from([64, 128]),
+               D=st.sampled_from([64, 128, 256]),
                window=st.sampled_from([None, 8, 100]),
                sms=st.sampled_from([H100_SMS, 114, 16]))
     def check(dtype, B, Sq, Kv, gq, D, window, sms):
@@ -223,3 +223,35 @@ def test_plan_sizes_the_tile_by_the_cards_sm_count(sms, rows):
     SXM (132 SMs) or PCIe (114), but not of a card with 512 SMs, which
     keeps 64-row tiles."""
     assert fa.plan(torch.bfloat16, 2, 1100, 24, 8, 128, sms=sms).row_tile == rows
+
+
+# ------------------------------------------------------------ head_dim 256
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,causal", [(None, True), (5, True),
+                                           (None, False)])
+@pytest.mark.parametrize("H", [10, 4])      # recurrentgemma-2b, -draft (Kv 1)
+def test_plain_matches_jax_kernel_and_oracle_at_head_dim_256(H, window, causal,
+                                                             dtype):
+    """RecurrentGemma's MQA heads at D = 256, the hybrid family's no-cache
+    attention: the plain version against the interpret-mode Pallas kernel
+    and the jnp oracle, as at the other head dims."""
+    q, k, v = _inputs(H * 7 + (window or 0), 2, 13, 13, H, 1, 256, dtype)
+    got = _port(q, k, v, dtype, window=window, causal=causal)
+    kern = _jax(jax_ops.flash_attention, q, k, v, dtype, bq=8, bs=8,
+                window=window, causal=causal)
+    want = _jax(jax_ref.flash_attention_ref, q, k, v, dtype, window=window,
+                causal=causal)
+    np.testing.assert_allclose(got, kern, **TOL[dtype])
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("S,window", [(134, None), (2048, None), (1100, 64)])
+@pytest.mark.parametrize("H", [10, 4])
+def test_plan_keeps_64_row_tiles_at_head_dim_256(H, S, window):
+    """D = 256 runs the 64-row bf16 block (the kernel's only instantiation
+    there) at chip_smoke.py's hybrid shapes, B = 2, one kv-head; fp32 its
+    16-row block."""
+    p = fa.plan(torch.bfloat16, 2, S, H, 1, 256, window, sms=H100_SMS)
+    assert (p.row_tile, p.row_tiles) == (64, -(-S * H // 64))
+    assert fa.plan(torch.float32, 2, S, H, 1, 256, window,
+                   sms=H100_SMS).row_tile == fa.F32_ROWS

@@ -104,3 +104,53 @@ def test_model_dispatch_keeps_the_explicit_scale_on_cpu():
                           scale=0.3).numpy()
     want = _jax(jax_attn_paged, q, k, v, table, idx, scale=0.3)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# ------------------------------------------------------------ head_dim 256
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("Q", [1, 5])
+@pytest.mark.parametrize("H,Kv", [(10, 1), (4, 1)])   # recurrentgemma-2b, -draft
+def test_plain_matches_jax_at_head_dim_256(H, Kv, Q, window):
+    """RecurrentGemma's MQA geometries (10 or 4 query rows per kv-head) at
+    D = 256, which the kernels take since the hybrid family was ported: the
+    plain version against the oracle and the interpret-mode Pallas kernel,
+    as at the other head dims."""
+    q, k, v, table, idx = _case(256 + H + Q, 3, Q, H, Kv, 8, D=256)
+    got = _port(q, k, v, table, idx, window=window)
+    want = _jax(jax_attn_paged, q, k, v, table, idx, window=window)
+    np.testing.assert_allclose(got, want, **TOL)
+    kern = _jax(jax_kernel, q, k, v, table, idx, window=window, interpret=True)
+    np.testing.assert_allclose(got, kern, **TOL)
+
+
+class _OnCard:
+    """What ``check_args`` reads of a CUDA tensor (shape, dtype, device),
+    without a card."""
+
+    def __init__(self, *shape, dtype=torch.bfloat16):
+        self.shape, self.dtype = shape, dtype
+        self.device = torch.device("cuda", 0)
+
+    def is_contiguous(self):
+        return True
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 96, 512])
+def test_check_args_takes_head_dims_64_128_and_256(D):
+    """The paged and flash kernels are instantiated at head dims 64, 128
+    and 256; any other raises before a launch. The tree policy keeps 64 and
+    128 (no model with D = 256 runs tree rounds)."""
+    from repro_torch.kernels import tree_attention as ta
+    q, pool = _OnCard(2, 1, 10, D), _OnCard(16, 16, 1, D)
+    if D in (64, 128, 256):
+        assert pa.check_args("paged attention", q, pool, pool, None, None) is None
+    else:
+        with pytest.raises(ValueError, match=f"head_dim 64, 128, 256, got {D}"):
+            pa.check_args("paged attention", q, pool, pool, None, None)
+    if D in (64, 128):
+        assert pa.check_args("tree attention", q, pool, pool, None, None,
+                             head_dims=ta.TREE_HEAD_DIMS) is None
+    else:
+        with pytest.raises(ValueError, match=f"head_dim 64, 128, got {D}"):
+            pa.check_args("tree attention", q, pool, pool, None, None,
+                          head_dims=ta.TREE_HEAD_DIMS)

@@ -195,12 +195,14 @@ def _bf16_pool(seed, B, Q, H, Kv, D, BS=16, MB=16):
 
 
 @pytest.mark.parametrize("Q", [1, 5])
-@pytest.mark.parametrize("H,Kv,D", [(24, 8, 128), (32, 8, 64)])
+@pytest.mark.parametrize("H,Kv,D", [(24, 8, 128), (32, 8, 64), (10, 1, 256),
+                                    (4, 1, 256)])
 def test_bf16_weights_stay_within_the_card_tolerance(H, Kv, D, Q):
     """Rounding P to bf16 (the PV operand of the kernel's tensor cores)
     keeps the output within chip_smoke.py's bf16 tolerance of the fp32
-    plain version, at the Llama-3.2-3B and -1B head geometries and
-    chip_smoke.py's ragged rows (one on the NULL block)."""
+    plain version, at the Llama-3.2-3B and -1B head geometries, the
+    RecurrentGemma pair's (D = 256) and chip_smoke.py's ragged rows (one
+    on the NULL block)."""
     q, k, v, table = _bf16_pool(H + Q, 4, Q, H, Kv, D)
     idx = torch.tensor([37, 150, 11, 200], dtype=torch.int32)
     max_live = int(idx.max()) + Q
@@ -256,7 +258,7 @@ def test_plan_covers_every_row_tile_and_live_chunk_once():
     @hyp.given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
                B=st.integers(1, 6), Q=st.integers(1, 128),
                Kv=st.integers(1, 8), gq=st.integers(1, 6),
-               D=st.sampled_from([64, 128]), BS=st.sampled_from([4, 8, 16, 32]),
+               D=st.sampled_from([64, 128, 256]), BS=st.sampled_from([4, 8, 16, 32]),
                MB=st.integers(1, 64), data=st.data())
     def check(dtype, B, Q, Kv, gq, D, BS, MB, data):
         index = np.asarray(data.draw(st.lists(
@@ -298,3 +300,41 @@ def test_plan_at_the_prefill_chunk_shapes(H, D, MB, tiles, chunks):
     p = pa.plan(torch.bfloat16, 1, 64, H, 8, D, 16, MB)
     assert (p.row_tile, p.row_tiles, p.chunks) == (16, tiles, chunks)
     assert p.workspace == 8 * 64 * (H // 8) * chunks * (D + 2)
+
+
+# ------------------------------------------------------------ head_dim 256
+@pytest.mark.parametrize("Q", [1, 5])
+@pytest.mark.parametrize("H,Kv", [(10, 1), (4, 1)])   # recurrentgemma-2b, -draft
+def test_split_matches_jax_and_the_pallas_kernel_at_head_dim_256(H, Kv, Q):
+    """The bf16 kernels' split walk at RecurrentGemma's D = 256 against
+    ``attn_paged``, the jnp oracle and the interpret-mode Pallas kernel;
+    its Q = 5 rows bit-equal to Q = 1 steps."""
+    BS = 8
+    MB = -(-(int(INDEX.max()) + Q) // BS)
+    q, k, v, table = _pool(H * 10 + Q, 3, Q, H, Kv, BS, MB, D=256)
+    args = _t(q, k, v, table, INDEX)
+    got = paged_split_ref(*args, chunk=8).numpy()
+    np.testing.assert_allclose(got, attn_paged(*args).numpy(), **TOL)
+    jargs = _j(q, k, v, table, INDEX)
+    np.testing.assert_allclose(got, np.asarray(jax_attn_paged(*jargs)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged_kernel(*jargs, interpret=True)), **TOL)
+    tq, tk, tv, tt, idx = args
+    verify = paged_split_ref(tq, tk, tv, tt, idx, max_live=int(idx.max()) + Q)
+    for i in range(Q):
+        step = paged_split_ref(tq[:, i:i + 1], tk, tv, tt, idx + i,
+                               max_live=int(idx.max()) + i + 1)
+        assert torch.equal(step[:, 0], verify[:, i])
+
+
+@pytest.mark.parametrize("Q,H,tiles", [(1, 10, 1), (5, 10, 4), (1, 4, 1),
+                                       (5, 4, 2)])
+def test_plan_at_the_hybrid_ring_shapes(Q, H, tiles):
+    """The hybrid cached path at chip_smoke.py's full width: B = 2, one
+    kv-head, D = 256, a 144-slot ring read as 9 pages of 16 (3 chunks of
+    64 keys); fp32 keeps one walk per row tile."""
+    p = pa.plan(torch.bfloat16, 2, Q, H, 1, 256, 16, 9)
+    assert (p.row_tile, p.row_tiles, p.chunks) == (16, tiles, 3)
+    assert p.workspace == 2 * Q * H * 3 * (256 + 2)
+    f = pa.plan(torch.float32, 2, Q, H, 1, 256, 16, 9)
+    assert (f.row_tiles, f.chunks, f.workspace) == (tiles, 1, 0)
