@@ -104,11 +104,11 @@ class EngineBackend:
         return self._engines[gamma]
 
     # ----------------------------------------------------------------- paths
-    def _generate_ar(self, prompt, max_new, key):
+    def _generate_ar(self, prompt, max_new, key, extras_t=None):
         toks = autoregressive_generate(
             self.target, self.params_t, prompt, max_new,
             greedy=self.plan.greedy, temperature=self.plan.temperature,
-            key=key, use_cache=self.plan.use_cache)
+            key=key, use_cache=self.plan.use_cache, extras=extras_t)
         # count what actually came back, not the budget (one committed
         # token per AR round, so the two counters agree)
         n_new = int(toks.shape[1]) - int(prompt.shape[1])
@@ -117,7 +117,8 @@ class EngineBackend:
                  "speculative": False}
         return toks, stats
 
-    def _generate_adaptive(self, prompt, max_new, key):
+    def _generate_adaptive(self, prompt, max_new, key, extras_t=None,
+                           extras_d=None):
         """The plan's runtime-feedback hook driving rounds: re-pick gamma
         each round from the alpha EMA (GammaController over one engine per
         candidate gamma). Every round runs on the state the largest
@@ -128,7 +129,8 @@ class EngineBackend:
         g_max = max(p.gamma.candidates)
         max_len = P + max_new + g_max + 2
         state = self._engine(g_max).prefill(self.params_t, self.params_d,
-                                            prompt, max_len, key)
+                                            prompt, max_len, extras_t,
+                                            extras_d, key)
         target_len = P + max_new
         trace_start = len(self.controller.gamma_trace)
         length, accepted, drafted = P, 0, 0
@@ -150,16 +152,22 @@ class EngineBackend:
         return state.tokens[:, :length], stats
 
     # ------------------------------------------------------------- protocol
-    def generate(self, prompt, max_new=None, key=None):
+    def generate(self, prompt, max_new=None, key=None, extras_t=None,
+                 extras_d=None):
+        """One batch to completion; ``extras_t``/``extras_d`` are the
+        models' modality extras (the AR path takes the target's)."""
         p = self.plan
         max_new = p.max_new if max_new is None else max_new
         if p.gamma.adaptive and p.gamma.candidates:
-            return self._generate_adaptive(prompt, max_new, key)
+            return self._generate_adaptive(prompt, max_new, key, extras_t,
+                                           extras_d)
         g = self.controller.gamma()
         if g == 0:
-            return self._generate_ar(prompt, max_new, key)
+            return self._generate_ar(prompt, max_new, key, extras_t)
         toks, stats = self._engine(g).generate(self.params_t, self.params_d,
-                                               prompt, max_new, key=key)
+                                               prompt, max_new, key=key,
+                                               extras_t=extras_t,
+                                               extras_d=extras_d)
         self.controller.observe(stats["accepted"], stats["drafted"])
         stats["speculative"] = True
         return toks, stats

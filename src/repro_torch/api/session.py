@@ -111,10 +111,12 @@ class Session:
                    **kw)
 
     # ------------------------------------------------------------ execution
-    def generate(self, prompt, max_new: Optional[int] = None, key=None):
+    def generate(self, prompt, max_new: Optional[int] = None, key=None, **kw):
         """One batch to completion; returns (tokens, stats). ``key`` feeds
-        sampled plans (``sampling.keys``; default ``TorchKey(0)``)."""
-        return self.backend.generate(prompt, max_new, key=key)
+        sampled plans (``sampling.keys``; default ``TorchKey(0)``). Extra
+        kwargs (modality extras_t/extras_d) pass through to the engine
+        backend."""
+        return self.backend.generate(prompt, max_new, key=key, **kw)
 
     def generate_batch(self, prompts, max_new: Optional[int] = None):
         """One batch to completion with per-row lengths;

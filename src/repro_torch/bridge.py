@@ -1,6 +1,6 @@
 """Weight bridge: JAX-initialised params (as numpy) -> the port's params.
 
-The JAX models (dense, moe, ssm and hybrid) keep their params as a nested
+The JAX models (all six families) keep their params as a nested
 dict with the layer params stacked on axis 0. A caller that holds both packages turns
 that tree into numpy (``jax.tree_util.tree_map(np.asarray, params)``) and
 hands it here; this module itself never imports JAX. Layers are unstacked
@@ -15,7 +15,11 @@ dense{m-2}[i], moe[i]`` for block i (``models.moe``). The hybrid family
 stacks each unit of its pattern over the blocks (``blocks["u{j}_{kind}"]``,
 each [n_blocks, ...]) and keeps the leftover units in a ``tail`` list; the
 port's list is block i's units in pattern order, then the tail
-(``models.hybrid``).
+(``models.hybrid``). The VLM's tree is the dense tree plus the
+``projector`` (unstacked leaves). The encoder-decoder stacks
+``enc_layers`` and ``dec_layers`` (``self``/``cross``/``mlp``/
+``mlp_norm``) on axis 0; the port keeps each as a list in forward order
+(``models.encdec``), beside ``enc_norm`` and the tied embedding.
 
 Each leaf keeps its dtype class: fp32 leaves stay fp32 (the SSM's
 ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU's ``lam`` are fp32
@@ -61,6 +65,18 @@ def params_from_numpy(cfg, tree, device=None):
     def layer(stack, i):
         return _map(lambda a: to_torch(np.asarray(a)[i]), stack)
 
+    def stack(name, n_want):
+        n = _leaves(tree[name])[0].shape[0]
+        if n != n_want:
+            raise ValueError(f"tree has {n} {name}, config {n_want}")
+        return [layer(tree[name], i) for i in range(n)]
+
+    if cfg.family == "encdec":
+        return {"embed": L.with_f32_table({"table": to_torch(tree["embed"]["table"])}),
+                "enc_layers": stack("enc_layers", cfg.num_encoder_layers),
+                "enc_norm": _map(to_torch, tree["enc_norm"]),
+                "dec_layers": stack("dec_layers", cfg.num_layers),
+                "final_norm": _map(to_torch, tree["final_norm"])}
     if cfg.family == "moe":
         m = max(cfg.moe_every, 1)
         kinds = [f"dense{j}" for j in range(m - 1)] + ["moe"]
@@ -75,10 +91,7 @@ def params_from_numpy(cfg, tree, device=None):
     elif cfg.family == "hybrid":
         layers = _hybrid_layers(cfg, tree, layer, to_torch)
     else:
-        n = _leaves(tree["layers"])[0].shape[0]
-        if n != cfg.num_layers:
-            raise ValueError(f"tree has {n} layers, config {cfg.num_layers}")
-        layers = [layer(tree["layers"], i) for i in range(n)]
+        layers = stack("layers", cfg.num_layers)
     params = {
         "embed": {"table": to_torch(tree["embed"]["table"])},
         "layers": layers,
@@ -88,6 +101,8 @@ def params_from_numpy(cfg, tree, device=None):
         params["embed"] = L.with_f32_table(params["embed"])
     else:
         params["lm_head"] = _map(to_torch, tree["lm_head"])
+    if cfg.family == "vlm":
+        params["projector"] = _map(to_torch, tree["projector"])
     return params
 
 

@@ -1,12 +1,10 @@
 """Model and input-shape configuration (port of ``repro/configs/base.py``).
 
-Same fields and defaults as the JAX ``ModelConfig`` for the dense
-(llama-style), MoE, SSM (Mamba-2) and hybrid (RecurrentGemma) families,
-with dtypes resolved to ``torch`` dtypes, plus the encoder-decoder fields
-that the analytic parameter count (``param_count``,
-``active_param_count``) and the planner's roofline
-(``core/analytic_cost.py``) read. The encoder-decoder model, and the VLM
-and execution fields, wait for the slices that port them. ``ShapeConfig``
+Same fields and defaults as the JAX ``ModelConfig`` for the six
+families (dense, MoE, SSM, hybrid, encoder-decoder and VLM), with dtypes
+resolved to ``torch`` dtypes. The execution fields (``remat``,
+``remat_policy``) and the MoE router jitter belong to JAX's training path
+and are left out. ``ShapeConfig``
 and ``INPUT_SHAPES`` are the four assigned input shapes the planner
 prices a model at.
 """
@@ -53,6 +51,9 @@ class ModelConfig:
     local_window: int = 2048               # local-attn window for hybrid blocks
     # --- encoder-decoder (whisper) ---
     num_encoder_layers: int = 0
+    encoder_seq: int = 1500                # frames after the (stubbed) conv frontend
+    # --- VLM ---
+    num_vision_tokens: int = 0             # patch embeddings fed by the (stubbed) ViT
     # --- numerics ---
     dtype: str = "bfloat16"                # activation dtype
     param_dtype: str = "bfloat16"

@@ -2,10 +2,9 @@
 
 The paper's pair and the other dense configs (Granite 3.0 2B,
 DeepSeek-Coder 33B, Llama 3 405B), Mamba-2 (ssm), the MoE configs
-(Mixtral 8x7B, Llama 4 Maverick) and RecurrentGemma 2B (hybrid) are
-ported so far; the other
-architectures of ``repro.configs.registry`` join with the slices that port
-their families.
+(Mixtral 8x7B, Llama 4 Maverick), RecurrentGemma 2B (hybrid), Whisper
+large-v3 (encdec) and InternVL2-26B (vlm): every architecture of
+``repro.configs.registry``.
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ ARCHS = (
     "mixtral-8x7b",
     "llama4-maverick-400b-a17b",
     "recurrentgemma-2b",
+    "whisper-large-v3",
+    "internvl2-26b",
 )
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}

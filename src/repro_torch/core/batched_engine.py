@@ -27,12 +27,12 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import rounds
-from repro_torch.core.engine import _prompt_on, init_rings, ring_slack
+from repro_torch.core.engine import _prompt_on, prefill_rings, ring_slack
 from repro_torch.core.rounds import RoundState
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sampling.keys import TorchKey
 
-KV_FAMILIES = ("dense", "moe")
+KV_FAMILIES = ("dense", "moe", "vlm")     # the VLM runs text-only here
 
 # the per-row state IS the round core's state with [B] lengths and an
 # ``active`` mask
@@ -98,7 +98,7 @@ class BatchedSpecEngine:
         max_len = P + max_new + e.gamma + 2
         buf = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
         buf[:, :P] = prompt
-        tcache, dcache = init_rings(
+        tcache, dcache, _, _ = prefill_rings(
             self.target, self.drafter, params_t, params_d, prompt, max_len,
             ring_slack(e.gamma, self._round_spec.policy), e.gamma)
         # promote the shared scalar index to a per-row vector

@@ -35,6 +35,15 @@ so the tokens follow the target's distribution); ``generate(key=)`` and
 splits its own, so a key handing out ``jax.random``'s bits replays JAX's
 tokens.
 
+Modality extras (``generate(extras_t=, extras_d=)``, each model's
+``Model.apply`` keywords: the VLM's ``patches``, the encoder-decoder's
+``frames``) follow JAX's semantics. No cache: every forward takes them,
+so each no-cache encoder-decoder pass runs the encoder again. Cached: the
+prefill consumes them (a VLM's vision prefix lands in the ring even for a
+one-token prompt) and the decode passes keep only the encoder-decoder's
+cross K/V; ``t_off``/``d_off`` shift each cache's index past the vision
+prefix.
+
 ``SpecEngine(placement=)`` (``api/placement.py``, lowered from the plan's
 PlacementPlan) runs cached linear generation on ``rounds.PlacedRound``:
 the draft on the drafter's device, verify and commit on the target's, the
@@ -42,7 +51,8 @@ gamma-token package handed across. With the plan's ``overlap`` armed, the
 loop dispatches round k+1 before the host waits for round k's committed
 length. The placed path takes precedence over either strategy; what it
 cannot run (no-cache, multi or tree drafts, stateful drafters) keeps the
-unplaced path, and ``placement_note`` says why.
+unplaced path, and ``placement_note`` says why; so does a generation
+with modality extras.
 """
 from __future__ import annotations
 
@@ -84,10 +94,12 @@ def ring_slack(gamma: int, policy) -> int:
     return gamma + 2
 
 
-def init_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
-               gamma):
+def prefill_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
+                  gamma, extras_t=None, extras_d=None):
     """Ring (or state) caches for both models, each prefilled with
-    ``prompt[:, :-1]`` (the last prompt token is the first round's input).
+    ``prompt[:, :-1]`` (the last prompt token is the first round's input)
+    and the model's modality extras (``_prefill``), and each model's
+    decode extras: (tcache, dcache, extras_t, extras_d).
     ``max_len`` is the token buffer's length, P + max_new + gamma + 2; the
     rings hold ``max_len - (gamma + 2) + slack`` positions, which adds what
     a tree round's span writes past a linear round's (JAX sizes them at
@@ -103,12 +115,38 @@ def init_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
     dev = prompt.device
     tcache = RING.init(target, B, max_len=cap, spec_slack=slack, device=dev)
     dcache = RING.init(drafter, B, max_len=cap, spec_slack=slack, device=dev)
-    if P > 1:
-        _, tcache, _ = target.apply(params_t, prompt[:, :-1], tcache,
-                                    logits_slice="last")
-        _, dcache, _ = drafter.apply(params_d, prompt[:, :-1], dcache,
-                                     logits_slice="last")
-    return tcache, dcache
+    tcache, extras_t = _prefill(target, params_t, prompt[:, :-1], tcache,
+                                extras_t)
+    dcache, extras_d = _prefill(drafter, params_d, prompt[:, :-1], dcache,
+                                extras_d)
+    return tcache, dcache, extras_t, extras_d
+
+
+def decode_extras(extras, aux):
+    """The extras a model's decode passes take after its cached prefill:
+    the modality front ends' inputs (``patches``, ``frames``) were
+    consumed there and are dropped; the encoder-decoder's cross K/V,
+    computed once by the encoder, is kept (None when nothing is left)."""
+    out = {k: v for k, v in (extras or {}).items()
+           if k not in ("patches", "frames")}
+    if "cross" in (aux or {}):
+        out["cross"] = aux["cross"]
+    return out or None
+
+
+def _prefill(model, params, tokens, cache, extras):
+    """``cache`` after consuming ``tokens`` [B, P - 1] and ``extras``, and
+    the decode extras. A VLM's vision prefix is prefilled even when there
+    are no text tokens (P = 1); an encoder-decoder with no text tokens
+    only encodes its frames."""
+    ex = extras or {}
+    aux = {}
+    if tokens.shape[1] or "patches" in ex:
+        _, cache, aux = model.apply(params, tokens, cache, logits_slice="last",
+                                    **ex)
+    elif "frames" in ex:
+        aux = {"cross": model.encode(params, ex["frames"])}
+    return cache, decode_extras(ex, aux)
 
 
 def _prompt_on(prompt, params):
@@ -159,12 +197,16 @@ class SpecEngine:
         return rounds.spec_round(self.target, self.drafter, params_t,
                                  params_d, state, self._spec)
 
-    def prefill(self, params_t, params_d, prompt, max_len,
-                key=None) -> RoundState:
+    def prefill(self, params_t, params_d, prompt, max_len, extras_t=None,
+                extras_d=None, key=None) -> RoundState:
         """The generation state for a [B, P] prompt in a [B, max_len]
-        buffer, carrying ``key`` (default ``TorchKey(0)``). No cache:
-        nothing is computed until the first round. Cached: both caches
-        consume prompt[:, :-1] (``init_rings``)."""
+        buffer, carrying ``key`` (default ``TorchKey(0)``) and each
+        model's modality extras. No cache: nothing is computed until the
+        first round, and every forward takes the extras as given. Cached:
+        both caches consume prompt[:, :-1] and the extras
+        (``prefill_rings``); the state keeps the decode extras (the cross
+        K/V; patches and frames are consumed) and the offsets of the cache
+        indices past the text (the VLM's vision tokens)."""
         prompt = _prompt_on(prompt, params_t)
         B, P = prompt.shape
         dev = prompt.device
@@ -176,16 +218,18 @@ class SpecEngine:
         st = RoundState(tokens=buf,
                         length=torch.full((), P, dtype=torch.int32, device=dev),
                         key=key if key is not None else TorchKey(0),
-                        n_rounds=zero(), n_accepted=zero(), n_drafted=zero())
+                        n_rounds=zero(), n_accepted=zero(), n_drafted=zero(),
+                        extras_t=extras_t, extras_d=extras_d)
         if not self.ecfg.use_cache:
             return st
-        tcache, dcache = init_rings(
+        tcache, dcache, ex_t, ex_d = prefill_rings(
             self.target, self.drafter, params_t, params_d, prompt, max_len,
-            ring_slack(self.ecfg.gamma, self._policy), self.ecfg.gamma)
+            ring_slack(self.ecfg.gamma, self._policy), self.ecfg.gamma,
+            extras_t, extras_d)
         # cache-index offset: prefill consumed P-1 text tokens plus any
-        # prefix the cache also holds (none for the ported families)
-        return st._replace(tcache=tcache, dcache=dcache,
-                           t_off=tcache["index"] - (P - 1),
+        # modality prefix (vision patches) that also landed in the cache
+        return st._replace(tcache=tcache, dcache=dcache, extras_t=ex_t,
+                           extras_d=ex_d, t_off=tcache["index"] - (P - 1),
                            d_off=dcache["index"] - (P - 1))
 
     def _generate_placed(self, params_t, params_d, state, target_len):
@@ -218,14 +262,24 @@ class SpecEngine:
             k += 1
         return state
 
-    def generate(self, params_t, params_d, prompt, max_new_tokens, key=None):
+    def generate(self, params_t, params_d, prompt, max_new_tokens, key=None,
+                 extras_t=None, extras_d=None):
         """Returns (tokens [B, length], stats); the last round may commit
-        past ``P + max_new_tokens``. ``key`` feeds the sampled rounds."""
+        past ``P + max_new_tokens``. ``key`` feeds the sampled rounds;
+        ``extras_t``/``extras_d`` are the target's and the drafter's
+        modality extras (``Model.apply``'s patches/frames/cross). A
+        generation with extras keeps the unplaced path (placed rounds do
+        not carry them, as in JAX) and says so in ``placement_note``."""
         B, P = prompt.shape
         max_len = P + max_new_tokens + self.ecfg.gamma + 2
-        state = self.prefill(params_t, params_d, prompt, max_len, key)
+        state = self.prefill(params_t, params_d, prompt, max_len, extras_t,
+                             extras_d, key)
         target_len = P + max_new_tokens
-        if self._placed_round is not None:
+        placed = self._placed_round is not None
+        if placed and (state.extras_t or state.extras_d):
+            self.placement_note = "modality extras are single-mesh"
+            placed = False
+        if placed:
             state = self._generate_placed(params_t, params_d, state,
                                           target_len)
         elif self.tracer.enabled and self.ecfg.strategy == "modular":
@@ -257,7 +311,7 @@ class SpecEngine:
 
 def autoregressive_generate(model, params, prompt, max_new_tokens, *,
                             greedy=True, temperature=1.0, key=None,
-                            use_cache=False):
+                            use_cache=False, extras=None):
     """The non-speculative baseline (the paper's 'standard sampling') over
     a [B, P + max_new_tokens] buffer, returned whole: each token the
     argmax, or (``greedy=False``) a draw from softmax(logits /
@@ -265,8 +319,11 @@ def autoregressive_generate(model, params, prompt, max_new_tokens, *,
     split per token, as in JAX). No cache: ``max_new_tokens`` full-buffer
     passes. Cached: one prefill over the prompt (its last position gives
     the first token), then one single-token cached step per further
-    token."""
+    token. ``extras`` (``Model.apply``'s patches/frames/cross) go to
+    every no-cache pass; cached, the prefill takes them and the steps
+    their decode extras (``decode_extras``)."""
     prompt = _prompt_on(prompt, params)
+    ex = extras or {}
     B, P = prompt.shape
     dev = prompt.device
     max_len = P + max_new_tokens
@@ -277,19 +334,20 @@ def autoregressive_generate(model, params, prompt, max_new_tokens, *,
     if use_cache:
         cache = model.init_cache(B, model.cache_len(max_len), spec_slack=2,
                                  device=dev)
-        logits, cache, _ = model.apply(params, prompt, cache,
-                                       logits_slice="last")
+        logits, cache, aux = model.apply(params, prompt, cache,
+                                         logits_slice="last", **ex)
+        ex = decode_extras(ex, aux) or {}
         for i in range(max_new_tokens):
             if i:
                 logits, cache, _ = model.apply(
                     params, _slice_tokens(buf, length - 1, 1), cache,
-                    logits_slice="last")
+                    logits_slice="last", **ex)
             nxt, key = next_token(logits[:, -1], greedy, temperature, key)
             buf = _write_col(buf, length, nxt)
             length = length + 1
         return buf
     for _ in range(max_new_tokens):
-        logits, _, _ = model.apply(params, buf)
+        logits, _, _ = model.apply(params, buf, **ex)
         q = _slice_logits(logits, length - 1, 1)[:, 0]
         nxt, key = next_token(q, greedy, temperature, key)
         buf = _write_col(buf, length, nxt)

@@ -33,6 +33,12 @@ best one. The buffer positions are 0-dim device tensors: the column
 writes and the logits/token slices gather and scatter on the device, so a
 round makes no host sync of its own.
 
+Every forward takes its model's modality extras from the state
+(``RoundState.extras_t``/``extras_d``: patches, frames or the cross K/V),
+repeated along the batch axis where K candidates or W branches stack the
+rows; commits and rollbacks shift the cache indices by ``t_off``/
+``d_off`` (a VLM's vision prefix).
+
 Greedy verification dispatches by device: the fused CUDA argmax kernel
 (``kernels.spec_verify``) for a CUDA tensor, the plain version
 (``core.acceptance``) for a CPU tensor. Both give the same tokens. The
@@ -90,9 +96,12 @@ class RoundState(NamedTuple):
     share one committed length) or per-row ``[B]`` for per-row rounds;
     ``active`` marks rows that still commit (frozen slots draft along but
     commit nothing; None = all rows live); the two caches are None on the
-    no-cache path. ``t_off``/``d_off`` shift cache indices past any prefix
-    the cache holds besides the text (0 for the ported text families; JAX's
-    VLM vision tokens)."""
+    no-cache path. ``extras_t``/``extras_d`` are each model's modality
+    extras (``Model.apply``'s ``patches``/``frames``/``cross``; None for
+    the text families), passed to every forward of that model; a cached
+    prefill keeps only the encoder-decoder's ``cross``. ``t_off``/``d_off``
+    shift cache indices past any prefix the cache holds besides the text
+    (the VLM's vision tokens; 0 otherwise)."""
     tokens: torch.Tensor           # [B, T] token buffer
     length: torch.Tensor           # scalar or [B] committed tokens
     dcache: Any = None
@@ -102,6 +111,8 @@ class RoundState(NamedTuple):
     n_rounds: Any = 0              # scalar
     n_accepted: Any = 0            # scalar (batch_min) or [B] (per_row)
     n_drafted: Any = 0             # scalar
+    extras_t: Any = None           # modality extras (dict or None)
+    extras_d: Any = None
     t_off: Any = 0                 # cache-index offset vs text length
     d_off: Any = 0
 
@@ -220,6 +231,23 @@ def _is_paged_branched(dcache, B):
             and dcache["block_table"].shape[0] != B)
 
 
+def _repeat_extras(extras, n):
+    """``extras`` with each batch row repeated n times (row b -> rows
+    b*n .. b*n + n - 1, the layout of K stacked candidates or W branch
+    rows): ``patches``/``frames`` along axis 0, the cross K/V along their
+    batch axis 1."""
+    if n == 1 or not extras:
+        return extras or {}
+    out = {}
+    for name, v in extras.items():
+        if name == "cross":
+            out[name] = {kk: torch.repeat_interleave(vv, n, dim=1)
+                         for kk, vv in v.items()}
+        else:
+            out[name] = torch.repeat_interleave(v, n, dim=0)
+    return out
+
+
 def _take_candidate(x, win):
     """x: [B, K, ...] -> the winner candidate per row: [B, ...]."""
     return x[torch.arange(x.shape[0], device=x.device), win.long()]
@@ -257,13 +285,15 @@ class LinearDraftPolicy:
                      live0) -> DraftOut:
         t_last = _gather_last(state.tokens, state.length)
         tok, cache, key = t_last, state.dcache, state.key
+        ex_d = state.extras_d or {}
         drafts, qs, snaps = [], [], []
         # +1 step for stateful drafters so the snapshot trail covers the
         # full-acceptance rollback target
         for i in range(spec.gamma + 1 if spec.d_stateful else spec.gamma):
             ml = None if live0 is None else live0 + i
             logits, cache, _ = drafter.apply(params_d, tok[:, None], cache,
-                                             logits_slice="last", max_live=ml)
+                                             logits_slice="last", max_live=ml,
+                                             **ex_d)
             tok, key = next_token(logits[:, -1], spec.greedy,
                                   spec.temperature, key)
             drafts.append(tok)
@@ -283,9 +313,10 @@ class LinearDraftPolicy:
         G = spec.gamma
         length = state.length
         toks, key = state.tokens, state.key
+        ex_d = state.extras_d or {}
         qs = []
         for i in range(G):
-            logits, _, _ = drafter.apply(params_d, toks)
+            logits, _, _ = drafter.apply(params_d, toks, **ex_d)
             pos = length - 1 + i
             q_i = _slice_logits(logits, pos, 1)[:, 0]           # [B, V]
             d_i, key = next_token(q_i, spec.greedy, spec.temperature, key)
@@ -319,14 +350,16 @@ class MultiDraftPolicy:
         K, G = self.k, spec.gamma
         tokens, length = state.tokens, state.length
         B, T = tokens.shape
+        ex_d = state.extras_d or {}
+        ex_k = _repeat_extras(ex_d, K)
         # chain heads: the drafter's top-k next tokens after the prefix
-        logits, _, _ = drafter.apply(params_d, tokens)
+        logits, _, _ = drafter.apply(params_d, tokens, **ex_d)
         q0 = _slice_logits(logits, length - 1, 1)[:, 0]         # [B, V]
         heads = _top_k(q0, K)                                   # [B, K]
         cand = _write_col(torch.repeat_interleave(tokens, K, dim=0), length,
                           heads.reshape(B * K))                 # [B*K, T]
         for i in range(1, G):
-            lg, _, _ = drafter.apply(params_d, cand)
+            lg, _, _ = drafter.apply(params_d, cand, **ex_k)
             pos = length - 1 + i
             q_i = _slice_logits(lg, pos, 1)[:, 0]               # [B*K, V]
             cand = _write_col(cand, pos + 1, torch.argmax(q_i, dim=-1))
@@ -364,15 +397,17 @@ class TreeDraftPolicy:
         W, D = self.width, spec.gamma
         t_last = _gather_last(state.tokens, state.length)
         B = t_last.shape[0]
+        ex_d = state.extras_d or {}
+        ex_w = _repeat_extras(ex_d, W)
         if _is_paged_branched(state.dcache, B):
             logits, cache, _ = drafter.apply(
                 params_d, torch.repeat_interleave(t_last, W)[:, None],
-                state.dcache, logits_slice="last", max_live=live0)
+                state.dcache, logits_slice="last", max_live=live0, **ex_w)
             q0 = logits[:, -1].reshape(B, W, -1)[:, 0]         # [B, V]
         else:
             logits, cache, _ = drafter.apply(
                 params_d, t_last[:, None], state.dcache, logits_slice="last",
-                max_live=live0)
+                max_live=live0, **ex_d)
             q0 = logits[:, -1]
             cache = _replicate_rows(cache, W)
         key = state.key
@@ -386,7 +421,8 @@ class TreeDraftPolicy:
         for i in range(D - 1):
             ml = None if live0 is None else live0 + 1 + i
             lg, cache, _ = drafter.apply(params_d, tok[:, None], cache,
-                                         logits_slice="last", max_live=ml)
+                                         logits_slice="last", max_live=ml,
+                                         **ex_w)
             tok, key = next_token(lg[:, -1], spec.greedy, spec.temperature, key)
             chain.append(tok)
             if not spec.greedy:
@@ -501,6 +537,7 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
     over the K stacked candidate buffers with best-candidate selection."""
     if not spec.use_cache:
         return _verify_recompute(target, params_t, state, d, spec)
+    ex_t = state.extras_t or {}
     if getattr(spec.policy, "name", "") == "tree":
         # ONE stacked cached pass over the whole tree; the chain tree's
         # (depths, bits) select tree attention in the target's layers
@@ -512,7 +549,8 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
         ml = None if live0 is None else live0 + tree.span - 1
         p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
                                            want_trail=True, max_live=ml,
-                                           tree=(tree.depths, tree.bits))
+                                           tree=(tree.depths, tree.bits),
+                                           **ex_t)
         key = d.key
         if spec.greedy:
             res = acceptance.verify_tree_greedy(d.drafts, p_logits,
@@ -529,7 +567,7 @@ def verify_phase(target, params_t, state: RoundState, d: DraftOut,
     live0 = _live0(state, spec)
     ml = None if live0 is None else live0 + spec.gamma
     p_logits, tcache, _ = target.apply(params_t, verify_in, state.tcache,
-                                       want_trail=True, max_live=ml)
+                                       want_trail=True, max_live=ml, **ex_t)
     res, key = _verify_linear(drafts, d, p_logits, spec)
     return VerifyOut(res=res, base_tokens=state.tokens, tcache=tcache, key=key)
 
@@ -552,7 +590,8 @@ def _verify_recompute(target, params_t, state: RoundState, d: DraftOut,
     (``torch.argmax`` takes the first maximum, as ``jnp.argmax`` does)."""
     G = spec.gamma
     B, K, T = d.cand_tokens.shape
-    p_full, _, _ = target.apply(params_t, d.cand_tokens.reshape(B * K, T))
+    p_full, _, _ = target.apply(params_t, d.cand_tokens.reshape(B * K, T),
+                                **_repeat_extras(state.extras_t, K))
     p_logits = _slice_logits(p_full, state.length - 1, G + 1)  # [B*K, G+1, V]
     res, key = _verify_linear(d.drafts.reshape(B * K, G), d, p_logits, spec)
     if K == 1:
@@ -775,7 +814,8 @@ def ar_round(target, params_t, state: RoundState) -> RoundState:
     t_last = state.tokens[rows, (lvec - 1).long()]
     logits, tcache, _ = target.apply(
         params_t, t_last[:, None], state.tcache, logits_slice="last",
-        max_live=ops_t.live_bound(state.length, state.active))
+        max_live=ops_t.live_bound(state.length, state.active),
+        **(state.extras_t or {}))
     nxt = torch.argmax(logits[:, -1], dim=-1).to(state.tokens.dtype)
     active = (state.active if state.active is not None
               else torch.ones((B,), dtype=torch.bool, device=dev))
@@ -789,6 +829,13 @@ def ar_round(target, params_t, state: RoundState) -> RoundState:
 
 
 # =========================================================== placed execution
+def _refuse_extras(state: RoundState):
+    if state.extras_t or state.extras_d:
+        raise NotImplementedError(
+            "placed rounds do not carry decode-time modality extras "
+            "(encdec cross-KV) — use the degenerate placement")
+
+
 def place_state(state: RoundState, placement, target_model=None,
                 drafter_model=None) -> RoundState:
     """Pin a RoundState onto a realized Placement (api/placement.py): the
@@ -799,6 +846,7 @@ def place_state(state: RoundState, placement, target_model=None,
     placed state shares its tensors with the input."""
     if not placement.heterogeneous:
         return state
+    _refuse_extras(state)
     B = state.tokens.shape[0]
     dcache = (placement.drafter.put_cache(drafter_model, state.dcache, B)
               if drafter_model is not None
@@ -837,7 +885,8 @@ class PlacedRound:
 
     Supported: cached linear rounds (both commit modes, greedy or sampled)
     with KV-family drafters. Multi-draft, tree, no-cache rounds and
-    stateful drafters keep the unplaced path.
+    stateful drafters keep the unplaced path; a state that carries
+    modality extras is refused, as JAX's ``place_state`` refuses it.
     """
 
     def __init__(self, target, drafter, spec: RoundSpec, placement,
@@ -887,6 +936,7 @@ class PlacedRound:
         # and transfer time (kind "dispatch"/"handoff"); per-phase device
         # time comes from the phase-split TracedRound
         pm, tr = self.placement, self.tracer
+        _refuse_extras(state)
         # last committed token + row lengths -> drafter's device: a [B]
         # vector each, never the [B, T] buffer
         t_last_t = _gather_last(state.tokens, state.length)

@@ -6,8 +6,9 @@ No cache: ``attn_dense`` materialises the [B, Kv, G, Q, S] scores,
 ``attn_chunked`` walks KV chunks with an online softmax, and ``attention``
 picks between them by the KV length (dense up to ``2 * chunk``), as JAX
 does. They are the plain versions. ``attention_flash`` is the dispatch the
-no-cache forward calls, for positions 0..S-1 on both sides: a CPU tensor
-takes ``attention``, a CUDA tensor the flash kernel
+no-cache forward (and the encoder-decoder's non-causal attention) calls,
+for positions counted from 0 on both sides: a CPU tensor takes
+``attention``, a CUDA tensor the flash kernel
 (``repro_torch.kernels.flash_attention``), whose plain version is
 ``attn_dense``.
 
@@ -141,16 +142,19 @@ def attention(q, k, v, q_pos, kv_pos, *, window=None, scale=None, chunk=512,
                         chunk=chunk, causal=causal)
 
 
-def attention_flash(q, k, v, *, window=None):
-    """No-cache causal attention dispatch, for query and key positions both
-    0..S-1 (the no-cache forward): a CPU tensor takes ``attention``, a CUDA
-    tensor the flash kernel (see ``repro_torch.kernels.ops.
-    flash_attention``)."""
+def attention_flash(q, k, v, *, window=None, causal=True):
+    """No-cache attention dispatch, for query positions 0..Sq-1 and key
+    positions 0..Skv-1 (the no-cache forward: causal, Sq = Skv; the
+    encoder's self-attention and the decoder's cross-attention:
+    ``causal=False``, where positions do not matter): a CPU tensor takes
+    ``attention``, a CUDA tensor the flash kernel (see
+    ``repro_torch.kernels.ops.flash_attention``)."""
     if q.device.type == "cpu":
-        pos = torch.arange(q.shape[1], dtype=torch.int32)
-        return attention(q, k, v, pos, pos, window=window)
+        q_pos = torch.arange(q.shape[1], dtype=torch.int32)
+        kv_pos = torch.arange(k.shape[1], dtype=torch.int32)
+        return attention(q, k, v, q_pos, kv_pos, window=window, causal=causal)
     from repro_torch.kernels import ops
-    return ops.flash_attention(q, k, v, window=window)
+    return ops.flash_attention(q, k, v, window=window, causal=causal)
 
 
 # ------------------------------------------------------------- paged read path

@@ -119,7 +119,7 @@ def ring_view(buf):
 
 
 def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
-               max_live=None, tree=None, ring=None):
+               max_live=None, tree=None, ring=None, use_rope=True):
     """Self-attention sub-block. ``layer_cache=None`` is the no-cache pass
     (q_pos = 0..Q-1 on both sides). Otherwise write this step's K/V into
     the cache (in place), then read it through ``block_table``: the pool's
@@ -129,15 +129,17 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
     = (depths, bits) int32 [Q] device tensors marks a stacked tree-verify
     pass (core/tree.py): q_pos already carries the depth offsets, the KV
     lands at contiguous slots index..index+Q-1, and visibility follows each
-    slot's ancestor bitmask."""
+    slot's ancestor bitmask. ``use_rope=False`` (the encoder-decoder's
+    decoder) leaves q and k unrotated."""
     B, Q, _ = x.shape
     hd = cfg.head_dim
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     q = L.linear(p["q"], h).reshape(B, Q, cfg.num_heads, hd)
     k = L.linear(p["k"], h).reshape(B, Q, cfg.num_kv_heads, hd)
     v = L.linear(p["v"], h).reshape(B, Q, cfg.num_kv_heads, hd)
-    q = L.apply_rope(q, q_pos, cfg.rope_theta)
-    k = L.apply_rope(k, q_pos, cfg.rope_theta)
+    if use_rope:
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
     if layer_cache is None or ring == "flash":
         o = attention_flash(q, k, v, window=window)
         if layer_cache is not None:
@@ -211,13 +213,17 @@ class Pass(NamedTuple):
     ring: Optional[str]
 
 
-def begin(cfg, params, tokens, cache, window, max_live=None, tree=None):
-    """Embed ``tokens`` and settle how the forward reads ``cache``, whose
-    attention is windowed by ``window``: (x, Pass). Shared by the dense,
-    MoE and hybrid forwards."""
+def begin(cfg, params, tokens, cache, window, max_live=None, tree=None,
+          input_embeds=None):
+    """Embed ``tokens`` (or take ``input_embeds`` [B, Q, D]) and settle how
+    the forward reads ``cache``, whose attention is windowed by
+    ``window``: (x, Pass). Shared by the dense, MoE, hybrid, VLM and
+    encoder-decoder forwards."""
     if cache is None and tree is not None:
         raise ValueError("a tree-verify pass needs a cache")
-    x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
+    x = input_embeds if input_embeds is not None \
+        else L.embed(params["embed"], tokens)
+    x = x.to(cfg.act_dtype)
     Q = x.shape[1]
     ring = None
     if tree is not None:
@@ -249,13 +255,18 @@ def run_layer(cfg, lp, x, lc, ps: Pass):
                        ps.max_live, ps.tree, ps.ring)
 
 
-def end(cfg, params, x, cache, logits_slice=None):
+def end(cfg, params, x, cache, logits_slice=None, text_from=0):
     """Final norm and unembedding: (logits, the cache advanced past the
-    forward's tokens, or None without one)."""
+    forward's tokens, or None without one). ``text_from`` unembeds only
+    positions from there on (the VLM's text after its vision prefix; the
+    rows are normed and unembedded one by one, so this is the slice of
+    the whole logits)."""
     Q = x.shape[1]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice == "last":
         x = x[:, -1:]
+    elif text_from:
+        x = x[:, text_from:]
     if cfg.tie_embeddings:
         logits = L.unembed(params["embed"], x)
     else:
@@ -266,8 +277,10 @@ def end(cfg, params, x, cache, logits_slice=None):
 
 
 def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
-            tree=None):
-    """tokens: [B, Q] int.
+            tree=None, input_embeds=None, text_from=0):
+    """tokens: [B, Q] int (or ``input_embeds`` [B, Q, D], the VLM's vision
+    prefix and text; ``text_from`` then unembeds only the text, see
+    ``end``).
     cache=None: full-sequence causal pass (the paper's no-cache mode);
     returns (logits, None).
     cache=dict: a paged or ring cache; Q new tokens are written at
@@ -281,7 +294,7 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
     follows the ancestor bitmasks. They become device tensors once here,
     not once per layer."""
     x, ps = begin(cfg, params, tokens, cache, cfg.sliding_window, max_live,
-                  tree)
+                  tree, input_embeds)
     for l, lp in enumerate(params["layers"]):
         x = run_layer(cfg, lp, x, layer_cache(cache, l), ps)
-    return end(cfg, params, x, cache, logits_slice)
+    return end(cfg, params, x, cache, logits_slice, text_from)

@@ -97,6 +97,21 @@ def swiglu(p, x):
     return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
 
 
+def init_gelu_mlp(gen, d_model, d_ff, dtype, device):
+    return {"up": init_linear(gen, d_model, d_ff, dtype, device),
+            "down": init_linear(gen, d_ff, d_model, dtype, device)}
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's default
+    is the erf form, which parts from it by ~1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(p, x):
+    return linear(p["down"], gelu(linear(p["up"], x)))
+
+
 # --------------------------------------------------------------------------- embeddings
 def init_embedding(gen, vocab, d_model, dtype, device, scale: Optional[float] = None):
     """``scale=None`` keeps the std-1.0 table, as the JAX init does."""

@@ -1,13 +1,18 @@
-"""Model API (port of ``repro/models/model.py``: the dense, moe, ssm and
-hybrid families).
+"""Model API (port of ``repro/models/model.py``: the six families).
 
   model = build_model(cfg)
   params = model.init(seed, device)
-  logits, cache, aux = model.apply(params, tokens, cache, **kw)
+  logits, cache, aux = model.apply(params, tokens, cache, **kw, **extras)
   logits, _, _ = model.apply(params, tokens)       # no-cache full pass
   cache  = model.init_cache(batch, max_len, spec_slack)      (ring / state)
   cache  = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
   cache' = model.rollback(cache, accepted_index, q_len)      (O(1) / trail)
+  shapes = model.extra_inputs(batch)                         (stub frontends)
+
+``extras`` carries the modality front ends' stand-ins, as in JAX:
+``patches`` (vlm: [B, num_vision_tokens, VIT_DIM] patch embeddings) and
+``frames`` or ``cross`` (encdec: [B, encoder_seq, d_model] frame
+embeddings, or the cross-attention K/V ``apply`` returned as aux).
 
 ``init``, ``init_cache`` and ``init_paged_cache`` allocate on ``cuda``
 unless the caller passes ``device="cpu"``. The dense family's
@@ -28,10 +33,14 @@ the activation dtype, beside a ring over its attention units, sized by
 rounded after every cached pass: cached AR rounds it once a token, a
 speculative round once a round (through the verify's trail), and the
 no-cache pass never, so the three drift apart at bf16 (not at fp32).
-Neither recurrent family has a paged cache (JAX has none either).
-``apply`` returns the moe family's aux losses (load balance, router z)
-and ``{}`` for the others. The VLM and encoder-decoder families wait for
-later slices.
+Neither recurrent family has a paged cache (JAX has none either). The
+VLM's caches are the dense family's, sized by ``cache_len`` to hold the
+vision prefix beside the text (the per-row and paged paths take the VLM
+text-only, as JAX's do). The encoder-decoder's is an unwindowed ring over
+its decoder layers; it has no paged cache, as in JAX.
+``apply`` returns the moe family's aux losses (load balance, router z),
+the encoder-decoder's cross K/V (``{"cross": ...}``, computed from
+``frames`` when no ``cross`` is given) and ``{}`` for the others.
 """
 from __future__ import annotations
 
@@ -41,9 +50,10 @@ import torch
 
 from repro_torch import device as devices
 from repro_torch.cache import kv_cache, paged_kv
-from repro_torch.models import dense, hybrid, moe, ssm
+from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
 
-FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid}
+FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid,
+            "vlm": vlm, "encdec": encdec}
 RECURRENT = ("ssm", "hybrid")     # families with state caches and trails
 
 
@@ -72,16 +82,38 @@ class Model:
         return moe.init(self.cfg, gen, dev, layer_fn)
 
     def apply(self, params, tokens, cache=None, *, want_trail=False,
-              logits_slice=None, max_live=None, tree=None):
+              logits_slice=None, max_live=None, tree=None, patches=None,
+              frames=None, cross=None):
         """``cache=None`` runs the no-cache full-sequence pass and returns
-        (logits, None, {}). ``want_trail``: ssm and hybrid caches only —
+        (logits, None, aux). ``want_trail``: ssm and hybrid caches only —
         also return the per-token state and conv trails ``rollback``
         selects from.
         ``max_live``: paged caches only. ``tree`` = (depths, bits) int32 [Q]
-        runs a stacked tree-verify pass (``core.tree``; dense family)."""
+        runs a stacked tree-verify pass (``core.tree``; dense family).
+        ``patches`` (vlm) prepends the projected patches and returns the
+        text positions' logits. ``cross`` (encdec) is the decoder's
+        cross K/V; without it ``frames`` are encoded first, and without
+        either the call raises, as JAX's does. Other families ignore the
+        extras, as JAX's do."""
+        cfg = self.cfg
         if tree is not None and self.family != "dense":
             raise NotImplementedError(
                 f"tree-verify passes need a dense-family target (got {self.family!r})")
+        if self.family == "vlm":
+            logits, new_cache = vlm.forward(cfg, params, tokens, cache,
+                                            patches=patches,
+                                            logits_slice=logits_slice,
+                                            max_live=max_live)
+            return logits, new_cache, {}
+        if self.family == "encdec":
+            if cross is None:
+                if frames is None:
+                    raise ValueError("encdec needs frames or precomputed cross KV")
+                cross = self.encode(params, frames)
+            logits, new_cache = encdec.forward(cfg, params, tokens, cache,
+                                               cross=cross,
+                                               logits_slice=logits_slice)
+            return logits, new_cache, {"cross": cross}
         if self.family == "moe":
             return moe.forward(self.cfg, params, tokens, cache,
                                logits_slice=logits_slice, max_live=max_live)
@@ -96,6 +128,12 @@ class Model:
                                           max_live=max_live, tree=tree)
         return logits, new_cache, {}
 
+    def encode(self, params, frames):
+        """encdec: the decoder's cross K/V of ``frames`` (the encoder, then
+        every decoder layer's K/V projections), as ``apply`` returns it."""
+        return encdec.cross_kv(self.cfg, params,
+                               encdec.encode(self.cfg, params, frames))
+
     # ----------------------------------------------------------------- cache
     def _kv_layers(self):
         """Layers holding KV: every layer, or the moe family's blocks'."""
@@ -104,8 +142,10 @@ class Model:
         return self.cfg.num_layers
 
     def cache_len(self, text_len: int) -> int:
-        """Cache capacity needed for ``text_len`` text positions (the text
-        families hold nothing else)."""
+        """Cache capacity needed for ``text_len`` text positions (the VLM's
+        cache also holds its vision tokens)."""
+        if self.family == "vlm":
+            return text_len + self.cfg.num_vision_tokens
         return text_len
 
     def _kv_window(self, spec_slack):
@@ -123,7 +163,9 @@ class Model:
         state [L, batch, H, P, N] and conv
         [L, batch, K-1, CH] caches. hybrid: state [L_rec, batch, W] and
         conv [L_rec, batch, 3, W], and the dense ring over its L_attn
-        attention units with ``cfg.local_window`` as the window. Index 0."""
+        attention units with ``cfg.local_window`` as the window. vlm: the
+        dense ring (callers size it by ``cache_len``). encdec: an
+        unwindowed ring over the decoder layers. Index 0."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
         dev = devices.resolve(device)
@@ -140,6 +182,8 @@ class Model:
             ring = self._ring(hybrid.n_attn(cfg), batch, max_len,
                               cfg.local_window + spec_slack, dtype, dev)
             return {**hybrid.init_state(cfg, batch, dtype, dev), **ring}
+        if self.family == "encdec":
+            return self._ring(cfg.num_layers, batch, max_len, None, dtype, dev)
         return self._ring(self._kv_layers(), batch, max_len,
                           self._kv_window(spec_slack), dtype, dev)
 
@@ -161,9 +205,10 @@ class Model:
     def init_paged_cache(self, batch, num_blocks, block_size,
                          max_blocks_per_row, dtype: Optional[torch.dtype] = None,
                          device=None):
-        """Block-pool KV cache for ragged continuous batching (KV families
-        only: recurrent state needs no paging)."""
-        if self.family in RECURRENT:
+        """Block-pool KV cache for ragged continuous batching (the dense,
+        moe and vlm families only: recurrent state needs no paging, and the
+        encoder-decoder has none, as in JAX)."""
+        if self.family in RECURRENT or self.family == "encdec":
             raise ValueError(f"paged KV cache unsupported for family {self.family!r}")
         cfg = self.cfg
         return paged_kv.init_cache(self._kv_layers(), batch, num_blocks,
@@ -177,6 +222,20 @@ class Model:
         if self.family in RECURRENT:
             return FAMILIES[self.family].rollback(cache, accepted_index, q_len)
         return kv_cache.rollback(cache, accepted_index)
+
+    # --------------------------------------------- modality frontend stand-ins
+    def extra_inputs(self, batch, dtype: Optional[torch.dtype] = None) -> dict:
+        """{name: (shape, dtype)} of the stub front ends' inputs: the VLM's
+        ``patches``, the encoder-decoder's ``frames``; {} for the text
+        families."""
+        dtype = dtype or self.cfg.act_dtype
+        if self.family == "vlm":
+            return {"patches": ((batch, self.cfg.num_vision_tokens, vlm.VIT_DIM),
+                                dtype)}
+        if self.family == "encdec":
+            return {"frames": ((batch, self.cfg.encoder_seq, self.cfg.d_model),
+                               dtype)}
+        return {}
 
 
 def build_model(cfg) -> Model:

@@ -244,7 +244,7 @@ def _ring_state(pair, tokens, L, key, spec):
     L tokens committed (both rings prefilled with L - 1)."""
     mt, md, pt, pd = pair["torch"]
     B, Tb = tokens.shape
-    tcache, dcache = engine.init_rings(
+    tcache, dcache, _, _ = engine.prefill_rings(
         mt, md, pt, pd, tokens[:, :L], Tb, engine.ring_slack(GAMMA, spec.policy),
         GAMMA)
     idx = torch.full((B,), L - 1, dtype=torch.int32)
