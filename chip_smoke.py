@@ -100,7 +100,7 @@
    tokens; every server's block census balances; the bucketed path's
    tokens must be the same, or differ only where the readings explain it
    (within one bf16 step of the top-2 margin). Then the chunked serve's
-   first 4 requests run once more under ``torch.profiler``, with the
+   first 2 requests run once more under ``torch.profiler``, with the
    device time split between
    chunk programs and rounds (``"phase": "profile_chunked"``). Then the
    same serve traced (``"phase": "full_width_traced"``): (a) with an
@@ -226,7 +226,8 @@
    counts on the card == on the CPU == cached AR on the card, one SSD
    launch per layer of each prefill) and the llama3.2-1b smoke pair through ``quantize_for_serving`` under
    ``act_quant`` with a static scale calibrated on the CPU
-   (``"smoke_w8a8_exactness"``). Then speculative sampling at smoke width
+   (``"smoke_w8a8_exactness"``, three prompt batches of the six). Then
+   speculative sampling at smoke width
    (``"smoke_sampled_exactness"``: the cached, no-cache and ring-tree
    engines and sampled cached AR, card == CPU under a key whose draws
    are made on the host and copied to the card, partial accepts, no
@@ -311,15 +312,40 @@
    argmax launches by formula, tokens == AR's up to a first difference
    that a measured near-tie explains, wall per round, alpha-hat and peak
    memory.
-13. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
-   [...]}`` line (six kernels; each kernel's launches are its main path's
+13. Training (``"phase": "train"``, after every earlier model is freed):
+   (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``, bound
+   through ``FlashAttentionFn``) against its plain version, the autograd
+   of ``flash_attention_ref``, at B = 2 and the geometries training gives
+   it: Llama 3.2 3B (24/8/128) at S 512 and 2048, 1B (32/8/64) at 512,
+   RecurrentGemma (10/1/256) at 512 with a window of 64, Whisper's encoder
+   (20/20/64, non-causal) at 1500; fp32 within 2e-4 max|ref| + 1e-6, bf16
+   within 2e-2 max|ref|; two runs bit-equal; the forward's log-sum-exp
+   against ``ref.flash_attention_lse_ref``; times of the forward with the
+   lse, the backward, the plain backward, SDPA's backward (the library)
+   and the bound. (b) Llama 3.2 3B at full width and depth (bf16, tied,
+   seeded init), AdamW over order-2 Markov batches of 4 x 512 (V 128,256):
+   one batch's loss and gradients with and without ``remat`` (full) from
+   the same params, equal losses and gradients bit-equal or within the
+   bf16 tolerance (the line says which), flash launches 28 / 56 forward
+   and 28 backward; 3 train steps with finite losses, 28 + 28 launches a
+   step, the step time, peak memory and params that moved; a checkpoint
+   save and restore round trip, bit-equal. (c) The trained-pair recipe
+   of ``benchmarks/common.py`` at head_dim 64 (target 6 layers, d 384, 6
+   heads over 3; drafter 2 layers, d 128, 2 over 1; fp32, V 256, tied)
+   trained on the card through ``launch.train.train`` for 300 steps
+   each (order-1 data): each final loss under half its first, exact
+   flash launches; then 6 Markov prompts through the no-cache
+   ``SpecEngine`` (gamma 4, greedy): tokens == no-cache AR, α̂ printed.
+14. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
+   [...]}`` line (seven kernels, the flash backward with its train-phase
+   launches; each kernel's launches are its main path's
    — the chunked serve of step 5 for paged attention and the argmax, the
    tree phase, the no-cache serves — plus the cached paths' of steps 7 and
    10 and the sampled serves', the Session phase's, the placed phase's
    and the front-end phase's of step 7, the hybrid serves of step 11
    and step 12's spec serves',
-   Mixtral's, the VLM's and the encoder-decoder's included), the
-   card line again and, last, ``{"ok": true, "device": {...}}``.
+   Mixtral's, the VLM's, the encoder-decoder's and the train phase's
+   included), the card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -1613,7 +1639,7 @@ def full_width_chunked(mt, md, pt, pd, cfg, card, reading, chunk_cases):
     prefill reading) explains: chunk rows bit-equal to whole-call rows on
     the card (``chunk_cases``), KV or logits not bit-equal between the two
     prefills, and a margin within one bf16 step. Last, the chunked serve's
-    first 4 requests run once more under ``torch.profiler``, each chunk
+    first 2 requests run once more under ``torch.profiler``, each chunk
     program and each round its own region."""
     import dataclasses
     from repro_torch.serving import SchedulerConfig
@@ -1732,8 +1758,8 @@ def full_width_chunked(mt, md, pt, pd, cfg, card, reading, chunk_cases):
         srv._run_chunk = region("prefill_chunk", srv._run_chunk)
         eng = srv._engine(GAMMA)
         eng.round = region("round", eng.round)
-        # the first 4 requests: the readings are per chunk and per round
-        for i, (prompt, new) in enumerate(reqs[:4]):
+        # the first 2 requests: the readings are per chunk and per round
+        for i, (prompt, new) in enumerate(reqs[:2]):
             srv.submit(ServeRequest(i, prompt, new))
         srv.run()
         return srv.total_rounds, srv.n_prefill_chunks
@@ -1984,10 +2010,11 @@ def calibrated_scale(model, params, tokens) -> float:
 
 
 def smoke_nocache_exactness(arch="llama3.2-1b", phase="smoke_nocache_exactness",
-                            w8a8=False):
+                            w8a8=False, batches=6):
     """The no-cache engine on the smoke pair of ``arch`` (the drafter is the
     target's first L-1 layers, embedding std d**-0.5; weights drawn on the
-    CPU and copied to the card), gamma 4, six prompt batches of B=2: linear
+    CPU and copied to the card), gamma 4, ``batches`` prompt batches of B=2
+    (six; three for w8a8, whose CPU runs are the slowest): linear
     and multi-draft k=2 rounds on the card, the same on the CPU, and
     no-cache AR on the card must give identical tokens, and some round must
     commit part of its draft (batch_min commits the rows' minimum, so with
@@ -2008,7 +2035,7 @@ def smoke_nocache_exactness(arch="llama3.2-1b", phase="smoke_nocache_exactness",
     pt_cpu = mt.init(0, "cpu")
     pd_cpu = {**pt_cpu, "layers": pt_cpu["layers"][:-1]}
     prompts = [np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, P)).astype(np.int32)
-               for seed in range(6)]
+               for seed in range(batches)]
     quant, scale = contextlib.nullcontext, None
     if w8a8:
         scale = calibrated_scale(mt, pt_cpu, prompts[0])
@@ -4590,6 +4617,386 @@ def full_width_encdec(card):
     return _add(dict(a), b)
 
 
+# ------------------------------------------------------------------ training
+BWD_TOL = {torch.float32: (2e-4, 1e-6),    # |d| <= rel * max|ref| + abs: fp32
+           torch.bfloat16: (2e-2, 0.0)}    # sums; bf16 inputs and outputs
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3      # (b): Llama 3.2 3B
+PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR = 300, 16, 48, 2e-3   # (c)
+PAIR_VOCAB, PAIR_PROMPTS, PAIR_PROMPT_LEN, PAIR_NEW = 256, 6, 12, 24
+
+
+def flash_bwd_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
+                   causal=True, headline=False):
+    """The flash backward kernel at [B, S] against its plain version
+    (autograd of ``flash_attention_ref``) on the same inputs, run twice
+    (bit-equal), from the forward's output and log-sum-exp (the lse held
+    to ``ref.flash_attention_lse_ref``). Times: the forward with the lse,
+    the backward's three kernels, the plain backward (its forward
+    included), and SDPA's backward alone over head-expanded K/V (graph
+    kept from one forward) as the library; then the forward with the lse
+    and the backward together against SDPA's forward and backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(H * 1000 + S + D)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, S, H, D), (B, S, Kv, D), (B, S, Kv, D)))
+    do = torch.randn((B, S, H, D), generator=g, device="cuda").to(dtype)
+    kw = dict(window=window, causal=causal)
+    o, lse = fa.forward(q, k, v, lse=True, **kw)
+    lse_ref = ref.flash_attention_lse_ref(q, k, **kw)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    rel, atol = BWD_TOL[dtype]
+    errs, ok = {}, True
+    for nm, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = float((x.float() - y.float()).abs().max())
+        top = float(y.float().abs().max())
+        errs[nm] = {"max_abs_err": err, "max_abs_ref": top,
+                    "tol": rel * top + atol}
+        ok &= err <= rel * top + atol
+    lse_err = float((lse - lse_ref).abs().max())
+    ok &= lse_err <= 1e-3 if dtype == torch.bfloat16 else lse_err <= 1e-4
+    deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+
+    ms_fwd = timer(lambda: fa.forward(q, k, v, lse=True, **kw))
+    iters = 5 if S > 1024 else 10
+    ms = timer(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+               iters=iters)
+    plain_ms = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw),
+                     iters=3)
+    qg = q.permute(0, 2, 1, 3).detach().requires_grad_(True)
+    kg = k.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1).detach().requires_grad_(True)
+    vg = v.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1).detach().requires_grad_(True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(S, device="cuda")
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]).abs() < window
+
+    def library_fwd():
+        if causal and window is None:
+            return sdpa(qg, kg, vg, is_causal=True)
+        return sdpa(qg, kg, vg, attn_mask=mask)
+    dog = do.permute(0, 2, 1, 3)
+    out = library_fwd()
+    library_ms = timer(lambda: torch.autograd.grad(out, (qg, kg, vg), dog,
+                                                   retain_graph=True),
+                       iters=iters)
+    del out
+    library_fwd_bwd_ms = timer(
+        lambda: torch.autograd.grad(library_fwd(), (qg, kg, vg), dog), iters=iters)
+
+    def fwd_bwd():
+        o_, lse_ = fa.forward(q, k, v, lse=True, **kw)
+        return fa.flash_attention_bwd(q, k, v, o_, lse_, do, **kw)
+    fwd_bwd_ms = timer(fwd_bwd, iters=iters)
+    # least work: q, k, v, o, dO and lse read once, dq, dk, dv written once;
+    # 10 D flops per (query head, visible pair): S, dP, dV, dK, dQ
+    esz = q.element_size()
+    nbytes = (3 * q.numel() + 2 * k.numel()) * esz + lse.numel() * 4 \
+        + (q.numel() + 2 * k.numel()) * esz
+    flops = 10 * B * H * D * int(mask.sum())
+    case = {"phase": "train", "part": "a_flash_backward", "geometry": name,
+            "B": B, "S": S, "H": H, "Kv": Kv, "D": D, "window": window,
+            "causal": causal, "dtype": str(dtype).replace("torch.", ""),
+            **errs, "lse_max_abs_err": lse_err, "rel_tol": rel, "abs_tol": atol,
+            "ok": bool(ok), "deterministic": deterministic,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "fwd_lse_ms": ms_fwd, "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "sdpa backward",
+            "fwd_bwd_ms": fwd_bwd_ms, "library_fwd_bwd_ms": library_fwd_bwd_ms,
+            **bound(nbytes, flops, dtype), "headline": headline}
+    emit(case)
+    if not (ok and deterministic):
+        raise SystemExit(f"the flash backward kernel disagrees with its plain "
+                         f"version or is not deterministic: {case}")
+    return case
+
+
+def flash_bwd_cases(timer):
+    """(a): the geometries the trained families give the backward, B = 2,
+    fp32 and bf16: Llama 3.2 3B (S 512 and 2048), 1B, RecurrentGemma's MQA
+    at D 256 with its window of 64, Whisper's encoder (non-causal)."""
+    geoms = (("llama3.2-3b", 24, 8, 128, 512, {}),
+             ("llama3.2-3b", 24, 8, 128, 2048, {}),
+             ("llama3.2-1b", 32, 8, 64, 512, {}),
+             ("recurrentgemma-2b", 10, 1, 256, 512, {"window": 64}),
+             ("whisper-encoder", 20, 20, 64, 1500, {"causal": False}))
+    return [flash_bwd_case(timer, name, H, Kv, D, S, dtype,
+                           headline=(name == "llama3.2-3b" and S == 512
+                                     and dtype == torch.bfloat16), **kw)
+            for name, H, Kv, D, S, kw in geoms
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def train_counters():
+    """The flash kernels' wrappers, forward and backward, by name."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd}
+
+
+def train_3b(card):
+    """(b): Llama 3.2 3B at full width and depth (bf16, tied, the port's
+    seeded init), AdamW over order-2 Markov batches of 4 x 512 from
+    ``data.pipeline`` (V 128256). The loss and gradients of one batch with
+    and without ``remat`` (full) from the same params: the losses equal, the
+    gradients bit-equal or within the bf16 tolerance of (a) (the line says
+    which); flash launches L and 2 L forward, L backward. Then 3 train steps
+    (each loss finite, L forward and L backward launches a step), the step
+    time and peak memory, the params moved; a checkpoint save and restore
+    round trip, leaf by leaf bit-equal. Returns the launches."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import clock
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    cfg = registry.config("llama3.2-3b")
+    L = cfg.num_layers
+    model = build_model(cfg)
+    t0 = clock.perf()
+    params = train_loop.trainable(model.init(0, "cuda"))
+    torch.cuda.synchronize()
+    init_s = clock.perf() - t0
+    stream = pipeline.batches(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0, order=2))
+
+    def batch():
+        toks, labels = pipeline.split_batch(next(stream))
+        return {"tokens": torch.as_tensor(toks, device="cuda"),
+                "labels": torch.as_tensor(labels, device="cuda")}
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    counters = train_counters()
+
+    def counted(fn):
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t = clock.perf()
+        out = fn()
+        torch.cuda.synchronize()
+        n = read_counts(counters)
+        for key in total:
+            total[key] += n[key]
+        return out, clock.perf() - t, n
+
+    b0 = batch()
+    (l0, _, g0), t_plain, n_plain = counted(
+        lambda: train_loop.value_and_grad(model, params, b0["tokens"], b0["labels"]))
+    remat = build_model(cfg.replace(remat=True))
+    (l1, _, g1), t_remat, n_remat = counted(
+        lambda: train_loop.value_and_grad(remat, params, b0["tokens"], b0["labels"]))
+    rel = BWD_TOL[torch.bfloat16][0]
+    bit_equal, worst = True, 0.0
+    for path, x in opt.leaves(g0):
+        y = opt.get(g1, path)
+        if not torch.equal(x, y):
+            bit_equal = False
+            worst = max(worst, float((x.float() - y.float()).abs().max())
+                        / max(float(y.float().abs().max()), 1e-30))
+    del g0, g1
+    info = {"phase": "train", "part": "b_remat", "card": card, "arch": cfg.name,
+            "layers": L, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "init_s": init_s,
+            "loss": float(l0), "loss_remat": float(l1),
+            "losses_equal": bool(torch.equal(l0, l1)),
+            "grads_bit_equal": bit_equal, "grads_worst_rel_err": worst,
+            "grads_within_bf16_tol": worst <= rel,
+            "fwd_bwd_s": t_plain, "fwd_bwd_remat_s": t_remat,
+            "launches": n_plain, "launches_remat": n_remat,
+            "launches_expected": {"flash_attention": L, "flash_attention_bwd": L},
+            "launches_remat_expected": {"flash_attention": 2 * L,
+                                        "flash_attention_bwd": L}}
+    info["ok"] = bool(info["losses_equal"] and (bit_equal or worst <= rel)
+                      and n_plain == info["launches_expected"]
+                      and n_remat == info["launches_remat_expected"])
+    emit(info)
+    if not info["ok"]:
+        raise SystemExit(f"remat changed the 3B loss or gradients, or the "
+                         f"flash launches are off: {info}")
+
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=max(10, TRAIN_STEPS // 20),
+                           total_steps=TRAIN_STEPS)
+    state = train_loop.init_opt_state(model, ocfg, params)
+    step = train_loop.make_train_step(model, ocfg)
+    # matrices: a bf16 norm scale at 1.0 moves only by steps past its ulp
+    watch = [("embed", "table"), ("layers", 0, "attn", "q", "w"),
+             ("layers", L - 1, "mlp", "down", "w")]
+    before = {p: opt.get(params, p).clone() for p in watch}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        b = batch()
+        (params, state, met), t, n = counted(lambda: step(params, state, b))
+        steps.append({"step": i, "loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]), "lr": met["lr"],
+                      "step_s": t, "launches": n})
+    peak = torch.cuda.max_memory_allocated()
+    moved = {"/".join(map(str, p)): not torch.equal(before[p], opt.get(params, p))
+             for p in watch}
+    del before
+    info = {"phase": "train", "part": "b_steps", "card": card, "arch": cfg.name,
+            "steps": steps, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+            "max_memory_allocated_gib": peak / 2**30, "params_moved": moved,
+            "launches_per_step_expected": {"flash_attention": L,
+                                           "flash_attention_bwd": L}}
+    info["ok"] = bool(all(np.isfinite(s["loss"]) for s in steps)
+                      and all(moved.values())
+                      and all(s["launches"] == info["launches_per_step_expected"]
+                              for s in steps))
+    emit(info)
+    if not info["ok"]:
+        raise SystemExit(f"the 3B train steps failed: {info}")
+
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = ROOT / "build" / "train_ckpt" / "llama3.2-3b.npz"
+    t = clock.perf()
+    ckpt.save(str(path), params, step=TRAIN_STEPS)
+    save_s = clock.perf() - t
+    nbytes = path.stat().st_size
+    like = opt.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), params)
+    t = clock.perf()
+    back, got_step = ckpt.restore(str(path), like, "cuda")
+    torch.cuda.synchronize()
+    restore_s = clock.perf() - t
+    path.unlink()
+    equal = all(torch.equal(x, opt.get(back, p)) and x.dtype == opt.get(back, p).dtype
+                for p, x in opt.leaves(params))
+    info = {"phase": "train", "part": "b_checkpoint", "card": card,
+            "file_bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "step": got_step, "round_trip_equal": equal,
+            "ok": bool(equal and got_step == TRAIN_STEPS)}
+    emit(info)
+    if not info["ok"]:
+        raise SystemExit(f"the 3B checkpoint did not round-trip: {info}")
+    return total
+
+
+def pair_configs():
+    """(c)'s pair: the trained-pair recipe of ``benchmarks/common.py``
+    (fp32, V 256, tied, embedding std d**-0.5) with head_dim 64 for the
+    flash kernels (target 6 heads over 3, drafter 2 over 1; the recipe's
+    8 over 4 and 4 over 2 give head_dim 48 and 32)."""
+    from repro_torch.configs.base import ModelConfig
+    target = ModelConfig(name="pair-target", family="dense", num_layers=6,
+                         d_model=384, num_heads=6, num_kv_heads=3, d_ff=1024,
+                         vocab_size=PAIR_VOCAB, tie_embeddings=True,
+                         dtype="float32", param_dtype="float32",
+                         embed_init_scale=384 ** -0.5)
+    drafter = target.replace(name="pair-drafter", num_layers=2, d_model=128,
+                             num_heads=2, num_kv_heads=1, d_ff=256,
+                             embed_init_scale=128 ** -0.5)
+    return target, drafter
+
+
+def trained_pair(card):
+    """(c): the pair trained on the card through ``launch.train.train``
+    (order-1 data, data seed 0, batch 16, seq 48, lr 2e-3, 300 steps, init
+    seeds 0 and 1): each final loss under half its first, flash launches L
+    a step forward and backward. Then 6 Markov prompts of 12 tokens (the
+    recipe's ``prompts(6, 12, seed=9)``) through the no-cache
+    ``SpecEngine`` (gamma 4, greedy) and no-cache AR, 24 new tokens each:
+    tokens equal, and the learned acceptance rate. Returns the launches."""
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import clock
+    from repro_torch.training import train_loop
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    counters = train_counters()
+    trained = []
+    for cfg, seed in zip(pair_configs(), (0, 1)):
+        zero_counts(counters)
+        t = clock.perf()
+        params, losses = train(cfg, steps_n=PAIR_STEPS, batch=PAIR_BATCH,
+                               seq=PAIR_SEQ, lr=PAIR_LR, seed=seed,
+                               log_every=100, data_seed=0, data_order=1,
+                               device="cuda")
+        torch.cuda.synchronize()
+        wall = clock.perf() - t
+        n = read_counts(counters)
+        for key in total:
+            total[key] += n[key]
+        want = PAIR_STEPS * cfg.num_layers
+        info = {"phase": "train", "part": "c_train", "card": card,
+                "model": cfg.name, "layers": cfg.num_layers,
+                "first_loss": losses[0], "final_loss": losses[-1],
+                "loss_every_50": losses[::50], "train_s": wall,
+                "s_per_step": wall / PAIR_STEPS, "launches": n,
+                "launches_expected": {"flash_attention": want,
+                                      "flash_attention_bwd": want}}
+        info["ok"] = bool(losses[-1] < 0.5 * losses[0]
+                          and n == info["launches_expected"])
+        emit(info)
+        if not info["ok"]:
+            raise SystemExit(f"the pair's {cfg.name} did not learn: {info}")
+        trained.append((build_model(cfg), train_loop.serving_params(params)))
+    (mt, pt), (md, pd) = trained
+    src = pipeline.MarkovSource(pipeline.DataConfig(
+        vocab_size=PAIR_VOCAB, seq_len=PAIR_PROMPT_LEN,
+        global_batch=PAIR_PROMPTS, seed=0, order=1))
+    prompts = src.sample(np.random.default_rng(9), PAIR_PROMPTS, PAIR_PROMPT_LEN)
+    eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, greedy=True,
+                                          use_cache=False))
+    alphas, equal, rounds, accepted = [], True, 0, 0
+    t = clock.perf()
+    for i in range(PAIR_PROMPTS):
+        p = prompts[i:i + 1]
+        toks, st = eng.generate(pt, pd, p, PAIR_NEW)
+        ar = autoregressive_generate(mt, pt, p, PAIR_NEW)
+        equal &= bool(torch.equal(toks[:, :PAIR_PROMPT_LEN + PAIR_NEW].cpu(),
+                                  ar.cpu()))
+        alphas.append(float(st["alpha_hat"]))
+        rounds += st["rounds"]
+        accepted += st["accepted"]
+    info = {"phase": "train", "part": "c_serve", "card": card, "gamma": GAMMA,
+            "prompts": PAIR_PROMPTS, "prompt_len": PAIR_PROMPT_LEN,
+            "new_tokens": PAIR_NEW, "alpha_hat_per_prompt": alphas,
+            "alpha_hat_median": float(np.median(alphas)),
+            "alpha_hat_pooled": accepted / (rounds * GAMMA) if rounds else None,
+            "rounds": rounds, "accepted": accepted, "spec_equals_ar": equal,
+            "serve_s": clock.perf() - t, "ok": equal}
+    emit(info)
+    if not equal:
+        raise SystemExit(f"the trained pair's spec tokens differ from AR: {info}")
+    return total
+
+
+def full_width_train(card):
+    """The ``train`` phase: (a) the flash backward kernel against its plain
+    version; (b) Llama 3.2 3B trained at full width and depth; (c) a
+    trained pair served. Returns (a)'s cases and (b) + (c)'s launches."""
+    from repro_torch.obs import clock
+    t0 = clock.perf()
+    timer = Timer()
+    cases = flash_bwd_cases(timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = clock.perf() - t0
+    launches = train_3b(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_b = clock.perf() - t0 - t_a
+    for key, n in trained_pair(card).items():
+        launches[key] += n
+    emit({"phase": "train", "part": "done", "card": card, "a_s": t_a,
+          "b_s": t_b, "c_s": clock.perf() - t0 - t_a - t_b,
+          "phase_s": clock.perf() - t0, "launches": launches})
+    return cases, launches
+
+
 def _union(intervals):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, None
@@ -4774,7 +5181,8 @@ def main() -> int:
     smoke_nocache_exactness("mamba2-780m", "smoke_ssm_nocache_exactness")
     smoke_ssm_cached_exactness()
     smoke_hybrid_exactness()
-    smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True)
+    smoke_nocache_exactness("llama3.2-1b", "smoke_w8a8_exactness", w8a8=True,
+                            batches=3)
     smoke_sampled_exactness()
     sampled_lossless()
     from repro_torch.launch.cli_args import build_pair
@@ -4816,6 +5224,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     encdec_launches = full_width_encdec(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_cases, train_launches = full_width_train(card)
 
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
@@ -4849,6 +5260,7 @@ def main() -> int:
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
+    bwd_head = next(c for c in bwd_cases if c["headline"])
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -4883,12 +5295,23 @@ def main() -> int:
                       + granite_launches["flash_attention"]
                       + hybrid_nocache["flash_attention"]
                       + vlm_launches["flash_attention"]
-                      + encdec_launches["flash_attention"]),
+                      + encdec_launches["flash_attention"]
+                      + train_launches["flash_attention"]),
          "max_abs_err": max(c["max_abs_err"]
                             for c in fl_cases + hy_flash + ve_flash),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
          "library_ms": fl_head["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:69",
+         "note": "the gradient of that kernel's function; JAX trains through "
+                 "its jnp attention and has no backward kernel",
+         "launches": train_launches["flash_attention_bwd"],
+         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
+         "ms": bwd_head["kernel_ms"], "plain_ms": bwd_head["plain_ms"],
+         "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
+         "library_ms": bwd_head["library_ms"]},
     ]
     for name, src, replaces, n, cases in (
             ("int8_matmul", "int8_matmul.cu", "int8_matmul.py:40",

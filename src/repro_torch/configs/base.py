@@ -2,9 +2,10 @@
 
 Same fields and defaults as the JAX ``ModelConfig`` for the six
 families (dense, MoE, SSM, hybrid, encoder-decoder and VLM), with dtypes
-resolved to ``torch`` dtypes. The execution fields (``remat``,
-``remat_policy``) and the MoE router jitter belong to JAX's training path
-and are left out. ``ShapeConfig``
+resolved to ``torch`` dtypes. ``remat``/``remat_policy`` checkpoint each
+layer of the no-cache forward in training (``models.layers.remat_wrap``).
+``router_jitter`` is carried as JAX carries it and read nowhere, in JAX's
+``models/moe.py`` as here. ``ShapeConfig``
 and ``INPUT_SHAPES`` are the four assigned input shapes the planner
 prices a model at.
 """
@@ -38,6 +39,7 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     num_shared_experts: int = 0            # llama4-style shared expert
     moe_every: int = 1                     # every k-th layer is MoE (llama4: 2)
+    router_jitter: float = 0.0             # carried, unused (as in JAX)
     # --- SSM (mamba2 / SSD) ---
     ssm_state: int = 0                     # d_state N
     ssm_head_dim: int = 64                 # P
@@ -54,6 +56,9 @@ class ModelConfig:
     encoder_seq: int = 1500                # frames after the (stubbed) conv frontend
     # --- VLM ---
     num_vision_tokens: int = 0             # patch embeddings fed by the (stubbed) ViT
+    # --- execution ---
+    remat: bool = False               # activation-checkpoint each layer (training)
+    remat_policy: str = "full"        # "full" (recompute all) | "dots" (save matmul outputs)
     # --- numerics ---
     dtype: str = "bfloat16"                # activation dtype
     param_dtype: str = "bfloat16"

@@ -78,6 +78,13 @@
 // step, 0.0156 at |x| in [2, 4), where the tolerance is 0.03 (ROADMAP.md,
 // Queue 3).
 //
+// The log-sum-exp. Given an fp32 [B, H, Sq] buffer (training: the autograd
+// function in kernels/flash_attention.py), each kernel also writes every
+// row's natural-log log-sum-exp of its scaled, masked scores, m + log(l),
+// which csrc/flash_attention_bwd.cu reads to recompute the weights. Given a
+// null pointer (every serving path) the epilogue skips it: the same code
+// and the same times as before the buffer existed.
+//
 // fp32 (the smoke models' type) keeps the CUDA-core kernel: TF32 or bf16
 // products would miss the plain version's 1e-4. It stages 32-key slabs in
 // shared memory as fp32 with scalar loads, each warp scoring 4 rows; a
@@ -94,6 +101,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ fp32 kernel
 constexpr int kF32Threads = 128;
@@ -143,8 +151,8 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out,
-                           int Sq, int Skv, int H, int Kv, int s_valid,
-                           int causal, int window, float scale) {
+                           float* __restrict__ lse, int Sq, int Skv, int H,
+                           int Kv, int s_valid, int causal, int window, float scale) {
   constexpr int DP = D + 1;                          // padded K row stride
   // the threads that share a row's columns; each owns kCols of them
   constexpr int kColThreads = D < kF32Threads ? D : kF32Threads;
@@ -254,7 +262,16 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 
   if (lane == 0) {
 #pragma unroll
-    for (int i = 0; i < kF32RowsPerWarp; ++i) l_s[warp * kF32RowsPerWarp + i] = l_r[i];
+    for (int i = 0; i < kF32RowsPerWarp; ++i) {
+      const int r = warp * kF32RowsPerWarp + i;
+      l_s[r] = l_r[i];
+      const int rg = row0 + r;
+      if (lse != nullptr && rg < n_rows) {
+        const int qi = rg / gq, g = rg % gq;
+        lse[(static_cast<size_t>(b) * H + h * gq + g) * Sq + qi] =
+            m_r[i] + logf(fmaxf(l_r[i], 1e-30f));
+      }
+    }
   }
   __syncthreads();
 
@@ -322,8 +339,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                            int H, int Kv, int s_valid, int causal, int window,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int Sq, int Skv, int H,
+                            int Kv, int s_valid, int causal, int window,
                             float scale_log2) {
   constexpr int kThreads = kWarps * 32;
   constexpr int kRows = 16 * MT * kWarps;
@@ -561,6 +579,10 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const int rg = row0 + wr + 16 * mt + g + 8 * hh;
       if (rg < n_rows) {
         const int qi = rg / gq, gg = rg % gq;
+        // m is in log2 units of the scaled scores, the quad's common max
+        if (lse != nullptr && t == 0)
+          lse[(static_cast<size_t>(b) * H + h * gq + gg) * Sq + qi] =
+              (m_r[mt][hh] + log2f(den)) * kLn2;
         __nv_bfloat16* const dst =
             out + ((static_cast<size_t>(b) * Sq + qi) * H + h * gq + gg) * D;
 #pragma unroll
@@ -572,9 +594,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Skv, int H, int Kv, int s_valid, int causal,
-               int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Skv, int H, int Kv, int s_valid,
+               int causal, int window, float scale, cudaStream_t stream) {
   constexpr int kSmem = f32_smem_bytes<D>();
   static bool attribute_set = false;   // once per instantiation
   if (!attribute_set) {
@@ -587,15 +609,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq * gq + kF32Rows - 1) / kF32Rows, Kv, B);
   flash_attention_f32_kernel<D><<<grid, kF32Threads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, Kv,
-      s_valid, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, H,
+      Kv, s_valid, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int MT, int kStages>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Skv, int H, int Kv, int s_valid, int causal,
-                int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Skv, int H, int Kv, int s_valid,
+                int causal, int window, float scale, cudaStream_t stream) {
   constexpr int kRows = 16 * MT * kWarps;
   constexpr int kSmem = bf16_smem_bytes<D, kRows, kStages>();
   static bool attribute_set = false;   // once per instantiation
@@ -612,20 +634,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_bf16_kernel<D, MT, kStages><<<grid, kWarps * 32, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, Kv, s_valid, causal, window, scale * kLog2e);
+      lse, Sq, Skv, H, Kv, s_valid, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q/out: [B, Sq, H, D]; k/v: [B, Skv, Kv, D]; all contiguous, of one dtype
-// (0 = float32, 1 = bfloat16); H a multiple of Kv; D 64, 128 or 256;
+// (0 = float32, 1 = bfloat16); lse: null, or fp32 [B, H, Sq] to take each
+// row's log-sum-exp; H a multiple of Kv; D 64, 128 or 256;
 // 1 <= s_valid <= Skv; causal 0/1; window <= 0 means no window. row_tile is
 // the query rows per block: 16 for float32; 64, or 128 with D = 128, for
 // bfloat16 (whose pointers must be 16-byte aligned). Returns a cudaError_t
 // (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Sq, int Skv, int H,
+                                   void* out, void* lse_, int B, int Sq, int Skv, int H,
                                    int Kv, int D, int s_valid, int causal,
                                    int window, float scale, int dtype,
                                    int row_tile, void* stream) {
@@ -633,25 +656,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
       s_valid > Skv || Kv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* const lse = static_cast<float*>(lse_);
   if (dtype == 0 && row_tile == kF32Rows) {
-    if (D == 64) return launch_f32<64>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
-    if (D == 128) return launch_f32<128>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
-    if (D == 256) return launch_f32<256>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 64) return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 128) return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 256) return launch_f32<256>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
   }
   if (dtype == 1) {
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
     if (D == 64 && row_tile == 64)
-      return launch_bf16<64, 1, 3>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+      return launch_bf16<64, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128 && row_tile == 64)
-      return launch_bf16<128, 1, 3>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+      return launch_bf16<128, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128 && row_tile == 128)
-      return launch_bf16<128, 2, 2>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+      return launch_bf16<128, 2, 2>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     // 64 rows, Q from shared memory, three stages: (64 + 3 * 2 * 64) * 256
     // * 2 = 229,376 B of the 232,448 a block may take
     if (D == 256 && row_tile == 64)
-      return launch_bf16<256, 1, 3>(q, k, v, out, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+      return launch_bf16<256, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

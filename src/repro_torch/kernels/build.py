@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from typing import Dict
 
+import torch
+
 from repro_torch.obs import clock
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -38,8 +40,13 @@ SIGNATURES = {
                                     _F, _I, _P]),
     },
     "flash_attention": {
-        "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _I, _P]),
+        "flash_attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _I, _I, _P]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _I, _P]),
     },
     "int8_matmul": {
         "int8_matmul_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -128,3 +135,17 @@ def check(err: int, what: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_no_grad(what: str, *tensors):
+    """Raise where a kernel that has no backward would be asked for a
+    gradient: grad mode is on and an input requires grad. Its output would
+    be detached, so the inputs would get no gradient and nothing would say
+    so. Every wrapper but flash attention's calls this before it launches
+    (flash attention has a backward kernel)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward pass; run it "
+                           "under torch.no_grad() or on inputs that do not "
+                           "require grad (the plain version on the CPU "
+                           "differentiates)")

@@ -66,6 +66,7 @@ def int8_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
     fp32. Returns [M, N] ``out_dtype`` = (x_q @ w_q) * sx * sw."""
     if x_q.device.type == "cpu":
         return plain(x_q, w_q, sx, sw, out_dtype)
+    build.check_no_grad("int8 matmul", x_q, w_q, sx, sw)
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x_q.device}")
     if not isinstance(sx, torch.Tensor) or sx.numel() != 1:

@@ -134,6 +134,7 @@ def paged_flash_attention(q, k_pool, v_pool, block_table, index, *,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_table, index, window=window,
                      scale=scale, max_live=max_live)
+    build.check_no_grad("paged attention", q, k_pool, v_pool)
     check_args("paged attention", q, k_pool, v_pool, scale, window)
     out = launch("paged_attention_fwd", q, k_pool, v_pool, block_table, index,
                  max_live, window)

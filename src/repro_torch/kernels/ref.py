@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention import attn_dense, attn_paged, attn_tree
+from repro_torch.models.attention import (NEG_INF, _expand_mask, _gqa_scores,
+                                          _mask, attn_dense, attn_paged,
+                                          attn_tree)
 from repro_torch.models.ssm import ssd_chunked
 
 
@@ -36,6 +38,106 @@ def flash_attention_ref(q, k, v, *, window=None, causal=True, s_valid=None):
     if s_valid is not None:
         kv_pos = torch.where(kv_pos < s_valid, kv_pos, -1)
     return attn_dense(q, k, v, q_pos, kv_pos, window=window, causal=causal)
+
+
+def flash_attention_lse_ref(q, k, *, window=None, causal=True, s_valid=None):
+    """fp32 [B, H, Sq]: each query row's log-sum-exp of its scaled scores
+    over the keys it sees (the others at the finite -1e30), what the flash
+    forward writes for its backward."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=q.device)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=q.device)
+    if s_valid is not None:
+        kv_pos = torch.where(kv_pos < s_valid, kv_pos, -1)
+    s = _gqa_scores(q, k) * D ** -0.5                         # [B,Kv,G,Q,S]
+    m = _expand_mask(_mask(q_pos, kv_pos, window, causal))
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, window=None, causal=True,
+                            s_valid=None):
+    """(dq, dk, dv): the autograd of ``flash_attention_ref`` at ``dout``,
+    the flash backward kernel's plain version."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_ref(qg, kg, vg, window=window, causal=causal,
+                                s_valid=s_valid)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+
+def flash_attention_bwd_tiled(q, k, v, o, lse, dout, *, window=None,
+                              causal=True, s_valid=None, tile=32):
+    """The flash backward kernel's recurrence (csrc/flash_attention_bwd.cu)
+    in PyTorch, fp32, for checking it on the CPU: delta from dO and O, the
+    weights recomputed per (row tile, key tile) from ``lse``, dK/dV summed
+    over the row tiles that can see each key tile, dQ over the key tiles
+    each row tile can see; the rows of a kv-head are its (position, group)
+    pairs. Returns (dq, dk, dv) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    gq, n_rows = H // Kv, Sq * (H // Kv)
+    s_valid = Skv if s_valid is None else int(s_valid)
+    w = 0 if window is None else int(window)
+    scale = D ** -0.5
+
+    def rows(x):    # [B, Sq, H, D] -> [B, Kv, Sq * gq, D], row qi * gq + g
+        return x.float().reshape(B, Sq, Kv, gq, D).transpose(1, 2) \
+            .reshape(B, Kv, n_rows, D)
+
+    qr, dor = rows(q), rows(dout)
+    delta = (dor * rows(o)).sum(-1)                              # [B,Kv,R]
+    lr = lse.float().reshape(B, Kv, gq, Sq).transpose(2, 3).reshape(B, Kv, n_rows)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B,Kv,S,D]
+    q_pos = torch.arange(n_rows, device=q.device) // gq
+
+    def weights(r0, r1, j0, j1):
+        kv_pos = torch.arange(j0, j1, device=q.device)
+        vis = kv_pos[None, :] < s_valid
+        if causal:
+            vis = vis & (q_pos[r0:r1, None] >= kv_pos[None, :])
+        if w:
+            vis = vis & ((q_pos[r0:r1, None] - kv_pos[None, :]).abs() < w)
+        s = qr[:, :, r0:r1] @ kf[:, :, j0:j1].transpose(-1, -2)
+        p = torch.where(vis, torch.exp(s * scale - lr[:, :, r0:r1, None]),
+                        torch.zeros_like(s))
+        dp = dor[:, :, r0:r1] @ vf[:, :, j0:j1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, r0:r1, None])
+
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for j0 in range(0, Skv, tile):
+        j1 = min(j0 + tile, Skv)
+        j_hi = min(j1, s_valid)
+        qi_lo, qi_hi = (j0 if causal else 0), Sq
+        if w:
+            qi_lo, qi_hi = max(qi_lo, j0 - w + 1), min(qi_hi, j_hi - 1 + w)
+        if j_hi <= j0:
+            qi_hi = qi_lo
+        for r0 in range(qi_lo * gq, qi_hi * gq, tile):
+            r1 = min(r0 + tile, n_rows)
+            p, ds = weights(r0, r1, j0, j1)
+            dv[:, :, j0:j1] += p.transpose(-1, -2) @ dor[:, :, r0:r1]
+            dk[:, :, j0:j1] += ds.transpose(-1, -2) @ qr[:, :, r0:r1]
+
+    dq = torch.zeros_like(qr)
+    for r0 in range(0, n_rows, tile):
+        r1 = min(r0 + tile, n_rows)
+        q_lo, q_hi = r0 // gq, (r1 - 1) // gq
+        hi = s_valid
+        if causal:
+            hi = min(hi, q_hi + 1)
+        elif w:
+            hi = min(hi, q_hi + w)
+        lo = max(0, q_lo - w + 1) if w else 0
+        for j0 in range(lo // tile * tile, hi, tile):
+            j1 = min(j0 + tile, Skv)
+            _, ds = weights(r0, r1, j0, j1)
+            dq[:, :, r0:r1] += ds @ kf[:, :, j0:j1]
+
+    dq = (dq * scale).reshape(B, Kv, Sq, gq, D).transpose(1, 2).reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), (dk * scale).transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, index, *,

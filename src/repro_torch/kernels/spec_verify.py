@@ -48,6 +48,7 @@ def blockwise_argmax(logits):
     """logits: [R, V] fp32 -> argmax int32 [R, 1] (first maximum)."""
     if logits.device.type == "cpu":
         return plain(logits)
+    build.check_no_grad("blockwise argmax", logits)
     if logits.device.type != "cuda":
         raise ValueError(f"argmax: unsupported device {logits.device}")
     if logits.dtype != torch.float32 or logits.ndim != 2:

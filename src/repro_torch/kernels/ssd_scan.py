@@ -147,6 +147,7 @@ def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None):
     n]) of the scan from it."""
     if x.device.type == "cpu":
         return plain(x, dA, Bm, Cm, chunk=chunk, init_state=init_state)
+    build.check_no_grad("ssd_scan", x, dA, Bm, Cm, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     b, l, h, p = x.shape

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tree import MAX_SPAN
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import as_int32, check_args, launch
 from repro_torch.kernels.ref import tree_attention_ref as plain
 
@@ -46,6 +47,7 @@ def tree_flash_attention(q, k_pool, v_pool, block_table, index, depths, bits,
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_table, index, depths, bits,
                      window=window, scale=scale, max_live=max_live)
+    build.check_no_grad("tree attention", q, k_pool, v_pool)
     check_args("tree attention", q, k_pool, v_pool, scale, window,
                head_dims=TREE_HEAD_DIMS)
     S = q.shape[1]

@@ -296,5 +296,9 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None,
     x, ps = begin(cfg, params, tokens, cache, cfg.sliding_window, max_live,
                   tree, input_embeds)
     for l, lp in enumerate(params["layers"]):
-        x = run_layer(cfg, lp, x, layer_cache(cache, l), ps)
+        if cache is None:     # checkpointed under cfg.remat, as JAX's scan
+            x = L.maybe_remat(lambda h, lp=lp: run_layer(cfg, lp, h, None, ps),
+                              cfg)(x)
+        else:
+            x = run_layer(cfg, lp, x, layer_cache(cache, l), ps)
     return end(cfg, params, x, cache, logits_slice, text_from)

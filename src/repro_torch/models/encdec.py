@@ -88,7 +88,8 @@ def encode(cfg, params, frames):
     B, T, _ = frames.shape
     pos = torch.arange(T, dtype=torch.int32, device=frames.device)
     x = frames.to(cfg.act_dtype) + sinusoid(pos, cfg.d_model).to(cfg.act_dtype)
-    for lp in params["enc_layers"]:
+
+    def enc_block(x, lp):
         pa = lp["attn"]
         hn = L.rmsnorm(pa["norm"], x, cfg.norm_eps)
         q = _heads(cfg, pa["q"], hn, cfg.num_heads)
@@ -96,7 +97,11 @@ def encode(cfg, params, frames):
         v = _heads(cfg, pa["v"], hn, cfg.num_kv_heads)
         o = dense.attention_flash(q, k, v, causal=False)
         x = x + L.linear(pa["o"], o.reshape(B, T, cfg.num_heads * cfg.head_dim))
-        x = x + L.gelu_mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+        return x + L.gelu_mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+
+    enc_block = L.maybe_remat(enc_block, cfg)   # as JAX's scan
+    for lp in params["enc_layers"]:
+        x = enc_block(x, lp)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -120,7 +125,8 @@ def forward(cfg, params, tokens, cache, *, cross, logits_slice=None):
     B, Q, _ = x.shape
     x = x + sinusoid(ps.q_pos, cfg.d_model).to(cfg.act_dtype)
     width = cfg.num_heads * cfg.head_dim
-    for l, lp in enumerate(params["dec_layers"]):
+
+    def dec_block(x, l, lp, ck, cv):
         # causal self-attention (ring-cached or not), no RoPE
         x = x + dense.attn_block(cfg, lp["self"], x, ps.q_pos,
                                  dense.layer_cache(cache, l), ps.index, None,
@@ -130,7 +136,12 @@ def forward(cfg, params, tokens, cache, *, cross, logits_slice=None):
         pc = lp["cross"]
         q = _heads(cfg, pc["q"], L.rmsnorm(pc["norm"], x, cfg.norm_eps),
                    cfg.num_heads)
-        o = dense.attention_flash(q, cross["k"][l], cross["v"][l], causal=False)
+        o = dense.attention_flash(q, ck, cv, causal=False)
         x = x + L.linear(pc["o"], o.reshape(B, Q, width))
-        x = x + L.gelu_mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+        return x + L.gelu_mlp(lp["mlp"], L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+
+    if cache is None:     # checkpointed under cfg.remat, as JAX's scan
+        dec_block = L.maybe_remat(dec_block, cfg)
+    for l, lp in enumerate(params["dec_layers"]):
+        x = dec_block(x, l, lp, cross["k"][l], cross["v"][l])
     return dense.end(cfg, params, x, cache, logits_slice)

@@ -201,9 +201,13 @@ def forward(cfg, params, tokens, cache=None, *, logits_slice=None,
     Q = x.shape[1]
     new_rec, n_rec, n_att = [], 0, 0
     for lp, kind in zip(params["layers"], kinds(cfg), strict=True):
-        if kind == "rec":
-            lc = (None if cache is None else
-                  {"state": cache["state"][n_rec], "conv": cache["conv"][n_rec]})
+        if cache is None:     # checkpointed under cfg.remat, as JAX's scan
+            unit = ((lambda h, lp=lp: rec_unit(cfg, lp, h, None, False)[0])
+                    if kind == "rec" else
+                    (lambda h, lp=lp: attn_unit(cfg, lp, h, None, ps)))
+            x = L.maybe_remat(unit, cfg)(x)
+        elif kind == "rec":
+            lc = {"state": cache["state"][n_rec], "conv": cache["conv"][n_rec]}
             x, new_lc = rec_unit(cfg, lp, x, lc, want_trail)
             new_rec.append(new_lc)
             n_rec += 1

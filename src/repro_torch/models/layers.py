@@ -4,10 +4,12 @@ Parameters are plain nested dicts of tensors, as in the JAX package, and
 every function is a plain function on tensors. Linear weights keep JAX's
 ``[d_in, d_out]`` layout (``x @ w``), so weights cross the bridge
 unchanged. ``linear`` carries the w8a8 hooks of ``quant.int8`` (off by
-default, as in JAX).
+default, as in JAX). ``remat_wrap`` is JAX's activation checkpointing of
+a layer, for training.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -121,7 +123,9 @@ def init_embedding(gen, vocab, d_model, dtype, device, scale: Optional[float] = 
 
 def with_f32_table(p):
     """Add the fp32 copy of a narrower embedding table that the tied
-    unembedding reads (computed once instead of on every call)."""
+    unembedding reads when serving (computed once instead of on every
+    call). Training never reads it (``unembed``): trained params get a
+    fresh copy (``training.train_loop.serving_params``)."""
     if p["table"].dtype == torch.float32:
         return p
     return {**p, "table_f32": p["table"].float()}
@@ -139,6 +143,52 @@ def embed(p, tokens):
 
 
 def unembed(p, x):
-    """Tied unembedding: project hidden states to vocab logits (fp32)."""
-    table = p.get("table_f32", p["table"])
+    """Tied unembedding: project hidden states to vocab logits (fp32).
+    Serving reads the fp32 copy where there is one; a table that takes a
+    gradient (grad mode on, ``requires_grad``) is read itself, so the
+    logits' gradient reaches the table, as in JAX."""
+    table = p["table"]
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        table = p.get("table_f32", table)
     return x.float() @ table.float().T
+
+
+# --------------------------------------------------------------------- remat
+# "dots": the products without batch dims (JAX's
+# dots_with_no_batch_dims_saveable): x @ w of a linear layer is aten.mm
+_DOTS = ("mm", "addmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    name = getattr(op, "__name__", "").split(".")[0]
+    return (CheckpointPolicy.MUST_SAVE if name in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, cfg):
+    """``fn`` activation-checkpointed as JAX's ``remat_wrap``: "full"
+    recomputes everything in the backward pass
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant); "dots" saves
+    the matmul outputs and recomputes the rest (a selective checkpoint).
+    Outside grad mode ``fn`` runs as it is: nothing would be recomputed."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy must be 'full' or 'dots', "
+                         f"got {cfg.remat_policy!r}")
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def maybe_remat(fn, cfg):
+    """``remat_wrap(fn, cfg)`` when ``cfg.remat`` is on, else ``fn``."""
+    return remat_wrap(fn, cfg) if cfg.remat else fn

@@ -225,13 +225,18 @@ def forward(cfg, params, tokens, cache, *, logits_slice=None, max_live=None):
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     rz = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, lp in enumerate(params["layers"]):
-        lc = dense.layer_cache(cache, l)
+        layer = moe_layer if "moe" in lp else dense.run_layer
+        if cache is None:     # checkpointed under cfg.remat, as JAX's scan
+            out = L.maybe_remat(
+                lambda h, lp=lp, f=layer: f(cfg, lp, h, None, ps), cfg)(x)
+        else:
+            out = layer(cfg, lp, x, dense.layer_cache(cache, l), ps)
         if "moe" in lp:
-            x, aux = moe_layer(cfg, lp, x, lc, ps)
+            x, aux = out
             lb = lb + aux["load_balance"]
             rz = rz + aux["router_z"]
         else:
-            x = dense.run_layer(cfg, lp, x, lc, ps)
+            x = out
     logits, new_cache = dense.end(cfg, params, x, cache, logits_slice)
     nb = n_blocks(cfg)
     aux = {"load_balance": lb / nb if nb else lb * float("nan"),

@@ -236,8 +236,10 @@ def forward(cfg, params, tokens, cache=None, *, logits_slice=None,
     Q = x.shape[1]
     new_layers = []
     for l, lp in enumerate(params["layers"]):
-        lc = (None if cache is None else
-              {"state": cache["state"][l], "conv": cache["conv"][l]})
+        if cache is None:     # checkpointed under cfg.remat, as JAX's scan
+            x = L.maybe_remat(lambda h, lp=lp: ssm_mix(cfg, lp, h)[0], cfg)(x)
+            continue
+        lc = {"state": cache["state"][l], "conv": cache["conv"][l]}
         x, new_lc = ssm_mix(cfg, lp, x, lc, want_trail)
         new_layers.append(new_lc)
     new_cache = None
