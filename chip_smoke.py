@@ -238,7 +238,8 @@
    pair through ``quantize_for_serving`` under ``act_quant`` with a static
    scale from ``calibrate_act_scale`` over the linear inputs of one
    unquantized target pass on the first wave (``"full_width_w8a8"``: 7
-   int8 launches and one flash launch per layer pass), then the
+   int8 launches and one flash launch per layer pass), then the compile
+   tooling on the same pair (step 10a), then the
    ``mamba2-780m`` target with its registered drafter (``"full_width_ssm"``:
    one SSD launch per layer pass); tokens == AR's, exact counts of all six
    kernels, each followed by a profiled serve (``"profile_w8a8"``,
@@ -252,6 +253,20 @@
    tokens against cached AR's and the no-cache serve's are readings (a
    bf16 state is rounded once a token by AR and once a round by the spec
    serve, so the two drift apart), profiled (``"profile_ssm_cached"``).
+10a. The compile tooling (``"phase": "compile_steps"``): (a)
+   ``launch.dryrun.run_one`` for every registry arch x input shape on
+   meta tensors (one line a record, then the ok / skipped / failed counts;
+   a failed record fails the phase); (b) the four steps of
+   ``launch.steps`` on the full-width pair's own weights, each run once on
+   card tensors that match its meta inputs leaf for leaf: prefill B 1 x
+   2048 (last logits == ``Model.apply``'s), decode B 4 over a 2048-position
+   cache after a 2047-token prefill (its token == cached AR's), the spec
+   round B 4, gamma 4, 3B over 1B from prefilled caches (its first
+   n_commit >= 1 tokens == greedy AR's), the train step B 2 x 512 (loss
+   finite and == ``make_train_step``'s); each with its peak memory, wall
+   and exact launch counts (paged L, L, gamma L_d + L_t with one argmax;
+   flash L forward and L backward), which join the kernels line; the
+   phase's seconds.
 11. The hybrid family. At smoke width (``"phase":
    "smoke_hybrid_exactness"``, after the cached Mamba-2 smoke phase): the
    ``recurrentgemma-2b`` smoke pair (fp32, head_dim 64, local window 16),
@@ -4997,6 +5012,209 @@ def full_width_train(card):
     return cases, launches
 
 
+# ------------------------------------------------------------ compile steps
+COMPILE_SHAPES = {          # (seq_len, global_batch, kind): fits one card
+    "prefill": (2048, 1, "prefill"),
+    "decode": (2048, 4, "decode"),
+    "spec_round": (2048, 4, "decode"),
+    "train": (512, 2, "train"),
+}
+SPEC_PROMPT = 512           # the spec round's prefilled prompt
+
+
+def like_meta(meta, real) -> bool:
+    """Whether ``real`` holds the tree of meta tensors ``meta`` leaf for
+    leaf: the same containers and keys, each tensor of the meta one's shape
+    and dtype on the card, every other leaf equal."""
+    if isinstance(meta, torch.Tensor):
+        return (isinstance(real, torch.Tensor) and real.is_cuda
+                and real.shape == meta.shape and real.dtype == meta.dtype)
+    if isinstance(meta, dict):
+        return (isinstance(real, dict) and meta.keys() == real.keys()
+                and all(like_meta(meta[k], real[k]) for k in meta))
+    if isinstance(meta, (list, tuple)):
+        return (isinstance(real, (list, tuple)) and len(meta) == len(real)
+                and all(like_meta(m, r) for m, r in zip(meta, real)))
+    return meta == real
+
+
+def zeros_like_meta(cache):
+    """A fresh cache on the card (zeros, index 0) shaped as the meta cache
+    ``cache`` (a flat dict, as every family's is); other entries as they
+    are."""
+    return {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda")
+            if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
+
+
+def compile_dryrun(card):
+    """(a): ``launch.dryrun.run_one`` for every registry arch x input shape
+    on meta tensors (single pod): one line a record, then the counts. A
+    failed record fails the phase after the sweep, as JAX's sweep does."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    counts = {"ok": 0, "skipped": 0, "failed": 0}
+    for arch in registry.ARCHS:
+        for shape in INPUT_SHAPES:
+            try:
+                rec = dryrun.run_one(arch, shape, False, verbose=False)
+            except Exception as e:   # recorded, then the phase fails below
+                rec = {"arch": arch, "shape": shape, "multi_pod": False,
+                       "status": "failed", "error": repr(e)[:500]}
+            counts[rec["status"]] += 1
+            emit({"phase": "compile_steps", "part": "a_dryrun", **rec})
+    emit({"phase": "compile_steps", "part": "a_counts", "card": card, **counts,
+          "ok": counts["failed"] == 0})
+    if counts["failed"]:
+        raise SystemExit(f"the meta dry run failed {counts['failed']} records")
+    return counts
+
+
+def compile_steps(mt, md, pt, pd, cfg, card):
+    """The ``compile_steps`` phase on the full-width pair's own weights:
+    (a) the meta dry run; (b) the four steps ``launch.steps`` builds, at
+    shapes that fit one card (``COMPILE_SHAPES``), each run once on tensors
+    that match its meta inputs leaf for leaf: the prefill's last logits ==
+    ``Model.apply(..., logits_slice="last")``'s; the decode step after a
+    prefill gives cached AR's next token; the spec round's first n_commit
+    tokens == greedy AR's continuation from the same prefilled caches; the
+    train step's loss finite and == ``make_train_step``'s on the same
+    batch. Each with its peak memory, wall and exact launches of the
+    paged, argmax, flash and flash-backward wrappers (the others 0).
+    Returns the four steps' launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.engine import autoregressive_generate
+    from repro_torch.core.rounds import next_token
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.obs import clock
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    t0 = clock.perf()
+    compile_dryrun(card)
+    t_a = clock.perf() - t0
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    shapes = {k: ShapeConfig(f"{k}_{s}", s, b, kind)
+              for k, (s, b, kind) in COMPILE_SHAPES.items()}
+    params_t, params_d = train_loop.trainable(pt), train_loop.trainable(pd)
+    counters = {**kernel_counters(), "flash_attention_bwd": fa.flash_attention_bwd}
+    rng = np.random.default_rng(11)
+    total = dict.fromkeys(counters, 0)
+
+    def tokens(B, S):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32, device="cuda")
+
+    def run(name, fn, inputs, args, expected):
+        """One step: its inputs against the meta ones, then the call with
+        the counts set to 0 just before and read just after."""
+        matched = like_meta(inputs, args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        t = clock.perf()
+        out = fn(*args.values())
+        torch.cuda.synchronize()
+        wall = clock.perf() - t
+        n = read_counts(counters)
+        for key in total:
+            total[key] += n[key]
+        want = {k: expected.get(k, 0) for k in counters}
+        return out, {"phase": "compile_steps", "part": f"b_{name}", "card": card,
+                     "inputs_match_meta": matched, "wall_s": wall,
+                     "max_memory_allocated_gib":
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     "launches": n, "launches_expected": want,
+                     "launches_ok": n == want}
+
+    def check(info, ok):
+        info["ok"] = bool(ok and info["inputs_match_meta"] and info["launches_ok"])
+        emit(info)
+        if not info["ok"]:
+            raise SystemExit(f"compile_steps {info['part']} failed: {info}")
+
+    # prefill: B 1, S 2048 on a fresh cache
+    fn, inp = steps.build_prefill_step(mt, shapes["prefill"])
+    args = {"params": params_t, "tokens": tokens(1, 2048),
+            "cache": zeros_like_meta(inp["cache"]), "extras": {}}
+    (logits, _), info = run("prefill", fn, inp, args, {"paged_attention": L_t})
+    ref, _, _ = mt.apply(params_t, args["tokens"], zeros_like_meta(inp["cache"]),
+                         logits_slice="last")
+    info.update(logits_shape=list(logits.shape),
+                equal_to_apply=bool(torch.equal(logits, ref)))
+    check(info, info["equal_to_apply"] and bool(torch.isfinite(logits).all()))
+    del args, logits, ref
+
+    # decode: B 4 over a 2048-position cache, after a prefill of 2047
+    fn, inp = steps.build_decode_step(mt, shapes["decode"])
+    prompt = tokens(4, 2047)
+    cache = zeros_like_meta(inp["cache"])
+    logits, cache, _ = mt.apply(params_t, prompt, cache, logits_slice="last")
+    nxt, _ = next_token(logits[:, -1], True, 1.0, None)
+    args = {"params": params_t, "tokens": nxt[:, None], "cache": cache,
+            "extras": {}}
+    (logits, cache), info = run("decode", fn, inp, args, {"paged_attention": L_t})
+    got, _ = next_token(logits[:, -1], True, 1.0, None)
+    ar = autoregressive_generate(mt, params_t, prompt, 2, use_cache=True)
+    info.update(tokens=got.tolist(), ar_tokens=ar[:, -1].tolist(),
+                cache_index=int(cache["index"]))
+    check(info, torch.equal(got, ar[:, -1]) and info["cache_index"] == 2048)
+    del args, cache, logits, ar
+
+    # spec round: B 4, gamma 4, the 3B target and 1B drafter from prefilled caches
+    fn, inp = steps.build_spec_round_step(mt, md, shapes["spec_round"], gamma=GAMMA)
+    prompt = tokens(4, SPEC_PROMPT)
+    tcache, dcache = zeros_like_meta(inp["tcache"]), zeros_like_meta(inp["dcache"])
+    _, tcache, _ = mt.apply(params_t, prompt[:, :-1], tcache, logits_slice="last")
+    _, dcache, _ = md.apply(params_d, prompt[:, :-1], dcache, logits_slice="last")
+    ar_cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in tcache.items()}
+    args = {"params_t": params_t, "params_d": params_d,
+            "t_last": prompt[:, -1].contiguous(), "tcache": tcache, "dcache": dcache}
+    (out, n_commit, tcache, dcache), info = run(
+        "spec_round", fn, inp, args,
+        {"paged_attention": GAMMA * L_d + L_t, "blockwise_argmax": 1})
+    ar, tok = [], args["t_last"]
+    for _ in range(GAMMA + 1):
+        logits, ar_cache, _ = mt.apply(params_t, tok[:, None], ar_cache,
+                                       logits_slice="last")
+        tok, _ = next_token(logits[:, -1], True, 1.0, None)
+        ar.append(tok)
+    ar = torch.stack(ar, dim=1)
+    n = int(n_commit)
+    info.update(n_commit=n, out_tokens=out.tolist(), ar_tokens=ar.tolist(),
+                tcache_index=int(tcache["index"]), dcache_index=int(dcache["index"]))
+    check(info, n >= 1 and torch.equal(out[:, :n], ar[:, :n])
+          and info["tcache_index"] == info["dcache_index"] == SPEC_PROMPT - 1 + n)
+    del args, tcache, dcache, ar_cache, logits, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train: B 2, S 512, one microbatch, AdamW over the target's params
+    ocfg = opt.AdamWConfig()
+    fn, inp = steps.build_train_step(mt, shapes["train"], 1, ocfg)
+    batch = tokens(2, 513)
+    args = {"params": params_t,
+            "opt_state": train_loop.init_opt_state(mt, ocfg, params_t),
+            "batch": {"tokens": batch[:, :-1].contiguous(),
+                      "labels": batch[:, 1:].contiguous()}}
+    (new, _, met), info = run("train", fn, inp, args,
+                              {"flash_attention": L_t, "flash_attention_bwd": L_t})
+    del new
+    _, _, ref = train_loop.make_train_step(mt, ocfg, 1)(*args.values())
+    info.update(loss=float(met["loss"]), loss_make_train_step=float(ref["loss"]),
+                grad_norm=float(met["grad_norm"]))
+    check(info, bool(torch.isfinite(met["loss"]))
+          and torch.equal(met["loss"], ref["loss"]))
+    del args, met, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "compile_steps", "part": "done", "card": card, "a_s": t_a,
+          "b_s": clock.perf() - t0 - t_a, "phase_s": clock.perf() - t0,
+          "launches": total})
+    return total
+
+
 def _union(intervals):
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, None
@@ -5203,6 +5421,9 @@ def main() -> int:
     frontend_launches = full_width_frontend(*pair, card)
     del cached, linear
     w8a8_launches = full_width_w8a8(*pair, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    compile_launches = compile_steps(*pair, card)
     del pair
     torch.cuda.empty_cache()
     ssm_launches, ssm_cached = full_width_ssm(card)
@@ -5257,6 +5478,10 @@ def main() -> int:
     # for the encoder and cross-attention, paged cached, the argmax)
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += vlm_launches[name] + encdec_launches[name]
+    # the compile_steps phase's four steps (paged, the argmax; flash and
+    # its backward in the train step)
+    for name in ("paged_attention", "blockwise_argmax"):
+        launches[name] += compile_launches[name]
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
@@ -5296,7 +5521,8 @@ def main() -> int:
                       + hybrid_nocache["flash_attention"]
                       + vlm_launches["flash_attention"]
                       + encdec_launches["flash_attention"]
-                      + train_launches["flash_attention"]),
+                      + train_launches["flash_attention"]
+                      + compile_launches["flash_attention"]),
          "max_abs_err": max(c["max_abs_err"]
                             for c in fl_cases + hy_flash + ve_flash),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
@@ -5307,7 +5533,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:69",
          "note": "the gradient of that kernel's function; JAX trains through "
                  "its jnp attention and has no backward kernel",
-         "launches": train_launches["flash_attention_bwd"],
+         "launches": (train_launches["flash_attention_bwd"]
+                      + compile_launches["flash_attention_bwd"]),
          "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
          "ms": bwd_head["kernel_ms"], "plain_ms": bwd_head["plain_ms"],
          "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],

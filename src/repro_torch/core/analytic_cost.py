@@ -152,3 +152,24 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig, *, chips: int,
     if weight_gather:
         coll += p_bytes
     return StepCost(flops, hbm, coll)
+
+
+def scan_trips(cfg: ModelConfig, kind: str, num_microbatches: int = 1) -> int:
+    """The reference's layer-scan trip count for a step (its dry run
+    multiplies XLA's once-counted scan body by it): the layers, the moe
+    family's blocks, the hybrid family's whole pattern blocks (its tail
+    units are unrolled), the encoder-decoder's decoder plus encoder
+    layers; a train step repeats them per microbatch. The dry-run record
+    carries it as JAX's does."""
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec", "rec", "attn")
+        trips = cfg.num_layers // len(pat)
+    elif cfg.family == "moe":
+        trips = cfg.num_layers // max(cfg.moe_every, 1)
+    elif cfg.family == "encdec":
+        trips = cfg.num_layers + cfg.num_encoder_layers
+    else:
+        trips = cfg.num_layers
+    if kind == "train":
+        trips *= max(num_microbatches, 1)
+    return max(trips, 1)

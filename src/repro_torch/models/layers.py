@@ -22,6 +22,8 @@ from repro_torch.quant import int8 as q8
 def _dense_init(gen: torch.Generator, shape, dtype, device, scale=None):
     """Truncated-normal fan-in init (matches the JAX init's distribution;
     the numbers differ, since torch and jax generators differ)."""
+    if torch.device(device).type == "meta":     # shapes only: nothing drawn
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)

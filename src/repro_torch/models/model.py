@@ -5,6 +5,7 @@
   logits, cache, aux = model.apply(params, tokens, cache, **kw, **extras)
   logits, _, _ = model.apply(params, tokens)       # no-cache full pass
   cache  = model.init_cache(batch, max_len, spec_slack)      (ring / state)
+  spec   = model.cache_spec(batch, max_len, spec_slack)      (meta tensors)
   cache  = model.init_paged_cache(batch, num_blocks, block_size, max_blocks_per_row)
   cache' = model.rollback(cache, accepted_index, q_len)      (O(1) / trail)
   shapes = model.extra_inputs(batch)                         (stub frontends)
@@ -70,10 +71,15 @@ class Model:
              layer_fn=None):
         """Seeded random weights. ``seed`` is an int or a torch.Generator
         on ``device``. ``layer_fn`` (moe family) maps each layer's params
-        as it is made, before the next layer is; the draws do not change."""
+        as it is made, before the next layer is; the draws do not change.
+        On the ``meta`` device the tree holds the same shapes and dtypes
+        and nothing is drawn (``seed`` is ignored): the port's
+        ``jax.eval_shape(lambda: model.init(rng))``."""
         dev = devices.resolve(device)
         gen = seed
-        if not isinstance(seed, torch.Generator):
+        if dev.type == "meta":
+            gen = None
+        elif not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
         if layer_fn is None:
             return FAMILIES[self.family].init(self.cfg, gen, dev)
@@ -186,6 +192,14 @@ class Model:
             return self._ring(cfg.num_layers, batch, max_len, None, dtype, dev)
         return self._ring(self._kv_layers(), batch, max_len,
                           self._kv_window(spec_slack), dtype, dev)
+
+    def cache_spec(self, batch, max_len, spec_slack=8,
+                   dtype: Optional[torch.dtype] = None):
+        """``init_cache``'s tree on the ``meta`` device: every leaf's shape
+        and dtype, no memory (JAX's ``jax.eval_shape`` of its
+        ``init_cache``). The layout is the port's (flat moe and hybrid
+        caches, rings rounded up to ``dense.RING_PAGE`` slots)."""
+        return self.init_cache(batch, max_len, spec_slack, dtype, device="meta")
 
     def _ring(self, n_layers, batch, max_len, window, dtype, dev):
         """Ring K/V buffers over ``n_layers`` layers: buffer_len(max_len,

@@ -220,6 +220,9 @@ def init_for_serving(model, seed, device=None):
     made one layer at a time (moe family): each layer is drawn, quantized
     and its float weights dropped before the next is drawn, so the float
     model never exists whole (Mixtral 8x7B's 93.4 GB of bf16 weights exceed
-    an 80 GB card; its int8 weights fit). The draws are ``model.init``'s."""
-    params = model.init(seed, device, layer_fn=quantize_for_serving)
-    return quantize_for_serving(params)
+    an 80 GB card; its int8 weights fit); the other families quantize the
+    whole tree. The draws are ``model.init``'s. On the ``meta`` device it
+    gives the serving tree's shapes and dtypes (JAX's ``params_shape(
+    quantized=True)``)."""
+    layer_fn = quantize_for_serving if model.family == "moe" else None
+    return quantize_for_serving(model.init(seed, device, layer_fn=layer_fn))

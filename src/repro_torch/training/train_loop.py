@@ -87,7 +87,9 @@ def make_train_step(model, ocfg, num_microbatches: int = 1):
     extras), tensors on the params' device. With num_microbatches > 1 the
     batch is split on axis 0 and fp32 gradients are summed microbatch by
     microbatch in order, then divided, as JAX's scan does; the metrics then
-    carry only ``ce`` (the mean loss), as in JAX. ``opt_state`` comes from
+    carry only ``ce`` (the mean loss), as in JAX. A batch whose rows do not
+    split evenly raises ``ValueError`` before any forward (JAX's reshape
+    raises there too). ``opt_state`` comes from
     ``optimizer.init_any(ocfg, params, optimizer.layout(model.cfg,
     params))``."""
     lay_cache = {}
@@ -102,11 +104,16 @@ def make_train_step(model, ocfg, num_microbatches: int = 1):
         lay = layout_of(params)
         tokens, labels = batch["tokens"], batch["labels"]
         extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+        B = tokens.shape[0]
+        if B % num_microbatches:
+            raise ValueError(f"batch of {B} rows does not split into "
+                             f"num_microbatches={num_microbatches} equal "
+                             f"microbatches")
         if num_microbatches == 1:
             loss, metrics, grads = value_and_grad(model, params, tokens,
                                                   labels, extras, lay)
         else:
-            mb = tokens.shape[0] // num_microbatches
+            mb = B // num_microbatches
             grads = opt.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                    device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _serving_parity import one_torch_thread  # noqa: E402
 from repro.configs import registry as jax_registry  # noqa: E402
 from repro.core import batched_engine as jax_batched  # noqa: E402
 from repro.core import engine as jax_engine  # noqa: E402
@@ -44,6 +45,12 @@ TREE = json.loads((GOLD / "tree_rounds.json").read_text())
 GAMMA = PARITY["meta"]["gamma"]
 MAX_NEW = PARITY["meta"]["max_new"]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _to_np(p):

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _serving_parity import one_torch_thread  # noqa: E402
 from repro.configs import registry as jax_registry  # noqa: E402
 from repro.core import engine as jax_engine  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
@@ -39,6 +40,12 @@ from repro_torch.quant import int8 as q8  # noqa: E402
 
 MATMUL_SHAPES = [(8, 64, 32), (128, 128, 128), (37, 200, 150), (256, 384, 128),
                  (1, 128, 257)]       # JAX's kernel sweep (tests/test_kernels.py)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _to_np(p):
@@ -414,19 +421,30 @@ def test_w8a8_spec_tokens_match_jax_dynamic_scale(w8a8_pair, policy):
     assert (st["rounds"], st["accepted"]) == (int(jst["rounds"]), int(jst["accepted"]))
 
 
+@pytest.fixture(scope="module")
+def static_scale_ar(w8a8_pair):
+    """Seeds 0-2: each prompt and its w8a8 AR continuation under the static
+    scale (the same for every draft policy, so made once)."""
+    mt, _, pt, _ = w8a8_pair["torch"]
+    out = []
+    for seed in range(3):
+        prompt = np.random.default_rng(seed).integers(0, 512, (2, 8)).astype(np.int32)
+        with q8.act_quant(static_scale=0.05):
+            out.append((prompt, engine.autoregressive_generate(mt, pt, prompt, 16)))
+    return out
+
+
 @pytest.mark.parametrize("policy", ["linear", "multi"])
-def test_w8a8_spec_equals_ar_under_a_static_scale(w8a8_pair, policy):
+def test_w8a8_spec_equals_ar_under_a_static_scale(w8a8_pair, static_scale_ar, policy):
     """A static scale makes each row's quantization independent of the
     other rows and positions, so speculation is exact again."""
     mt, md, pt, pd = w8a8_pair["torch"]
     eng = engine.SpecEngine(mt, md, engine.EngineConfig(gamma=4, draft_policy=policy,
                                                         draft_k=2))
     partial = 0
-    for seed in range(3):
-        prompt = np.random.default_rng(seed).integers(0, 512, (2, 8)).astype(np.int32)
+    for prompt, ar in static_scale_ar:
         with q8.act_quant(static_scale=0.05):
             got, st = eng.generate(pt, pd, prompt, 16)
-            ar = engine.autoregressive_generate(mt, pt, prompt, 16)
         np.testing.assert_array_equal(got[:, :24].numpy(), ar.numpy())
         partial += st["accepted"] < st["drafted"]
     assert partial
