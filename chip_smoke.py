@@ -47,7 +47,7 @@
    cases of step 8, the same cases at the hybrid family's geometries
    (RecurrentGemma 2B's 10/1/256 and its drafter's 4/1/256: MQA at head
    dim 256): paged attention at Q 1 and 5, the Q-invariance check (the
-   width-1 tree skipped: the tree entry takes D 64 and 128), the wrapped
+   width-1 tree skipped: the tree entry takes D 32 to 128), the wrapped
    ring, flash attention at B=2 and S=134, at S=2048 and with a window of
    64 that binds at S=1100, fp32 and bf16; and the argmax at [10, 256000]
    with planted ties. Then the VLM's and the encoder-decoder's shapes
@@ -152,9 +152,8 @@
    through ``launch.serve.serve(greedy=False)``, each twice with one
    ``TorchKey`` seed (the same tokens both times; flash launches rounds x
    92 no-cache, paged rounds x 92 + waves x 44 cached, the argmax kernel
-   none), each profiled (``"profile_sampled_nocache"``,
-   ``"profile_sampled_cached"``) and set beside the greedy serve of this
-   call; then the cached engine with the target drafting for itself
+   none), each set beside the greedy serve of this call (the sampled
+   serves are not profiled); then the cached engine with the target drafting for itself
    (alpha_hat at least 0.9). Then the paper's planner and the ``Session``
    facade on the same pair (``"phase": "full_width_session"``): (a) the
    serve-paged CLI's spec for step 4's 8 ragged requests on the planner's
@@ -337,7 +336,11 @@
    within 2e-2 max|ref|; two runs bit-equal; the forward's log-sum-exp
    against ``ref.flash_attention_lse_ref``; times of the forward with the
    lse, the backward, the plain backward, SDPA's backward (the library)
-   and the bound. (b) Llama 3.2 3B at full width and depth (bf16, tied,
+   and the bound. Then every attention kernel at head dims 48 and 32
+   (``pair_kernel_cases``: 8/4/48 and 4/2/32, fp32 and bf16): flash
+   forward at S 48 and 134, the backward at B 16, S 48, paged at Q 1 and
+   5 and a 64-row prefill chunk, tree at chain_tree(2, 4), and the Q=5 /
+   width-1-tree bit-equalities. (b) Llama 3.2 3B at full width and depth (bf16, tied,
    seeded init), AdamW over order-2 Markov batches of 4 x 512 (V 128,256):
    one batch's loss and gradients with and without ``remat`` (full) from
    the same params, equal losses and gradients bit-equal or within the
@@ -345,12 +348,19 @@
    and 28 backward; 3 train steps with finite losses, 28 + 28 launches a
    step, the step time, peak memory and params that moved; a checkpoint
    save and restore round trip, bit-equal. (c) The trained-pair recipe
-   of ``benchmarks/common.py`` at head_dim 64 (target 6 layers, d 384, 6
-   heads over 3; drafter 2 layers, d 128, 2 over 1; fp32, V 256, tied)
-   trained on the card through ``launch.train.train`` for 300 steps
-   each (order-1 data): each final loss under half its first, exact
+   of ``benchmarks/common.py`` letter for letter (target 6 layers, d 384,
+   8 heads over 4 of 48; drafter 2 layers, d 128, 4 over 2, keeping the
+   target's head_dim 48 as the recipe's ``replace`` does; fp32, V 256,
+   tied) trained on the card through ``launch.train.train`` for 300
+   steps each (order-1 data): each final loss under half its first, exact
    flash launches; then 6 Markov prompts through the no-cache
-   ``SpecEngine`` (gamma 4, greedy): tokens == no-cache AR, α̂ printed.
+   ``SpecEngine``, the cached engine on the ring, ``PagedSpecServer`` and
+   cached tree rounds (chain_tree(2, 4)), greedy: tokens == AR on each,
+   every kernel's launches exact, α̂ of each path printed. (d) Mamba-2
+   trains: mamba2-smoke's loss and gradients on the card against the CPU
+   (within 1e-4 max|g| + 1e-6 a leaf), mamba2-780m 3 AdamW steps of 2 x
+   512 at full width and depth (finite losses, params moved, no SSD
+   launch under grad, 48 in a no-grad forward), s a step and peak memory.
 14. Prints the run's seconds (``"phase": "end"``), the ``{"kernels":
    [...]}`` line (seven kernels, the flash backward with its train-phase
    launches; each kernel's launches are its main path's
@@ -360,7 +370,7 @@
    and the front-end phase's of step 7, the hybrid serves of step 11
    and step 12's spec serves',
    Mixtral's, the VLM's, the encoder-decoder's and the train phase's
-   included), the card line again and, last, ``{"ok": true, "device": {...}}``.
+   (its pair's four serves and Mamba-2's no-grad forward) included), the card line again and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -546,7 +556,7 @@ def q_invariance(name, H, Kv, D, dtype):
     the causal call, each with the serving path's live bound max(index) + Q
     as a device tensor. A row's arithmetic must not depend on Q or on the
     mask policy, so all must be bit-equal (spec == AR and tree == AR rest
-    on it). The tree entry takes head dims 64 and 128 only (no model with
+    on it). The tree entry takes head dims 32 to 128 only (no model with
     D = 256 runs tree rounds): at 256 the width-1 tree is skipped."""
     from repro_torch.core.tree import chain_tree
     from repro_torch.kernels import paged_attention as pa
@@ -796,14 +806,15 @@ def argmax_case(timer):
 
 
 def tree_attention_case(timer, name, shape, dtype, window=None,
-                        headline=False):
-    """Tree attention at the Llama-3.2-3B head geometry: B=4 ragged rows
-    (row 2 on the NULL block), block size 16, the verify round's live
-    bound max(index) + span as a device tensor."""
+                        headline=False, geom=("llama3.2-3b", 24, 8, 128)):
+    """Tree attention at a head geometry ``geom`` (name, H, Kv, D; the
+    Llama-3.2-3B one by default): B=4 ragged rows (row 2 on the NULL
+    block), block size 16, the verify round's live bound max(index) + span
+    as a device tensor."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import tree_attention as ta
     from repro_torch.models.attention import _tree_mask
-    H, Kv, D, BS, MB, NB = 24, 8, 128, 16, 16, 256
+    (geometry, H, Kv, D), BS, MB, NB = geom, 16, 16, 256
     span = shape.span
     g = torch.Generator(device="cuda").manual_seed(1000 + span)
     index = [37, 150, 11, 200]
@@ -850,7 +861,8 @@ def tree_attention_case(timer, name, shape, dtype, window=None,
               + table.numel() * 4 + B * 4 + 2 * span * 4)
     flops = 4 * H * D * int(mask.sum())
     p = pa.plan(dtype, B, span, H, Kv, D, BS, MB)
-    case = {"case": "tree_attention", "tree": name, "span": span, "B": B,
+    case = {"case": "tree_attention", "tree": name, "geometry": geometry,
+            "span": span, "B": B,
             "window": window, "dtype": str(dtype).replace("torch.", ""),
             **agree, "kernel_ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound(nbytes, flops, dtype),
@@ -2645,11 +2657,15 @@ def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
     cached: paged attention once per layer of every pass and prefill; the
     argmax kernel never). The cached engine once more with the target's own
     weights as the drafter: p == q up to float order, so alpha_hat must be
-    at least 0.9. Each engine's sampled serve's first wave runs once more
-    under ``torch.profiler``; its line sets the readings (alpha_hat, rounds, wall
-    ms per round, launches per round, device busy ms per round and idle
-    share, peak memory, new tokens equal to the greedy serve's) beside the
-    greedy serve's of this call (``nocache``, ``cached``). Returns the
+    at least 0.9. Each engine's line sets the sampled serve's readings
+    (alpha_hat, rounds, wall ms per round, peak memory, new tokens equal to
+    the greedy serve's) beside the greedy serve's of this call (``nocache``,
+    ``cached``, with their profiles' device readings). The sampled serves
+    are not profiled: they run the greedy serves' kernels plus the draws
+    (their last profiles, PERF.md §5: 1.088 s busy / 76.2% idle no-cache
+    and 0.565 s / 90.1% cached against the greedy 1.070–1.086 s and
+    0.540–0.548 s), and the two profiles took ~48 s of the script on its
+    slowest host. Returns the
     launches of the two sampled serves of each engine's first run."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.sampling.keys import TorchKey
@@ -2682,16 +2698,19 @@ def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
             return {**none, "paged_attention": passes + st["waves"] * (L_t + L_draft)}
         return {**none, "flash_attention": passes}
 
-    def side(info, prof):
-        busy = prof["device_busy_s"]
-        return {"rounds": info["rounds"],
-                "mean_accepted_per_round": info["mean_accepted_per_round"],
-                "wall_ms_per_round": info["ms_per_round"],
-                "tokens_per_s": info["tokens_per_s"],
-                "peak_memory_gib": info["peak_memory_gib"],
-                "device_busy_ms_per_round": None if busy is None else busy / prof["rounds"] * 1e3,
-                "device_idle_share": prof["device_idle_share"],
-                "kernel_launches_per_round": prof["kernel_launches_per_round"]}
+    def side(info, prof=None):
+        out = {"rounds": info["rounds"],
+               "mean_accepted_per_round": info["mean_accepted_per_round"],
+               "wall_ms_per_round": info["ms_per_round"],
+               "tokens_per_s": info["tokens_per_s"],
+               "peak_memory_gib": info["peak_memory_gib"]}
+        if prof is not None:
+            busy = prof["device_busy_s"]
+            out.update(device_busy_ms_per_round=None if busy is None
+                       else busy / prof["rounds"] * 1e3,
+                       device_idle_share=prof["device_idle_share"],
+                       kernel_launches_per_round=prof["kernel_launches_per_round"])
+        return out
 
     launches = dict(none)
     for use_cache, greedy in ((False, nocache), (True, cached)):
@@ -2700,14 +2719,6 @@ def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
         b, sb = counted(use_cache, md, pd)
         rounds = sa["rounds"]
         want = expected(use_cache, sa, L_d)
-
-        def run():
-            # one wave of the traffic: the profiler's readings are per round
-            _, st = serve_cli.serve(mt, md, pt, pd, prompts[:batch], NOCACHE_NEW,
-                                    gamma=GAMMA, batch=batch, use_cache=use_cache,
-                                    greedy=False, key=TorchKey(seed))
-            return st["rounds"], st["waves"] if use_cache else 0
-        prof = profile(f"profile_sampled_{engine}", run, pt, pd, card)
         info = {"phase": "full_width_sampled", "engine": engine, "card": card,
                 "target": mt.cfg.name, "drafter": md.cfg.name, "dtype": mt.cfg.dtype,
                 "temperature": 1.0, "key": f"TorchKey({seed})",
@@ -2724,7 +2735,7 @@ def full_width_sampled(mt, md, pt, pd, cfg, card, nocache, cached):
                 "in_vocab": bool(((a >= 0) & (a < cfg.vocab_size)).all()),
                 "new_tokens_equal_greedy": int((a[:, P:] == greedy["tokens"][:, P:]).sum()),
                 "new_tokens_total": int(a[:, P:].size)}
-        info["sampled"] = side(info, prof)
+        info["sampled"] = side(info)
         info["greedy"] = side(greedy["info"], greedy["profile"])
         emit(info)
         if not (info["same_seed_same_tokens"] and info["in_vocab"]
@@ -3777,6 +3788,7 @@ def paged_exact(phase, mt, md, pt, pd, reqs, scfg, card, exact=True,
             "tokens_per_s": s["total_generated_tokens"] / wall,
             "rounds": rounds, "ms_per_round": wall / rounds * 1e3,
             "prefills": prefills, "gamma": GAMMA, "alpha_hat": s["alpha_hat"],
+            "accept_hist": s["accept_hist"][:GAMMA + 1].tolist(),
             "ar_rounds": ar_srv.total_rounds,
             "ar_ms_per_round": ar_wall / ar_srv.total_rounds * 1e3,
             "peak_memory_gib": peak, "launches": launches,
@@ -4201,7 +4213,7 @@ def hybrid_kernel_cases(timer):
     drafter: one kv-head, D = 256): paged attention at Q 1 and GAMMA + 1,
     fp32 and bf16, as ``attention_case`` runs the paper pair's; the Q = 5
     rows bit-equal to Q = 1 (``q_invariance``; the width-1 tree skipped,
-    the tree entry takes D 64 and 128); a windowed ring that has wrapped
+    the tree entry takes D 32 to 128); a windowed ring that has wrapped
     (``wrap_ring_case``); no-cache flash attention at B = 2 and the main
     path's S = 134, at S = 2048 and with a window of 64 that binds at S =
     1100; the argmax at [10, 256000]. Returns (paged cases, flash cases,
@@ -4638,6 +4650,14 @@ BWD_TOL = {torch.float32: (2e-4, 1e-6),    # |d| <= rel * max|ref| + abs: fp32
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3      # (b): Llama 3.2 3B
 PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR = 300, 16, 48, 2e-3   # (c)
 PAIR_VOCAB, PAIR_PROMPTS, PAIR_PROMPT_LEN, PAIR_NEW = 256, 6, 12, 24
+# (a)'s head geometries (name, H, Kv, D): the pair's target (the drafter's
+# 4 / 2 heads keep its head_dim 48, see pair_configs) and d 128 over 4 / 2
+# at d / H = 32
+PAIR_GEOMS = (("bench-target", 8, 4, 48), ("d128-h4-hd32", 4, 2, 32))
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_STEPS = 2, 512, 3      # (d): mamba2-780m
+MAMBA_SMOKE_SEQ = 20          # (d): mamba2-smoke's 8-token chunks, the last ragged
+SSM_GRAD_TOL = (1e-4, 1e-6)   # |d| <= rel * max|cpu| + abs per gradient leaf:
+                              # fp32 sums in other orders on the card
 
 
 def flash_bwd_case(timer, name, H, Kv, D, S, dtype, *, B=2, window=None,
@@ -4898,37 +4918,68 @@ def train_3b(card):
 
 def pair_configs():
     """(c)'s pair: the trained-pair recipe of ``benchmarks/common.py``
-    (fp32, V 256, tied, embedding std d**-0.5) with head_dim 64 for the
-    flash kernels (target 6 heads over 3, drafter 2 over 1; the recipe's
-    8 over 4 and 4 over 2 give head_dim 48 and 32)."""
+    (``target_cfg`` and ``drafter_cfg``) letter for letter: fp32, V 256,
+    tied, embedding std d**-0.5; the target 6 layers of d 384 over 8 query
+    and 4 kv heads (head_dim 48), the drafter 2 layers of d 128 over 4 and
+    2. The drafter is the target's config ``replace``d, which keeps the
+    head_dim derived from the target (48): its query heads are 4 x 48 =
+    192 wide over d 128, in the port as in JAX."""
     from repro_torch.configs.base import ModelConfig
-    target = ModelConfig(name="pair-target", family="dense", num_layers=6,
-                         d_model=384, num_heads=6, num_kv_heads=3, d_ff=1024,
+    target = ModelConfig(name="bench-target", family="dense", num_layers=6,
+                         d_model=384, num_heads=8, num_kv_heads=4, d_ff=1024,
                          vocab_size=PAIR_VOCAB, tie_embeddings=True,
                          dtype="float32", param_dtype="float32",
                          embed_init_scale=384 ** -0.5)
-    drafter = target.replace(name="pair-drafter", num_layers=2, d_model=128,
-                             num_heads=2, num_kv_heads=1, d_ff=256,
+    drafter = target.replace(name="bench-drafter", num_layers=2, d_model=128,
+                             num_heads=4, num_kv_heads=2, d_ff=256,
                              embed_init_scale=128 ** -0.5)
     return target, drafter
+
+
+def pair_kernel_cases(timer):
+    """(a) at the head geometries PAIR_GEOMS (head_dim 48 and 32),
+    fp32 and bf16, each kernel against its plain version with its time,
+    bound and library time: flash forward at S = PAIR_SEQ (the recipe's
+    training length) and 134 (a no-cache buffer), the flash backward at the
+    training batch [PAIR_BATCH, PAIR_SEQ], paged attention at Q 1 and
+    GAMMA + 1 (B 4 ragged, a row on the NULL block) and a bf16 prefill
+    chunk of 64 rows from key 448 (its rows bit-equal to a whole call),
+    tree attention at chain_tree(TREE_W, TREE_D); then Q=5 rows bit-equal
+    to Q=1 calls and a width-1 tree to the causal call. Returns the cases
+    by kernel."""
+    from repro_torch.core.tree import chain_tree
+    T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
+    out = {"flash": [], "flash_bwd": [], "paged": [], "tree": []}
+    for name, H, Kv, D in PAIR_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["flash"] += [flash_case(timer, name, H, Kv, D, S, dtype)
+                             for S in (PAIR_SEQ, T)]
+            out["flash_bwd"].append(flash_bwd_case(timer, name, H, Kv, D,
+                                                   PAIR_SEQ, dtype, B=PAIR_BATCH))
+            out["paged"] += [attention_case(timer, name, H, Kv, D, Q, dtype)
+                             for Q in (1, GAMMA + 1)]
+            out["tree"].append(tree_attention_case(
+                timer, "chain_tree(2,4)", chain_tree(TREE_W, TREE_D), dtype,
+                geom=(name, H, Kv, D)))
+            q_invariance(name, H, Kv, D, dtype)
+        out["paged"].append(paged_chunk_case(timer, name, H, Kv, D,
+                                             CHUNK_EQUAL[0]))
+    return out
 
 
 def trained_pair(card):
     """(c): the pair trained on the card through ``launch.train.train``
     (order-1 data, data seed 0, batch 16, seq 48, lr 2e-3, 300 steps, init
     seeds 0 and 1): each final loss under half its first, flash launches L
-    a step forward and backward. Then 6 Markov prompts of 12 tokens (the
-    recipe's ``prompts(6, 12, seed=9)``) through the no-cache
-    ``SpecEngine`` (gamma 4, greedy) and no-cache AR, 24 new tokens each:
-    tokens equal, and the learned acceptance rate. Returns the launches."""
-    from repro_torch.core.engine import (EngineConfig, SpecEngine,
-                                         autoregressive_generate)
+    a step forward and backward. Then the 6 Markov prompts of 12 tokens
+    (the recipe's ``prompts(6, 12, seed=9)``) through the four serving
+    paths of ``pair_serves``. Returns the launches of both."""
     from repro_torch.data import pipeline
     from repro_torch.launch.train import train
     from repro_torch.models.model import build_model
     from repro_torch.obs import clock
     from repro_torch.training import train_loop
-    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    total = {name: 0 for name in (*kernel_counters(), "flash_attention_bwd")}
     counters = train_counters()
     trained = []
     for cfg, seed in zip(pair_configs(), (0, 1)):
@@ -4941,11 +4992,12 @@ def trained_pair(card):
         torch.cuda.synchronize()
         wall = clock.perf() - t
         n = read_counts(counters)
-        for key in total:
+        for key in n:
             total[key] += n[key]
         want = PAIR_STEPS * cfg.num_layers
         info = {"phase": "train", "part": "c_train", "card": card,
                 "model": cfg.name, "layers": cfg.num_layers,
+                "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
                 "first_loss": losses[0], "final_loss": losses[-1],
                 "loss_every_50": losses[::50], "train_s": wall,
                 "s_per_step": wall / PAIR_STEPS, "launches": n,
@@ -4962,54 +5014,244 @@ def trained_pair(card):
         vocab_size=PAIR_VOCAB, seq_len=PAIR_PROMPT_LEN,
         global_batch=PAIR_PROMPTS, seed=0, order=1))
     prompts = src.sample(np.random.default_rng(9), PAIR_PROMPTS, PAIR_PROMPT_LEN)
-    eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, greedy=True,
-                                          use_cache=False))
-    alphas, equal, rounds, accepted = [], True, 0, 0
-    t = clock.perf()
-    for i in range(PAIR_PROMPTS):
-        p = prompts[i:i + 1]
-        toks, st = eng.generate(pt, pd, p, PAIR_NEW)
-        ar = autoregressive_generate(mt, pt, p, PAIR_NEW)
-        equal &= bool(torch.equal(toks[:, :PAIR_PROMPT_LEN + PAIR_NEW].cpu(),
-                                  ar.cpu()))
-        alphas.append(float(st["alpha_hat"]))
-        rounds += st["rounds"]
-        accepted += st["accepted"]
-    info = {"phase": "train", "part": "c_serve", "card": card, "gamma": GAMMA,
-            "prompts": PAIR_PROMPTS, "prompt_len": PAIR_PROMPT_LEN,
-            "new_tokens": PAIR_NEW, "alpha_hat_per_prompt": alphas,
-            "alpha_hat_median": float(np.median(alphas)),
-            "alpha_hat_pooled": accepted / (rounds * GAMMA) if rounds else None,
-            "rounds": rounds, "accepted": accepted, "spec_equals_ar": equal,
-            "serve_s": clock.perf() - t, "ok": equal}
-    emit(info)
-    if not equal:
-        raise SystemExit(f"the trained pair's spec tokens differ from AR: {info}")
+    for key, n in pair_serves(card, mt, md, pt, pd, prompts).items():
+        total[key] += n
     return total
+
+
+def pair_serves(card, mt, md, pt, pd, prompts):
+    """(c)'s serves of the trained pair at its own head dims, greedy,
+    PAIR_NEW new tokens a prompt, every kernel's count set to 0 just before
+    each path and read just after, and each path's tokens == its AR's:
+    the no-cache ``SpecEngine`` (gamma GAMMA, a prompt at a time: flash
+    rounds x (GAMMA L_d + L_t), an argmax a round) against no-cache AR;
+    the cached engine on the ring (``cached_exact``: paged attention)
+    against cached AR; ``PagedSpecServer`` (``paged_exact``: paged
+    attention and the argmax) against AR rounds; cached tree rounds
+    (``SpecEngine(use_cache=True, draft_policy="tree")``, chain_tree(TREE_W,
+    TREE_D), a prompt at a time: tree L_t a round, paged TREE_D L_d a
+    round + L_d + L_t for the prefills) against cached AR. Reports each
+    path's acceptance rate. Returns the four paths' launches summed."""
+    from repro_torch.core.engine import (EngineConfig, SpecEngine,
+                                         autoregressive_generate)
+    from repro_torch.obs import clock
+    from repro_torch.serving import SchedulerConfig
+    counters = kernel_counters()
+    none = {name: 0 for name in counters}
+    L_t, L_d = mt.cfg.num_layers, md.cfg.num_layers
+    P = prompts.shape[1]
+
+    def one_at_a_time(eng, depth, expect, use_cache):
+        """Each prompt through ``eng``, counted; (tokens, launches,
+        expected launches, rounds, accepted, seconds)."""
+        eng.generate(pt, pd, prompts[:1, :8], 4)            # warm-up
+        launches, expected = dict(none), dict(none)
+        rounds = accepted = 0
+        toks = []
+        torch.cuda.synchronize()
+        t = clock.perf()
+        for i in range(len(prompts)):
+            zero_counts(counters)
+            out, st = eng.generate(pt, pd, prompts[i:i + 1], PAIR_NEW)
+            torch.cuda.synchronize()
+            for name, n in read_counts(counters).items():
+                launches[name] += n
+            for name, n in expect(st["rounds"]).items():
+                expected[name] += n
+            rounds += st["rounds"]
+            accepted += st["accepted"]
+            toks.append(out[0, :P + PAIR_NEW].cpu().numpy())
+        seconds = clock.perf() - t
+        ar = autoregressive_generate(mt, pt, prompts, PAIR_NEW,
+                                     use_cache=use_cache).cpu().numpy()
+        same = bool(np.array_equal(np.stack(toks), ar))
+        return {"rounds": rounds, "accepted": accepted,
+                "alpha_hat": accepted / (rounds * depth), "wall_s": seconds,
+                "ms_per_round": seconds / rounds * 1e3, "launches": launches,
+                "expected_launches": expected, "spec_equals_ar": same,
+                "ok": same and launches == expected}, np.stack(toks)
+
+    def check(part, info):
+        emit({"phase": "train", "part": part, "card": card, **info})
+        if not info["ok"]:
+            raise SystemExit(f"the trained pair's {part} failed: {info}")
+
+    nocache, spec = one_at_a_time(
+        SpecEngine(mt, md, EngineConfig(gamma=GAMMA, greedy=True, use_cache=False)),
+        GAMMA, lambda r: {**none, "flash_attention": r * (GAMMA * L_d + L_t),
+                          "blockwise_argmax": r}, use_cache=False)
+    check("c_serve_nocache", {"gamma": GAMMA, **nocache})
+    cached_launches, cached = cached_exact("train", "c_serve_cached", mt, md, pt,
+                                           pd, prompts, PAIR_NEW, card)
+    scfg = SchedulerConfig(max_batch=3, block_size=16, num_blocks=64,
+                           max_blocks_per_row=4)
+    reqs = [(prompts[i], PAIR_NEW) for i in range(len(prompts))]
+    paged_launches, paged = paged_exact("train", mt, md, pt, pd, reqs, scfg, card)
+    hist = np.asarray(paged["accept_hist"])
+    tree, tree_toks = one_at_a_time(
+        SpecEngine(mt, md, EngineConfig(gamma=TREE_D, greedy=True, use_cache=True,
+                                        draft_policy="tree", draft_k=TREE_W)),
+        TREE_D, lambda r: {**none, "tree_attention": r * L_t,
+                           "paged_attention": r * TREE_D * L_d + L_d + L_t,
+                           "blockwise_argmax": r}, use_cache=True)
+    check("c_serve_tree", {"width": TREE_W, "depth": TREE_D, **tree})
+    summary = {"prompts": PAIR_PROMPTS, "prompt_len": PAIR_PROMPT_LEN,
+               "new_tokens": PAIR_NEW, "gamma": GAMMA,
+               "alpha_hat": {"nocache": nocache["alpha_hat"],
+                             "cached": cached["mean_accepted_per_round"] / GAMMA,
+                             "paged": float(hist @ np.arange(GAMMA + 1))
+                             / (hist.sum() * GAMMA),
+                             "tree": tree["alpha_hat"]},
+               "tree_equals_nocache_spec": bool(np.array_equal(tree_toks, spec)),
+               "ok": True}
+    check("c_serve", summary)
+    return {name: nocache["launches"][name] + cached_launches[name]
+            + paged_launches[name] + tree["launches"][name] for name in counters}
+
+
+def train_mamba2(card):
+    """(d): Mamba-2 trains on the card. Under grad ``ssm_mix`` runs
+    ``ssm.ssd_chunked`` (the SSD kernel has no backward; JAX trains
+    through the same function). mamba2-smoke: one ``value_and_grad`` of a
+    [2, MAMBA_SMOKE_SEQ] batch (8-token chunks: boundaries crossed, a
+    ragged last chunk) on the card against the same on the CPU from the
+    same params: the losses within 1e-5 relative, every gradient leaf
+    within SSM_GRAD_TOL, no SSD launch. mamba2-780m at full width and
+    depth (bf16, the port's seeded init): MAMBA_STEPS AdamW steps of
+    MAMBA_BATCH x MAMBA_SEQ order-2 Markov tokens, each loss finite, the
+    watched params moved, no SSD launch in a step; s a step and peak
+    memory; then one no-grad forward of the last batch: L SSD launches and
+    finite logits. Returns the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import clock
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_loop
+    cfg = registry.smoke_config("mamba2-780m")
+    model = build_model(cfg)
+    params = train_loop.trainable(model.init(0, "cpu"))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                             (2, MAMBA_SMOKE_SEQ + 1))
+    tokens, labels = torch.as_tensor(toks[:, :-1]), torch.as_tensor(toks[:, 1:])
+    l_cpu, _, g_cpu = train_loop.value_and_grad(model, params, tokens, labels)
+    ss.ssd_scan.launches = 0
+    l_gpu, _, g_gpu = train_loop.value_and_grad(model, to_cuda(params),
+                                                tokens.cuda(), labels.cuda())
+    torch.cuda.synchronize()
+    rel, atol = SSM_GRAD_TOL
+    worst, ok = 0.0, True
+    leaves = list(opt.leaves(g_cpu))
+    for path, want in leaves:
+        got = opt.get(g_gpu, path).cpu()
+        err = float((got - want).abs().max())
+        ok &= err <= rel * float(want.abs().max()) + atol
+        worst = max(worst, err / max(float(want.abs().max()), 1e-30))
+    loss_rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    info = {"phase": "train", "part": "d_mamba2_smoke", "card": card,
+            "arch": cfg.name, "batch": 2, "seq": MAMBA_SMOKE_SEQ,
+            "chunk": cfg.ssm_chunk, "loss_card": float(l_gpu),
+            "loss_cpu": float(l_cpu), "loss_rel_err": loss_rel,
+            "grad_leaves": len(leaves), "grads_worst_rel_err": worst,
+            "rel_tol": rel, "abs_tol": atol, "ssd_scan_launches": ss.ssd_scan.launches}
+    info["ok"] = bool(ok and loss_rel <= 1e-5 and ss.ssd_scan.launches == 0)
+    emit(info)
+    if not info["ok"]:
+        raise SystemExit(f"Mamba-2's card gradients differ from the CPU's: {info}")
+    del g_gpu
+
+    cfg = registry.config("mamba2-780m")
+    L = cfg.num_layers
+    model = build_model(cfg)
+    t0 = clock.perf()
+    params = train_loop.trainable(model.init(0, "cuda"))
+    torch.cuda.synchronize()
+    init_s = clock.perf() - t0
+    stream = pipeline.batches(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=MAMBA_SEQ, global_batch=MAMBA_BATCH,
+        seed=0, order=2))
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=MAMBA_STEPS)
+    state = train_loop.init_opt_state(model, ocfg, params)
+    step = train_loop.make_train_step(model, ocfg)
+    watch = [("embed", "table"), ("layers", 0, "in_proj", "w"),
+             ("layers", L - 1, "out_proj", "w")]
+    before = {p: opt.get(params, p).clone() for p in watch}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(MAMBA_STEPS):
+        x, y = pipeline.split_batch(next(stream))
+        b = {"tokens": torch.as_tensor(x, device="cuda"),
+             "labels": torch.as_tensor(y, device="cuda")}
+        ss.ssd_scan.launches = 0
+        torch.cuda.synchronize()
+        t = clock.perf()
+        params, state, met = step(params, state, b)
+        torch.cuda.synchronize()
+        steps.append({"step": i, "loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"]), "lr": met["lr"],
+                      "step_s": clock.perf() - t,
+                      "ssd_scan_launches": ss.ssd_scan.launches})
+    peak = torch.cuda.max_memory_allocated()
+    moved = {"/".join(map(str, p)): not torch.equal(before[p], opt.get(params, p))
+             for p in watch}
+    del state, before
+    ss.ssd_scan.launches = 0
+    with torch.no_grad():
+        logits = model.apply(train_loop.serving_params(params), b["tokens"])[0]
+    torch.cuda.synchronize()
+    fwd_launches = ss.ssd_scan.launches
+    finite = bool(torch.isfinite(logits).all())
+    info = {"phase": "train", "part": "d_mamba2_780m", "card": card,
+            "arch": cfg.name, "layers": L, "dtype": cfg.dtype,
+            "batch": MAMBA_BATCH, "seq": MAMBA_SEQ, "init_s": init_s,
+            "steps": steps, "s_per_step": [s["step_s"] for s in steps],
+            "max_memory_allocated_gib": peak / 2**30, "params_moved": moved,
+            "no_grad_forward_ssd_scan_launches": fwd_launches,
+            "no_grad_forward_expected": L, "no_grad_logits_finite": finite}
+    info["ok"] = bool(all(np.isfinite(s["loss"]) and s["ssd_scan_launches"] == 0
+                          for s in steps)
+                      and all(moved.values()) and fwd_launches == L and finite)
+    emit(info)
+    if not info["ok"]:
+        raise SystemExit(f"the mamba2-780m train steps failed: {info}")
+    del params, logits
+    return {"ssd_scan": fwd_launches}
 
 
 def full_width_train(card):
     """The ``train`` phase: (a) the flash backward kernel against its plain
-    version; (b) Llama 3.2 3B trained at full width and depth; (c) a
-    trained pair served. Returns (a)'s cases and (b) + (c)'s launches."""
+    version, and every attention kernel at the bench pair's head dims; (b)
+    Llama 3.2 3B trained at full width and depth; (c) the bench pair
+    trained and served on four paths; (d) Mamba-2 trained. Returns (a)'s
+    backward cases, its cases at the pair's head dims by kernel, and (b)
+    + (c) + (d)'s launches."""
     from repro_torch.obs import clock
     t0 = clock.perf()
     timer = Timer()
     cases = flash_bwd_cases(timer)
+    pair_cases = pair_kernel_cases(timer)
     del timer
     gc.collect()
     torch.cuda.empty_cache()
     t_a = clock.perf() - t0
-    launches = train_3b(card)
+    launches = {name: 0 for name in (*kernel_counters(), "flash_attention_bwd")}
+    for key, n in train_3b(card).items():
+        launches[key] += n
     gc.collect()
     torch.cuda.empty_cache()
     t_b = clock.perf() - t0 - t_a
     for key, n in trained_pair(card).items():
         launches[key] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = clock.perf() - t0 - t_a - t_b
+    for key, n in train_mamba2(card).items():
+        launches[key] += n
     emit({"phase": "train", "part": "done", "card": card, "a_s": t_a,
-          "b_s": t_b, "c_s": clock.perf() - t0 - t_a - t_b,
+          "b_s": t_b, "c_s": t_c, "d_s": clock.perf() - t0 - t_a - t_b - t_c,
           "phase_s": clock.perf() - t0, "launches": launches})
-    return cases, launches
+    return cases, pair_cases, launches
 
 
 # ------------------------------------------------------------ compile steps
@@ -5447,7 +5689,7 @@ def main() -> int:
     encdec_launches = full_width_encdec(card)
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_cases, train_launches = full_width_train(card)
+    bwd_cases, pair_cases, train_launches = full_width_train(card)
 
     # each kernel's launches: its main path's (the chunked serve for paged
     # attention and the argmax, the tree phase, the no-cache serves) plus
@@ -5482,6 +5724,11 @@ def main() -> int:
     # its backward in the train step)
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += compile_launches[name]
+    # the train phase's serves of the bench pair (paged, the argmax, tree;
+    # flash below) and its no-grad Mamba-2 forward (SSD)
+    for name in ("paged_attention", "blockwise_argmax"):
+        launches[name] += train_launches[name]
+    tree_launches["tree_attention"] += train_launches["tree_attention"]
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
@@ -5492,7 +5739,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:87",
          "launches": launches["paged_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases
-                            + ring_cases + hy_paged + ve_paged),
+                            + ring_cases + hy_paged + ve_paged
+                            + pair_cases["paged"]),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"]},
@@ -5508,7 +5756,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/tree_attention.py:95",
          "launches": tree_launches["tree_attention"],
-         "max_abs_err": max(c["max_abs_err"] for c in tree_cases),
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in tree_cases + pair_cases["tree"]),
          "ms": tree_head["kernel_ms"], "plain_ms": tree_head["plain_ms"],
          "bound_ms": tree_head["bound_ms"], "bound_by": tree_head["bound_by"],
          "library_ms": tree_head["library_ms"]},
@@ -5523,8 +5772,8 @@ def main() -> int:
                       + encdec_launches["flash_attention"]
                       + train_launches["flash_attention"]
                       + compile_launches["flash_attention"]),
-         "max_abs_err": max(c["max_abs_err"]
-                            for c in fl_cases + hy_flash + ve_flash),
+         "max_abs_err": max(c["max_abs_err"] for c in fl_cases + hy_flash
+                            + ve_flash + pair_cases["flash"]),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
          "library_ms": fl_head["library_ms"]},
@@ -5535,7 +5784,8 @@ def main() -> int:
                  "its jnp attention and has no backward kernel",
          "launches": (train_launches["flash_attention_bwd"]
                       + compile_launches["flash_attention_bwd"]),
-         "max_abs_err": max(c["max_abs_err"] for c in bwd_cases),
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in bwd_cases + pair_cases["flash_bwd"]),
          "ms": bwd_head["kernel_ms"], "plain_ms": bwd_head["plain_ms"],
          "bound_ms": bwd_head["bound_ms"], "bound_by": bwd_head["bound_by"],
          "library_ms": bwd_head["library_ms"]},
@@ -5544,7 +5794,8 @@ def main() -> int:
             ("int8_matmul", "int8_matmul.cu", "int8_matmul.py:40",
              w8a8_launches["int8_matmul"], i8),
             ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:67",
-             ssm_launches["ssd_scan"] + ssm_cached["ssd_scan"], ssd)):
+             ssm_launches["ssd_scan"] + ssm_cached["ssd_scan"]
+             + train_launches["ssd_scan"], ssd)):
         h = next(c for c in cases if c["headline"])
         kernels.append(
             {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",

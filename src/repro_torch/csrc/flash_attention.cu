@@ -90,6 +90,15 @@
 // shared memory as fp32 with scalar loads, each warp scoring 4 rows; a
 // thread owns D / 128 output columns of a row at D = 256, and the slabs
 // take dynamic shared memory (84 KB there).
+//
+// Head dims 32, 48, 64, 128 and 256. Below 64 a bf16 row has fewer than the
+// 8 16-byte chunks the XOR swizzle permutes (4 at D = 32, 6 at D = 48, and
+// no XOR closes on 0..5), so each shared row is padded to 128 bytes: the
+// swizzle then stays inside the row, and the 8 rows an ldmatrix phase reads
+// at one chunk still land on 8 distinct bank groups (conflict-free). The
+// padding is never loaded or read; it costs (64 - D) * 2 bytes a row. The
+// fp32 kernel gives a row's columns to gcd(D, 128) threads (16 of 3 columns
+// each at D = 48), so every thread owns whole rows of the tile.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -109,6 +118,8 @@ constexpr int kF32Warps = kF32Threads / 32;
 constexpr int kF32Rows = 16;
 constexpr int kF32RowsPerWarp = kF32Rows / kF32Warps;   // 4
 constexpr int kF32Keys = 32;                             // one key per lane
+
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -155,10 +166,12 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            int Kv, int s_valid, int causal, int window, float scale) {
   constexpr int DP = D + 1;                          // padded K row stride
   // the threads that share a row's columns; each owns kCols of them
-  constexpr int kColThreads = D < kF32Threads ? D : kF32Threads;
-  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 2 (D=64) or 1
-  constexpr int kCols = D / kColThreads;                     // 1, or 2 (D=256)
+  constexpr int kColThreads = gcd(D, kF32Threads);  // 32, 16, 64, 128, 128
+  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 4, 8, 2, 1, 1
+  constexpr int kCols = D / kColThreads;                     // 1, 3, 1, 1, 2
   constexpr int kAcc = kF32Rows / kRowsPerPass;      // rows per thread
+  static_assert(kF32Threads % kColThreads == 0 && D % kColThreads == 0 &&
+                kF32Rows % kRowsPerPass == 0, "threads must own whole rows");
 
   extern __shared__ float f32_smem[];
   float* const q_s = f32_smem;                       // [kF32Rows][DP]
@@ -320,17 +333,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// bytes of one shared row of a D-wide bf16 tile: D * 2, padded to 128 (8
+// 16-byte chunks) below D = 64 so the swizzle below stays inside the row
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  static_assert(D % 16 == 0, "a row is whole k16 steps and n8 tile pairs");
+  return D < 64 ? 128 : D * 2;
+}
+
 // byte offset of 16-byte chunk `ch` of row `r` in a tile of D-wide bf16
 // rows: chunks are XOR-swizzled by the row's low 3 bits, so the 8 rows an
 // ldmatrix phase reads at one chunk land on 8 distinct bank groups
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return static_cast<uint32_t>(r * D * 2 + ((ch ^ (r & 7)) << 4));
+  return static_cast<uint32_t>(r * row_bytes<D>() + ((ch ^ (r & 7)) << 4));
 }
 
 template <int D, int kRows, int kStages>
 constexpr int bf16_smem_bytes() {
-  return (kRows + kStages * 2 * kSlab) * D * 2;   // Q tile + the K/V ring
+  return (kRows + kStages * 2 * kSlab) * row_bytes<D>();   // Q tile + the K/V ring
 }
 
 // kWarps warps of MT m16 tiles each: kRows = 16 * MT * kWarps query rows
@@ -346,7 +367,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kThreads = kWarps * 32;
   constexpr int kRows = 16 * MT * kWarps;
   constexpr int CH = D / 8;                // 16-byte chunks per row
-  constexpr int kSlabBytes = kSlab * D * 2;
+  constexpr int kSlabBytes = kSlab * row_bytes<D>();
   constexpr int NT = D / 8;                // n8 tiles of the output
   constexpr int KT = D / 16;               // k16 steps of QK^T
   // Q fragments in registers at MT = 1 up to D = 128; else re-read from
@@ -356,7 +377,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* const q_s = smem;
-  unsigned char* const kv_s = smem + kRows * D * 2;   // stage s: K, then V
+  unsigned char* const kv_s = smem + kRows * row_bytes<D>();   // stage s: K, then V
 
   // the row tiles run last first (grid z, the slowest axis): the tiles
   // with the longest causal walks start in the first wave
@@ -642,7 +663,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // q/out: [B, Sq, H, D]; k/v: [B, Skv, Kv, D]; all contiguous, of one dtype
 // (0 = float32, 1 = bfloat16); lse: null, or fp32 [B, H, Sq] to take each
-// row's log-sum-exp; H a multiple of Kv; D 64, 128 or 256;
+// row's log-sum-exp; H a multiple of Kv; D 32, 48, 64, 128 or 256;
 // 1 <= s_valid <= Skv; causal 0/1; window <= 0 means no window. row_tile is
 // the query rows per block: 16 for float32; 64, or 128 with D = 128, for
 // bfloat16 (whose pointers must be 16-byte aligned). Returns a cudaError_t
@@ -658,6 +679,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* const lse = static_cast<float*>(lse_);
   if (dtype == 0 && row_tile == kF32Rows) {
+    if (D == 32) return launch_f32<32>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 48) return launch_f32<48>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 64) return launch_f32<64>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128) return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 256) return launch_f32<256>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
@@ -666,6 +689,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
+    // D 32 and 48: 128-byte padded shared rows, the smem of D = 64
+    if (D == 32 && row_tile == 64)
+      return launch_bf16<32, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
+    if (D == 48 && row_tile == 64)
+      return launch_bf16<48, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 64 && row_tile == 64)
       return launch_bf16<64, 1, 3>(q, k, v, out, lse, B, Sq, Skv, H, Kv, s_valid, causal, window, scale, st);
     if (D == 128 && row_tile == 64)

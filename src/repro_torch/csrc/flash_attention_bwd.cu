@@ -46,6 +46,9 @@
 // geometry, S = 512, in fp32 and bf16 alike (~8 TFLOP/s of its 14 * D
 // flops a pair; SDPA's backward 0.070 ms bf16, 0.43 ms fp32), 13.2-13.3
 // ms at S = 2048. mma.sync or wgmma products are the next step.
+//
+// Head dims 32, 48, 64, 128 and 256: a thread owns D / 16 columns (2 at
+// D = 32, 3 at D = 48) of its two rows or keys; nothing else depends on D.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,6 +82,7 @@ __device__ __forceinline__ bool visible(int q_pos, int kv_pos, int s_valid,
 // 1], and the rows' lse and delta
 template <int D>
 constexpr int smem_bytes() {
+  static_assert(D % kHalf == 0, "a thread owns D / 16 whole columns");
   return static_cast<int>(sizeof(float)) *
          (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile);
 }
@@ -426,6 +430,12 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, float* delta, void* dq, void* dk,
              void* dv, int B, int Sq, int Skv, int H, int Kv, int s_valid,
              int causal, int window, float scale, cudaStream_t st) {
+  if (D == 32)
+    return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, Kv,
+                         s_valid, causal, window, scale, st);
+  if (D == 48)
+    return launch<T, 48>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, Kv,
+                         s_valid, causal, window, scale, st);
   if (D == 64)
     return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Skv, H, Kv,
                          s_valid, causal, window, scale, st);
@@ -443,9 +453,9 @@ int dispatch(int D, const void* q, const void* k, const void* v, const void* o,
 // q, o, dout, dq: [B, Sq, H, D]; k, v, dk, dv: [B, Skv, Kv, D]; all
 // contiguous, of one dtype (0 = float32, 1 = bfloat16); lse (the forward's)
 // and delta (scratch, written here): fp32 [B, H, Sq]. H a multiple of Kv;
-// D 64, 128 or 256; 1 <= s_valid <= Skv; causal 0/1; window <= 0 means no
-// window. Launches three kernels on `stream`; returns a cudaError_t (0 =
-// launched).
+// D 32, 48, 64, 128 or 256; 1 <= s_valid <= Skv; causal 0/1; window <= 0
+// means no window. Launches three kernels on `stream`; returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, int B,

@@ -83,11 +83,20 @@
 // live page with an online softmax in shared memory, scalar loads, fp32
 // math. TF32 or bf16 products would miss the plain version's 1e-4.
 //
-// Head dims 64, 128 and 256 (RecurrentGemma's). At D = 256 an fp32 thread
-// owns two output columns of a row, and the bf16 block's Q tile, K and V
-// (16 + 2 * 64 rows of 512 B: 72 KB) take dynamic shared memory; each
-// warp's quarter of the output is then 8 n8 tiles. The tree policy takes
-// 64 and 128 only: no model with D = 256 runs tree rounds.
+// Head dims 32 and 48 (the repo's own trained pair: benchmarks/common.py),
+// 64, 128 and 256 (RecurrentGemma's). An fp32 row's columns go to gcd(D,
+// 128) threads: two columns a thread at D = 256, three at D = 48. The bf16
+// block's Q tile, K and V take dynamic shared memory (16 + 2 * 64 rows of
+// 512 B at D = 256: 72 KB). The output's D / 16 pairs of n8 tiles (one
+// ldmatrix.x4.trans of V each) go to the 4 warps in runs of ceil(D / 64):
+// a quarter of the columns each at 64, 128 and 256; at D = 48 warps 0-2
+// take one pair and warp 3 none, at D = 32 warps 0-1 one pair. Below 64 a
+// shared row is padded to 128 bytes, so the XOR swizzle of its 16-byte
+// chunks (4 at D = 32, 6 at D = 48; no XOR closes on 0..5) stays inside
+// the row and an ldmatrix phase's 8 rows still hit 8 distinct bank groups;
+// the padding is never loaded or read. None of this touches a row's
+// arithmetic, so the exactness above holds at every D. The tree policy
+// takes 32 to 128: no model with D = 256 runs tree rounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,6 +123,8 @@ __device__ __forceinline__ int live_keys(const int* __restrict__ index,
 constexpr int kF32Threads = 128;
 constexpr int kF32Rows = 16;
 
+__host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
 template <int D, bool kTree>
 __global__ void __launch_bounds__(kF32Threads)
 paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
@@ -127,10 +138,12 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            const int* __restrict__ bits) {
   constexpr int DP = D + 1;                       // padded shared row stride
   // the threads that share a row's columns; each owns kCols of them
-  constexpr int kColThreads = D < kF32Threads ? D : kF32Threads;
-  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 2 (D=64) or 1
-  constexpr int kCols = D / kColThreads;                     // 1, or 2 (D=256)
+  constexpr int kColThreads = gcd(D, kF32Threads);  // 32, 16, 64, 128, 128
+  constexpr int kRowsPerPass = kF32Threads / kColThreads;   // 4, 8, 2, 1, 1
+  constexpr int kCols = D / kColThreads;                     // 1, 3, 1, 1, 2
   constexpr int kAcc = kF32Rows / kRowsPerPass;   // rows per thread
+  static_assert(kF32Threads % kColThreads == 0 && D % kColThreads == 0 &&
+                kF32Rows % kRowsPerPass == 0, "threads must own whole rows");
 
   const int row0 = blockIdx.x * kF32Rows;
   const int h = blockIdx.y;
@@ -309,17 +322,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// bytes of one shared row of a D-wide bf16 tile: D * 2, padded to 128 (8
+// 16-byte pieces) below D = 64 so the swizzle below stays inside the row
+template <int D>
+__host__ __device__ constexpr int row_bytes() {
+  static_assert(D % 16 == 0, "a row is whole k16 steps and n8 tile pairs");
+  return D < 64 ? 128 : D * 2;
+}
+
 // byte offset of 16-byte piece `ch` of row `r` in a tile of D-wide bf16
 // rows, XOR-swizzled by the row's low 3 bits (8 rows of one ldmatrix phase
 // land on 8 distinct bank groups)
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return static_cast<uint32_t>(r * D * 2 + ((ch ^ (r & 7)) << 4));
+  return static_cast<uint32_t>(r * row_bytes<D>() + ((ch ^ (r & 7)) << 4));
 }
 
 template <int D>
 constexpr int bf16_smem_bytes() {
-  return (kRows + 2 * kChunk) * D * 2;   // the Q tile, the chunk's K and V
+  return (kRows + 2 * kChunk) * row_bytes<D>();   // the Q tile, the chunk's K and V
 }
 
 // The workspace of a split call: acc [B, Kv, n_rows, n_chunks, D] fp32,
@@ -338,14 +359,19 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const int* __restrict__ bits) {
   constexpr int CH = D / 8;                     // 16-byte pieces per row
   constexpr int KT = D / 16;                    // k16 steps of QK^T
-  constexpr int NTW = D / 8 / kWarps;           // this warp's n8 output tiles
+  // the output's pairs of n8 tiles (one ldmatrix.x4.trans of V each); warp
+  // w owns pairs [w kPW, (w + 1) kPW) that are below NP
+  constexpr int NP = D / 16;
+  constexpr int kPW = (NP + kWarps - 1) / kWarps;
   constexpr int kCopies = kChunk * CH / kThreads;   // K (or V) pieces per thread
+  static_assert(kPW * kWarps >= NP, "every pair of output tiles has a warp");
+  static_assert(kChunk * CH % kThreads == 0, "whole K/V pieces per thread");
 
   // dynamic: 72 KB at D = 256 (bf16_smem_bytes), past the 48 KB of static
   extern __shared__ __align__(128) unsigned char bf16_smem[];
-  unsigned char* const q_s = bf16_smem;                 // [kRows][D]
-  unsigned char* const k_s = q_s + kRows * D * 2;       // [kChunk][D]
-  unsigned char* const v_s = k_s + kChunk * D * 2;      // [kChunk][D]
+  unsigned char* const q_s = bf16_smem;                         // [kRows][D]
+  unsigned char* const k_s = q_s + kRows * row_bytes<D>();      // [kChunk][D]
+  unsigned char* const v_s = k_s + kChunk * row_bytes<D>();     // [kChunk][D]
 
   // the combine may be scheduled now; its griddepcontrol.wait still waits
   // for this whole grid to finish and its writes to land
@@ -494,12 +520,12 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();   // V has landed
 
-  // O = P V for this warp's output columns: n8 tiles warp * NTW ..; P
-  // (bf16, from the C fragments) is the A operand, k16 step kk = keys
-  // key0 + 16kk ..
-  float o[NTW][4];
+  // O = P V for this warp's output columns: n8 tiles 2p, 2p + 1 of its
+  // pairs p; P (bf16, from the C fragments) is the A operand, k16 step kk
+  // = keys key0 + 16kk ..
+  float o[2 * kPW][4];
 #pragma unroll
-  for (int i = 0; i < NTW; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < 2 * kPW; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t pa[4];
@@ -508,9 +534,10 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
     pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
-    for (int pp = 0; pp < NTW / 2; ++pp) {
+    for (int pp = 0; pp < kPW; ++pp) {
+      const int p = warp * kPW + pp;
+      if (p >= NP) break;
       uint32_t vb[4];
-      const int p = warp * (NTW / 2) + pp;
       const int key = 16 * kk + (mi & 1) * 8 + (lane & 7);
       ldsm_x4_trans(vb, smem_u32(v_s + swz<D>(key, 2 * p + (mi >> 1))));
       mma_bf16(o[2 * pp], pa, vb[0], vb[1]);
@@ -526,10 +553,11 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int rg = row0 + g + 8 * hh;
     if (rg >= n_rows) continue;
     const size_t slot = ((static_cast<size_t>(b) * Kv + h) * n_rows + rg) * n_chunks + c;
-    float* const dst = ws + slot * D + warp * NTW * 8 + 2 * t;
+    float* const dst = ws + slot * D + warp * kPW * 16 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < NTW; ++i)
-      *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][2 * hh], o[i][2 * hh + 1]);
+    for (int i = 0; i < 2 * kPW; ++i)
+      if (warp * kPW + i / 2 < NP)
+        *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][2 * hh], o[i][2 * hh + 1]);
     if (warp == 0 && t == 0) ml[slot] = make_float2(m_r[hh], l_r[hh]);
   }
 }
@@ -662,9 +690,11 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
   return launch_f32<DIM, kTree>(q, k_pool, v_pool, block_table, index, max_live, \
                                 depths, bits, out, B, Q, H, Kv, NB, BS, MB,      \
                                 window, scale, st)
+    if (D == 32) REPRO_PA_F32(32);
+    if (D == 48) REPRO_PA_F32(48);
     if (D == 64) REPRO_PA_F32(64);
     if (D == 128) REPRO_PA_F32(128);
-    if constexpr (!kTree) {   // the tree policy takes 64 and 128 only
+    if constexpr (!kTree) {   // the tree policy takes 32 to 128 only
       if (D == 256) REPRO_PA_F32(256);
     }
 #undef REPRO_PA_F32
@@ -677,6 +707,8 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
   return launch_bf16<DIM, kTree>(q, k_pool, v_pool, block_table, index, max_live, \
                                  depths, bits, out, ws, B, Q, H, Kv, NB, BS, MB,  \
                                  n_chunks, window, scale, st)
+    if (D == 32) REPRO_PA_BF16(32);
+    if (D == 48) REPRO_PA_BF16(48);
     if (D == 64) REPRO_PA_BF16(64);
     if (D == 128) REPRO_PA_BF16(128);
     if constexpr (!kTree) {
@@ -689,7 +721,7 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// D: 64, 128 or 256. dtype: 0 = float32 (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks =
+// D: 32, 48, 64, 128 or 256. dtype: 0 = float32 (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks =
 // ceil(MB * BS / 64); ws a 16-byte aligned fp32 workspace of
 // B * Kv * Q * (H / Kv) * n_chunks * (D + 2) floats). window <= 0 means full
 // causal. max_live may be null (no cap). Returns a cudaError_t (0 =
@@ -707,7 +739,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
 }
 
 // The tree policy: q/out [B, span, H, D]; depths/bits int32 [span] (bits
-// already windowed on the span side); span <= 31; D 64 or 128. Other
+// already windowed on the span side); span <= 31; D 32, 48, 64 or 128. Other
 // arguments as above.
 extern "C" int tree_attention_fwd(const void* q, const void* k_pool,
                                   const void* v_pool, const void* block_table,

@@ -60,7 +60,7 @@ def as_int32(x, shape, device):
     return t.expand(shape).contiguous() if t.shape != shape else t.contiguous()
 
 
-HEAD_DIMS = (64, 128, 256)   # the paged and flash kernels' instantiations
+HEAD_DIMS = (32, 48, 64, 128, 256)   # the paged and flash kernels' instantiations
 
 
 def check_args(what, q, k_pool, v_pool, scale, window, head_dims=HEAD_DIMS):

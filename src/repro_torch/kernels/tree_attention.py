@@ -21,7 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import as_int32, check_args, launch
 from repro_torch.kernels.ref import tree_attention_ref as plain
 
-TREE_HEAD_DIMS = (64, 128)    # the tree policy's instantiations
+TREE_HEAD_DIMS = (32, 48, 64, 128)    # the tree policy's instantiations
 
 
 def fold_window(depths, bits, window):

@@ -9,6 +9,13 @@ cached state, taking the final state back from the kernel. Decode is the
 token-by-token recurrence ``ssd_sequential`` on the cached state, used as
 in JAX whenever Q <= 16 or the caller wants the trail.
 
+Training: the SSD kernel has no backward pass. Where grad mode is on and an
+input of the scan requires grad (a train step), the no-cache scan runs
+``ssd_chunked`` itself, which autograd differentiates on either device:
+the function JAX's model runs there (it never reaches its Pallas kernel).
+The model chooses by grad mode, as ``kernels.flash_attention`` chooses its
+autograd function; the kernel's wrapper still raises under grad.
+
 Speculative rollback: an SSM state cannot be truncated like a KV ring, so
 a multi-token extend with ``want_trail`` (the verify pass, Q = gamma + 1)
 also returns per-token state and conv trails, and ``rollback`` selects the
@@ -198,7 +205,11 @@ def ssm_mix(cfg, p, x, layer_cache=None, want_trail=False):
     x_eff = xs.float() * dt[..., None]
     Bf, Cf = _heads(Bm, B, Q, G, N, H), _heads(Cm, B, Q, G, N, H)
     trail = None
-    if layer_cache is None:
+    if layer_cache is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_eff, dA, Bf, Cf)):
+        y, _ = ssd_chunked(x_eff, dA, Bf, Cf, cfg.ssm_chunk,
+                           x_eff.new_zeros((B, H, P, N)))
+    elif layer_cache is None:
         y = ops.ssd_scan(x_eff, dA, Bf, Cf, chunk=cfg.ssm_chunk)
     else:
         init_state = layer_cache["state"].float()

@@ -1,6 +1,7 @@
 """Shared pieces of the port's serving-lifecycle parity tests
 (tests/test_torch_prefix_cache.py, tests/test_torch_serving_lifecycle.py):
-the smoke-width pair in both frameworks (and the windowed and MoE pairs),
+the smoke-width pair in both frameworks (and the windowed, MoE and bench
+pairs),
 a shared-prefix trace, and ``lockstep``, which steps the port's ``PagedSpecServer`` and
 ``repro.serving.PagedSpecServer`` together and compares them after every
 step (their streams too, when both collect them).
@@ -10,6 +11,8 @@ a one-layer ``llama3.2-1b``-smoke drafter sharing its first layer, so
 drafts are rejected in some rounds; fp32; weights from one JAX init,
 bridged to the port through numpy."""
 import contextlib
+import importlib.util
+import pathlib
 
 import jax
 import numpy as np
@@ -71,6 +74,38 @@ def build_pair():
                       params_from_numpy(cfg_d, to_np(jpd), "cpu"))}
 
 
+
+
+def _load(path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_pair_configs():
+    """The trained pair's configs: JAX's, from ``benchmarks/common.py``
+    (``target_cfg``, ``drafter_cfg``), and the port's, from
+    ``chip_smoke.py::pair_configs`` (which the card trains and serves):
+    ((jax target, jax drafter), (port target, port drafter))."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    common = _load(root / "benchmarks" / "common.py")
+    return ((common.target_cfg(), common.drafter_cfg()),
+            _load(root / "chip_smoke.py").pair_configs())
+
+
+def bench_pair(seeds=(0, 1)):
+    """The trained pair's recipe in both frameworks, each model from JAX's
+    init at its seed, bridged to the port through numpy."""
+    (jcfg_t, jcfg_d), (cfg_t, cfg_d) = bench_pair_configs()
+    jt, jd = jax_build(jcfg_t), jax_build(jcfg_d)
+    jpt = jax.jit(jt.init)(jax.random.PRNGKey(seeds[0]))
+    jpd = jax.jit(jd.init)(jax.random.PRNGKey(seeds[1]))
+    to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)  # noqa: E731
+    return {"jax": (jt, jd, jpt, jpd),
+            "torch": (build_model(cfg_t), build_model(cfg_d),
+                      params_from_numpy(cfg_t, to_np(jpt), "cpu"),
+                      params_from_numpy(cfg_d, to_np(jpd), "cpu"))}
 
 
 def windowed_pair(window):

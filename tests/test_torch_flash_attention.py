@@ -156,7 +156,7 @@ def _bf16_weights_attention(q, k, v):
 
 
 @pytest.mark.parametrize("S", [134, 2048])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 256])
 def test_bf16_weights_stay_within_the_card_tolerance(S, D):
     """Rounding P to bf16 (the kernel's PV operand) keeps the output within
     chip_smoke.py's bf16 tolerance of the fp32 plain version, at the main
@@ -180,7 +180,7 @@ def test_plan_covers_every_query_row_once():
     @hyp.given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
                B=st.integers(1, 8), Sq=st.integers(1, 4096),
                Kv=st.integers(1, 16), gq=st.integers(1, 8),
-               D=st.sampled_from([64, 128, 256]),
+               D=st.sampled_from([32, 48, 64, 128, 256]),
                window=st.sampled_from([None, 8, 100]),
                sms=st.sampled_from([H100_SMS, 114, 16]))
     def check(dtype, B, Sq, Kv, gq, D, window, sms):
@@ -254,4 +254,42 @@ def test_plan_keeps_64_row_tiles_at_head_dim_256(H, S, window):
     p = fa.plan(torch.bfloat16, 2, S, H, 1, 256, window, sms=H100_SMS)
     assert (p.row_tile, p.row_tiles) == (64, -(-S * H // 64))
     assert fa.plan(torch.float32, 2, S, H, 1, 256, window,
+                   sms=H100_SMS).row_tile == fa.F32_ROWS
+
+
+# ----------------------------------------------------- head dims 32 and 48
+# the bench pair of benchmarks/common.py: its target 8 / 4 heads of 48; its
+# drafter 4 / 2 heads of 48 (``replace`` keeps the target's derived
+# head_dim); d 128 over 4 / 2 at d / H = 32
+PAIR_GEOMS = [(8, 4, 48), (4, 2, 48), (4, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,causal", [(None, True), (5, True),
+                                           (None, False)])
+@pytest.mark.parametrize("H,Kv,D", PAIR_GEOMS)
+def test_plain_matches_jax_kernel_and_oracle_at_head_dims_32_and_48(
+        H, Kv, D, window, causal, dtype):
+    """The pair's no-cache attention at D 48 (and D 32): the plain version
+    against the interpret-mode Pallas kernel and the jnp oracle on 21
+    ragged positions (three 8-row blocks, the last partial)."""
+    q, k, v = _inputs(H * 11 + D + (window or 0), 2, 21, 21, H, Kv, D, dtype)
+    got = _port(q, k, v, dtype, window=window, causal=causal)
+    kern = _jax(jax_ops.flash_attention, q, k, v, dtype, bq=8, bs=8,
+                window=window, causal=causal)
+    want = _jax(jax_ref.flash_attention_ref, q, k, v, dtype, window=window,
+                causal=causal)
+    np.testing.assert_allclose(got, kern, **TOL[dtype])
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("S", [48, 134, 2048])
+@pytest.mark.parametrize("H,Kv,D", PAIR_GEOMS)
+def test_plan_takes_64_row_tiles_at_head_dims_32_and_48(H, Kv, D, S):
+    """D 32 and 48 run the 64-row bf16 block (128-row tiles are for
+    D = 128 only) and the 16-row fp32 block, at the pair's training length
+    (48), a no-cache buffer (134) and a long walk, B = 16."""
+    p = fa.plan(torch.bfloat16, 16, S, H, Kv, D, sms=H100_SMS)
+    assert (p.row_tile, p.row_tiles) == (64, -(-S * (H // Kv) // 64))
+    assert fa.plan(torch.float32, 16, S, H, Kv, D,
                    sms=H100_SMS).row_tile == fa.F32_ROWS

@@ -135,22 +135,24 @@ class _OnCard:
         return True
 
 
-@pytest.mark.parametrize("D", [64, 128, 256, 96, 512])
+@pytest.mark.parametrize("D", [32, 48, 64, 128, 256, 16, 96, 512])
 def test_check_args_takes_head_dims_64_128_and_256(D):
-    """The paged and flash kernels are instantiated at head dims 64, 128
-    and 256; any other raises before a launch. The tree policy keeps 64 and
-    128 (no model with D = 256 runs tree rounds)."""
+    """The paged and flash kernels are instantiated at head dims 32 and 48
+    (the bench pair's), 64, 128 and 256; any other raises before a launch.
+    The tree policy takes 32 to 128 (no model with D = 256 runs tree
+    rounds)."""
     from repro_torch.kernels import tree_attention as ta
     q, pool = _OnCard(2, 1, 10, D), _OnCard(16, 16, 1, D)
-    if D in (64, 128, 256):
+    if D in (32, 48, 64, 128, 256):
         assert pa.check_args("paged attention", q, pool, pool, None, None) is None
     else:
-        with pytest.raises(ValueError, match=f"head_dim 64, 128, 256, got {D}"):
+        with pytest.raises(ValueError,
+                           match=f"head_dim 32, 48, 64, 128, 256, got {D}"):
             pa.check_args("paged attention", q, pool, pool, None, None)
-    if D in (64, 128):
+    if D in (32, 48, 64, 128):
         assert pa.check_args("tree attention", q, pool, pool, None, None,
                              head_dims=ta.TREE_HEAD_DIMS) is None
     else:
-        with pytest.raises(ValueError, match=f"head_dim 64, 128, got {D}"):
+        with pytest.raises(ValueError, match=f"head_dim 32, 48, 64, 128, got {D}"):
             pa.check_args("tree attention", q, pool, pool, None, None,
                           head_dims=ta.TREE_HEAD_DIMS)

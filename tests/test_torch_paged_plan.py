@@ -196,7 +196,8 @@ def _bf16_pool(seed, B, Q, H, Kv, D, BS=16, MB=16):
 
 @pytest.mark.parametrize("Q", [1, 5])
 @pytest.mark.parametrize("H,Kv,D", [(24, 8, 128), (32, 8, 64), (10, 1, 256),
-                                    (4, 1, 256)])
+                                    (4, 1, 256), (8, 4, 48), (4, 2, 48),
+                                    (4, 2, 32)])
 def test_bf16_weights_stay_within_the_card_tolerance(H, Kv, D, Q):
     """Rounding P to bf16 (the PV operand of the kernel's tensor cores)
     keeps the output within chip_smoke.py's bf16 tolerance of the fp32
@@ -258,7 +259,8 @@ def test_plan_covers_every_row_tile_and_live_chunk_once():
     @hyp.given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
                B=st.integers(1, 6), Q=st.integers(1, 128),
                Kv=st.integers(1, 8), gq=st.integers(1, 6),
-               D=st.sampled_from([64, 128, 256]), BS=st.sampled_from([4, 8, 16, 32]),
+               D=st.sampled_from([32, 48, 64, 128, 256]),
+               BS=st.sampled_from([4, 8, 16, 32]),
                MB=st.integers(1, 64), data=st.data())
     def check(dtype, B, Q, Kv, gq, D, BS, MB, data):
         index = np.asarray(data.draw(st.lists(
@@ -337,4 +339,89 @@ def test_plan_at_the_hybrid_ring_shapes(Q, H, tiles):
     assert (p.row_tile, p.row_tiles, p.chunks) == (16, tiles, 3)
     assert p.workspace == 2 * Q * H * 3 * (256 + 2)
     f = pa.plan(torch.float32, 2, Q, H, 1, 256, 16, 9)
+    assert (f.row_tiles, f.chunks, f.workspace) == (tiles, 1, 0)
+
+
+# ----------------------------------------------------- head dims 32 and 48
+# the bench pair of benchmarks/common.py: its target 8 / 4 heads of 48, its
+# drafter 4 / 2 heads of 48 (``replace`` keeps the target's derived
+# head_dim); d 128 over 4 / 2 at d / H = 32
+PAIR_GEOMS = [(8, 4, 48), (4, 2, 48), (4, 2, 32)]
+
+
+@pytest.mark.parametrize("Q", [1, 5])
+@pytest.mark.parametrize("H,Kv,D", PAIR_GEOMS)
+def test_split_matches_jax_and_the_pallas_kernel_at_head_dims_32_and_48(H, Kv, D, Q):
+    """The bf16 kernels' split walk at D 48 and 32 against ``attn_paged``,
+    the jnp oracle and the interpret-mode Pallas kernel; its Q = 5 rows
+    bit-equal to Q = 1 steps, in both weight modes."""
+    BS = 8
+    MB = -(-(int(INDEX.max()) + Q) // BS)
+    q, k, v, table = _pool(H * 10 + D + Q, 3, Q, H, Kv, BS, MB, D=D)
+    args = _t(q, k, v, table, INDEX)
+    got = paged_split_ref(*args, chunk=8).numpy()
+    np.testing.assert_allclose(got, attn_paged(*args).numpy(), **TOL)
+    jargs = _j(q, k, v, table, INDEX)
+    np.testing.assert_allclose(got, np.asarray(jax_attn_paged(*jargs)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged_kernel(*jargs, interpret=True)), **TOL)
+    tq, tk, tv, tt, idx = args
+    for p_bf16 in (False, True):
+        verify = paged_split_ref(tq, tk, tv, tt, idx, max_live=int(idx.max()) + Q,
+                                 p_bf16=p_bf16)
+        for i in range(Q):
+            step = paged_split_ref(tq[:, i:i + 1], tk, tv, tt, idx + i,
+                                   max_live=int(idx.max()) + i + 1, p_bf16=p_bf16)
+            assert torch.equal(step[:, 0], verify[:, i])
+
+
+@pytest.mark.parametrize("name,BS,window", [("chain_tree(2,4)", 4, None),
+                                            ("chain_tree(2,4)", 16, 3),
+                                            ("irregular", 8, None)])
+@pytest.mark.parametrize("H,Kv,D", PAIR_GEOMS)
+def test_split_tree_matches_jax_at_head_dims_32_and_48(H, Kv, D, name, BS, window):
+    """The tree policy at D 48 and 32: the split walk against ``attn_tree``,
+    the jnp oracle and the interpret-mode Pallas tree kernel; a width-1
+    tree bit-equal to the causal split; the bf16-weights mode within the
+    card's bf16 tolerance of the fp32 plain version."""
+    shape = _shape(name)
+    MB = -(-(int(INDEX.max()) + shape.span) // BS)
+    q, k, v, table = _pool(H + D + BS, 3, shape.span, H, Kv, BS, MB, D=D)
+    tree_args = (shape.depths, shape.bits)
+    want = attn_tree(*_t(q, k, v, table, INDEX, *tree_args), window=window)
+    got = paged_split_ref(*_t(q, k, v, table, INDEX), depths=shape.depths,
+                          bits=shape.bits, window=window, chunk=8)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    args = _j(q, k, v, table, INDEX, *tree_args)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_attn_tree(*args, window=window)), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_tree_kernel(*args, window=window,
+                                                interpret=True)), **TOL)
+    bf = _bf16_pool(H + D, 3, shape.span, H, Kv, D, BS=BS, MB=MB)
+    d, b = torch.from_numpy(shape.depths), torch.from_numpy(shape.bits)
+    idx = torch.from_numpy(INDEX)
+    torch.testing.assert_close(
+        paged_split_ref(*bf, idx, depths=d, bits=b, window=window, p_bf16=True),
+        attn_tree(*bf, idx, d, b, window=window), **CARD_BF16_TOL)
+    chain = tree.chain_tree(1, 4)
+    q1 = torch.from_numpy(q[:, :chain.span].copy())
+    causal = paged_split_ref(q1, *_t(k, v, table, INDEX))
+    width1 = paged_split_ref(q1, *_t(k, v, table, INDEX), depths=chain.depths,
+                             bits=chain.bits)
+    assert torch.equal(causal, width1)
+
+
+@pytest.mark.parametrize("Q,H,D,tiles", [(1, 8, 48, 1), (5, 8, 48, 1),
+                                         (1, 4, 32, 1), (5, 4, 48, 1),
+                                         (64, 8, 48, 8), (9, 8, 48, 2)])
+def test_plan_at_head_dims_32_and_48(Q, H, D, tiles):
+    """B = 4, 4 / 2 kv-heads (GQA 2), block size 16 over 4 blocks a row
+    (the pair's 64-token rows): one 64-key chunk, row tiles of 16 over
+    Q * 2 rows, a workspace of D + 2 floats a (row, chunk); fp32 one walk."""
+    Kv = H // 2
+    p = pa.plan(torch.bfloat16, 4, Q, H, Kv, D, 16, 4)
+    assert (p.row_tile, p.row_tiles, p.chunks) == (16, tiles, 1)
+    assert p.workspace == 4 * Kv * Q * 2 * 1 * (D + 2)
+    f = pa.plan(torch.float32, 4, Q, H, Kv, D, 16, 4)
     assert (f.row_tiles, f.chunks, f.workspace) == (tiles, 1, 0)

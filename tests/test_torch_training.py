@@ -307,6 +307,43 @@ def test_tiled_backward_recurrence_is_autograd(geom, mask):
             assert err <= 1e-5 * float(y.abs().max()) + 1e-6, (tile, err)
 
 
+@pytest.mark.parametrize("mask", ["causal", "window", "noncausal_window_s_valid"])
+@pytest.mark.parametrize("H,Kv,D", [(8, 4, 48), (4, 2, 48), (4, 2, 32)],
+                         ids=["pair_target", "pair_drafter", "hd32"])
+def test_flash_backward_at_head_dims_32_and_48(H, Kv, D, mask):
+    """The bench pair's heads (8 / 4 and 4 / 2 of 48; ``replace`` keeps
+    the target's head_dim for the drafter) and d 128 over 4 / 2 at 32, at
+    the recipe's training length S 48: the plain backward against
+    ``jax.grad`` of JAX's ``attn_dense``, and the kernel's tiled recurrence
+    from the log-sum-exp (32-row tiles, as the kernel's) against
+    autograd, both to |d| <= 1e-5 * max|g| + 1e-6."""
+    S = 48
+    kw = MASKS[mask](S)
+    q, k, v, do = _qkvd(2, S, H, Kv, D, seed=H + D + len(mask))
+    s_valid = kw.get("s_valid")
+    kv_pos = np.arange(S, dtype=np.int32)
+    if s_valid is not None:
+        kv_pos = np.where(kv_pos < s_valid, kv_pos, -1).astype(np.int32)
+
+    def f(q_, k_, v_):
+        o = jax_attention.attn_dense(q_, k_, v_, jnp.arange(S, dtype=jnp.int32),
+                                     jnp.asarray(kv_pos), window=kw.get("window"),
+                                     causal=kw.get("causal", True))
+        return jnp.sum(o * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    t = [torch.as_tensor(a) for a in (q, k, v, do)]
+    o = fa.flash_attention(*t[:3], **kw)
+    lse = ref.flash_attention_lse_ref(*t[:2], **kw)
+    plain = fa.flash_attention_bwd(*t[:3], o, None, t[3], **kw)
+    tiled = ref.flash_attention_bwd_tiled(*t[:3], o, lse, t[3], tile=32, **kw)
+    for x, z, y in zip(plain, tiled, want):
+        y = np.asarray(y)
+        tol = 1e-5 * np.abs(y).max() + 1e-6
+        assert float(np.abs(x.numpy() - y).max()) <= tol
+        assert float(np.abs(z.numpy() - y).max()) <= tol
+
+
 def test_lse_ref_normalises_the_weights():
     """exp(scaled score - lse) over each row's visible keys sums to 1."""
     q, k, _, _ = (torch.as_tensor(a) for a in _qkvd(1, 30, 4, 2, 8, seed=2))
