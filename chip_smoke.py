@@ -34,7 +34,20 @@
    identity view (``"case": "ring_view"``): bf16, B=2, a 144-slot ring,
    Q=1 and Q=5 at position 70 and Q=63 from 0, the 3B and 1B geometries,
    held against its plain version and against the concat read over
-   ``slot_positions`` that JAX's ring computes. Then paged attention at
+   ``slot_positions`` that JAX's ring computes. Then both kernels over
+   int8 pools, as an int8 KV cache hands them over (``"case": "int8_kv"``,
+   ``int8_kv_cases``): at the 3B's 24/8/128, the 1B's 32/8/64 and the
+   bench pair's 8/4/48, fp32 and bf16, paged Q 1 and 5 (B 4 ragged, row 2
+   on the NULL block, a shuffled table), the Q 64 prefill chunk from 448,
+   the ring view at Q 1 and 5 (144 slots, written at 70, the call's own
+   K/V read as ``fresh`` at Q 5, held against JAX's concat read too) and
+   chain_tree(2, 4) with the span's K/V as ``fresh``; then paged Q 5 at
+   4/2/32 and 10/1/256 and the tree at 4/2/32. Each within TOL of its
+   plain version and bit-equal to the float kernel over the dequantized
+   pool with ``fresh`` written in; at paged Q 5 its rows bit-equal to Q=1
+   calls and a width-1 tree to the causal call; timed beside that float
+   call and masked SDPA over the dequantized K/V, with the bound at 1
+   byte a K/V element. Then paged attention at
    the dense-family configs' head geometries (Granite 3.0 2B's target
    32/8/64 and drafter 16/8/64, DeepSeek-Coder 33B's 56/8/128: 7 or 35
    query rows per kv-head; Mixtral 8x7B's 32/8/128, whose drafter's is
@@ -264,8 +277,22 @@
    n_commit >= 1 tokens == greedy AR's), the train step B 2 x 512 (loss
    finite and == ``make_train_step``'s); each with its peak memory, wall
    and exact launch counts (paged L, L, gamma L_d + L_t with one argmax;
-   flash L forward and L backward), which join the kernels line; the
-   phase's seconds.
+   flash L forward and L backward), which join the kernels line; then
+   JAX's int8 KV caches on the same pair (``launch.steps``' ``cache_int8``
+   and ``Model.apply`` over ``init_cache(dtype=int8)`` caches): the int8
+   prefill (``b_prefill_int8``: logits == ``Model.apply``'s and, bit for
+   bit, the bf16 prefill's, its cache the bf16 prefill's K/V quantized),
+   the int8 decode step after an int8 prefill of 2047 (``b_decode_int8``:
+   its token == greedy AR's over the same int8 cache; a reading: 32 tokens
+   of greedy AR over int8 against bf16 rings, the agreement and top-2
+   margins at each first difference), from int8 rings of 511 tokens the
+   target's verify forward of gamma + 1 and its chain_tree(2, 4) span
+   (``b_forward_int8``: logits bit-equal to the same forward over a bf16
+   ring holding the dequantized ring), and the spec round over int8 rings
+   for both roles (``b_spec_round_int8``: n_commit >= 1, both indices 511
+   + n_commit, tokens in the vocabulary; agreement with the bf16 round
+   and with int8 AR a reading), each with exact launches; the phase's and
+   the int8 parts' seconds.
 11. The hybrid family. At smoke width (``"phase":
    "smoke_hybrid_exactness"``, after the cached Mamba-2 smoke phase): the
    ``recurrentgemma-2b`` smoke pair (fp32, head_dim 64, local window 16),
@@ -370,7 +397,11 @@
    and the front-end phase's of step 7, the hybrid serves of step 11
    and step 12's spec serves',
    Mixtral's, the VLM's, the encoder-decoder's and the train phase's
-   (its pair's four serves and Mamba-2's no-grad forward) included), the card line again and, last, ``{"ok": true, "device": {...}}``.
+   (its pair's four serves and Mamba-2's no-grad forward) included; the
+   paged and tree entries carry an ``int8_kv`` record: the headline int8
+   case's times and bound, the int8 cases' largest error and the int8
+   parts' launches, which the entry's count includes), the card line again
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started. Nothing is caught: any failure exits non-zero before the last line. With no
@@ -742,6 +773,207 @@ def ring_view_cases(timer):
             for geom, H, Kv, D in (("llama3.2-3b", 24, 8, 128),
                                    ("llama3.2-1b", 32, 8, 64))
             for Q, start in RING_CASES]
+
+
+INT8_KV_GEOMS = (("llama3.2-3b", 24, 8, 128), ("llama3.2-1b", 32, 8, 64),
+                 ("bench-target", 8, 4, 48))
+INT8_KV_DIMS = (("d128-h4-hd32", 4, 2, 32), ("recurrentgemma-2b", 10, 1, 256))
+
+
+def int8_kv_case(timer, kind, name, H, Kv, D, dtype, Q=1, headline=False):
+    """The paged and tree kernels over an int8 pool (``"case": "int8_kv"``),
+    as an int8 KV cache hands it to them. ``kind``: "paged" (B 4 ragged,
+    row 2 on the NULL block, a shuffled table of 16-key blocks, the live
+    bound max(index) + Q as a device tensor), "chunk" (a prefill chunk of
+    CHUNK rows from key CHUNK_EQUAL[0], B 1, over a 4096-key table),
+    "ring" (B 2, an int8 ring of RING_W slots, Q new K/V written at 70 with
+    a 0-dim index, then read through the identity view with
+    ``dense.ring_fresh``'s K/V: the call's own at Q > 1) or "tree"
+    (chain_tree(TREE_W, TREE_D) over the pool with the span's K/V as
+    ``fresh``, B 4 ragged on distinct blocks). Each is held against its
+    plain version (and a ring read against JAX's concat read over
+    ``slot_positions``) within TOL, and must equal, bit for bit, the float
+    kernel of q's dtype over ``_from_buf`` of the pool with ``fresh``
+    written at its positions; at "paged" Q > 1 its rows must also equal Q
+    = 1 calls at the same positions and, where the tree entry takes D, a
+    width-1 tree the causal call. Timed: the int8 call, that float call
+    (``float_kernel_ms``), the plain version and masked SDPA over the
+    dequantized, gathered, head-expanded K/V (the dequant outside the
+    timing). The bound counts K/V at 1 byte an element."""
+    from repro_torch.cache import kv_cache
+    from repro_torch.core.tree import chain_tree
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import tree_attention as ta
+    from repro_torch.models import attention, dense
+    from repro_torch.models.attention import _tree_mask
+    g = torch.Generator(device="cuda").manual_seed(H * 7919 + D * 31 + Q)
+    BS = 16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    def deq(t):
+        return kv_cache._from_buf(t, dtype)
+
+    def table_of(B, MB, NB):
+        perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+        return perm[:B * MB].reshape(B, MB).to(torch.int32)
+
+    fresh, depths, bits, vs_concat, extra = None, None, None, None, {}
+    if kind in ("paged", "chunk", "tree"):
+        if kind == "chunk":
+            index, MB, NB, Q = [CHUNK_EQUAL[0]], 256, 512, CHUNK
+        else:
+            index, MB, NB = [37, 150, 11, 200], 16, 256
+        if kind == "tree":
+            shape = chain_tree(TREE_W, TREE_D)
+            Q = shape.span
+            depths = torch.from_numpy(shape.depths).cuda()
+            bits = torch.from_numpy(shape.bits).cuda()
+        B = len(index)
+        q = rnd(B, Q, H, D)
+        k, v = i8(NB, BS, Kv, D), i8(NB, BS, Kv, D)
+        table = table_of(B, MB, NB)
+        if kind == "paged":
+            table[2] = 0                   # a frozen slot on the NULL block
+        idx = torch.tensor(index, dtype=torch.int32, device="cuda")
+        fk, fv = deq(k), deq(v)
+        if kind == "tree":
+            fresh = (rnd(B, Q, Kv, D), rnd(B, Q, Kv, D))
+            pos = idx[:, None].long() + torch.arange(Q, device="cuda")   # [B, Q]
+            blk = table.long().gather(1, pos // BS)
+            fk[blk, pos % BS], fv[blk, pos % BS] = fresh
+        live = [i + Q for i in index]
+        S = max(live)
+        cols = torch.arange(S, device="cuda")
+        gather = table.long()[:, cols // BS], cols % BS                  # [B, S]
+        kg, vg = fk[gather], fv[gather]                                  # [B, S, Kv, D]
+        q_pos = idx[:, None] + torch.arange(Q, device="cuda")           # [B, Q]
+        if kind == "tree":
+            mask = _tree_mask(idx, cols.to(torch.int32), depths, bits, None)
+        else:
+            mask = q_pos[:, :, None] >= cols[None, None, :]              # [B, Q, S]
+        max_live = None if kind == "chunk" else (idx.max() + Q).to(torch.int32)
+        pool_keys = sum(live) - (B * Q if fresh is not None else 0)
+    else:                                  # ring: the identity view at 70
+        B, W, start = 2, RING_W, 70
+        ring = {n: i8(B, W, Kv, D) for n in "kv"}
+        k_new, v_new, q = rnd(B, Q, Kv, D), rnd(B, Q, Kv, D), rnd(B, Q, H, D)
+        idx = torch.tensor(start, dtype=torch.int32, device="cuda")
+        k_all, v_all, kv_pos, _ = kv_cache.extend(
+            {n: t.clone() for n, t in ring.items()}, k_new, v_new, idx)
+        q_pos = idx + torch.arange(Q, dtype=torch.int32, device="cuda")
+        concat = attention.attention(q, k_all, v_all, q_pos, kv_pos)
+        kv_cache.write(ring["k"], ring["v"], k_new, v_new, idx)
+        fresh = dense.ring_fresh(ring, k_new, v_new)
+        fk, fv = deq(ring["k"]), deq(ring["v"])
+        if fresh is not None:
+            kv_cache.write(fk, fv, k_new, v_new, idx)
+        table = dense.ring_view_table(B, W, q.device)
+        k, v = dense.ring_view(ring["k"]), dense.ring_view(ring["v"])
+        fk, fv = dense.ring_view(fk), dense.ring_view(fv)
+        S, max_live = start + Q, None
+        kg = fk.reshape(B, W, Kv, D)[:, :S]
+        vg = fv.reshape(B, W, Kv, D)[:, :S]
+        cols = torch.arange(S, device="cuda")
+        mask = (q_pos[:, None] >= cols[None, :])[None].expand(B, Q, S)
+        pool_keys = B * S - (B * Q if fresh is not None else 0)
+
+    if kind == "tree":
+        fn, plain = ta.tree_flash_attention, ta.plain
+        args = (q, k, v, table, idx, depths, bits)
+        fargs = (q, fk, fv, table, idx, depths, bits)
+    else:
+        fn, plain = pa.paged_flash_attention, pa.plain
+        args, fargs = (q, k, v, table, idx), (q, fk, fv, table, idx)
+    kw = dict(max_live=max_live, fresh=fresh)
+    out = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    same = fn(*fargs, max_live=max_live)
+    if kind == "paged" and Q > 1:
+        steps = [pa.paged_flash_attention(q[:, i:i + 1].contiguous(), k, v, table,
+                                          idx + i, max_live=(idx.max() + i + 1).to(torch.int32))
+                 for i in range(Q)]
+        extra["verify_rows_equal_q1"] = [bool(torch.equal(s[:, 0], out[:, i]))
+                                         for i, s in enumerate(steps)]
+        if D in ta.TREE_HEAD_DIMS:
+            w1 = chain_tree(1, Q - 1)
+            width1 = ta.tree_flash_attention(
+                q, k, v, table, idx, torch.from_numpy(w1.depths).cuda(),
+                torch.from_numpy(w1.bits).cuda(), max_live=max_live)
+            extra["width1_tree_equals_causal"] = bool(torch.equal(width1, out))
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype)
+    exact = bool(torch.equal(out, same))
+    if kind == "ring":
+        vs_concat = agreement(out, concat, dtype)
+
+    qg = q.permute(0, 2, 1, 3)
+    kg = kg.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    vg = vg.permute(0, 2, 1, 3).repeat_interleave(H // Kv, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = timer(lambda: fn(*args, **kw))
+    float_ms = timer(lambda: fn(*fargs, max_live=max_live))
+    plain_ms = timer(lambda: plain(*args, **kw), iters=3)
+    library_ms = timer(lambda: sdpa(qg, kg, vg, attn_mask=mask[:, None]))
+
+    # least work: each live pool key read once per kv-head at 1 byte an
+    # element (the fresh ones from ``fresh`` in q's dtype instead), q read
+    # and out written once, the table and index; 4 flops per (query head,
+    # visible key, d)
+    esz = q.element_size()
+    nbytes = (2 * q.numel() * esz + pool_keys * Kv * D * 2
+              + (2 * fresh[0].numel() * esz if fresh is not None else 0)
+              + table.numel() * 4 + idx.numel() * 4)
+    flops = 4 * H * D * int(mask.sum())
+    p = pa.plan(dtype, B, Q, H, Kv, D, BS, table.shape[1])
+    case = {"case": "int8_kv", "kind": kind, "geometry": name, "Q": Q, "B": B,
+            "dtype": str(dtype).replace("torch.", ""), "fresh": fresh is not None,
+            **agree, "equal_to_float_kernel": exact, **extra,
+            "kernel_ms": ms, "float_kernel_ms": float_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, flops, dtype),
+            "chunks": p.chunks, "row_tile": p.row_tile, "headline": headline}
+    if vs_concat is not None:
+        case["vs_concat"] = vs_concat
+    emit(case)
+    inv = all(extra.get("verify_rows_equal_q1", [True])) \
+        and extra.get("width1_tree_equals_causal") is not False
+    if not (agree["ok"] and exact and inv
+            and (vs_concat is None or vs_concat["ok"])):
+        raise SystemExit(f"int8-pool attention disagrees: {case}")
+    return case
+
+
+def int8_kv_cases(timer):
+    """``int8_kv_case`` at the paper pair's and the bench pair's
+    geometries (INT8_KV_GEOMS), fp32 and bf16: paged Q 1 and GAMMA + 1, the
+    prefill chunk, the ring view at Q 1 and GAMMA + 1, the tree; then at
+    the remaining head dims (INT8_KV_DIMS) paged Q GAMMA + 1 and, at 32,
+    the tree. Returns the cases by kernel."""
+    out = {"paged": [], "tree": []}
+    for geom, H, Kv, D in INT8_KV_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            head = geom == "llama3.2-1b" and dtype == torch.bfloat16
+            for kind, Q in (("paged", 1), ("paged", GAMMA + 1), ("chunk", CHUNK),
+                            ("ring", 1), ("ring", GAMMA + 1)):
+                out["paged"].append(int8_kv_case(
+                    timer, kind, geom, H, Kv, D, dtype, Q,
+                    headline=head and kind == "paged" and Q == 1))
+            out["tree"].append(int8_kv_case(
+                timer, "tree", geom, H, Kv, D, dtype,
+                headline=geom == "llama3.2-3b" and dtype == torch.bfloat16))
+    for geom, H, Kv, D in INT8_KV_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["paged"].append(int8_kv_case(timer, "paged", geom, H, Kv, D,
+                                             dtype, GAMMA + 1))
+            if D == 32:
+                out["tree"].append(int8_kv_case(timer, "tree", geom, H, Kv,
+                                                D, dtype))
+    return out
 
 
 def paged_chunk_cases(timer):
@@ -5288,6 +5520,105 @@ def zeros_like_meta(cache):
             if isinstance(v, torch.Tensor) else v for k, v in cache.items()}
 
 
+INT8_AR_NEW = 32            # the int8 decode part's reading: greedy AR tokens
+
+
+def clone_cache(cache):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in cache.items()}
+
+
+def int8_forwards(mt, params, ring8, counters, total, total8, card):
+    """``"part": "b_forward_int8"``: from the int8 ring ``ring8`` (a
+    prefilled target cache), the target's verify forward of GAMMA + 1
+    tokens and its chain_tree(TREE_W, TREE_D) tree-span forward, each
+    against the same forward over a ring of the activation dtype holding
+    ``_from_buf`` of the int8 one: the logits must be bit-equal (the int8
+    read takes the call's own K/V from ``fresh``, the float ring holds them
+    as written). Each forward's launches must be exact (L paged, or L tree);
+    they join ``total``, the int8 ones ``total8`` too."""
+    from repro_torch.cache import kv_cache
+    from repro_torch.core.tree import chain_tree
+    L = mt.cfg.num_layers
+    act = mt.cfg.act_dtype
+    rng = np.random.default_rng(13)
+    tree = chain_tree(TREE_W, TREE_D)
+    B = ring8["k"].shape[1]
+    ring = {k: kv_cache._from_buf(v, act) if k in ("k", "v") else v
+            for k, v in clone_cache(ring8).items()}
+    info = {"phase": "compile_steps", "part": "b_forward_int8", "card": card,
+            "index": int(ring8["index"]), "ring_dtypes": [str(ring8["k"].dtype),
+                                                         str(ring["k"].dtype)]}
+    ok = True
+    for name, Q, kw, kernel in (("verify", GAMMA + 1, {}, "paged_attention"),
+                                ("tree", tree.span,
+                                 {"tree": (tree.depths, tree.bits)}, "tree_attention")):
+        toks = torch.as_tensor(rng.integers(0, mt.cfg.vocab_size, (B, Q)),
+                               dtype=torch.int32, device="cuda")
+        logits, launches = {}, {}
+        for label, cache in (("int8", ring8), ("float", ring)):
+            zero_counts(counters)
+            logits[label], _, _ = mt.apply(params, toks, clone_cache(cache), **kw)
+            torch.cuda.synchronize()
+            launches[label] = read_counts(counters)
+            for key in total:
+                total[key] += launches[label][key]
+                total8[key] += launches[label][key] if label == "int8" else 0
+        want = {k: L if k == kernel else 0 for k in counters}
+        equal = bool(torch.equal(logits["int8"], logits["float"]))
+        info[name] = {"Q": Q, "logits_bit_equal": equal,
+                      "max_abs_diff": float((logits["int8"].float()
+                                             - logits["float"].float()).abs().max()),
+                      "launches": launches, "launches_expected": want}
+        ok = ok and equal and all(n == want for n in launches.values())
+    info["ok"] = ok
+    emit(info)
+    if not ok:
+        raise SystemExit(f"compile_steps b_forward_int8 failed: {info}")
+    return info
+
+
+def int8_ar_reading(mt, params, prompt):
+    """A reading, not a check: greedy AR of INT8_AR_NEW tokens after
+    ``prompt`` over an int8 ring and over a ring of the activation dtype
+    (``Model.apply``, each row fed its own tokens, as JAX's int8 test runs
+    it): the share of new tokens that agree (JAX's bar is 0.9) and, at each
+    row's first difference, both runs' top-2 margins there with one bf16
+    step at the top logit (``top2_margin``)."""
+    from repro_torch.core.rounds import next_token
+    B, P = prompt.shape
+    toks, tops = {}, {}
+    for name, dtype in (("int8", torch.int8), ("float", None)):
+        cache = mt.init_cache(B, P + INT8_AR_NEW, spec_slack=0, dtype=dtype,
+                              device="cuda")
+        x, out, top = prompt, [], []
+        for _ in range(INT8_AR_NEW):
+            logits, cache, _ = mt.apply(params, x, cache, logits_slice="last")
+            top.append(logits[:, -1].float().topk(2, dim=-1).values)
+            nxt, _ = next_token(logits[:, -1], True, 1.0, None)
+            out.append(nxt)
+            x = nxt[:, None]
+        toks[name] = torch.stack(out, 1).cpu().numpy()
+        tops[name] = torch.stack(top, 1).cpu().numpy()                 # [B, N, 2]
+        del cache
+    a, b = toks["int8"], toks["float"]
+    firsts = []
+    for r in range(B):
+        diff = np.flatnonzero(a[r] != b[r])
+        if len(diff):
+            i = int(diff[0])
+            firsts.append({"row": r, "new_token": i,
+                           "tokens": [int(a[r, i]), int(b[r, i])],
+                           **{f"{n}_top1": float(tops[n][r, i, 0]) for n in tops},
+                           **{f"{n}_margin": float(tops[n][r, i, 0] - tops[n][r, i, 1])
+                              for n in tops},
+                           "bf16_step": float(2.0 ** (np.floor(np.log2(
+                               max(abs(float(tops["float"][r, i, 0])), 1e-30))) - 7))})
+    return {"new_tokens": INT8_AR_NEW, "agreement": float((a == b).mean()),
+            "jax_bar": 0.9, "rows_equal": int((a == b).all(axis=1).sum()),
+            "first_differences": firsts}
+
+
 def compile_dryrun(card):
     """(a): ``launch.dryrun.run_one`` for every registry arch x input shape
     on meta tensors (single pod): one line a record, then the counts. A
@@ -5324,6 +5655,7 @@ def compile_steps(mt, md, pt, pd, cfg, card):
     batch. Each with its peak memory, wall and exact launches of the
     paged, argmax, flash and flash-backward wrappers (the others 0).
     Returns the four steps' launches."""
+    from repro_torch.cache import kv_cache
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.engine import autoregressive_generate
     from repro_torch.core.rounds import next_token
@@ -5342,14 +5674,16 @@ def compile_steps(mt, md, pt, pd, cfg, card):
     counters = {**kernel_counters(), "flash_attention_bwd": fa.flash_attention_bwd}
     rng = np.random.default_rng(11)
     total = dict.fromkeys(counters, 0)
+    total8 = dict.fromkeys(counters, 0)      # the launches over int8 caches
 
     def tokens(B, S):
         return torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                                dtype=torch.int32, device="cuda")
 
-    def run(name, fn, inputs, args, expected):
+    def run(name, fn, inputs, args, expected, int8=False):
         """One step: its inputs against the meta ones, then the call with
-        the counts set to 0 just before and read just after."""
+        the counts set to 0 just before and read just after (``int8``: a
+        step over int8 caches, its counts also kept in ``total8``)."""
         matched = like_meta(inputs, args)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5361,6 +5695,7 @@ def compile_steps(mt, md, pt, pd, cfg, card):
         n = read_counts(counters)
         for key in total:
             total[key] += n[key]
+            total8[key] += n[key] if int8 else 0
         want = {k: expected.get(k, 0) for k in counters}
         return out, {"phase": "compile_steps", "part": f"b_{name}", "card": card,
                      "inputs_match_meta": matched, "wall_s": wall,
@@ -5379,13 +5714,34 @@ def compile_steps(mt, md, pt, pd, cfg, card):
     fn, inp = steps.build_prefill_step(mt, shapes["prefill"])
     args = {"params": params_t, "tokens": tokens(1, 2048),
             "cache": zeros_like_meta(inp["cache"]), "extras": {}}
-    (logits, _), info = run("prefill", fn, inp, args, {"paged_attention": L_t})
+    (logits, pcache), info = run("prefill", fn, inp, args, {"paged_attention": L_t})
     ref, _, _ = mt.apply(params_t, args["tokens"], zeros_like_meta(inp["cache"]),
                          logits_slice="last")
     info.update(logits_shape=list(logits.shape),
                 equal_to_apply=bool(torch.equal(logits, ref)))
     check(info, info["equal_to_apply"] and bool(torch.isfinite(logits).all()))
-    del args, logits, ref
+
+    # the same prefill over an int8 cache: from index 0 every key a layer
+    # reads is the call's own, unquantized (``fresh``), so the logits are
+    # the bf16 prefill's bit for bit, and the cache holds its K/V quantized
+    t8 = clock.perf()
+    fn, inp = steps.build_prefill_step(mt, shapes["prefill"], cache_int8=True)
+    args = {"params": params_t, "tokens": args["tokens"],
+            "cache": zeros_like_meta(inp["cache"]), "extras": {}}
+    (logits8, cache8), info = run("prefill_int8", fn, inp, args,
+                                  {"paged_attention": L_t}, int8=True)
+    ref, _, _ = mt.apply(params_t, args["tokens"], zeros_like_meta(inp["cache"]),
+                         logits_slice="last")
+    info.update(cache_dtype=str(cache8["k"].dtype),
+                equal_to_apply=bool(torch.equal(logits8, ref)),
+                equal_to_bf16_prefill=bool(torch.equal(logits8, logits)),
+                cache_is_bf16_quantized=all(
+                    torch.equal(cache8[n], kv_cache._to_buf_dtype(pcache[n], torch.int8))
+                    for n in "kv"))
+    check(info, info["equal_to_apply"] and info["equal_to_bf16_prefill"]
+          and info["cache_is_bf16_quantized"] and cache8["k"].dtype == torch.int8)
+    del args, logits, ref, pcache, logits8, cache8
+    t_int8 = clock.perf() - t8
 
     # decode: B 4 over a 2048-position cache, after a prefill of 2047
     fn, inp = steps.build_decode_step(mt, shapes["decode"])
@@ -5403,14 +5759,42 @@ def compile_steps(mt, md, pt, pd, cfg, card):
     check(info, torch.equal(got, ar[:, -1]) and info["cache_index"] == 2048)
     del args, cache, logits, ar
 
+    # the decode step over an int8 cache prefilled with the same 2047
+    # tokens: its token == greedy AR's, stepped by ``Model.apply`` over the
+    # same int8 cache (JAX's int8 test); then a reading: greedy AR of
+    # INT8_AR_NEW tokens over int8 against bf16 caches
+    t8 = clock.perf()
+    fn, inp = steps.build_decode_step(mt, shapes["decode"], cache_int8=True)
+    cache = zeros_like_meta(inp["cache"])
+    logits, cache, _ = mt.apply(params_t, prompt, cache, logits_slice="last")
+    nxt, _ = next_token(logits[:, -1], True, 1.0, None)
+    ar_cache = clone_cache(cache)
+    args = {"params": params_t, "tokens": nxt[:, None], "cache": cache,
+            "extras": {}}
+    (logits, cache), info = run("decode_int8", fn, inp, args,
+                                {"paged_attention": L_t}, int8=True)
+    got, _ = next_token(logits[:, -1], True, 1.0, None)
+    ref, ar_cache, _ = mt.apply(params_t, nxt[:, None], ar_cache,
+                                logits_slice="last")
+    ar, _ = next_token(ref[:, -1], True, 1.0, None)
+    info.update(cache_dtype=str(cache["k"].dtype), tokens=got.tolist(),
+                ar_tokens=ar.tolist(), logits_equal_apply=bool(torch.equal(logits, ref)),
+                cache_index=int(cache["index"]),
+                ar_int8_vs_bf16=int8_ar_reading(mt, params_t, prompt))
+    check(info, torch.equal(got, ar) and info["cache_index"] == 2048
+          and cache["k"].dtype == torch.int8)
+    del args, cache, ar_cache, logits, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_int8 += clock.perf() - t8
+
     # spec round: B 4, gamma 4, the 3B target and 1B drafter from prefilled caches
     fn, inp = steps.build_spec_round_step(mt, md, shapes["spec_round"], gamma=GAMMA)
     prompt = tokens(4, SPEC_PROMPT)
     tcache, dcache = zeros_like_meta(inp["tcache"]), zeros_like_meta(inp["dcache"])
     _, tcache, _ = mt.apply(params_t, prompt[:, :-1], tcache, logits_slice="last")
     _, dcache, _ = md.apply(params_d, prompt[:, :-1], dcache, logits_slice="last")
-    ar_cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                for k, v in tcache.items()}
+    ar_cache = clone_cache(tcache)
     args = {"params_t": params_t, "params_d": params_d,
             "t_last": prompt[:, -1].contiguous(), "tcache": tcache, "dcache": dcache}
     (out, n_commit, tcache, dcache), info = run(
@@ -5428,7 +5812,43 @@ def compile_steps(mt, md, pt, pd, cfg, card):
                 tcache_index=int(tcache["index"]), dcache_index=int(dcache["index"]))
     check(info, n >= 1 and torch.equal(out[:, :n], ar[:, :n])
           and info["tcache_index"] == info["dcache_index"] == SPEC_PROMPT - 1 + n)
-    del args, tcache, dcache, ar_cache, logits, out
+    del args, tcache, dcache, ar_cache, logits
+
+    # int8 rings for both roles, prefilled with the same 511 tokens: the
+    # target's verify and tree forwards (``int8_forwards``), then the round
+    t8 = clock.perf()
+    B_s, S_s = shapes["spec_round"].global_batch, shapes["spec_round"].seq_len
+    inp = {**inp, **{role: m.cache_spec(B_s, S_s, spec_slack=GAMMA + 2,
+                                        dtype=torch.int8)
+                     for role, m in (("tcache", mt), ("dcache", md))}}
+    tcache, dcache = zeros_like_meta(inp["tcache"]), zeros_like_meta(inp["dcache"])
+    _, tcache, _ = mt.apply(params_t, prompt[:, :-1], tcache, logits_slice="last")
+    _, dcache, _ = md.apply(params_d, prompt[:, :-1], dcache, logits_slice="last")
+    int8_forwards(mt, params_t, tcache, counters, total, total8, card)
+    ar_cache = clone_cache(tcache)
+    args = {"params_t": params_t, "params_d": params_d,
+            "t_last": prompt[:, -1].contiguous(), "tcache": tcache, "dcache": dcache}
+    (out8, n_commit, tcache, dcache), info = run(
+        "spec_round_int8", fn, inp, args,
+        {"paged_attention": GAMMA * L_d + L_t, "blockwise_argmax": 1}, int8=True)
+    ar, tok = [], args["t_last"]
+    for _ in range(GAMMA + 1):
+        logits, ar_cache, _ = mt.apply(params_t, tok[:, None], ar_cache,
+                                       logits_slice="last")
+        tok, _ = next_token(logits[:, -1], True, 1.0, None)
+        ar.append(tok)
+    ar = torch.stack(ar, dim=1)
+    n8, both = int(n_commit), min(n, int(n_commit))
+    info.update(n_commit=n8, out_tokens=out8.tolist(), ar_int8_tokens=ar.tolist(),
+                tcache_index=int(tcache["index"]), dcache_index=int(dcache["index"]),
+                agreement_bf16_round=float((out8[:, :both] == out[:, :both])
+                                           .float().mean()),
+                agreement_int8_ar=float((out8[:, :n8] == ar[:, :n8]).float().mean()))
+    check(info, n8 >= 1 and tcache["k"].dtype == dcache["k"].dtype == torch.int8
+          and info["tcache_index"] == info["dcache_index"] == SPEC_PROMPT - 1 + n8
+          and bool(((out8 >= 0) & (out8 < cfg.vocab_size)).all()))
+    del args, tcache, dcache, ar_cache, logits, out, out8
+    t_int8 += clock.perf() - t8
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5452,9 +5872,10 @@ def compile_steps(mt, md, pt, pd, cfg, card):
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "compile_steps", "part": "done", "card": card, "a_s": t_a,
-          "b_s": clock.perf() - t0 - t_a, "phase_s": clock.perf() - t0,
-          "launches": total})
-    return total
+          "b_s": clock.perf() - t0 - t_a, "int8_s": t_int8,
+          "phase_s": clock.perf() - t0, "launches": total,
+          "int8_launches": total8})
+    return total, total8
 
 
 def _union(intervals):
@@ -5625,6 +6046,7 @@ def main() -> int:
             q_invariance(geom, H, Kv, D, dtype)
     chunk_cases = paged_chunk_cases(timer)
     ring_cases = ring_view_cases(timer)
+    kv8 = int8_kv_cases(timer)
     ring_cases += dense_config_cases(timer) + wrap_ring_cases(timer)
     fl_cases = flash_cases(timer)
     ssd = ssd_cases(timer)
@@ -5665,7 +6087,7 @@ def main() -> int:
     w8a8_launches = full_width_w8a8(*pair, card)
     gc.collect()
     torch.cuda.empty_cache()
-    compile_launches = compile_steps(*pair, card)
+    compile_launches, compile_int8 = compile_steps(*pair, card)
     del pair
     torch.cuda.empty_cache()
     ssm_launches, ssm_cached = full_width_ssm(card)
@@ -5720,10 +6142,12 @@ def main() -> int:
     # for the encoder and cross-attention, paged cached, the argmax)
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += vlm_launches[name] + encdec_launches[name]
-    # the compile_steps phase's four steps (paged, the argmax; flash and
-    # its backward in the train step)
+    # the compile_steps phase's steps (paged, the argmax; flash and its
+    # backward in the train step; the int8 parts' paged, argmax and, in
+    # their tree-span forwards, tree)
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += compile_launches[name]
+    tree_launches["tree_attention"] += compile_launches["tree_attention"]
     # the train phase's serves of the bench pair (paged, the argmax, tree;
     # flash below) and its no-grad Mamba-2 forward (SSD)
     for name in ("paged_attention", "blockwise_argmax"):
@@ -5732,6 +6156,20 @@ def main() -> int:
     head = next(c for c in att if c["headline"])
     tree_head = next(c for c in tree_cases if c["headline"])
     fl_head = next(c for c in fl_cases if c["headline"])
+
+    def int8_record(cases, kernel):
+        """The ``int8_kv`` record of a kernel's entry: the headline int8
+        case, the largest error of its int8 cases, and its launches over
+        int8 caches on the main path (the compile_steps int8 parts; also
+        counted in the entry's ``launches``)."""
+        h = next(c for c in cases if c["headline"])
+        return {"geometry": h["geometry"], "kind": h["kind"], "Q": h["Q"],
+                "dtype": h["dtype"], "ms": h["kernel_ms"],
+                "float_kernel_ms": h["float_kernel_ms"], "plain_ms": h["plain_ms"],
+                "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+                "library_ms": h["library_ms"],
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "launches": compile_int8[kernel]}
     bwd_head = next(c for c in bwd_cases if c["headline"])
     kernels = [
         {"name": "paged_attention", "route": "cuda",
@@ -5740,10 +6178,11 @@ def main() -> int:
          "launches": launches["paged_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases
                             + ring_cases + hy_paged + ve_paged
-                            + pair_cases["paged"]),
+                            + pair_cases["paged"] + kv8["paged"]),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": head["library_ms"]},
+         "library_ms": head["library_ms"],
+         "int8_kv": int8_record(kv8["paged"], "paged_attention")},
         {"name": "blockwise_argmax", "route": "cuda",
          "source": "src/repro_torch/csrc/spec_verify.cu",
          "replaces": "src/repro/kernels/spec_verify.py:42",
@@ -5756,11 +6195,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/tree_attention.py:95",
          "launches": tree_launches["tree_attention"],
-         "max_abs_err": max(c["max_abs_err"]
-                            for c in tree_cases + pair_cases["tree"]),
+         "max_abs_err": max(c["max_abs_err"] for c in tree_cases
+                            + pair_cases["tree"] + kv8["tree"]),
          "ms": tree_head["kernel_ms"], "plain_ms": tree_head["plain_ms"],
          "bound_ms": tree_head["bound_ms"], "bound_by": tree_head["bound_by"],
-         "library_ms": tree_head["library_ms"]},
+         "library_ms": tree_head["library_ms"],
+         "int8_kv": int8_record(kv8["tree"], "tree_attention")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:69",

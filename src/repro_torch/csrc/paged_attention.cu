@@ -97,6 +97,27 @@
 // the padding is never loaded or read. None of this touches a row's
 // arithmetic, so the exactness above holds at every D. The tree policy
 // takes 32 to 128: no model with D = 256 runs tree rounds.
+//
+// int8 pools (an int8 KV cache: repro_torch/cache/kv_cache.py stores
+// round(x / 0.05) clamped to [-128, 127]). JAX sends an int8 pool to its
+// jnp oracle; here both policies and both bodies are instantiated over the
+// pool's type KV as well as over q's: fp32 or bf16 q over a pool of q's
+// type (the code above, unchanged instruction for instruction) or over an
+// int8 pool. An int8 key is staged as _from_buf makes it: fp32(x) * 0.05f
+// (kKvInt8Scale, KV_INT8_SCALE's fp32 value), rounded to q's type. Where
+// the optional fresh_k / fresh_v ([B, Q, Kv, D], q's type) cover the key
+// (index <= key < index + Q), it is staged from there instead, unquantized:
+// a Q > 1 read of an int8 ring sees the call's own K/V as JAX's
+// [old buffer ++ new tokens] concat does. The bf16 body stages an int8
+// chunk synchronously (an 8-byte load per 16-byte swizzled piece, converted
+// and stored to the same slot), so it gives up the K/V commit-group overlap;
+// the fp32 body reads 4 int8 columns a load. From the staging barrier on,
+// scores, softmax, PV and the combine are the float body's. So an int8
+// call equals, bit for bit, the float kernel of q's type over the
+// dequantized pool with fresh written at its positions, and the Q and
+// policy invariance above hold for it too. What bounds an int8
+// call: half the K/V bytes of bf16 (a quarter of fp32), and at decode it is
+// still latency bound, as above.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -108,6 +129,12 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kKvInt8Scale = 0.05f;   // cache/kv_cache.py: KV_INT8_SCALE
+
+// an int8 pool's value as _from_buf makes it in fp32
+__device__ __forceinline__ float dequant(int8_t x) {
+  return static_cast<float>(x) * kKvInt8Scale;
+}
 
 // the keys a row's walk covers: whole pages, at least one, at most the
 // table's MB, capped by max_live when given
@@ -125,17 +152,21 @@ constexpr int kF32Rows = 16;
 
 __host__ __device__ constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
-template <int D, bool kTree>
+// KV: float (a pool of q's type) or int8_t (an int8 pool, read with fresh_k /
+// fresh_v where they cover the key; both null on a float pool)
+template <int D, bool kTree, typename KV>
 __global__ void __launch_bounds__(kF32Threads)
-paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
-                           const float* __restrict__ v_pool,
+paged_attention_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k_pool,
+                           const KV* __restrict__ v_pool,
                            const int* __restrict__ block_table,
                            const int* __restrict__ index,
                            const int* __restrict__ max_live,
                            float* __restrict__ out, int Q, int H, int Kv, int NB,
                            int BS, int MB, int window, float scale,
                            const int* __restrict__ depths,
-                           const int* __restrict__ bits) {
+                           const int* __restrict__ bits,
+                           const float* __restrict__ fresh_k,
+                           const float* __restrict__ fresh_v) {
   constexpr int DP = D + 1;                       // padded shared row stride
   // the threads that share a row's columns; each owns kCols of them
   constexpr int kColThreads = gcd(D, kF32Threads);  // 32, 16, 64, 128, 128
@@ -201,11 +232,40 @@ paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   for (int j = 0; j < live; ++j) {
     const int blk = min(max(tbl[j], 0), NB - 1);
     __syncthreads();   // the previous step is done with k_s, v_s and p_s
-    for (int e = tid; e < BS * D; e += kF32Threads) {
-      const int s = e / D, d = e % D;
-      const size_t off = ((static_cast<size_t>(blk) * BS + s) * Kv + h) * D + d;
-      k_s[s * DP + d] = k_pool[off];
-      v_s[s * DP + d] = v_pool[off];
+    if constexpr (sizeof(KV) == 1) {
+      // 4 columns a thread: one 4-byte load of each pool, dequantized, or
+      // the 4 values of fresh where it covers the key
+      for (int e = tid; e < BS * D / 4; e += kF32Threads) {
+        const int s = e / (D / 4), d = (e % (D / 4)) * 4;
+        const int rel = j * BS + s - idx_b;
+        float kx[4], vx[4];
+        if (fresh_k != nullptr && rel >= 0 && rel < Q) {
+          const size_t f = ((static_cast<size_t>(b) * Q + rel) * Kv + h) * D + d;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            kx[c] = fresh_k[f + c];
+            vx[c] = fresh_v[f + c];
+          }
+        } else {
+          const size_t off = ((static_cast<size_t>(blk) * BS + s) * Kv + h) * D + d;
+          const char4 kc = *reinterpret_cast<const char4*>(k_pool + off);
+          const char4 vc = *reinterpret_cast<const char4*>(v_pool + off);
+          kx[0] = dequant(kc.x), kx[1] = dequant(kc.y), kx[2] = dequant(kc.z), kx[3] = dequant(kc.w);
+          vx[0] = dequant(vc.x), vx[1] = dequant(vc.y), vx[2] = dequant(vc.z), vx[3] = dequant(vc.w);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          k_s[s * DP + d + c] = kx[c];
+          v_s[s * DP + d + c] = vx[c];
+        }
+      }
+    } else {
+      for (int e = tid; e < BS * D; e += kF32Threads) {
+        const int s = e / D, d = e % D;
+        const size_t off = ((static_cast<size_t>(blk) * BS + s) * Kv + h) * D + d;
+        k_s[s * DP + d] = k_pool[off];
+        v_s[s * DP + d] = v_pool[off];
+      }
     }
     __syncthreads();
 
@@ -322,6 +382,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 8 int8 pool values (8 bytes, element 0 in the low byte) -> 8 bf16 as
+// _from_buf makes them: fp32(x) * 0.05f rounded to nearest even
+__device__ __forceinline__ uint4 dequant8(uint2 raw) {
+  const uint32_t w[2] = {raw.x, raw.y};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = w[i >> 1];
+    const int sh = (i & 1) * 16;
+    o[i] = pack_bf16(dequant(static_cast<int8_t>((word >> sh) & 0xffu)),
+                     dequant(static_cast<int8_t>((word >> (sh + 8)) & 0xffu)));
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
 // bytes of one shared row of a D-wide bf16 tile: D * 2, padded to 128 (8
 // 16-byte pieces) below D = 64 so the swizzle below stays inside the row
 template <int D>
@@ -345,18 +420,22 @@ constexpr int bf16_smem_bytes() {
 
 // The workspace of a split call: acc [B, Kv, n_rows, n_chunks, D] fp32,
 // then (m, l) [B, Kv, n_rows, n_chunks] as float2; m in log2 units.
-template <int D, bool kTree>
+// KV: __nv_bfloat16 (a pool of q's type) or int8_t (an int8 pool, with
+// fresh_k / fresh_v as in the fp32 kernel).
+template <int D, bool kTree, typename KV>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k_pool,
-                            const __nv_bfloat16* __restrict__ v_pool,
+                            const KV* __restrict__ k_pool,
+                            const KV* __restrict__ v_pool,
                             const int* __restrict__ block_table,
                             const int* __restrict__ index,
                             const int* __restrict__ max_live,
                             float* __restrict__ ws, int Q, int H, int Kv, int NB,
                             int BS, int MB, int n_chunks, int window,
                             float scale_log2, const int* __restrict__ depths,
-                            const int* __restrict__ bits) {
+                            const int* __restrict__ bits,
+                            const __nv_bfloat16* __restrict__ fresh_k,
+                            const __nv_bfloat16* __restrict__ fresh_v) {
   constexpr int CH = D / 8;                     // 16-byte pieces per row
   constexpr int KT = D / 16;                    // k16 steps of QK^T
   // the output's pairs of n8 tiles (one ldmatrix.x4.trans of V each); warp
@@ -405,7 +484,8 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   if (key0 >= live) return;                     // the whole block: past the walk
   const int idx_b = index[b];
 
-  // group 0: the Q tile and the chunk's K; group 1: its V
+  // group 0: the Q tile and the chunk's K; group 1: its V (an int8 pool:
+  // group 0 the Q tile, K and V staged by plain loads, group 1 empty)
   for (int e = tid; e < kRows * CH; e += kThreads) {
     const int r = e / CH, ch = e % CH;
     const int rg = row0 + r;
@@ -417,20 +497,47 @@ paged_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async16(smem_u32(q_s + swz<D>(r, ch)), q + q_off, ok);
   }
+  if constexpr (sizeof(KV) == 1) {
+    cp_async_commit();
+    // each 16-byte piece (8 keys' columns) from an 8-byte int8 load,
+    // dequantized, or from fresh where it covers the key; zero past the walk
 #pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int e = tid + i * kThreads;
-    const int s = e / CH, ch = e % CH;
-    cp_async16(smem_u32(k_s + swz<D>(s, ch)), k_pool + off[i], key0 + s < live);
-  }
-  cp_async_commit();
+    for (int i = 0; i < kCopies; ++i) {
+      const int e = tid + i * kThreads;
+      const int s = e / CH, ch = e % CH;
+      const int key = key0 + s;
+      uint4 kc = make_uint4(0u, 0u, 0u, 0u), vc = kc;
+      if (key < live) {
+        const int rel = key - idx_b;
+        if (fresh_k != nullptr && rel >= 0 && rel < Q) {
+          const size_t f = ((static_cast<size_t>(b) * Q + rel) * Kv + h) * D + ch * 8;
+          kc = *reinterpret_cast<const uint4*>(fresh_k + f);
+          vc = *reinterpret_cast<const uint4*>(fresh_v + f);
+        } else {
+          kc = dequant8(*reinterpret_cast<const uint2*>(k_pool + off[i]));
+          vc = dequant8(*reinterpret_cast<const uint2*>(v_pool + off[i]));
+        }
+      }
+      *reinterpret_cast<uint4*>(k_s + swz<D>(s, ch)) = kc;
+      *reinterpret_cast<uint4*>(v_s + swz<D>(s, ch)) = vc;
+    }
+    cp_async_commit();
+  } else {
 #pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int e = tid + i * kThreads;
-    const int s = e / CH, ch = e % CH;
-    cp_async16(smem_u32(v_s + swz<D>(s, ch)), v_pool + off[i], key0 + s < live);
+    for (int i = 0; i < kCopies; ++i) {
+      const int e = tid + i * kThreads;
+      const int s = e / CH, ch = e % CH;
+      cp_async16(smem_u32(k_s + swz<D>(s, ch)), k_pool + off[i], key0 + s < live);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int e = tid + i * kThreads;
+      const int s = e / CH, ch = e % CH;
+      cp_async16(smem_u32(v_s + swz<D>(s, ch)), v_pool + off[i], key0 + s < live);
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 
   // this thread's two rows (g and g + 8): query position and, for the
   // tree, ancestor mask; padded rows see the prefix and are never stored
@@ -600,18 +707,19 @@ paged_combine_kernel(const float* __restrict__ ws, const int* __restrict__ index
       __float2bfloat16(A / fmaxf(L, 1e-30f));
 }
 
-template <int D, bool kTree>
+template <int D, bool kTree, typename KV>
 int launch_f32(const void* q, const void* k_pool, const void* v_pool,
                const void* block_table, const void* index, const void* max_live,
-               const void* depths, const void* bits, void* out, int B, int Q,
-               int H, int Kv, int NB, int BS, int MB, int window, float scale,
+               const void* depths, const void* bits, const void* fresh_k,
+               const void* fresh_v, void* out, int B, int Q, int H, int Kv,
+               int NB, int BS, int MB, int window, float scale,
                cudaStream_t stream) {
   constexpr int DP = D + 1;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kF32Rows) * DP + 2 * static_cast<size_t>(BS) * DP +
                        static_cast<size_t>(kF32Rows) * BS) +
       (kTree ? 2 * sizeof(int) * kF32Rows : 0);
-  auto kernel = paged_attention_f32_kernel<D, kTree>;
+  auto kernel = paged_attention_f32_kernel<D, kTree, KV>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -620,20 +728,22 @@ int launch_f32(const void* q, const void* k_pool, const void* v_pool,
   const int gq = H / Kv;
   const dim3 grid((Q * gq + kF32Rows - 1) / kF32Rows, Kv, B);
   kernel<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(block_table),
+      static_cast<const float*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), static_cast<const int*>(block_table),
       static_cast<const int*>(index), static_cast<const int*>(max_live),
       static_cast<float*>(out), Q, H, Kv, NB, BS, MB, window, scale,
-      static_cast<const int*>(depths), static_cast<const int*>(bits));
+      static_cast<const int*>(depths), static_cast<const int*>(bits),
+      static_cast<const float*>(fresh_k), static_cast<const float*>(fresh_v));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kTree>
+template <int D, bool kTree, typename KV>
 int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
                 const void* block_table, const void* index, const void* max_live,
-                const void* depths, const void* bits, void* out, void* ws, int B,
-                int Q, int H, int Kv, int NB, int BS, int MB, int n_chunks,
-                int window, float scale, cudaStream_t stream) {
+                const void* depths, const void* bits, const void* fresh_k,
+                const void* fresh_v, void* out, void* ws, int B, int Q, int H,
+                int Kv, int NB, int BS, int MB, int n_chunks, int window,
+                float scale, cudaStream_t stream) {
   const int n_rows = Q * (H / Kv);
   const long long blocks_x =
       static_cast<long long>((n_rows + kRows - 1) / kRows) * n_chunks;
@@ -643,18 +753,19 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
   static bool attribute_set = false;   // once per instantiation
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_bf16_kernel<D, kTree>,
+        paged_attention_bf16_kernel<D, kTree, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_set = true;
   }
-  paged_attention_bf16_kernel<D, kTree><<<dim3(static_cast<unsigned>(blocks_x), Kv, B),
-                                          kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int*>(block_table),
+  paged_attention_bf16_kernel<D, kTree, KV><<<dim3(static_cast<unsigned>(blocks_x), Kv, B),
+                                              kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), static_cast<const int*>(block_table),
       static_cast<const int*>(index), static_cast<const int*>(max_live),
       static_cast<float*>(ws), Q, H, Kv, NB, BS, MB, n_chunks, window,
-      scale * kLog2e, static_cast<const int*>(depths), static_cast<const int*>(bits));
+      scale * kLog2e, static_cast<const int*>(depths), static_cast<const int*>(bits),
+      static_cast<const __nv_bfloat16*>(fresh_k), static_cast<const __nv_bfloat16*>(fresh_v));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // the combine as a programmatic dependent launch: its launch overlaps the
@@ -675,82 +786,137 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
       static_cast<__nv_bfloat16*>(out), Q, H, Kv, BS, MB, n_chunks));
 }
 
+// one body's instantiation at head dim D (the tree policy takes 32 to 128)
+template <bool kTree, typename KV>
+int dispatch_f32(const void* q, const void* k_pool, const void* v_pool,
+                 const void* block_table, const void* index, const void* max_live,
+                 const void* depths, const void* bits, const void* fresh_k,
+                 const void* fresh_v, void* out, int B, int Q, int H, int Kv, int D,
+                 int NB, int BS, int MB, int window, float scale, cudaStream_t st) {
+#define REPRO_PA_F32(DIM)                                                           \
+  return launch_f32<DIM, kTree, KV>(q, k_pool, v_pool, block_table, index, max_live, \
+                                    depths, bits, fresh_k, fresh_v, out, B, Q, H,   \
+                                    Kv, NB, BS, MB, window, scale, st)
+  if (D == 32) REPRO_PA_F32(32);
+  if (D == 48) REPRO_PA_F32(48);
+  if (D == 64) REPRO_PA_F32(64);
+  if (D == 128) REPRO_PA_F32(128);
+  if constexpr (!kTree) {
+    if (D == 256) REPRO_PA_F32(256);
+  }
+#undef REPRO_PA_F32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kTree, typename KV>
+int dispatch_bf16(const void* q, const void* k_pool, const void* v_pool,
+                  const void* block_table, const void* index, const void* max_live,
+                  const void* depths, const void* bits, const void* fresh_k,
+                  const void* fresh_v, void* out, void* ws, int B, int Q, int H,
+                  int Kv, int D, int NB, int BS, int MB, int n_chunks, int window,
+                  float scale, cudaStream_t st) {
+#define REPRO_PA_BF16(DIM)                                                           \
+  return launch_bf16<DIM, kTree, KV>(q, k_pool, v_pool, block_table, index, max_live, \
+                                     depths, bits, fresh_k, fresh_v, out, ws, B, Q,  \
+                                     H, Kv, NB, BS, MB, n_chunks, window, scale, st)
+  if (D == 32) REPRO_PA_BF16(32);
+  if (D == 48) REPRO_PA_BF16(48);
+  if (D == 64) REPRO_PA_BF16(64);
+  if (D == 128) REPRO_PA_BF16(128);
+  if constexpr (!kTree) {
+    if (D == 256) REPRO_PA_BF16(256);
+  }
+#undef REPRO_PA_BF16
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: q's type (0 fp32, 1 bf16); kv_dtype: the pool's (dtype, or 2 =
+// int8). fresh_k / fresh_v: null, or both given over an int8 pool.
 template <bool kTree>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* block_table, const void* index, const void* max_live,
-             const void* depths, const void* bits, void* out, void* ws, int B,
-             int Q, int H, int Kv, int D, int NB, int BS, int MB, int n_chunks,
-             int window, float scale, int dtype, void* stream) {
+             const void* depths, const void* bits, const void* fresh_k,
+             const void* fresh_v, void* out, void* ws, int B, int Q, int H,
+             int Kv, int D, int NB, int BS, int MB, int n_chunks, int window,
+             float scale, int dtype, int kv_dtype, void* stream) {
   if (B < 1 || Q < 1 || Kv < 1 || H % Kv != 0 || BS < 1 || MB < 1 || NB < 1 ||
       Kv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8_pool = kv_dtype == 2;
+  if ((kv_dtype != dtype && !int8_pool) || ((fresh_k != nullptr) != (fresh_v != nullptr)) ||
+      (fresh_k != nullptr && !int8_pool))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && n_chunks == 1) {
-#define REPRO_PA_F32(DIM)                                                        \
-  return launch_f32<DIM, kTree>(q, k_pool, v_pool, block_table, index, max_live, \
-                                depths, bits, out, B, Q, H, Kv, NB, BS, MB,      \
-                                window, scale, st)
-    if (D == 32) REPRO_PA_F32(32);
-    if (D == 48) REPRO_PA_F32(48);
-    if (D == 64) REPRO_PA_F32(64);
-    if (D == 128) REPRO_PA_F32(128);
-    if constexpr (!kTree) {   // the tree policy takes 32 to 128 only
-      if (D == 256) REPRO_PA_F32(256);
+    if (int8_pool) {
+      if ((reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool)) % 4 != 0)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      return dispatch_f32<kTree, int8_t>(q, k_pool, v_pool, block_table, index, max_live,
+                                         depths, bits, fresh_k, fresh_v, out, B, Q, H,
+                                         Kv, D, NB, BS, MB, window, scale, st);
     }
-#undef REPRO_PA_F32
+    return dispatch_f32<kTree, float>(q, k_pool, v_pool, block_table, index, max_live,
+                                      depths, bits, nullptr, nullptr, out, B, Q, H, Kv,
+                                      D, NB, BS, MB, window, scale, st);
   }
   if (dtype == 1 && ws != nullptr) {
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pool) |
-         reinterpret_cast<uintptr_t>(v_pool) | reinterpret_cast<uintptr_t>(ws)) % 16 != 0)
+         reinterpret_cast<uintptr_t>(v_pool) | reinterpret_cast<uintptr_t>(ws) |
+         reinterpret_cast<uintptr_t>(fresh_k) | reinterpret_cast<uintptr_t>(fresh_v)) %
+            16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-#define REPRO_PA_BF16(DIM)                                                        \
-  return launch_bf16<DIM, kTree>(q, k_pool, v_pool, block_table, index, max_live, \
-                                 depths, bits, out, ws, B, Q, H, Kv, NB, BS, MB,  \
-                                 n_chunks, window, scale, st)
-    if (D == 32) REPRO_PA_BF16(32);
-    if (D == 48) REPRO_PA_BF16(48);
-    if (D == 64) REPRO_PA_BF16(64);
-    if (D == 128) REPRO_PA_BF16(128);
-    if constexpr (!kTree) {
-      if (D == 256) REPRO_PA_BF16(256);
-    }
-#undef REPRO_PA_BF16
+    if (int8_pool)
+      return dispatch_bf16<kTree, int8_t>(q, k_pool, v_pool, block_table, index, max_live,
+                                          depths, bits, fresh_k, fresh_v, out, ws, B, Q,
+                                          H, Kv, D, NB, BS, MB, n_chunks, window, scale,
+                                          st);
+    return dispatch_bf16<kTree, __nv_bfloat16>(q, k_pool, v_pool, block_table, index,
+                                               max_live, depths, bits, nullptr, nullptr,
+                                               out, ws, B, Q, H, Kv, D, NB, BS, MB,
+                                               n_chunks, window, scale, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// D: 32, 48, 64, 128 or 256. dtype: 0 = float32 (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks =
-// ceil(MB * BS / 64); ws a 16-byte aligned fp32 workspace of
-// B * Kv * Q * (H / Kv) * n_chunks * (D + 2) floats). window <= 0 means full
-// causal. max_live may be null (no cap). Returns a cudaError_t (0 =
-// launched).
+// D: 32, 48, 64, 128 or 256. dtype: q's (and out's) type, 0 = float32
+// (n_chunks 1, ws unused), 1 = bfloat16 (n_chunks = ceil(MB * BS / 64); ws a
+// 16-byte aligned fp32 workspace of B * Kv * Q * (H / Kv) * n_chunks * (D +
+// 2) floats). kv_dtype: the pools' type, dtype or 2 = int8. fresh_k /
+// fresh_v: null, or (int8 pools only) [B, Q, Kv, D] of q's type, read in
+// place of the pool at positions index..index+Q-1 (16-byte aligned in
+// bf16). window <= 0 means full causal. max_live may be null (no cap).
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const void* v_pool, const void* block_table,
                                    const void* index, const void* max_live,
+                                   const void* fresh_k, const void* fresh_v,
                                    void* out, void* ws, int B, int Q, int H,
                                    int Kv, int D, int NB, int BS, int MB,
                                    int n_chunks, int window, float scale,
-                                   int dtype, void* stream) {
+                                   int dtype, int kv_dtype, void* stream) {
   return dispatch<false>(q, k_pool, v_pool, block_table, index, max_live,
-                         nullptr, nullptr, out, ws, B, Q, H, Kv, D, NB, BS, MB,
-                         n_chunks, window, scale, dtype, stream);
+                         nullptr, nullptr, fresh_k, fresh_v, out, ws, B, Q, H, Kv,
+                         D, NB, BS, MB, n_chunks, window, scale, dtype, kv_dtype,
+                         stream);
 }
 
 // The tree policy: q/out [B, span, H, D]; depths/bits int32 [span] (bits
-// already windowed on the span side); span <= 31; D 32, 48, 64 or 128. Other
-// arguments as above.
+// already windowed on the span side); span <= 31; D 32, 48, 64 or 128;
+// fresh_k / fresh_v [B, span, Kv, D] when given. Other arguments as above.
 extern "C" int tree_attention_fwd(const void* q, const void* k_pool,
                                   const void* v_pool, const void* block_table,
                                   const void* index, const void* max_live,
                                   const void* depths, const void* bits,
+                                  const void* fresh_k, const void* fresh_v,
                                   void* out, void* ws, int B, int span, int H,
                                   int Kv, int D, int NB, int BS, int MB,
                                   int n_chunks, int window, float scale,
-                                  int dtype, void* stream) {
+                                  int dtype, int kv_dtype, void* stream) {
   if (span < 1 || span > 31) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(q, k_pool, v_pool, block_table, index, max_live,
-                        depths, bits, out, ws, B, span, H, Kv, D, NB, BS, MB,
-                        n_chunks, window, scale, dtype, stream);
+                        depths, bits, fresh_k, fresh_v, out, ws, B, span, H, Kv,
+                        D, NB, BS, MB, n_chunks, window, scale, dtype, kv_dtype,
+                        stream);
 }

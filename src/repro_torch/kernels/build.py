@@ -32,12 +32,12 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 # C entry points of each library: name -> (restype, argtypes)
 SIGNATURES = {
     "paged_attention": {
-        "paged_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P,
+        "paged_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _F, _I, _P]),
+                                     _F, _I, _I, _P]),
         "tree_attention_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _P]),
+                                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _F, _I, _I, _P]),
     },
     "flash_attention": {
         "flash_attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -3,9 +3,14 @@
 Model code calls these, never the C entry points. The kernel wrappers
 decide by the tensor's device: the plain version for a CPU tensor, the
 kernel for a CUDA tensor. Where the JAX wrappers send an explicit ``scale``
-or an int8 KV pool to the jnp oracle, the kernel wrapper raises for a CUDA
-tensor instead: the kernel takes neither, and neither occurs on the ported
-path.
+to the jnp oracle, the kernel wrapper raises for a CUDA tensor instead: the
+kernel does not take one, and none occurs on the ported path. JAX also
+sends an int8 KV pool to its oracle; here an int8 pool on the card
+launches the int8-pool variant of the paged and tree kernels, which
+dequantizes as ``cache.kv_cache._from_buf`` does (nothing falls back). The
+paged and tree wrappers take ``fresh = (k_new, v_new)``, the call's own
+K/V read in place of the pool at positions index..index+Q-1
+(``models.attention``), with an int8 pool only on the card.
 """
 from __future__ import annotations
 
@@ -43,20 +48,20 @@ def flash_attention(q, k, v, *, window=None, causal=True, s_valid=None):
 
 
 def paged_attention(q, k_pool, v_pool, block_table, index, *, window=None,
-                    scale=None, max_live=None):
+                    scale=None, max_live=None, fresh=None):
     """Block-table-native paged attention (prefill, draft and verify)."""
     return _pa.paged_flash_attention(q, k_pool, v_pool, block_table, index,
                                      window=window, scale=scale,
-                                     max_live=max_live)
+                                     max_live=max_live, fresh=fresh)
 
 
 def tree_attention(q, k_pool, v_pool, block_table, index, depths, bits, *,
-                   window=None, scale=None, max_live=None):
+                   window=None, scale=None, max_live=None, fresh=None):
     """Block-table-native tree-verify attention: one stacked pass scores all
     root-to-leaf paths of a speculation tree (depths/bits from core/tree.py)."""
     return _ta.tree_flash_attention(q, k_pool, v_pool, block_table, index,
                                     depths, bits, window=window, scale=scale,
-                                    max_live=max_live)
+                                    max_live=max_live, fresh=fresh)
 
 
 def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None):

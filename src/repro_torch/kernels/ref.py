@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.cache.kv_cache import _from_buf
 from repro_torch.models.attention import (NEG_INF, _expand_mask, _gqa_scores,
                                           _mask, attn_dense, attn_paged,
                                           attn_tree)
@@ -141,17 +142,18 @@ def flash_attention_bwd_tiled(q, k, v, o, lse, dout, *, window=None,
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, index, *,
-                        window=None, scale=None, max_live=None):
+                        window=None, scale=None, max_live=None, fresh=None):
     """The model-level block-scan paged attention."""
     return attn_paged(q, k_pool, v_pool, block_table, index, window=window,
-                      scale=scale, max_live=max_live)
+                      scale=scale, max_live=max_live, fresh=fresh)
 
 
 def tree_attention_ref(q, k_pool, v_pool, block_table, index, depths, bits,
-                       *, window=None, scale=None, max_live=None):
+                       *, window=None, scale=None, max_live=None, fresh=None):
     """The model-level block-scan tree attention."""
     return attn_tree(q, k_pool, v_pool, block_table, index, depths, bits,
-                     window=window, scale=scale, max_live=max_live)
+                     window=window, scale=scale, max_live=max_live,
+                     fresh=fresh)
 
 
 def live_keys(index, Q, BS, MB, max_live=None):
@@ -168,7 +170,7 @@ def live_keys(index, Q, BS, MB, max_live=None):
 
 def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
                     bits=None, window=None, max_live=None, chunk=64,
-                    p_bf16=False):
+                    p_bf16=False, fresh=None):
     """The split computation of the bf16 paged / tree kernels in plain
     PyTorch (fp32): each row's keys go in fixed chunks of ``chunk`` keys
     counted from key 0; each chunk gives a partial (max m, sum l, weighted
@@ -177,11 +179,15 @@ def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
     the row's ``live_keys`` are masked; ``depths``/``bits`` select the tree
     policy (``_tree_mask``), else causal. ``p_bf16`` rounds the weights to
     bf16 before the value product, as the kernel's tensor cores take them.
+    Keys are read as the kernels stage them: ``_from_buf(pool, q.dtype)``
+    (an int8 pool dequantized, then rounded to q's dtype), with ``fresh``
+    (k_new, v_new) [B, Q, Kv, D] read in place of positions
+    index..index+Q-1 when given.
 
     Each (query row, chunk) is computed on its own, with tensors whose
     shapes depend on neither Q nor the chunk count, so a row's result does
     not depend on the call's Q (the property the kernel keeps)."""
-    from repro_torch.models.attention import NEG_INF, _mask, _tree_mask
+    from repro_torch.models.attention import NEG_INF, _mask, _overlay, _tree_mask
     B, Q, H, D = q.shape
     BS, Kv = k_pool.shape[1], k_pool.shape[2]
     MB = block_table.shape[1]
@@ -206,8 +212,12 @@ def paged_split_ref(q, k_pool, v_pool, block_table, index, *, depths=None,
     # masked like every key past the live bound)
     cols = torch.clamp(kv_pos.long(), max=MB * BS - 1)
     blk = torch.clamp(block_table.long()[:, cols // BS], 0, k_pool.shape[0] - 1)
-    kf = k_pool[blk, cols % BS].float()                               # [B, S, Kv, D]
-    vf = v_pool[blk, cols % BS].float()
+    kf = _from_buf(k_pool[blk, cols % BS], q.dtype)                   # [B, S, Kv, D]
+    vf = _from_buf(v_pool[blk, cols % BS], q.dtype)
+    if fresh is not None:
+        kf = _overlay(kf, fresh[0], idx, kv_pos)
+        vf = _overlay(vf, fresh[1], idx, kv_pos)
+    kf, vf = kf.float(), vf.float()
     kc = kf.permute(0, 2, 1, 3).reshape(B, Kv, 1, n_chunks, chunk, D)
     vc = vf.permute(0, 2, 3, 1).reshape(B, Kv, 1, D, n_chunks, chunk)
     scale = D ** -0.5

@@ -10,7 +10,8 @@ and how the design answers); ``plain`` (``kernels/ref.py``, the port's
 ``tree_flash_attention`` takes the plain version for a CPU tensor. For a
 CUDA tensor it launches the kernel — counting the launch in
 ``tree_flash_attention.launches`` — or raises on what the kernel does not
-take; it never falls back.
+take; it never falls back. An int8 pool and ``fresh`` go as for
+``paged_attention.paged_flash_attention``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.core.tree import MAX_SPAN
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import as_int32, check_args, launch
+from repro_torch.kernels.paged_attention import (as_int32, check_args,
+                                                 check_fresh, launch)
 from repro_torch.kernels.ref import tree_attention_ref as plain
 
 TREE_HEAD_DIMS = (32, 48, 64, 128)    # the tree policy's instantiations
@@ -36,20 +38,22 @@ def fold_window(depths, bits, window):
 
 
 def tree_flash_attention(q, k_pool, v_pool, block_table, index, depths, bits,
-                         *, window=None, scale=None, max_live=None):
+                         *, window=None, scale=None, max_live=None, fresh=None):
     """q: [B, span, H, D], the packed [root, node_1..node_N] verify span whose
     KV was just written at pool positions index..index+span-1;
     k_pool/v_pool: [NB, BS, Kv, D]; block_table: [B, MB] int32; index: [B]
     (or scalar); depths/bits: int32 [span] (``core.tree``; on the card,
     device tensors are used as they are). ``max_live`` as for
-    ``paged_flash_attention``. The kernel uses scale D**-0.5: an explicit
-    ``scale`` is taken only on the CPU."""
+    ``paged_flash_attention``, and so are an int8 pool and ``fresh`` (the
+    span's K/V). The kernel uses scale D**-0.5: an explicit ``scale`` is
+    taken only on the CPU."""
     if q.device.type == "cpu":
         return plain(q, k_pool, v_pool, block_table, index, depths, bits,
-                     window=window, scale=scale, max_live=max_live)
+                     window=window, scale=scale, max_live=max_live, fresh=fresh)
     build.check_no_grad("tree attention", q, k_pool, v_pool)
     check_args("tree attention", q, k_pool, v_pool, scale, window,
-               head_dims=TREE_HEAD_DIMS)
+               head_dims=TREE_HEAD_DIMS, int8_pool=True)
+    check_fresh("tree attention", q, k_pool, fresh)
     S = q.shape[1]
     if S > MAX_SPAN:
         raise ValueError(f"tree attention kernel takes a span of at most "
@@ -59,7 +63,7 @@ def tree_flash_attention(q, k_pool, v_pool, block_table, index, depths, bits,
     if window is not None:
         bts = fold_window(dep, bts, int(window))
     out = launch("tree_attention_fwd", q, k_pool, v_pool, block_table, index,
-                 max_live, window, (dep, bts))
+                 max_live, window, (dep, bts), fresh=fresh)
     tree_flash_attention.launches += 1
     return out
 

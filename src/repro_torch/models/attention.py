@@ -24,6 +24,14 @@ Ring cache: the dense forward reads a ring buffer through the paged pair
 above, over a view of the ring as a pool of pages (``models.dense``).
 ``attn_tree_ring`` is JAX's plain tree read over a ring (dense scores with
 the ``_tree_mask`` visibility), the reference that read is held against.
+
+``fresh = (k_new, v_new)`` ([B, Q, Kv, D], q's dtype), taken by every
+paged and tree reader, overlays the call's own K/V on the pool: a key at
+position p with index[b] <= p < index[b] + Q is read from
+``fresh[b, p - index[b]]`` instead of from the pool, every other key as
+``_from_buf(pool, q.dtype)``. The dense forward passes it for a Q > 1 read
+of an int8 ring, so the call's own keys are read unquantized, as JAX's
+[old buffer ++ new tokens] concat reads them.
 """
 from __future__ import annotations
 
@@ -158,8 +166,30 @@ def attention_flash(q, k, v, *, window=None, causal=True):
 
 
 # ------------------------------------------------------------- paged read path
+def _overlay(kv_j, fresh_kv, idx, kv_pos):
+    """Block ``kv_j`` [B, BS, Kv, D] (positions ``kv_pos`` [BS]) with the
+    keys at idx[b] <= p < idx[b] + Q taken from ``fresh_kv`` [B, Q, Kv, D]
+    (see the module docstring)."""
+    Q = fresh_kv.shape[1]
+    rel = kv_pos[None, :] - idx[:, None]                           # [B, BS]
+    rows = torch.arange(kv_j.shape[0], device=kv_j.device)[:, None]
+    src = fresh_kv[rows, torch.clamp(rel, 0, Q - 1).long()]
+    return torch.where(((rel >= 0) & (rel < Q))[..., None, None], src, kv_j)
+
+
+def _read_block(k_pool, v_pool, blk, dtype, fresh, idx, kv_pos):
+    """Block ``blk`` [B] of the pools as ``dtype`` (dequantized from int8),
+    with ``fresh`` overlaid when given."""
+    k_j = _from_buf(k_pool[blk], dtype)                            # [B, BS, Kv, D]
+    v_j = _from_buf(v_pool[blk], dtype)
+    if fresh is not None:
+        k_j = _overlay(k_j, fresh[0], idx, kv_pos)
+        v_j = _overlay(v_j, fresh[1], idx, kv_pos)
+    return k_j, v_j
+
+
 def attn_paged(q, k_pool, v_pool, block_table, index, *, window=None,
-               scale=None, max_live=None):
+               scale=None, max_live=None, fresh=None):
     """Block-table-native attention over a paged KV pool (plain version).
 
     q:            [B, Q, H, D] queries at absolute positions index..index+Q-1
@@ -169,6 +199,8 @@ def attn_paged(q, k_pool, v_pool, block_table, index, *, window=None,
     index:        [B] (or scalar) committed tokens per row BEFORE this write.
     max_live:     optional live-token bound (max over rows of index+Q); when
                   None it is computed from ``index``.
+    fresh:        optional (k_new, v_new) [B, Q, Kv, D] in q's dtype, read in
+                  place of the pool at positions index..index+Q-1.
 
     The loop runs ``ceil(max_live / BS)`` block steps, not ``MB``. The loop
     count is read on the host, so on a CUDA tensor this version syncs once
@@ -191,23 +223,23 @@ def attn_paged(q, k_pool, v_pool, block_table, index, *, window=None,
     carry = _online_carry(B, Kv, G, Q, D, q.device)
     table = block_table.long()
     for j in range(n_blocks):
-        blk = table[:, j]                                          # [B]
-        k_j = _from_buf(k_pool[blk], q.dtype)                     # [B, BS, Kv, D]
-        v_j = _from_buf(v_pool[blk], q.dtype)
         kv_pos = j * BS + torch.arange(BS, dtype=torch.int32, device=q.device)
+        k_j, v_j = _read_block(k_pool, v_pool, table[:, j], q.dtype, fresh,
+                               idx, kv_pos)
         carry = _online_step(carry, qf, k_j, v_j, q_pos, kv_pos, window, scale)
     acc, _, den = carry
     return _online_emit(acc, den, B, Q, H, D, q.dtype)
 
 
 def attention_paged(q, k_pool, v_pool, block_table, index, *, window=None,
-                    scale=None, max_live=None):
+                    scale=None, max_live=None, fresh=None):
     """Paged-attention dispatch: the tensor's device decides — the plain
     version for a CPU tensor, the CUDA kernel for a CUDA tensor (see
     ``repro_torch.kernels.ops.paged_attention``)."""
     from repro_torch.kernels import ops
     return ops.paged_attention(q, k_pool, v_pool, block_table, index,
-                               window=window, scale=scale, max_live=max_live)
+                               window=window, scale=scale, max_live=max_live,
+                               fresh=fresh)
 
 
 # -------------------------------------------------------------- tree read path
@@ -265,14 +297,15 @@ def attn_tree_ring(q, k, v, index, depths, bits, *, window=None, scale=None):
 
 
 def attn_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
-              window=None, scale=None, max_live=None):
+              window=None, scale=None, max_live=None, fresh=None):
     """Tree-verify attention over a paged block pool (plain version).
 
     Same block-bounded online-softmax loop as ``attn_paged``, with the
     causal mask replaced by ``_tree_mask``: the span slots written at
     index..index+span-1 are only visible along each query's root path.
-    q: [B, span, H, D]; depths/bits: int32 [span] (``core.tree``). Like
-    ``attn_paged``, it reads its loop count on the host."""
+    q: [B, span, H, D]; depths/bits: int32 [span] (``core.tree``);
+    ``fresh`` as for ``attn_paged`` (the span's slots). Like ``attn_paged``,
+    it reads its loop count on the host."""
     B, S, H, D = q.shape                                        # S = span
     BS, Kv = k_pool.shape[1], k_pool.shape[2]
     MB = block_table.shape[1]
@@ -291,10 +324,9 @@ def attn_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
     carry = _online_carry(B, Kv, G, S, D, q.device)
     table = block_table.long()
     for j in range(n_blocks):
-        blk = table[:, j]
-        k_j = _from_buf(k_pool[blk], q.dtype)
-        v_j = _from_buf(v_pool[blk], q.dtype)
         kv_pos = j * BS + torch.arange(BS, dtype=torch.int32, device=q.device)
+        k_j, v_j = _read_block(k_pool, v_pool, table[:, j], q.dtype, fresh,
+                               idx, kv_pos)
         m = _tree_mask(idx, kv_pos, depths, bits, window)
         carry = _online_step(carry, qf, k_j, v_j, q_pos, kv_pos, window,
                              scale, mask=m)
@@ -303,11 +335,11 @@ def attn_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
 
 
 def attention_tree(q, k_pool, v_pool, block_table, index, depths, bits, *,
-                   window=None, scale=None, max_live=None):
+                   window=None, scale=None, max_live=None, fresh=None):
     """Tree-attention dispatch: the tensor's device decides — the plain
     version for a CPU tensor, the CUDA kernel for a CUDA tensor (see
     ``repro_torch.kernels.ops.tree_attention``)."""
     from repro_torch.kernels import ops
     return ops.tree_attention(q, k_pool, v_pool, block_table, index, depths,
                               bits, window=window, scale=scale,
-                              max_live=max_live)
+                              max_live=max_live, fresh=fresh)

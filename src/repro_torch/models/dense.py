@@ -33,6 +33,17 @@ evicts no key a query still sees:
     over its own tokens (``attention_flash``: the flash kernel on the card),
     and the ring keeps the last W of them. Any other call raises.
 
+An int8 ring stores each token quantized (``kv_cache._to_buf_dtype``). JAX
+reads a Q = 1 call from the written, quantized buffer, but a Q > 1 call
+from [dequantized old buffer ++ the call's K/V unquantized]. So a Q > 1
+read of an int8 ring passes the call's K/V as ``fresh`` (``ring_fresh``):
+the reader takes positions index..index+Q-1 from them, unquantized, and
+every other key from the ring. That covers verify passes, tree spans,
+prefills through the write route and chunked ring prefills; it is decided
+from shapes and dtypes, so it reads nothing on the host. A paged pool is
+read quantized at every Q, as JAX's ``paged_kv.write`` + ``attn_paged``
+read it.
+
 The table's width is the positions the ring was sized for (the cache's
 ``positions`` entry, a windowed ring's only extra leaf). A per-row engine
 runs every row until the slowest is done (kept from JAX), so a finished
@@ -118,12 +129,23 @@ def ring_view(buf):
     return buf.view(-1, RING_PAGE, *buf.shape[2:])
 
 
+def ring_fresh(layer_cache, k, v):
+    """The ``fresh`` a ring read of the call's K/V ``k``/``v`` [B, Q, Kv, D]
+    takes (see the module docstring): (k, v) for an int8 ring at Q > 1,
+    else None."""
+    if layer_cache["k"].dtype == torch.int8 and k.shape[1] > 1:
+        return k.contiguous(), v.contiguous()
+    return None
+
+
 def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
                max_live=None, tree=None, ring=None, use_rope=True):
     """Self-attention sub-block. ``layer_cache=None`` is the no-cache pass
     (q_pos = 0..Q-1 on both sides). Otherwise write this step's K/V into
     the cache (in place), then read it through ``block_table``: the pool's
-    own table, or for a ring (``ring="write"``) its view's. ``ring=
+    own table, or for a ring (``ring="write"``) its view's, with the
+    call's own K/V read unquantized from an int8 ring at Q > 1
+    (``ring_fresh``). ``ring=
     "flash"`` is a ring prefill from index 0 longer than the ring: windowed
     causal attention over the call's own tokens, then the write. ``tree``
     = (depths, bits) int32 [Q] device tensors marks a stacked tree-verify
@@ -145,7 +167,9 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
         if layer_cache is not None:
             RING.write(layer_cache, k, v, index)
         return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
+    fresh = None
     if ring:
+        fresh = ring_fresh(layer_cache, k, v)
         layer_cache = RING.write(layer_cache, k, v, index)
         k_pool, v_pool = ring_view(layer_cache["k"]), ring_view(layer_cache["v"])
     else:
@@ -153,10 +177,11 @@ def attn_block(cfg, p, x, q_pos, layer_cache, index, window, block_table,
         k_pool, v_pool = layer_cache["k"], layer_cache["v"]
     if tree is not None:
         o = attention_tree(q, k_pool, v_pool, block_table, index, tree[0],
-                           tree[1], window=window, max_live=max_live)
+                           tree[1], window=window, max_live=max_live,
+                           fresh=fresh)
     else:
         o = attention_paged(q, k_pool, v_pool, block_table, index,
-                            window=window, max_live=max_live)
+                            window=window, max_live=max_live, fresh=fresh)
     return L.linear(p["o"], o.reshape(B, Q, cfg.num_heads * hd))
 
 

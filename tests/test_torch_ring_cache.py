@@ -200,15 +200,17 @@ def _ring_and_new(seed, W, index, Q, H, dtype):
 
 
 @pytest.mark.parametrize("dtype,Q", [("float32", 1), ("float32", 5),
-                                     ("float32", 16), ("int8", 1)])
+                                     ("float32", 16), ("int8", 1), ("int8", 5),
+                                     ("int8", 16)])
 @pytest.mark.parametrize("kind,base", [("scalar", 0), ("scalar", 9),
                                        ("rows", 4), ("rows", 13)])
 def test_identity_view_read_matches_jax_concat(dtype, Q, kind, base):
     """Write first, then the paged read over the ring's identity view ==
-    JAX's attention over [old buffer ++ new] at ``slot_positions``. An
-    int8 ring only at Q = 1, where JAX too reads the written (quantized)
-    buffer: at Q > 1 its concat reads the new tokens unquantized (int8 KV
-    caches are a later slice's)."""
+    JAX's attention over [old buffer ++ new] at ``slot_positions``. On an
+    int8 ring JAX reads a Q = 1 call from the written (quantized) buffer
+    and a Q > 1 call's own tokens unquantized from its concat; the port's
+    read takes them from ``dense.ring_fresh``, which gives the call's K/V
+    at Q > 1 on an int8 ring and nothing otherwise."""
     W, H = 32, 4
     idx = _index(kind, base)
     buf, k_new, v_new, q = _ring_and_new(7, W, idx, Q, H, dtype)
@@ -221,8 +223,11 @@ def test_identity_view_read_matches_jax_concat(dtype, Q, kind, base):
     lc = cache_ops.RING.write({n: _t(a) for n, a in buf.items()}, _t(k_new),
                               _t(v_new), _t(idx))
     table = dense.ring_view_table(B, W, "cpu")
+    fresh = dense.ring_fresh(lc, _t(k_new), _t(v_new))
+    assert (fresh is not None) == (dtype == "int8" and Q > 1)
     got = attention.attention_paged(_t(q), dense.ring_view(lc["k"]),
-                                    dense.ring_view(lc["v"]), table, _t(idx))
+                                    dense.ring_view(lc["v"]), table, _t(idx),
+                                    fresh=fresh)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
 
 

@@ -292,23 +292,26 @@ def _to_jax(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "encdec"])
-def test_prefill_and_decode_steps_match_jax(family, mesh):
+def _prefill_and_decode(family, mesh, cache_int8):
     """The prefill step over S - 1 tokens on a fresh cache of S (the
     decode step's), then the decode step on the next token (the
     encoder-decoder's with seeded cross K/V), against JAX's jitted steps
-    on the same inputs: logits and cache indices."""
+    on the same inputs (both built with ``cache_int8``): logits and cache
+    indices."""
     jmesh, pol = mesh
     _, cfg, jm, m, jp, tp = _setup(FAMILIES[family])
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    fn, _ = steps.build_prefill_step(m, ShapeConfig("p", S, B, "prefill"))
-    dfn, dinp = steps.build_decode_step(m, ShapeConfig("d", S, B, "decode"))
+    fn, _ = steps.build_prefill_step(m, ShapeConfig("p", S, B, "prefill"),
+                                     cache_int8=cache_int8)
+    dfn, dinp = steps.build_decode_step(m, ShapeConfig("d", S, B, "decode"),
+                                        cache_int8=cache_int8)
+    assert (dinp["cache"]["k"].dtype == torch.int8) == cache_int8
     with jmesh:
         jfn, jinp = jax_steps.build_prefill_step(
-            jm, jmesh, pol, JaxShape("p", S, B, "prefill"))
+            jm, jmesh, pol, JaxShape("p", S, B, "prefill"), cache_int8=cache_int8)
         jdfn, jdinp = jax_steps.build_decode_step(
-            jm, jmesh, pol, JaxShape("d", S, B, "decode"))
+            jm, jmesh, pol, JaxShape("d", S, B, "decode"), cache_int8=cache_int8)
         ex, dex = _normal(rng, jinp["extras"]), _normal(rng, jdinp["extras"])
         jl, jcache = jfn(jp, jnp.asarray(toks[:, :-1]), _zeros(jdinp["cache"]),
                          _to_jax(ex))
@@ -321,6 +324,20 @@ def test_prefill_and_decode_steps_match_jax(family, mesh):
         tl, tcache = dfn(tp, torch.as_tensor(toks[:, -1:]), tcache, _to_port(dex))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert int(tcache["index"]) == int(jcache["index"]) == S
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "encdec"])
+def test_prefill_and_decode_steps_match_jax(family, mesh):
+    """``_prefill_and_decode`` over the activation-dtype cache."""
+    _prefill_and_decode(family, mesh, cache_int8=False)
+
+
+@pytest.mark.parametrize("family", ["dense", "moe", "encdec"])
+def test_int8_prefill_and_decode_steps_match_jax(family, mesh):
+    """``_prefill_and_decode`` with ``cache_int8``: the prefill reads its own
+    tokens unquantized (JAX's concat; the port's ``fresh``), the decode
+    step the quantized ring."""
+    _prefill_and_decode(family, mesh, cache_int8=True)
 
 
 def _spec_pair(family):
