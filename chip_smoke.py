@@ -73,7 +73,13 @@
    the Whisper encoder (B=2, S=1500; fp32, bf16, and the drafter's
    geometry) and for its cross-attention (Sq 1, 5 and 3 over 1500 keys),
    causal for the InternVL no-cache pass (S = 256 + 70, both geometries,
-   fp32 and bf16); the argmax at [10, 92553] and [10, 51866].
+   fp32 and bf16); the argmax at [10, 92553] and [10, 51866]. Then the
+   per-shard geometries of the tensor-parallel phase (``tp_kernel_cases``,
+   TP_GEOMS: the 3B target over 4 devices, 6/2/128, and the 1B drafter
+   over 2, 16/4/64): paged attention at Q 1 and 5, the ring view at
+   RING_CASES, tree attention at chain_tree(2, 4), flash attention at the
+   no-cache length, each against its plain version, and the Q-invariance
+   check, fp32 and bf16.
 3. Smoke-width exactness on the card: the llama3.2-1b smoke pair (fp32,
    drafter = the target's first L-1 layers, so some drafts are rejected)
    served speculatively, served with AR rounds only, and served on the CPU
@@ -194,7 +200,26 @@
    overcommit (tokens == step 4's, the pool whole, an injected drafter
    failure degraded to AR), a corrupt-output serve (the poisoned requests
    fail with the reason, the survivors exact), and a paged kernel made to
-   fail inside a round: ``step()`` raises, nothing degrades. Then the
+   fail inside a round: ``step()`` raises, nothing degrades. Then tensor
+   parallelism (``"phase": "full_width_tensor_parallel"``): the pair under
+   ``PlacementPlan(drafter=d2, target=t4)`` lowered on six ``cuda:0``
+   entries, so the drafter's params and caches split over 2 shards (16 q /
+   4 KV heads of 64 each) and the target's over 4 (6 / 2 heads of 128),
+   every shard's kernels launched in turn on the one card: (a) the placed
+   paged server on step 4's trace (block 16, gamma 4): its tokens against
+   step 4's unsharded tokens, a parting allowed only where
+   ``near_ties`` over the whole and the split target explains it; the
+   spec tokens == the sharded AR
+   serve's (all 8 requests in one batch) exactly; paged launches == the
+   events' passes x each role's shard count, exactly; (b) the placed
+   cached engine through ``Session`` on step 7's no-cache traffic (one
+   wave of 4): tokens against the cached serve's (same rule), == the
+   sharded cached AR's, launches rounds x (gamma L_d x 2 + L_t x 4) + the
+   split prefill's L_t x 4 + L_d x 2; (c) one
+   fp32 forward (the 3B cut to TP_LAYERS layers, TF32 off) sharded and
+   unsharded, no-cache and a cached decode step: max |d| <= TP_TOL x
+   max |logits|; (d) wall per round sharded and unsharded, a reading (one
+   card: the extra launches and the reductions, no transfer). Then the
    streaming front end and the continuous ring server (``"phase":
    "full_width_frontend"``): (a) ``Session.serve_async`` replays
    ``poisson_trace(12, 4.0)`` (prompts 16-120, 32-64 new, deadlines
@@ -254,8 +279,9 @@
    tooling on the same pair (step 10a), then the
    ``mamba2-780m`` target with its registered drafter (``"full_width_ssm"``:
    one SSD launch per layer pass); tokens == AR's, exact counts of all six
-   kernels, each followed by a profiled serve (``"profile_w8a8"``,
-   ``"profile_ssm"``); then a reading (it fails nothing): the Mamba-2
+   kernels, the Mamba-2 one followed by a profiled serve
+   (``"profile_ssm"``; w8a8's profile was dropped for time); then
+   a reading (it fails nothing): the Mamba-2
    target's no-cache logits on a T=128 buffer against a T=134 buffer
    sharing its first 128 tokens (``"phase": "buffer_invariance"``: bit-equal
    or not, else their max |d| and smallest top-1 margin); last, (d) the
@@ -264,7 +290,7 @@
    waves x (48 + 12), from the prefills only, an argmax a round; its
    tokens against cached AR's and the no-cache serve's are readings (a
    bf16 state is rounded once a token by AR and once a round by the spec
-   serve, so the two drift apart), profiled (``"profile_ssm_cached"``).
+   serve, so the two drift apart); not profiled (time).
 10a. The compile tooling (``"phase": "compile_steps"``): (a)
    ``launch.dryrun.run_one`` for every registry arch x input shape on
    meta tensors (one line a record, then the ok / skipped / failed counts;
@@ -334,9 +360,9 @@
    prefill; an argmax a round) and held to AR of its mode up to each first
    difference, which a logit near-tie or a router near-tie (the two
    evaluations' expert choice or k-th probability gap, in some layer at a
-   generated position up to the difference) must explain; a short paged
-   serve under ``torch.profiler`` (``"profile_moe"``); Llama 4 Maverick is
-   only planned. Then the VLM and encoder-decoder families, each after
+   generated position up to the difference) must explain (its profiled
+   serve was dropped for time); Llama 4 Maverick is only planned. Then
+   the VLM and encoder-decoder families, each after
    every earlier model is freed. InternVL2-26B with ``internvl2-draft``
    (``"phase": "full_width_vlm"``; bf16, full width and depth, the vision
    front end a stub: seeded patches [2, 256, 3200] for each role; the free
@@ -1742,7 +1768,8 @@ def full_width(mt, md, pt, pd, cfg, card):
         srv, _ = serve(mt, md, pt, pd, reqs[:4], scfg, GAMMA, "cuda")
         return srv.total_rounds, srv.n_prefills
     profile("profile", run, pt, pd, card)
-    return launches, {"reqs": reqs, "tokens": done, "ar": out_ar}
+    return launches, {"reqs": reqs, "tokens": done, "ar": out_ar,
+                      "ms_per_round": wall / rounds * 1e3}
 
 
 def chunked_trace(cfg, n=12):
@@ -2420,7 +2447,8 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     target pass, and no other kernel launches. The tokens must equal
     no-cache AR's; with ``near_ties`` a request may part from AR where
     ``first_differences`` explains it by a near-tie. Then the spec serve's
-    first wave runs once more under ``torch.profiler``."""
+    first wave runs once more under ``torch.profiler`` (as
+    ``profile_phase``; None profiles nothing)."""
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
     R, batch = 4, 2
@@ -2490,7 +2518,7 @@ def nocache_phase(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
             _, st = serve_cli.serve(mt, md, pt, pd, prompts[:batch],
                                     NOCACHE_NEW, gamma=GAMMA, batch=batch)
         return st["rounds"], 0
-    prof = profile(profile_phase, run, pt, pd, card)
+    prof = profile(profile_phase, run, pt, pd, card) if profile_phase else None
     return {"launches": s["launches"], "tokens": spec, "info": info,
             "profile": prof}
 
@@ -2527,7 +2555,8 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
     is not what the reference gives, and the port is held to JAX mode by
     mode on the CPU instead; ``smoke_ssm_cached_exactness`` holds the
     cached Mamba-2 path exactly at fp32. Then the spec serve's first wave
-    once more under ``torch.profiler``."""
+    once more under ``torch.profiler`` (as ``profile_phase``, with the
+    cache-saving line; None profiles nothing)."""
     from repro_torch.core.engine import STATEFUL_FAMILIES
     from repro_torch.launch import serve as serve_cli
     counters = kernel_counters()
@@ -2613,8 +2642,10 @@ def cached_serve(phase, profile_phase, mt, md, pt, pd, cfg, card, per_pass,
         _, st = serve_cli.serve(mt, md, pt, pd, prompts[:batch], NOCACHE_NEW,
                                 gamma=GAMMA, batch=batch, use_cache=True)
         return st["rounds"], st["waves"]
-    prof = profile(profile_phase, run, pt, pd, card)
-    emit(cache_saving(phase, nocache, info, prof))
+    prof = None
+    if profile_phase:
+        prof = profile(profile_phase, run, pt, pd, card)
+        emit(cache_saving(phase, nocache, info, prof))
     return {"launches": s["launches"], "tokens": spec, "ar": ar, "info": info,
             "profile": prof}
 
@@ -3466,6 +3497,198 @@ def full_width_placed(mt, md, pt, pd, cfg, card, linear, cached):
     return total
 
 
+TP_PLAN = (("d2", ("dx",), (2,)), ("t4", ("tx",), (4,)))   # drafter, target
+TP_GEOMS = (("llama3.2-3b/t4", 6, 2, 128), ("llama3.2-1b/d2", 16, 4, 64))
+TP_LAYERS = 4      # (c): the fp32 3B cut to 4 layers (full width)
+TP_TOL = 1e-4      # (c): max |sharded - unsharded| <= TP_TOL * max |logits|
+
+
+def tp_kernel_cases(timer):
+    """The kernels at the per-shard head counts TP_PLAN gives the pair
+    (TP_GEOMS), each against its plain version with its time, bound and
+    library time: paged attention at Q 1 and GAMMA + 1 and tree attention
+    at chain_tree(TREE_W, TREE_D), fp32 and bf16; the ring view at
+    RING_CASES; flash attention at the no-cache length; then the
+    Q-invariance check. Returns the cases by kernel."""
+    from repro_torch.core.tree import chain_tree
+    T = NOCACHE_PROMPT + NOCACHE_NEW + GAMMA + 2
+    out = {"paged": [], "tree": [], "flash": []}
+    for name, H, Kv, D in TP_GEOMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["paged"] += [attention_case(timer, name, H, Kv, D, Q, dtype)
+                             for Q in (1, GAMMA + 1)]
+            out["tree"].append(tree_attention_case(
+                timer, "chain_tree(2,4)", chain_tree(TREE_W, TREE_D), dtype,
+                geom=(name, H, Kv, D)))
+            out["flash"].append(flash_case(timer, name, H, Kv, D, T, dtype))
+            q_invariance(name, H, Kv, D, dtype)
+        out["paged"] += [ring_view_case(timer, name, H, Kv, D, Q, start)
+                         for Q, start in RING_CASES]
+    return out
+
+
+def full_width_tensor_parallel(mt, md, pt, pd, cfg, card, linear, cached):
+    """Tensor parallelism of both roles at full width (bf16; ``"phase":
+    "full_width_tensor_parallel"``), on one card: the module docstring's
+    parts (a)-(d). Every kernel's count is set to 0 just before each
+    counted run and read just after. Returns the launches of (a)'s and
+    (b)'s speculative runs."""
+    import dataclasses
+
+    from repro_torch.api import PlacementPlan, Session, SubmeshSpec, lower
+    from repro_torch.core.engine import autoregressive_generate
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import tp
+    from repro_torch.serving import (PagedSpecServer, RoundWatchdog,
+                                     SchedulerConfig, ServeRequest)
+    t_phase = time.perf_counter()
+    plan = PlacementPlan(drafter=SubmeshSpec(*TP_PLAN[0]),
+                         target=SubmeshSpec(*TP_PLAN[1]))
+    pm = lower(plan, [torch.device("cuda", 0)] * 6)
+    lay_t, lay_d = pm.target.layout(mt), pm.drafter.layout(md)
+    spt, spd = pm.target.put_params(mt, pt), pm.drafter.put_params(md, pd)
+    L_t, L_d = len(pt["layers"]), len(pd["layers"])
+    n_t, n_d = lay_t.n, lay_d.n
+    counters = kernel_counters()
+    total = {name: 0 for name in counters}
+    torch.cuda.synchronize()
+
+    def counted(fn, add=True):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        if add:
+            for n, v in launches.items():
+                total[n] += v
+        return out, time.perf_counter() - t0, launches
+
+    def check(info, ok):
+        emit(info)
+        if not ok:
+            raise SystemExit(f"full-width tensor-parallel part failed: {info}")
+    emit({"phase": "full_width_tensor_parallel", "part": "layout", "card": card,
+          "placement": pm.describe(), "target": lay_t.describe(),
+          "drafter": lay_d.describe(),
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    # (a) the placed paged server on the linear trace, block 16
+    reqs = linear["reqs"]
+    scfg = SchedulerConfig(max_batch=4, block_size=16, num_blocks=256,
+                           max_blocks_per_row=16)
+
+    def paged(gamma, scfg):
+        srv = PagedSpecServer(mt, md, pt, pd, scfg, gamma=gamma, placement=pm,
+                              device="cuda",
+                              watchdog=RoundWatchdog(slow_factor=float("inf")))
+        for i, (prompt, new) in enumerate(reqs):
+            srv.submit(ServeRequest(i, prompt, new))
+        return srv, {r.rid: r.tokens for r in srv.run()}
+    (srv, got), wall, launches = counted(lambda: paged(GAMMA, scfg))
+    expect = path_launches(srv, counters, L_t * n_t, L_d * n_d)
+    # the AR serve takes every request in one batch (fewer rounds; a row's
+    # greedy tokens do not depend on its neighbours)
+    (ar_srv, ar), ar_wall, ar_launches = counted(
+        lambda: paged(0, dataclasses.replace(scfg, max_batch=len(reqs))),
+        add=False)
+    ar_expect = path_launches(ar_srv, counters, L_t * n_t, L_d * n_d)
+    V = cfg.vocab_size
+    complete = (sorted(got) == list(range(len(reqs))) and all(
+        len(got[i]) == len(p) + new and ((got[i] >= 0) & (got[i] < V)).all()
+        for i, (p, new) in enumerate(reqs)))
+    spec_ar = complete and all(np.array_equal(got[i], ar[i]) for i in got)
+    want = linear["tokens"]
+    same = complete and all(np.array_equal(got[i], want[i]) for i in got)
+    ties = [] if same or not complete else near_ties(
+        mt, (pt, spt), [got[i] for i in range(len(reqs))],
+        [want[i] for i in range(len(reqs))], reqs)
+    ms_a = wall / srv.total_rounds * 1e3
+    check({"phase": "full_width_tensor_parallel", "part": "a_paged",
+           "card": card, "rounds": srv.total_rounds, "prefills": srv.n_prefills,
+           "wall_s": wall, "ms_per_round": ms_a,
+           "alpha_hat": srv.metrics.summary()["alpha_hat"],
+           "launches": launches, "expected_launches": expect,
+           "ar_rounds": ar_srv.total_rounds, "ar_wall_s": ar_wall,
+           "ar_launches": ar_launches, "expected_ar_launches": ar_expect,
+           "spec_equals_sharded_ar": spec_ar,
+           "tokens_equal_unsharded": same, "differences_from_unsharded": ties},
+          complete and spec_ar and launches == expect
+          and ar_launches == ar_expect and all(t["explained"] for t in ties))
+
+    # (b) the placed cached engine through Session, one wave of 4
+    prompts = nocache_prompts(cfg)
+    batch, P = prompts.shape                   # one wave of every prompt
+    base = serve_cli.serve_plan(batch, P, NOCACHE_NEW, gamma=GAMMA, use_cache=True)
+    sess = Session(mt, md, pt, pd, dataclasses.replace(base, placement=plan),
+                   max_batch=batch, placement=pm)
+    (toks, st), wall_b, launches_b = counted(
+        lambda: serve_cli.serve_waves(sess, prompts, NOCACHE_NEW, batch))
+    rounds_b = st["rounds"]
+    expect_b = {**{n: 0 for n in counters},
+                "paged_attention": (rounds_b + 1) * L_t * n_t
+                + (rounds_b * GAMMA + 1) * L_d * n_d,   # + the split prefill
+                "blockwise_argmax": rounds_b}
+    with torch.no_grad():
+        ar_b = autoregressive_generate(mt, spt, prompts, NOCACHE_NEW,
+                                       use_cache=True).cpu().numpy()
+    toks = np.asarray(toks)[:, :P + NOCACHE_NEW]
+    spec_ar_b = bool(np.array_equal(toks, ar_b))
+    want_b = cached["tokens"][:, :P + NOCACHE_NEW]
+    same_b = bool(np.array_equal(toks, want_b))
+    ties_b = [] if same_b else near_ties(mt, (pt, spt), toks, want_b,
+                                         [(p, NOCACHE_NEW) for p in prompts])
+    ms_b = wall_b / rounds_b * 1e3
+    check({"phase": "full_width_tensor_parallel", "part": "b_engine",
+           "card": card, "placement": sess.placement.describe(),
+           "engine_placed": sess.backend._engine(GAMMA).placement is pm,
+           "batch": batch, "rounds": rounds_b, "wall_s": wall_b,
+           "ms_per_round": ms_b, "launches": launches_b,
+           "expected_launches": expect_b, "spec_equals_sharded_ar": spec_ar_b,
+           "tokens_equal_unsharded": same_b,
+           "differences_from_unsharded": ties_b},
+          spec_ar_b and launches_b == expect_b
+          and sess.backend._engine(GAMMA).placement is pm
+          and all(t["explained"] for t in ties_b))
+
+    # (c) one fp32 forward, sharded against unsharded (TF32 off in main)
+    fcfg = mt.cfg.replace(dtype="float32", param_dtype="float32",
+                          num_layers=TP_LAYERS, name=mt.cfg.name + "-fp32")
+    fm = build_model(fcfg)
+    fp = fm.init(11, "cuda")
+    sfp = pm.target.put_params(fm, fp)
+    x = torch.from_numpy(np.random.default_rng(12).integers(
+        0, V, (2, 64)).astype(np.int64)).cuda()
+    with torch.no_grad():
+        whole = fm.apply(fp, x)[0]
+        split = fm.apply(sfp, x)[0]
+        steps = []
+        for prm in (fp, sfp):
+            ring = fm.init_cache(2, 64, device="cuda", layout=tp.layout_of(prm))
+            _, ring, _ = fm.apply(prm, x[:, :-1], ring)
+            steps.append(fm.apply(prm, x[:, -1:], ring)[0])
+    scale = float(whole.abs().max())
+    d_nc = float((whole - split).abs().max())
+    d_step = float((steps[0] - steps[1]).abs().max())
+    check({"phase": "full_width_tensor_parallel", "part": "c_fp32_forward",
+           "card": card, "layers": TP_LAYERS, "tokens": list(x.shape),
+           "max_abs_logit": scale, "max_abs_diff_nocache": d_nc,
+           "max_abs_diff_cached_step": d_step,
+           "relative": max(d_nc, d_step) / scale, "tolerance": TP_TOL},
+          max(d_nc, d_step) <= TP_TOL * scale)
+    del fm, fp, sfp, whole, split, steps
+
+    # (d) wall per round, a reading
+    emit({"phase": "full_width_tensor_parallel", "part": "d_wall_per_round_ms",
+          "card": card, "paged_sharded": ms_a,
+          "paged_unsharded": linear["ms_per_round"], "engine_sharded": ms_b,
+          "engine_unsharded_two_waves": cached["info"]["ms_per_round"],
+          "phase_s": time.perf_counter() - t_phase,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return total
+
+
 def full_width_frontend(mt, md, pt, pd, cfg, card):
     """The streaming front end and the continuous ring server at full width
     on the paper's pair (bf16; ``"phase": "full_width_frontend"``), every
@@ -3770,7 +3993,8 @@ def full_width_w8a8(mt, md, pt, pd, cfg, card):
 
     def quant():
         return q8.act_quant(static_scale=scale)
-    launches = nocache_phase("full_width_w8a8", "profile_w8a8", mt, md, qt, qd,
+    # not profiled: that time pays for full_width_tensor_parallel
+    launches = nocache_phase("full_width_w8a8", None, mt, md, qt, qd,
                              cfg, card, per_pass, quant, {"act_scale": scale})
     del qt, qd
     torch.cuda.empty_cache()
@@ -3792,7 +4016,8 @@ def full_width_ssm(card):
     nocache = nocache_phase("full_width_ssm", "profile_ssm", mt, md, pt, pd,
                             cfg, card, {"ssd_scan": (L_t, L_d)})
     buffer_invariance(mt, pt, cfg, card)
-    cached = cached_serve("full_width_ssm_cached", "profile_ssm_cached", mt, md,
+    # not profiled: that time pays for full_width_tensor_parallel
+    cached = cached_serve("full_width_ssm_cached", None, mt, md,
                           pt, pd, cfg, card, {"ssd_scan": (L_t, L_d, 0, 0)},
                           nocache, exact=False)
     return nocache["launches"], cached["launches"]
@@ -3938,15 +4163,20 @@ def near_ties(mt, pt, spec, ar, reqs, extras=None):
     difference p, the target's logits for the shared prefix evaluated two
     ways in bf16, the no-cache pass (flash attention, the prefix's GEMM
     shapes) and a cached decode step (a ring prefilled with the prefix but
-    its last token, then one paged step); ``spread``, their largest
-    difference over the vocabulary; and ``gap``, how far apart the two
-    tokens the serves chose lie in each. The difference is ``explained``
-    when a gap is within the spread: two evaluations of these logits in
-    this precision can order that pair either way. ``extras`` (batched by
-    request, as the engine took them) go with each request's row: the
-    ring is sized by ``cache_len`` and the step takes the prefill's decode
-    extras."""
+    its last token, then one paged step); ``spread``, the largest
+    difference of any two evaluations over the vocabulary; and ``gap``,
+    how far apart the two tokens the serves chose lie in each. The
+    difference is ``explained`` when a gap is within the spread: two
+    evaluations of these logits in this precision can order that pair
+    either way. ``pt`` is the target's params or a tuple of records of
+    them (the whole and a tensor-parallel split): each is evaluated both
+    ways, a split one on a ring made split by its layout. ``extras``
+    (batched by request, as the engine took them) go with each request's
+    row: the ring is sized by ``cache_len`` and the step takes the
+    prefill's decode extras."""
     from repro_torch.core.engine import decode_extras
+    from repro_torch.parallel import tp
+    records = pt if isinstance(pt, tuple) else (pt,)
     out = []
     for i, (p, _) in enumerate(reqs):
         diff = np.flatnonzero(spec[i] != ar[i])
@@ -3955,19 +4185,24 @@ def near_ties(mt, pt, spec, ar, reqs, extras=None):
         pos = int(diff[0])
         ctx = torch.from_numpy(ar[i][:pos].astype(np.int64))[None].cuda()
         ex = {k: v[i:i + 1] for k, v in (extras or {}).items()}
+        evals = []
         with torch.no_grad():
-            full = mt.apply(pt, ctx, **ex)[0][0, -1].float()
-            ring = mt.init_cache(1, mt.cache_len(pos), device="cuda")
-            _, ring, aux = mt.apply(pt, ctx[:, :-1], ring, **ex)
-            step = mt.apply(pt, ctx[:, -1:], ring,
-                            **(decode_extras(ex, aux) or {}))[0][0, -1].float()
+            for prm in records:
+                evals.append(mt.apply(prm, ctx, **ex)[0][0, -1].float())
+                ring = mt.init_cache(1, mt.cache_len(pos), device="cuda",
+                                     layout=tp.layout_of(prm))
+                _, ring, aux = mt.apply(prm, ctx[:, :-1], ring, **ex)
+                evals.append(mt.apply(prm, ctx[:, -1:], ring,
+                                      **(decode_extras(ex, aux) or {}))
+                             [0][0, -1].float())
+                del ring
         pair = [int(spec[i][pos]), int(ar[i][pos])]
-        spread = float((full - step).abs().max())
-        gaps = [abs(float(lg[pair[0]] - lg[pair[1]])) for lg in (full, step)]
+        spread = max(float((a - b).abs().max()) for a in evals for b in evals)
+        gaps = [abs(float(lg[pair[0]] - lg[pair[1]])) for lg in evals]
         out.append({"request": i, "position": pos, "new_token": pos - len(p),
                     "tokens": pair, "spread": spread, "gaps": gaps,
-                    "nocache": top2_margin(full), "explained": min(gaps) <= spread})
-        del ring
+                    "nocache": top2_margin(evals[0]),
+                    "explained": min(gaps) <= spread})
     return out
 
 
@@ -4321,9 +4556,8 @@ def full_width_moe(card, arch="mixtral-8x7b"):
     ``PagedSpecServer`` (batch 4, gamma 4, block 16; prefills of at most
     63 tokens: dropless routing) and (b) the cached engine on rings of
     fewer than 4096 slots (the identity view; the window never wraps),
-    one wave of 2; between them (a)'s first two requests with 8 new
-    tokens under ``torch.profiler`` (``"phase": "profile_moe"``); each
-    with exact launches (paged 32 + 4 x 8 a round,
+    one wave of 2 (the profiled serve between them was dropped for
+    time); each with exact launches (paged 32 + 4 x 8 a round,
     40 a prefill, an argmax a round, nothing else) and held to AR of the
     same mode on the same params up to each first difference, which a
     logit near-tie or a router near-tie must explain
@@ -4387,11 +4621,6 @@ def full_width_moe(card, arch="mixtral-8x7b"):
     a, info_a = paged_exact("full_width_moe", mt, md, pt, pd, reqs, scfg, card,
                             exact=False, explain=moe_near_ties)
 
-    def run():
-        srv, _ = serve(mt, md, pt, pd, [(p, 8) for p, _ in reqs[:2]], scfg,
-                       GAMMA, "cuda")
-        return srv.total_rounds, srv.n_prefills
-    profile("profile_moe", run, pt, pd, card)
     n, P, new = MOE_CACHED
     prompts = np.random.default_rng(7).integers(0, tgt.vocab_size, (n, P)).astype(np.int32)
     b, info_b = cached_exact("full_width_moe", "cached", mt, md, pt, pd, prompts,
@@ -6055,6 +6284,7 @@ def main() -> int:
     i8 = int8_cases(timer)
     hy_paged, hy_flash, hy_arg = hybrid_kernel_cases(timer)
     ve_paged, ve_flash, ve_arg = vlm_encdec_kernel_cases(timer)
+    tp_cases = tp_kernel_cases(timer)
     del timer
 
     smoke_exactness()
@@ -6082,6 +6312,7 @@ def main() -> int:
     sampled_launches = full_width_sampled(*pair, card, nocache, cached)
     session_launches = full_width_session(*pair, card, linear, nocache, cached)
     placed_launches = full_width_placed(*pair, card, linear, cached)
+    tp_launches = full_width_tensor_parallel(*pair, card, linear, cached)
     frontend_launches = full_width_frontend(*pair, card)
     del cached, linear
     w8a8_launches = full_width_w8a8(*pair, card)
@@ -6118,12 +6349,13 @@ def main() -> int:
     # the cached paths' (full_width_cached parts a-c, the cached Mamba-2),
     # the sampled serves' (paged attention cached, flash no-cache), the
     # Session phase's (paged attention, the argmax, tree attention), the
-    # placed phase's and the front-end phase's (paged attention, the argmax)
+    # placed, tensor-parallel and front-end phases' (paged attention, the
+    # argmax)
     for name, n in cached_launches.items():
         launches[name] += n
     for name in ("paged_attention", "blockwise_argmax"):
         launches[name] += (session_launches[name] + placed_launches[name]
-                           + frontend_launches[name])
+                           + tp_launches[name] + frontend_launches[name])
     launches["paged_attention"] += sampled_launches["paged_attention"]
     tree_launches["tree_attention"] += (cached_launches["tree_attention"]
                                         + session_launches["tree_attention"])
@@ -6178,7 +6410,8 @@ def main() -> int:
          "launches": launches["paged_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in att + chunk_cases
                             + ring_cases + hy_paged + ve_paged
-                            + pair_cases["paged"] + kv8["paged"]),
+                            + pair_cases["paged"] + kv8["paged"]
+                            + tp_cases["paged"]),
          "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"],
@@ -6196,7 +6429,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/tree_attention.py:95",
          "launches": tree_launches["tree_attention"],
          "max_abs_err": max(c["max_abs_err"] for c in tree_cases
-                            + pair_cases["tree"] + kv8["tree"]),
+                            + pair_cases["tree"] + kv8["tree"]
+                            + tp_cases["tree"]),
          "ms": tree_head["kernel_ms"], "plain_ms": tree_head["plain_ms"],
          "bound_ms": tree_head["bound_ms"], "bound_by": tree_head["bound_by"],
          "library_ms": tree_head["library_ms"],
@@ -6213,7 +6447,8 @@ def main() -> int:
                       + train_launches["flash_attention"]
                       + compile_launches["flash_attention"]),
          "max_abs_err": max(c["max_abs_err"] for c in fl_cases + hy_flash
-                            + ve_flash + pair_cases["flash"]),
+                            + ve_flash + pair_cases["flash"]
+                            + tp_cases["flash"]),
          "ms": fl_head["kernel_ms"], "plain_ms": fl_head["plain_ms"],
          "bound_ms": fl_head["bound_ms"], "bound_by": fl_head["bound_by"],
          "library_ms": fl_head["library_ms"]},

@@ -21,13 +21,17 @@ read-view form of a layer write ([old buffer ++ new tokens] with their
 positions): the dense forward writes first and reads the buffer through
 the paged kernel instead (``models.dense``), and ``extend`` stays as the
 reference that read is held against. JAX's ``cache_spec`` (shape-only
-allocation) has no counterpart here.
+allocation) has no counterpart here. A tensor-parallel role's ring holds
+``k``/``v`` as ``parallel.shards.Shards`` (one buffer per device, its KV
+heads); ``compact_positions`` moves every piece.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.parallel.shards import parts
 
 KV_INT8_SCALE = 0.05   # fixed symmetric scale for int8 KV buffers
 
@@ -136,12 +140,14 @@ def compact_positions(cache, src_pos, dst_pos):
     each) across every layer. Positions resolve to slots mod W; the gather
     (advanced indexing, which copies) completes before the scatter, so
     overlapping moves are safe."""
-    W = cache["k"].shape[2]
+    W = parts(cache["k"])[0].shape[2]
     B = src_pos.shape[0]
     rows = torch.arange(B, device=src_pos.device)[:, None]
     s = torch.remainder(src_pos.long(), W)
     d = torch.remainder(dst_pos.long(), W)
     for name in ("k", "v"):
-        moved = cache[name][:, rows, s]                    # [L, B, P, Kv, D]
-        cache[name][:, rows, d] = moved
+        for buf in parts(cache[name]):     # every piece of a sharded ring
+            dev = buf.device
+            moved = buf[:, rows.to(dev), s.to(dev)]        # [L, B, P, Kv, D]
+            buf[:, rows.to(dev), d.to(dev)] = moved
     return cache

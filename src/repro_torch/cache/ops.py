@@ -7,10 +7,14 @@ engines are generic over layout: ``init`` allocates a model's buffers,
 ``write`` is the layer-level append the attention stack calls (in place on
 both layouts: the read side is the block-table-native kernel, over the
 pool or over a view of the ring as a pool of pages), ``rollback`` is the O(1)
-speculative rollback, ``live_bound`` the round-level live-token bound
+speculative rollback (an index change, which a sharded cache's pieces
+share), ``live_bound`` the round-level live-token bound
 threaded into the paged block-scan reads (None for a ring: the kernel
 bounds each row by its own index), and ``compact`` moves a tree round's
-winner path into the committed tail. JAX's ``spec`` (shape-only
+winner path into the committed tail. A tensor-parallel role's cache
+(``parallel.tp``) holds ``k``/``v`` as ``Shards``, one piece per device;
+``init`` takes its ``layout``, and every in-place operation runs on every
+piece (``parallel.shards.parts``). JAX's ``spec`` (shape-only
 allocation) has no counterpart.
 """
 from __future__ import annotations
@@ -27,10 +31,11 @@ class _RingOps:
     kind = "ring"
 
     @staticmethod
-    def init(model, batch, *, max_len, spec_slack=8, dtype=None, device=None):
+    def init(model, batch, *, max_len, spec_slack=8, dtype=None, device=None,
+             layout=None):
         return model.init_cache(batch, model.cache_len(max_len),
                                 spec_slack=spec_slack, dtype=dtype,
-                                device=device)
+                                device=device, layout=layout)
 
     @staticmethod
     def write(layer_cache, k_new, v_new, index):
@@ -58,10 +63,10 @@ class _PagedOps:
 
     @staticmethod
     def init(model, batch, *, num_blocks, block_size, max_blocks_per_row,
-             dtype=None, device=None):
+             dtype=None, device=None, layout=None):
         return model.init_paged_cache(batch, num_blocks, block_size,
                                       max_blocks_per_row, dtype=dtype,
-                                      device=device)
+                                      device=device, layout=layout)
 
     write = staticmethod(paged_kv.write)
 

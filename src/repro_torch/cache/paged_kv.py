@@ -13,7 +13,10 @@ Token at absolute position ``p`` of row ``b`` lives in
 NULL block: unallocated table entries point at it, so writes from frozen or
 empty batch slots land somewhere harmless. The allocator never hands it out.
 
-Pools are updated IN PLACE: ``write`` stores into the pool tensors it is
+A tensor-parallel role's pools are ``Shards`` (one pool per device, each
+holding that device's KV heads, ``parallel.tp``); ``copy_blocks`` and
+``compact_positions`` run on every piece, and the table and index are
+shared. Pools are updated IN PLACE: ``write`` stores into the pool tensors it is
 given and returns the same tensors. The JAX package donates the buffers to
 get the same effect; here no copy is ever made, and a cache dict returned by
 the model shares its pools with the dict it was given. Speculative rollback
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.cache.kv_cache import _to_buf_dtype
+from repro_torch.parallel.shards import parts
 
 NULL_BLOCK = 0
 
@@ -103,11 +107,13 @@ def copy_blocks(cache, pairs):
     (refcounted), never copied."""
     if not pairs:
         return cache
-    dev = cache["k"].device
-    src = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
-    dst = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
     for name in ("k", "v"):
-        cache[name][:, dst] = cache[name][:, src]
+        for buf in parts(cache[name]):
+            src = torch.tensor([s for s, _ in pairs], dtype=torch.long,
+                               device=buf.device)
+            dst = torch.tensor([d for _, d in pairs], dtype=torch.long,
+                               device=buf.device)
+            buf[:, dst] = buf[:, src]
     return cache
 
 
@@ -118,15 +124,17 @@ def compact_positions(cache, block_table, src_pos, dst_pos):
     copies) completes before the scatter, so overlapping src/dst are safe;
     an in-place move would not be, since a winner slot may be another
     level's destination."""
-    BS = cache["k"].shape[2]
+    BS = parts(cache["k"])[0].shape[2]
     MB = block_table.shape[1]
     table = block_table.long()
     src_pos, dst_pos = src_pos.long(), dst_pos.long()
     sblk = torch.gather(table, 1, torch.clamp(src_pos // BS, max=MB - 1))
     dblk = torch.gather(table, 1, torch.clamp(dst_pos // BS, max=MB - 1))
     for name in ("k", "v"):
-        moved = cache[name][:, sblk, src_pos % BS]          # [L, B, P, Kv, D]
-        cache[name][:, dblk, dst_pos % BS] = moved
+        for buf in parts(cache[name]):
+            d = buf.device
+            moved = buf[:, sblk.to(d), (src_pos % BS).to(d)]   # [L, B, P, Kv, D]
+            buf[:, dblk.to(d), (dst_pos % BS).to(d)] = moved
     return cache
 
 

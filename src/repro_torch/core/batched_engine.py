@@ -10,7 +10,9 @@ same spec (``traced_round``), which ``generate`` and the server run instead
 of ``round``. With a heterogeneous ``placement`` (``api/placement.py``) it
 holds a ``rounds.PlacedRound`` instead (``placed_round``: draft on the
 drafter's device, verify and commit on the target's), which ``generate``
-and the paged server run; a placed round's spans do not synchronize.
+and the paged server run; a placed round's spans do not synchronize. A
+tensor-parallel role's params are split before the prefill
+(``engine.split_roles``), which then runs split into a split ring.
 
 Sampling: greedy is the serving configuration; stochastic per-row
 acceptance is exact per row (each row is standard speculative sampling on
@@ -27,7 +29,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import rounds
-from repro_torch.core.engine import _prompt_on, prefill_rings, ring_slack
+from repro_torch.core.engine import (_prompt_on, prefill_rings, ring_slack,
+                                     split_roles)
 from repro_torch.core.rounds import RoundState
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sampling.keys import TorchKey
@@ -92,6 +95,9 @@ class BatchedSpecEngine:
         + 2], lengths [B], stats)."""
         e = self.ecfg
         max_new = max_new_tokens or e.max_new_tokens
+        if self.placement is not None:
+            params_t, params_d = split_roles(self.placement, self.target,
+                                             self.drafter, params_t, params_d)
         prompt = _prompt_on(prompt, params_t)
         B, P = prompt.shape
         dev = prompt.device

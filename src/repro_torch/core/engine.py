@@ -52,7 +52,11 @@ loop dispatches round k+1 before the host waits for round k's committed
 length. The placed path takes precedence over either strategy; what it
 cannot run (no-cache, multi or tree drafts, stateful drafters) keeps the
 unplaced path, and ``placement_note`` says why; so does a generation
-with modality extras.
+with modality extras. A tensor-parallel role (``parallel.tp``) gets its
+params split by ``put_params`` before the prefill (``split_roles``), so
+its prefill runs split into a split ring; given a split params record,
+the prefills and ``autoregressive_generate`` make their rings split by
+its layout.
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from repro_torch.core.rounds import (RoundState, _slice_logits, _slice_tokens,
                                      _write_col, next_token)
 from repro_torch.models.model import RECURRENT as STATEFUL_FAMILIES
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.parallel import tp
 from repro_torch.sampling.keys import TorchKey
 
 STRATEGIES = ("monolithic", "modular")
@@ -109,17 +114,32 @@ def prefill_rings(target, drafter, params_t, params_d, prompt, max_len, slack,
     JAX, and wrap: the slack is what a round writes past the committed
     length, so a round never evicts a key inside the window. The prefills
     unembed only the last position: their logits are not used, and the
-    written caches are the same."""
+    written caches are the same. Each model prefills on its params'
+    device; a split params record (``parallel.tp``) prefills split, into
+    a ring made split by its layout."""
     B, P = prompt.shape
     cap = max_len - (gamma + 2) + slack
-    dev = prompt.device
-    tcache = RING.init(target, B, max_len=cap, spec_slack=slack, device=dev)
-    dcache = RING.init(drafter, B, max_len=cap, spec_slack=slack, device=dev)
-    tcache, extras_t = _prefill(target, params_t, prompt[:, :-1], tcache,
-                                extras_t)
-    dcache, extras_d = _prefill(drafter, params_d, prompt[:, :-1], dcache,
-                                extras_d)
+    rings = []
+    for model, params, extras in ((target, params_t, extras_t),
+                                  (drafter, params_d, extras_d)):
+        toks = _prompt_on(prompt, params)
+        cache = RING.init(model, B, max_len=cap, spec_slack=slack,
+                          device=toks.device, layout=tp.layout_of(params))
+        rings.append(_prefill(model, params, toks[:, :-1], cache, extras))
+    (tcache, extras_t), (dcache, extras_d) = rings
     return tcache, dcache, extras_t, extras_d
+
+
+def split_roles(placement, target, drafter, params_t, params_d):
+    """(params_t, params_d) with a tensor-parallel role's params split by
+    its ``put_params`` (the other role's as given), so that its prefill
+    runs split and makes its ring split; a split the heads do not allow
+    raises ``PlacementError`` here, before any forward."""
+    def one(role, model, params):
+        return (role.put_params(model, params)
+                if role.layout(model) is not None else params)
+    return (one(placement.target, target, params_t),
+            one(placement.drafter, drafter, params_d))
 
 
 def decode_extras(extras, aux):
@@ -272,6 +292,9 @@ class SpecEngine:
         not carry them, as in JAX) and says so in ``placement_note``."""
         B, P = prompt.shape
         max_len = P + max_new_tokens + self.ecfg.gamma + 2
+        if self._placed_round is not None:
+            params_t, params_d = split_roles(self.placement, self.target,
+                                             self.drafter, params_t, params_d)
         state = self.prefill(params_t, params_d, prompt, max_len, extras_t,
                              extras_d, key)
         target_len = P + max_new_tokens
@@ -333,7 +356,7 @@ def autoregressive_generate(model, params, prompt, max_new_tokens, *,
     key = key if key is not None else TorchKey(0)
     if use_cache:
         cache = model.init_cache(B, model.cache_len(max_len), spec_slack=2,
-                                 device=dev)
+                                 device=dev, layout=tp.layout_of(params))
         logits, cache, aux = model.apply(params, prompt, cache,
                                          logits_slice="last", **ex)
         ex = decode_extras(ex, aux) or {}

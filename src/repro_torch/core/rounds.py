@@ -841,9 +841,12 @@ def place_state(state: RoundState, placement, target_model=None,
     """Pin a RoundState onto a realized Placement (api/placement.py): the
     drafter cache moves to the drafter's device, everything else — tokens,
     lengths, target cache, counters — to the target's (where verify and
-    commit run). No-op for the degenerate lowering. ``.to`` of a tensor
-    already on the device returns it: on a shared-device lowering the
-    placed state shares its tensors with the input."""
+    commit run). A tensor-parallel role's cache comes made split by its
+    layout (its prefill ran split): ``put_cache`` checks its pieces and
+    moves its index to the role's first device. No-op for the degenerate
+    lowering. ``.to`` of a tensor already on the device returns it: on a
+    shared-device lowering the placed state shares its tensors with the
+    input."""
     if not placement.heterogeneous:
         return state
     _refuse_extras(state)
@@ -875,9 +878,17 @@ class PlacedRound:
     the card, so the host can enqueue the drafter rollback and the NEXT
     round while this verify still runs (``SpecEngine``'s overlap loop).
 
+    A tensor-parallel role (``parallel.tp``: params from ``put_params``,
+    a cache made split by its layout) runs each of its forwards on all of
+    its devices through ``Model.apply``; its logits come back gathered on
+    its first device, where the verify (the argmax kernel, greedy) and the
+    commit read them, so the call shapes here do not change.
+
     Token identity: the phases run the SAME code ``spec_round`` composes,
-    so a placed round commits exactly the tokens the unplaced round would;
-    only device residency and dispatch order change. The caches update in
+    so a placed round commits the tokens the unplaced round would (a
+    tensor-parallel role's row-parallel sums add in another order: equal
+    tokens in fp32, near-ties apart in bf16); only device residency and
+    dispatch order change. The caches update in
     place, as everywhere in the port; the tokens, lengths and counters of
     the returned state are new tensors (``_scatter_commit`` returns a new
     buffer), so a caller may read a prior state's after dispatching the

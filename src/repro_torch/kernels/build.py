@@ -131,6 +131,16 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def call(entry, device, *args) -> int:
+    """Call C entry point ``entry`` with ``args`` and the current stream of
+    ``device`` (its last argument), with ``device`` the current CUDA
+    device while it launches: a ctypes launch goes to the current device's
+    context, so a launch for tensors on cuda:1 would otherwise run in
+    cuda:0's. Returns the entry point's error code."""
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def check(err: int, what: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

@@ -97,13 +97,13 @@ def forward(q, k, v, *, window=None, causal=True, s_valid=None, lse=False):
                if lse else None)
     p = plan(q.dtype, B, Sq, H, k.shape[2], D, window, sms=sm_count(q.device))
     lib = build.load("flash_attention")
-    err = lib.flash_attention_fwd(
+    err = build.call(
+        lib.flash_attention_fwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse_buf is None else lse_buf.data_ptr(), B, Sq, k.shape[1],
         H, k.shape[2], D, s_valid, int(bool(causal)),
         0 if window is None else int(window), float(D ** -0.5),
-        DTYPES[q.dtype], p.row_tile,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        DTYPES[q.dtype], p.row_tile)
     build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     return out, lse_buf
@@ -137,13 +137,13 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, window=None, causal=True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     lib = build.load("flash_attention_bwd")
-    err = lib.flash_attention_bwd(
+    err = build.call(
+        lib.flash_attention_bwd, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H, k.shape[2], D,
         s_valid, int(bool(causal)), 0 if window is None else int(window),
-        float(D ** -0.5), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        float(D ** -0.5), DTYPES[q.dtype])
     build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

@@ -93,11 +93,10 @@ def int8_matmul(x_q, w_q, sx, sw, *, out_dtype=torch.bfloat16):
     part = (torch.empty((p.splits, M, N), dtype=torch.int32, device=x_q.device)
             if p.splits > 1 else None)
     lib = build.load("int8_matmul")
-    err = lib.int8_matmul_fwd(x_q.data_ptr(), w_q.data_ptr(), sx.data_ptr(),
-                              sw.data_ptr(), out.data_ptr(),
-                              None if part is None else part.data_ptr(),
-                              M, K, N, p.splits, DTYPES[out_dtype],
-                              torch.cuda.current_stream(x_q.device).cuda_stream)
+    err = build.call(lib.int8_matmul_fwd, x_q.device, x_q.data_ptr(),
+                     w_q.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                     out.data_ptr(), None if part is None else part.data_ptr(),
+                     M, K, N, p.splits, DTYPES[out_dtype])
     build.check(err, "int8_matmul_fwd")
     int8_matmul.launches += 1
     return out

@@ -143,7 +143,8 @@ def launch(entry, q, k_pool, v_pool, block_table, index, max_live, window,
     ws = (torch.empty((p.workspace,), dtype=torch.float32, device=dev)
           if p.workspace else None)
     lib = build.load("paged_attention")
-    err = getattr(lib, entry)(
+    err = build.call(
+        getattr(lib, entry), dev,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         idx.data_ptr(), None if ml is None else ml.data_ptr(),
         *(t.data_ptr() for t in tree_args),
@@ -151,8 +152,7 @@ def launch(entry, q, k_pool, v_pool, block_table, index, max_live, window,
         out.data_ptr(), None if ws is None else ws.data_ptr(), B, Q, H, Kv, D,
         NB, BS, MB, p.chunks, 0 if window is None else int(window),
         float(D ** -0.5), DTYPES[q.dtype],
-        KV_INT8 if k_pool.dtype == torch.int8 else DTYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        KV_INT8 if k_pool.dtype == torch.int8 else DTYPES[q.dtype])
     build.check(err, entry)
     return out
 

@@ -58,8 +58,8 @@ def blockwise_argmax(logits):
     R, V = logits.shape
     lib = build.load("spec_verify")
     out = torch.empty((R,), dtype=torch.int32, device=logits.device)
-    err = lib.row_argmax(logits.data_ptr(), out.data_ptr(), R, V, plan(R, V).cluster,
-                         torch.cuda.current_stream(logits.device).cuda_stream)
+    err = build.call(lib.row_argmax, logits.device, logits.data_ptr(),
+                     out.data_ptr(), R, V, plan(R, V).cluster)
     build.check(err, "row_argmax")
     blockwise_argmax.launches += 1
     return out[:, None]

@@ -180,13 +180,13 @@ def ssd_scan(x, dA, Bm, Cm, *, chunk=128, init_state=None):
     ws = (torch.empty((pl.workspace,), dtype=torch.float32, device=x.device)
           if pl.workspace else None)
     lib = build.load("ssd_scan")
-    err = lib.ssd_scan_fwd(
+    err = build.call(
+        lib.ssd_scan_fwd, x.device,
         x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(),
         None if init is None else init.data_ptr(),
         None if final is None else final.data_ptr(), b, l, h, p, n, chunk,
-        pl.heads, *x.stride(), *dA.stride(), *Bm.stride(), *Cm.stride(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        pl.heads, *x.stride(), *dA.stride(), *Bm.stride(), *Cm.stride())
     build.check(err, "ssd_scan_fwd")
     ssd_scan.launches += 1
     return y if final is None else (y, final)

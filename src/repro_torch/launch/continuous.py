@@ -62,6 +62,8 @@ from repro_torch.core.batched_engine import (BatchedEngineConfig,
                                              BatchedSpecEngine, RowState)
 from repro_torch.obs import clock
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.parallel import tp
+from repro_torch.parallel.shards import parts
 from repro_torch.serving.paged_server import _set_index, _set_rows
 
 RING_LEAVES = ("k", "v", "index")
@@ -125,7 +127,8 @@ class ContinuousSpecServer:
         a [B] vector at P - 1."""
         B = prompts.shape[0]
         cache = RING.init(model, B, max_len=self.max_len,
-                          spec_slack=self.gamma + 2, device=device)
+                          spec_slack=self.gamma + 2, device=device,
+                          layout=tp.layout_of(params))
         if self.P > 1:
             toks = torch.from_numpy(np.ascontiguousarray(prompts[:, :-1])).to(device)
             _, cache, _ = model.apply(params, toks, cache, logits_slice="last")
@@ -169,14 +172,18 @@ class ContinuousSpecServer:
             raise ValueError(f"windowed rings reaching {batched['positions']} "
                              f"and {one['positions']} positions")
         for name in ("k", "v"):
-            big, row = batched[name], one[name]
-            if (row.dim() != big.dim() or row.shape[1] != 1
-                    or row.shape[:1] + row.shape[2:]
-                    != big.shape[:1] + big.shape[2:]):
-                raise ValueError(f"ring leaf {name!r}: row of shape "
-                                 f"{tuple(row.shape)} does not fit the "
-                                 f"batch's {tuple(big.shape)}")
-            big[:, b].copy_(row[:, 0])
+            bigs, rows = parts(batched[name]), parts(one[name])
+            if len(bigs) != len(rows):
+                raise ValueError(f"ring leaf {name!r}: a row of {len(rows)} "
+                                 f"shards for a batch of {len(bigs)}")
+            for big, row in zip(bigs, rows):     # every piece of a sharded ring
+                if (row.dim() != big.dim() or row.shape[1] != 1
+                        or row.shape[:1] + row.shape[2:]
+                        != big.shape[:1] + big.shape[2:]):
+                    raise ValueError(f"ring leaf {name!r}: row of shape "
+                                     f"{tuple(row.shape)} does not fit the "
+                                     f"batch's {tuple(big.shape)}")
+                big[:, b].copy_(row[:, 0])
         index = batched["index"].clone()
         index[b] = one["index"][0]
         return {**batched, "index": index}

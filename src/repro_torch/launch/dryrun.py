@@ -6,7 +6,10 @@
 For each pair it builds the step ``launch.steps`` would run (train,
 prefill or decode) with ``meta`` inputs, so no weight, cache or
 optimizer state is allocated and no device is needed, and records: the
-bytes of the step's arguments on one device, and the analytic roofline
+bytes of the step's arguments one device of the mesh holds under JAX's
+shardings (``arg_share``: each leaf's bytes over the product of the axis
+sizes its spec names, the specs from ``models/specs.py``'s builders as
+JAX's step builders take them), and the analytic roofline
 terms JAX's dry run computes (``core.analytic_cost.step_cost`` and
 ``cost_model.roofline_terms`` at JAX's arguments, on the port's
 ``DEFAULT_HW``, the H100). The mesh is the one JAX would build, 16 x 16
@@ -17,8 +20,6 @@ built.
 
 Deliberate differences from JAX's dry run:
 
-  * ``per_device_arg_bytes`` is the sum over the step's inputs on ONE
-    device (the port shards nothing), not a sharded device's share.
   * The records that come from XLA are left out, with
     ``launch/hlo_analysis.py``: ``hlo_*_raw``, ``collectives``, the temp
     and output bytes, ``lower_s`` and ``compile_s``. ``launch/mesh.py`` is
@@ -32,17 +33,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import traceback
 from pathlib import Path
-
-import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.core import analytic_cost, cost_model
 from repro_torch.launch import steps
+from repro_torch.models import specs
 from repro_torch.models.model import build_model
 from repro_torch.training import optimizer as opt
+from repro_torch.training import train_loop
 
 RESULTS = Path(__file__).resolve().parents[3] / "dryrun_results_torch.json"
 
@@ -121,25 +123,100 @@ def build(model, shape, cfg, quantized=False, cache_int8=False):
                                    cache_int8=cache_int8)
 
 
-def flatten_inputs(kind, inputs):
+def _share(leaf, spec, pol) -> int:
+    """Bytes of one device's piece of ``leaf`` under ``spec``."""
+    return (math.prod(specs.local_shape(leaf.shape, spec, pol))
+            * leaf.element_size())
+
+
+def _tree_share(tree, spec_tree, pol) -> int:
+    total = []
+    specs.zip_with_path(
+        lambda _, spec, leaf: total.append(_share(leaf, spec, pol)),
+        spec_tree, tree)
+    return sum(total)
+
+
+def _batch_specs(tree, b_ax, bdim=0):
+    """Specs with the batch axis on dim ``bdim`` of every leaf (JAX's
+    ``extras_specs`` and the encoder-decoder's cross K/V)."""
+    def one(_, leaf):
+        spec = [None] * leaf.dim()
+        spec[bdim] = b_ax
+        return tuple(spec)
+    return specs.map_with_path(one, tree)
+
+
+def _opt_share(model, params, state, pspecs, pol) -> int:
+    """One device's bytes of the optimizer state, by the rule of JAX's
+    ``train_loop.opt_state_specs``: AdamW's moments take their params'
+    specs; Adafactor's statistics of a (stacked) leaf of spec ``ps`` take
+    ``ps[:-1]`` (row) and ``ps[:-2] + ps[-1:]`` (column), and a leaf of
+    rank < 2 keeps ``ps``; the 1-element placeholders are replicated. The
+    step count is 4 bytes (a host int in the port; JAX passes an int32).
+    A ring's ``positions`` is its layout, not an argument of JAX's."""
+    if isinstance(state, opt.OptState):
+        return 4 + _tree_share(state.mu, pspecs, pol) + \
+            _tree_share(state.nu, pspecs, pol)
+    total = 4
+    for group in opt.layout(model.cfg, train_loop.trainable(params)):
+        ps = (((None,) if group.stacked else ())
+              + tuple(opt.get(pspecs, group.paths[0])))
+        rank = len(ps)
+        vr = ps[:-1] if rank >= 2 else (None,)
+        vc = ps[:-2] + ps[-1:] if rank >= 2 else (None,)
+        v = ps if rank < 2 else (None,)
+        for stats, spec in ((state.vr, vr), (state.vc, vc), (state.v, v)):
+            total += _share(stats[group.name], spec, pol)
+    return total
+
+
+def arg_share(model, kind, inputs, pol) -> int:
+    """Bytes of a step's arguments on one device of the mesh ``pol``
+    describes: params by ``param_specs``, caches by ``cache_specs``,
+    tokens (and a train batch's labels) by ``io_specs``, modality extras
+    with the batch axis on their batch dim, the optimizer state by
+    ``_opt_share``."""
+    cfg = model.cfg
+    params = inputs["params"]
+    pspecs = specs.param_specs(cfg, params, pol)
+    total = _tree_share(params, pspecs, pol)
     if kind == "train":
-        return (inputs["params"], inputs["opt_state"], inputs["batch"])
-    return (inputs["params"], inputs["tokens"], inputs["cache"], inputs["extras"])
+        batch = inputs["batch"]
+        B = batch["tokens"].shape[0]
+        tok, _ = specs.io_specs(pol, B)
+        b_ax = pol.batch_axis(B)
+        total += sum(_share(batch[k], tok, pol) for k in ("tokens", "labels"))
+        extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+        total += _tree_share(extras, _batch_specs(extras, b_ax), pol)
+        return total + _opt_share(model, params, inputs["opt_state"], pspecs, pol)
+    tokens = inputs["tokens"]
+    B = tokens.shape[0]
+    tok, _ = specs.io_specs(pol, B)
+    b_ax = pol.batch_axis(B)
+    total += _share(tokens, tok, pol)
+    cache = inputs["cache"]
+    total += _tree_share(cache, specs.cache_specs(cfg, cache, pol, B), pol)
+    extras = inputs["extras"]
+    bdim = 1 if "cross" in extras else 0     # cross K/V: [L, B, T, Kv, D]
+    return total + _tree_share(extras, _batch_specs(extras, b_ax, bdim), pol)
 
 
-def arg_bytes(tree) -> int:
-    """Bytes of a step's arguments: every tensor's, and 4 for an optimizer
-    state's step count (a host int in the port; JAX passes an int32). A
-    ring's ``positions`` is its layout, not an argument of JAX's."""
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, (opt.OptState, opt.FactoredState)):
-        return 4 + arg_bytes(tuple(tree[1:]))
-    if isinstance(tree, dict):
-        return sum(arg_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(arg_bytes(v) for v in tree)
-    return 0
+def policy_for(cfg, shape, multi_pod: bool, variant=None) -> specs.ShardingPolicy:
+    """The ``ShardingPolicy`` JAX's ``run_one`` builds for this pair on its
+    production mesh."""
+    variant = variant or {}
+    sizes = mesh_axis_sizes(multi_pod)
+    m_size = sizes.get("model", 1)
+    fsdp = (needs_fsdp(cfg, m_size) if shape.kind == "train"
+            else needs_serve_fsdp(cfg, m_size))
+    expert_2d = (cfg.family == "moe"
+                 and cfg.param_count() * 2 / m_size > 10e9)
+    serve_2d = bool(variant.get("serve_2d")) and shape.kind != "train"
+    return specs.ShardingPolicy(
+        data=("pod", "data") if multi_pod else "data", model="model",
+        fsdp=fsdp, expert_2d=expert_2d, replicate_batch=serve_2d,
+        mesh_axis_sizes=sizes)
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, verbose=True,
@@ -150,16 +227,13 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, verbose=True,
                 "status": "skipped", "reason": SKIPS[(arch, shape_name)]}
     cfg, shape, note = arch_config(arch, shape_name, variant)
     sizes = mesh_axis_sizes(multi_pod)
-    m_size = sizes.get("model", 1)
-    fsdp = (needs_fsdp(cfg, m_size) if shape.kind == "train"
-            else needs_serve_fsdp(cfg, m_size))
-    expert_2d = (cfg.family == "moe"
-                 and cfg.param_count() * 2 / m_size > 10e9)
-    serve_2d = bool(variant.get("serve_2d")) and shape.kind != "train"
+    pol = policy_for(cfg, shape, multi_pod, variant)
+    fsdp, expert_2d = pol.fsdp, pol.expert_2d
+    serve_2d = pol.replicate_batch
     model = build_model(cfg)
     _, inputs = build(model, shape, cfg, quantized=bool(variant.get("int8_w")),
                       cache_int8=bool(variant.get("int8_kv")))
-    arg = arg_bytes(flatten_inputs(shape.kind, inputs))
+    arg = arg_share(model, shape.kind, inputs, pol)
     chips = 1
     for n in sizes.values():
         chips *= n
@@ -194,7 +268,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, verbose=True,
     }
     if verbose:
         print(f"== {arch} x {shape_name} (multi_pod={multi_pod}, chips={chips}) {note}")
-        print(f"   arguments: {arg / 1e9:.2f}GB on one device")
+        print(f"   arguments: {arg / 1e9:.2f}GB a device")
         print(f"   analytic (global): flops={acost.flops:.3e} "
               f"bytes={acost.hbm_bytes:.3e} coll={acost.collective_bytes:.3e} "
               f"trips={trips}")

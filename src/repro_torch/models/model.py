@@ -39,6 +39,11 @@ VLM's caches are the dense family's, sized by ``cache_len`` to hold the
 vision prefix beside the text (the per-row and paged paths take the VLM
 text-only, as JAX's do). The encoder-decoder's is an unwindowed ring over
 its decoder layers; it has no paged cache, as in JAX.
+A dense-family params record split over a role's devices
+(``parallel.tp.TPParams``, made by ``api.placement.RolePlacement.
+put_params``) runs the tensor-parallel forward (``parallel.tp.forward``)
+on a cache split by the same layout (``init_cache``/``init_paged_cache``
+with ``layout=``); the unsplit forward is unchanged.
 ``apply`` returns the moe family's aux losses (load balance, router z),
 the encoder-decoder's cross K/V (``{"cross": ...}``, computed from
 ``frames`` when no ``cross`` is given) and ``{}`` for the others.
@@ -52,6 +57,7 @@ import torch
 from repro_torch import device as devices
 from repro_torch.cache import kv_cache, paged_kv
 from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
+from repro_torch.parallel import tp
 
 FAMILIES = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid,
             "vlm": vlm, "encdec": encdec}
@@ -102,6 +108,15 @@ class Model:
         either the call raises, as JAX's does. Other families ignore the
         extras, as JAX's do."""
         cfg = self.cfg
+        if isinstance(params, tp.TPParams):
+            if self.family != "dense" or patches is not None:
+                raise NotImplementedError(
+                    "tensor-parallel params take the dense family's text "
+                    f"forward (got {self.family!r})")
+            logits, new_cache = tp.forward(cfg, params, tokens, cache,
+                                           logits_slice=logits_slice,
+                                           max_live=max_live, tree=tree)
+            return logits, new_cache, {}
         if tree is not None and self.family != "dense":
             raise NotImplementedError(
                 f"tree-verify passes need a dense-family target (got {self.family!r})")
@@ -159,7 +174,8 @@ class Model:
         return None if w is None else w + spec_slack
 
     def init_cache(self, batch, max_len, spec_slack=8,
-                   dtype: Optional[torch.dtype] = None, device=None):
+                   dtype: Optional[torch.dtype] = None, device=None,
+                   layout=None):
         """dense: ring KV buffers [L, batch, W, Kv, D] with W = max_len, or
         min(max_len, window + spec_slack) for a windowed config (JAX's
         sizing; the slack covers what a round writes past the committed
@@ -171,9 +187,16 @@ class Model:
         conv [L_rec, batch, 3, W], and the dense ring over its L_attn
         attention units with ``cfg.local_window`` as the window. vlm: the
         dense ring (callers size it by ``cache_len``). encdec: an
-        unwindowed ring over the decoder layers. Index 0."""
+        unwindowed ring over the decoder layers. Index 0. ``layout`` (a
+        ``parallel.tp.TPLayout``; dense family) makes the ring sharded: one
+        per device of the layout, holding that device's KV heads."""
         cfg = self.cfg
         dtype = dtype or cfg.act_dtype
+        if layout is not None:
+            self._check_layout(layout)
+            return tp.init_cache(lambda kv, dev: self._ring(
+                self._kv_layers(), batch, max_len, self._kv_window(spec_slack),
+                dtype, dev, kv), layout)
         dev = devices.resolve(device)
         if self.family == "ssm":
             G, N, K = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
@@ -201,15 +224,18 @@ class Model:
         caches, rings rounded up to ``dense.RING_PAGE`` slots)."""
         return self.init_cache(batch, max_len, spec_slack, dtype, device="meta")
 
-    def _ring(self, n_layers, batch, max_len, window, dtype, dev):
+    def _ring(self, n_layers, batch, max_len, window, dtype, dev,
+              kv_heads=None):
         """Ring K/V buffers over ``n_layers`` layers: buffer_len(max_len,
         window) slots rounded up to a multiple of ``dense.RING_PAGE``, and
-        ``positions`` when that is fewer than max_len (rounded up)."""
+        ``positions`` when that is fewer than max_len (rounded up).
+        ``kv_heads`` (default the config's) is one shard's count."""
         cfg = self.cfg
         page = dense.RING_PAGE
         W = kv_cache.buffer_len(max_len, window)
         W = -(-W // page) * page
-        cache = kv_cache.init_cache(n_layers, batch, W, cfg.num_kv_heads,
+        cache = kv_cache.init_cache(n_layers, batch, W,
+                                    kv_heads or cfg.num_kv_heads,
                                     cfg.head_dim, dtype=dtype, device=dev)
         positions = -(-max_len // page) * page
         if positions > W:
@@ -218,18 +244,29 @@ class Model:
 
     def init_paged_cache(self, batch, num_blocks, block_size,
                          max_blocks_per_row, dtype: Optional[torch.dtype] = None,
-                         device=None):
+                         device=None, layout=None):
         """Block-pool KV cache for ragged continuous batching (the dense,
         moe and vlm families only: recurrent state needs no paging, and the
-        encoder-decoder has none, as in JAX)."""
+        encoder-decoder has none, as in JAX). ``layout``: sharded, as
+        ``init_cache`` makes it."""
         if self.family in RECURRENT or self.family == "encdec":
             raise ValueError(f"paged KV cache unsupported for family {self.family!r}")
         cfg = self.cfg
-        return paged_kv.init_cache(self._kv_layers(), batch, num_blocks,
-                                   block_size, max_blocks_per_row,
-                                   cfg.num_kv_heads, cfg.head_dim,
-                                   dtype or cfg.act_dtype,
-                                   devices.resolve(device))
+
+        def pool(kv_heads, dev):
+            return paged_kv.init_cache(self._kv_layers(), batch, num_blocks,
+                                       block_size, max_blocks_per_row,
+                                       kv_heads, cfg.head_dim,
+                                       dtype or cfg.act_dtype, dev)
+        if layout is not None:
+            self._check_layout(layout)
+            return tp.init_cache(pool, layout)
+        return pool(cfg.num_kv_heads, devices.resolve(device))
+
+    def _check_layout(self, layout):
+        if self.family != "dense" or layout.cfg != self.cfg:
+            raise ValueError(f"a {layout.cfg.name} layout does not shard "
+                             f"this {self.family} model ({self.cfg.name})")
 
     # -------------------------------------------------------------- rollback
     def rollback(self, cache, accepted_index, q_len):

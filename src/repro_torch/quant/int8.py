@@ -146,6 +146,12 @@ def act_quant_enabled() -> bool:
     return _ACT_QUANT["enabled"]
 
 
+def act_scale_is_dynamic() -> bool:
+    """True when activation quantization is on with no static scale: each
+    call's scale is its own input's amax."""
+    return _ACT_QUANT["enabled"] and _ACT_QUANT["static_scale"] is None
+
+
 def quantize_act(x):
     """Per-tensor activation quantization under the current ``act_quant``
     settings: (q, scale) with q = clip(round(x / scale), -qmax-1, qmax) as

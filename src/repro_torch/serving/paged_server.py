@@ -49,7 +49,12 @@ runs there, speculative rounds run as ``rounds.PlacedRound`` (draft on the
 drafter's device, verify and commit on the target's) and AR rounds run on
 the target's with the drafter cache detached. The two roles always get
 separate block-table tensors then, even on a shared device, so nothing one
-role writes can reach the other's table.
+role writes can reach the other's table. A dense-family role of several
+devices on a model axis is tensor-parallel (``parallel.tp``): its params
+are split over its devices and its pool is made split (one pool per
+device), every forward runs on all of them,
+and the logits the verify and the output guard read are gathered on its
+first device; the failed-row zeroing runs on every shard's pool.
 
 Robustness: ``faults`` (serving/faults.py) injects a seeded schedule keyed
 by the step index (``total_steps``): pool seizures and releases before the
@@ -93,6 +98,7 @@ from repro_torch.obs import clock
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.events import RoundEvent, RoundEventLog
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.parallel.shards import parts
 from repro_torch.serving.faults import NO_FAULTS, DrafterFault, FaultPlan
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig, ServeRequest
@@ -238,22 +244,27 @@ class PagedSpecServer:
         return self._engines[gamma]
 
     def _empty_state(self) -> RowState:
-        B, dev = self.B, self.dev_t
+        """Empty pools for both roles, a tensor-parallel role's made split
+        (one pool per device, its KV heads), and the row state."""
+        B, dev, pm = self.B, self.dev_t, self.placement
+        lay_t = pm.target.layout(self.target) if pm is not None else None
+        lay_d = pm.drafter.layout(self.drafter) if pm is not None else None
         geom = dict(num_blocks=self.scfg.num_blocks,
                     block_size=self.scfg.block_size,
                     max_blocks_per_row=self.scfg.max_blocks_per_row)
         st = RowState(
             tokens=torch.zeros((B, self.T), dtype=torch.int32, device=dev),
             length=torch.ones((B,), dtype=torch.int32, device=dev),  # length-1 >= 0
-            dcache=PAGED.init(self.drafter, B, device=self.dev_d, **geom),
-            tcache=PAGED.init(self.target, B, device=self.dev_t, **geom),
+            dcache=PAGED.init(self.drafter, B, device=self.dev_d,
+                              layout=lay_d, **geom),
+            tcache=PAGED.init(self.target, B, device=self.dev_t,
+                              layout=lay_t, **geom),
             active=torch.zeros((B,), dtype=torch.bool, device=dev),
             n_rounds=torch.zeros((), dtype=torch.int32, device=dev),
             n_accepted=torch.zeros((B,), dtype=torch.int32, device=dev),
             n_drafted=torch.zeros((), dtype=torch.int32, device=dev))
-        if self.placement is not None:
-            st = rounds.place_state(st, self.placement, self.target,
-                                    self.drafter)
+        if pm is not None:
+            st = rounds.place_state(st, pm, self.target, self.drafter)
         return st
 
     def _tables(self, host: np.ndarray):
@@ -549,10 +560,10 @@ class PagedSpecServer:
                  if alloc.refcnt[blk] == 1 and int(blk) not in alloc.cached]
         if owned and self._state is not None:
             for cache in (self._state.tcache, self._state.dcache):
-                ids = torch.tensor(owned, dtype=torch.long,
-                                   device=cache["k"].device)
                 for name in ("k", "v"):
-                    cache[name].index_fill_(1, ids, 0)
+                    for pool in parts(cache[name]):   # every shard's pool
+                        pool.index_fill_(1, torch.tensor(
+                            owned, dtype=torch.long, device=pool.device), 0)
         self.alloc.free_row(b)
         self.metrics.fail(req.rid,
                           f"corrupt token id outside [0, {self._vocab})",

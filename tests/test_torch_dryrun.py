@@ -11,8 +11,9 @@ and ``run_one``'s analytic fields to JAX's own lines with JAX's functions
 on the same arguments (the port's roofline patched to JAX's v5e, single
 pod and multi-pod, with the int8-cache and serve-2d variants; the int8
 weights' at the three archs of the bytes test, whose meta int8 trees are
-slow to build). The argument bytes are the sum over JAX's builder inputs
-on a 1 x 1 mesh, exactly.
+slow to build). The argument bytes are one device's share of JAX's
+builder inputs: on a 1 x 1 mesh the sum over JAX's lowered inputs, at the
+production policy the same arithmetic over JAX's spec trees, exactly.
 
 JAX's dry run sets ``XLA_FLAGS`` (512 host devices) when imported; the
 fixture restores it at once. This process's JAX backend has one device
@@ -21,6 +22,7 @@ fixture restores it at once. This process's JAX backend has one device
 import dataclasses
 import importlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -38,6 +40,8 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.base import INPUT_SHAPES  # noqa: E402
 from repro_torch.core import cost_model as cm  # noqa: E402
 from repro_torch.launch import dryrun, steps  # noqa: E402
+from repro_torch.models import specs  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 
 V5E = cm.HardwareSpec(name=jcm.V5E.name, peak_flops=jcm.V5E.peak_flops,
                       hbm_bw=jcm.V5E.hbm_bw, link_bw=jcm.V5E.ici_bw,
@@ -51,10 +55,18 @@ ANALYTIC = ("status", "note", "kind", "chips", "params", "active_params",
 
 @pytest.fixture(scope="module")
 def jd():
-    """``repro.launch.dryrun``, its ``XLA_FLAGS`` assignment undone."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.delenv("XLA_FLAGS", raising=False)     # restored on exit
+    """``repro.launch.dryrun``, its ``XLA_FLAGS`` assignment undone: the
+    variable is put back as it was, or removed when it was not set (a
+    monkeypatched ``delenv`` of an absent name records nothing to undo),
+    so no later JAX backend in this process starts with 512 devices."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
         mod = importlib.import_module("repro.launch.dryrun")
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
     return mod
 
 
@@ -115,6 +127,19 @@ def test_helpers_are_jaxs(arch, jd):
         assert dataclasses.asdict(o) == dataclasses.asdict(jo)
 
 
+def _jax_policy(jd, cfg, shape, multi_pod, variant):
+    """The ``ShardingPolicy`` JAX's ``run_one`` builds on its mesh."""
+    sizes = _jax_mesh_sizes(multi_pod)
+    m_size = sizes.get("model", 1)
+    fsdp = (jd.needs_fsdp(cfg, m_size) if shape.kind == "train"
+            else jd.needs_serve_fsdp(cfg, m_size))
+    expert_2d = cfg.family == "moe" and cfg.param_count() * 2 / m_size > 10e9
+    serve_2d = bool(variant.get("serve_2d")) and shape.kind != "train"
+    return JaxPolicy(data=("pod", "data") if multi_pod else "data",
+                     model="model", fsdp=fsdp, expert_2d=expert_2d,
+                     replicate_batch=serve_2d, mesh_axis_sizes=sizes)
+
+
 def _jax_analytic(jd, arch, shape_name, multi_pod, variant):
     """JAX ``run_one``'s analytic fields: its lines, with its functions, at
     the sizes of the mesh it builds (the lowering left out)."""
@@ -123,14 +148,7 @@ def _jax_analytic(jd, arch, shape_name, multi_pod, variant):
                 "status": "skipped", "reason": jd.SKIPS[(arch, shape_name)]}
     cfg, shape, note = jd.arch_config(arch, shape_name, variant)
     sizes = _jax_mesh_sizes(multi_pod)
-    m_size = sizes.get("model", 1)
-    fsdp = (jd.needs_fsdp(cfg, m_size) if shape.kind == "train"
-            else jd.needs_serve_fsdp(cfg, m_size))
-    expert_2d = cfg.family == "moe" and cfg.param_count() * 2 / m_size > 10e9
-    serve_2d = bool(variant.get("serve_2d")) and shape.kind != "train"
-    pol = JaxPolicy(data=("pod", "data") if multi_pod else "data", model="model",
-                    fsdp=fsdp, expert_2d=expert_2d, replicate_batch=serve_2d,
-                    mesh_axis_sizes=sizes)
+    pol = _jax_policy(jd, cfg, shape, multi_pod, variant)
     chips = int(np.prod(list(sizes.values())))
     nmb = jd.microbatches_for(cfg, shape) if shape.kind == "train" else 1
     acost = jac.step_cost(
@@ -182,32 +200,127 @@ def _nbytes(tree):
                for leaf in jax.tree_util.tree_leaves(tree))
 
 
+def _jax_share(jd, cfg, shape, pol, quantized, cache_int8):
+    """One device's bytes of JAX's step inputs under ``pol``, by JAX's own
+    builders' trees: ``jax.eval_shape`` inputs (``launch/steps.py``'s
+    shapes) and the specs its step builders give them (``param_specs``,
+    ``cache_specs``, ``io_specs``, ``extras_specs``, the encoder-decoder's
+    cross K/V spec and ``opt_state_specs``); a leaf's bytes over the
+    product of the axis sizes its spec names. Nothing is lowered."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch import steps as jsteps
+    from repro.models import specs as jspecs
+    from repro.training import optimizer as jopt
+    from repro.training.train_loop import opt_state_specs
+
+    def share(tree, spec_tree):
+        specs = jax.tree_util.tree_leaves(spec_tree,
+                                          is_leaf=lambda x: isinstance(x, P))
+        leaves = jax.tree_util.tree_leaves(tree)
+        assert len(specs) == len(leaves)
+        total = 0
+        for leaf, spec in zip(leaves, specs):
+            n = np.dtype(leaf.dtype).itemsize
+            spec = tuple(spec) + (None,) * (len(leaf.shape) - len(spec))
+            for size, e in zip(leaf.shape, spec):
+                n *= size // pol.axis_size(e) if e is not None else size
+            total += n
+        return total
+
+    model = jax_build(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    pshape = jsteps.params_shape(model, quantized and shape.kind != "train")
+    pspecs = jspecs.param_specs(cfg, pshape, pol)
+    tok, _ = jspecs.io_specs(pol, B)
+    total = share(pshape, pspecs)
+    ex_shape = jsteps.extras_shape(model, B)
+    ex_specs = jsteps.extras_specs(model, B, pol)
+    if shape.kind == "train":
+        ocfg = jd.optimizer_for(cfg)
+        oshape = jax.eval_shape(lambda: jopt.init_any(ocfg, pshape))
+        tokens = jax.ShapeDtypeStruct((B, S), np.int32)
+        return (total + 2 * share(tokens, tok) + share(ex_shape, ex_specs)
+                + share(oshape, opt_state_specs(pspecs, ocfg, pshape)))
+    cdtype = np.int8 if cache_int8 else None
+    if shape.kind == "prefill":
+        tokens = jax.ShapeDtypeStruct((B, S), np.int32)
+    else:
+        tokens = jax.ShapeDtypeStruct((B, 1), np.int32)
+        ex_shape, ex_specs = {}, {}
+        if model.family == "encdec":
+            kv = jax.ShapeDtypeStruct((cfg.num_layers, B, cfg.encoder_seq,
+                                       cfg.num_kv_heads, cfg.head_dim),
+                                      cfg.act_dtype)
+            spec = P(None, pol.batch_axis(B), None, None, None)
+            ex_shape = {"cross": {"k": kv, "v": kv}}
+            ex_specs = {"cross": {"k": spec, "v": spec}}
+    cshape = model.cache_spec(B, S, spec_slack=0, dtype=cdtype)
+    return (total + share(tokens, tok) + share(ex_shape, ex_specs)
+            + share(cshape, jspecs.cache_specs(cfg, cshape, pol, B)))
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "production"])
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mixtral-8x7b", "whisper-large-v3"])
-def test_arg_bytes_are_the_sum_over_jaxs_builder_inputs(arch, jd, monkeypatch):
-    """``per_device_arg_bytes`` (the port's step inputs on one device) is
-    the sum of nbytes over JAX's builder inputs on a 1 x 1 mesh, at every
-    shape, with and without int8 weights and an int8 cache; the analytic
-    fields of these records equal JAX's too."""
+def test_arg_bytes_are_a_devices_share_of_jaxs_builder_inputs(arch, mesh, jd,
+                                                            monkeypatch):
+    """``arg_share`` on a 1 x 1 mesh is the sum of nbytes over JAX's
+    builder inputs lowered on a 1 x 1 mesh; ``run_one``'s
+    ``per_device_arg_bytes`` at the production policy (16 x 16, and 2 x 16
+    x 16 for the unquantized pair) is one device's share of JAX's builder
+    inputs under JAX's spec trees (``_jax_share``); at every shape, with
+    and without int8 weights and an int8 cache. The analytic fields of the
+    1 x 1 case's records equal JAX's too."""
     monkeypatch.setattr(cm, "DEFAULT_HW", V5E)
-    mesh = jax.make_mesh((1, 1), ("data", "model"))
-    pol = JaxPolicy(data="data", model="model",
+    one = JaxPolicy(data="data", model="model",
                     mesh_axis_sizes={"data": 1, "model": 1})
     for shape in INPUT_SHAPES:
         if (arch, shape) in jd.SKIPS:
             continue
         for q in (False, True):
             for kv in (False, True):
-                got = dryrun.run_one(arch, shape, False, verbose=False,
-                                     variant={"int8_w": q, "int8_kv": kv})
+                variant = {"int8_w": q, "int8_kv": kv}
                 cfg, sh, _ = jd.arch_config(arch, shape)
-                with mesh:
-                    _, inputs = jd.build(jax_build(cfg), mesh, pol, sh, cfg,
-                                         quantized=q, cache_int8=kv)
-                want = _nbytes(jd.flatten_inputs(sh.kind, inputs))
-                assert got["per_device_arg_bytes"] == want, (shape, q, kv)
-                want = _jax_analytic(jd, arch, shape, False,
-                                     {"int8_w": q, "int8_kv": kv})
-                assert {k: got[k] for k in ANALYTIC} == want, (shape, q, kv)
+                if mesh == "1x1":
+                    model = build_model(dryrun.arch_config(arch, shape)[0])
+                    _, inputs = dryrun.build(model, sh, model.cfg,
+                                             quantized=q, cache_int8=kv)
+                    got = dryrun.arg_share(model, sh.kind, inputs,
+                                           specs.ShardingPolicy(
+                                               data="data", model="model",
+                                               mesh_axis_sizes={"data": 1,
+                                                                "model": 1}))
+                    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+                    with jmesh:
+                        _, jin = jd.build(jax_build(cfg), jmesh, one, sh, cfg,
+                                          quantized=q, cache_int8=kv)
+                    assert got == _nbytes(jd.flatten_inputs(sh.kind, jin)), \
+                        (shape, q, kv)
+                    rec = dryrun.run_one(arch, shape, False, verbose=False,
+                                         variant=variant)
+                    want = _jax_analytic(jd, arch, shape, False, variant)
+                    assert {k: rec[k] for k in ANALYTIC} == want, (shape, q, kv)
+                    continue
+                for multi_pod in ((False, True) if not (q or kv) else (False,)):
+                    rec = dryrun.run_one(arch, shape, multi_pod, verbose=False,
+                                         variant=variant)
+                    pol = _jax_policy(jd, cfg, sh, multi_pod, variant)
+                    want = _jax_share(jd, cfg, sh, pol, q, kv)
+                    assert rec["per_device_arg_bytes"] == want, \
+                        (shape, q, kv, multi_pod)
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_adafactor_state_share_is_jaxs(multi_pod, jd):
+    """Llama 3 405B's train step (Adafactor, fsdp): the factored
+    statistics' share follows JAX's ``opt_state_specs``."""
+    cfg, sh, _ = jd.arch_config("llama3-405b", "train_4k")
+    assert type(jd.optimizer_for(cfg)).__name__ == "AdafactorConfig"
+    rec = dryrun.run_one("llama3-405b", "train_4k", multi_pod, verbose=False)
+    pol = _jax_policy(jd, cfg, sh, multi_pod, {})
+    assert pol.fsdp
+    assert rec["per_device_arg_bytes"] == _jax_share(jd, cfg, sh, pol, False,
+                                                     False)
 
 
 def test_main_writes_its_own_file_and_resumes(tmp_path, monkeypatch, capsys):

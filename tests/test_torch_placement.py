@@ -273,10 +273,14 @@ def test_lowering_carves_disjoint_roles():
     for role, jrole in ((pm.drafter, jpm.drafter), (pm.target, jpm.target)):
         assert dataclasses.asdict(role.policy) == dataclasses.asdict(jrole.policy)
     assert pm.drafter.policy.model == "dx" and pm.target.policy.model == "tx"
-    # a role of several devices runs on its first; the note says so
+    # a role with a model axis is tensor-parallel over it (dense models);
+    # the note names its devices and the families left on the first
     assert pm.drafter.device == pm.target.device == torch.device("cpu")
-    assert "runs on its first" in pm.note
-    assert "d2 on device 0 of 2" in pm.note and "t4 on device 2 of 4" in pm.note
+    assert "tensor parallel" in pm.note
+    assert "d2 over devices 0,1" in pm.note
+    assert "t4 over devices 2,3,4,5" in pm.note
+    assert "moe, hybrid, ssm, vlm, encdec models run on the role's first" \
+        in pm.note
     # one role lowered alone (bench_dse's probe)
     r, jr = PL.role(HETERO.target, CPU8), JPL.role(_jplan(HETERO).target,
                                                    [jax.devices()[0]] * 8)
@@ -556,3 +560,354 @@ def test_placed_paged_server_in_lockstep_with_jax(split_pair):
     assert port.total_rounds == ref.total_rounds
     assert port.metrics.summary()["alpha_hat"] == ref.metrics.summary()["alpha_hat"]
     assert port.alloc.audit() == ref.alloc.audit()
+
+
+# ------------------------------------------- tensor parallelism (d2 / t4)
+def _shard_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _shard_leaves(v, f"{path}/{k}" if path else k)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _shard_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_sharded_roles_hold_their_specs_local_shapes(gold_pair):
+    """Under HETERO the target's params are 4 shards and the drafter's 2;
+    each piece has the local shape of its leaf's ``param_specs`` entry
+    (``specs.local_shapes``), except the target's k/v weights, whose one
+    KV head a device (t4 over the goldens' 2 KV heads) is that head's
+    columns, replicated over 2 devices."""
+    from repro_torch.models import specs
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.shards import Shards
+    mt, md, pt, pd, cfg = gold_pair
+    pm = PL.lower(HETERO, CPU8)
+    for role, model, params, n in ((pm.target, mt, pt, 4),
+                                   (pm.drafter, md, pd, 2)):
+        sp = role.put_params(model, params)
+        assert isinstance(sp, tp.TPParams) and sp.layout.n == n
+        assert role.put_params(model, params) is sp        # memoized
+        local = dict(_shard_leaves(specs.local_shapes(
+            specs.param_specs(model.cfg, params, role.policy), params,
+            role.policy)))
+        whole = dict(_shard_leaves(params))
+        for path, leaf in _shard_leaves(sp):
+            assert isinstance(leaf, Shards) and len(leaf) == n, path
+            shapes = {tuple(p.shape) for p in leaf.parts}
+            if leaf.dim == "kv_heads":
+                assert shapes == {(cfg.d_model, cfg.head_dim)}, path
+            else:
+                assert shapes == {local[path]}, (path, shapes, local[path])
+            if leaf.dim is None:
+                assert all(torch.equal(p, whole[path]) for p in leaf.parts)
+    lay_t = pm.target.layout(mt)
+    assert (lay_t.heads, lay_t.kv_heads, lay_t.kv_copies) == (1, 1, 2)
+    lay_d = pm.drafter.layout(md)
+    assert (lay_d.heads, lay_d.kv_heads, lay_d.kv_copies) == (2, 1, 1)
+    assert "1 q / 1 KV heads a device, KV replicated over 2" in pm.describe()
+
+
+def test_sharded_logits_match_jaxs_unsharded_forward(split_pair):
+    """One forward of the t4-sharded target, no-cache and cached (a ring
+    prefill of 8 tokens, then 3), against JAX's unsharded no-cache
+    forward: fp32, within 1e-5 of the logits' scale (max |logit|); the
+    row-parallel sums change the order of the fp32 additions."""
+    jt, _, jpt, _ = split_pair["jax"]
+    mt, _, pt, _ = split_pair["torch"]
+    pm = PL.lower(HETERO, CPU8)
+    sp = pm.target.put_params(mt, pt)
+    toks = _prompts(2, 11, seed=9)
+    want = np.asarray(jt.apply(jpt, jnp.asarray(toks))[0])
+    tol = 1e-5 * np.abs(want).max()
+    got = mt.apply(sp, torch.from_numpy(toks))[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    ring = mt.init_cache(2, 16, device="cpu", layout=pm.target.layout(mt))
+    first, ring, _ = mt.apply(sp, torch.from_numpy(toks[:, :8]), ring)
+    rest, ring, _ = mt.apply(sp, torch.from_numpy(toks[:, 8:]), ring)
+    np.testing.assert_allclose(torch.cat([first, rest], 1).numpy(), want,
+                               rtol=0, atol=tol)
+    assert int(ring["index"]) == 11
+
+
+def test_sharded_embedding_keeps_the_nan_of_an_out_of_range_id(split_pair):
+    """The vocab-parallel lookup masks ids outside each device's rows to
+    0, but an id outside [0, vocab) still embeds as NaN (as
+    ``layers.embed`` and JAX's ``jnp.take`` give it), so only its row's
+    logits turn NaN; the serving output guard relies on it."""
+    mt, _, pt, _ = split_pair["torch"]
+    pm = PL.lower(HETERO, CPU8)
+    sp = pm.target.put_params(mt, pt)
+    assert sp.layout.vocab_sharded
+    toks = torch.from_numpy(_prompts(3, 6, seed=3)).long()
+    V = mt.cfg.vocab_size
+    toks[0, 2], toks[1, 4] = V, -1
+    got = mt.apply(sp, toks)[0]
+    want = mt.apply(pt, toks)[0]
+    for b in range(3):
+        assert torch.isnan(got[b]).any() == torch.isnan(want[b]).any() \
+            == (b < 2)
+    np.testing.assert_allclose(got[2].numpy(), want[2].numpy(), atol=1e-4)
+    # the in-range id of every shard's first and last row embeds exactly
+    rows = torch.tensor([[0, V // 4 - 1, V // 4, V - 1]])
+    np.testing.assert_array_equal(
+        mt.apply(sp, rows)[0].isnan().numpy(), np.zeros((1, 4, V), bool))
+
+
+def test_replicated_kv_copies_stay_equal_after_a_rolled_back_round(split_pair):
+    """t4 over 2 KV heads: devices 0-1 hold KV head 0 and 2-3 head 1, each
+    copy written by its own device, the split prefill's writes too. After
+    placed rounds with rejected
+    drafts (rolled back), the copies of each head are equal, K and V, and
+    each is the unsharded cache's head within fp32 rounding."""
+    mt, md, pt, pd = split_pair["torch"]
+    pm = PL.lower(HETERO, CPU8)
+    eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, use_cache=True),
+                     placement=pm)
+    prompt = _prompts(2, 9, seed=4)
+    spt, spd = pm.target.put_params(mt, pt), pm.drafter.put_params(md, pd)
+    st = eng.prefill(spt, spd, prompt, 9 + 12 + GAMMA + 2)    # split rings
+    ref = eng.prefill(pt, pd, prompt, 9 + 12 + GAMMA + 2)
+    st = rounds.place_state(st, pm, mt, md)
+    placed = rounds.PlacedRound(mt, md, eng._spec, pm)
+    for _ in range(3):
+        st = placed(spt, spd, st)
+        ref = eng.round(pt, pd, ref)
+    assert int(st.n_accepted.sum()) < 3 * GAMMA * 2       # drafts rolled back
+    assert torch.equal(st.tokens, ref.tokens) and torch.equal(st.length, ref.length)
+    n = int(st.tcache["index"]) + GAMMA + 1                # written slots
+    for name in ("k", "v"):
+        parts = st.tcache[name].parts
+        assert len(parts) == 4 and all(p.shape[3] == 1 for p in parts)
+        for a, b, head in ((0, 1, 0), (2, 3, 1)):
+            assert parts[a].data_ptr() != parts[b].data_ptr()
+            assert torch.equal(parts[a][:, :, :n], parts[b][:, :, :n]), name
+            np.testing.assert_allclose(
+                parts[a][:, :, :n].numpy(),
+                ref.tcache[name][:, :, :n, head:head + 1].numpy(), atol=1e-4)
+
+
+def test_unrealizable_splits_raise_and_unsharded_roles_say_so(gold_pair):
+    """A model axis that cannot split the heads (3 devices, 4 q heads)
+    raises PlacementError naming H, Kv and n, from put_params and from a
+    placed engine: nothing falls back. A role of data axes only, and a
+    family this port does not shard, run on the first device, and the
+    note names them."""
+    from repro_torch.parallel import tp
+    mt, md, pt, pd, _ = gold_pair
+    t3 = PlacementPlan(drafter=SubmeshSpec("d1", ("dx",), (1,)),
+                       target=SubmeshSpec("t3", ("tx",), (3,)))
+    pm = PL.lower(t3, CPU8)
+    with pytest.raises(PL.PlacementError, match="3 devices cannot split 4 "
+                       "query heads and 2 KV heads"):
+        pm.target.put_params(mt, pt)
+    eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, use_cache=True),
+                     placement=pm)
+    with pytest.raises(PL.PlacementError):
+        eng.generate(pt, pd, _prompts(2, 6, seed=0), 4)
+    data = PlacementPlan(drafter=SubmeshSpec("d2", ("data",), (2,)),
+                         target=SubmeshSpec("t4", ("tx",), (4,)))
+    pm = PL.lower(data, CPU8)
+    assert "no batch split: d2 on device 0 of 2 (data axes only)" in pm.note
+    assert pm.drafter.layout(md) is None
+    whole = pm.drafter.put_params(md, pd)
+    assert not isinstance(whole, tp.TPParams)
+    assert whole["layers"][0]["attn"]["q"]["w"] is pd["layers"][0]["attn"]["q"]["w"]
+    moe = build_model(registry.smoke_config("mixtral-8x7b"))
+    assert pm.target.layout(moe) is None
+    assert "moe" in pm.note
+    # a data x model role is tensor-parallel over one data replica
+    dm = PL.role(SubmeshSpec("t", ("data", "tx"), (2, 2)), CPU8)
+    assert dm.model_positions == (0, 1) and dm.layout(mt).n == 2
+
+
+def test_sharded_paged_server_fails_a_row_on_every_shard(split_pair):
+    """The t4-sharded paged server on the corrupt-output fault: the
+    poisoned request fails with the corrupt-token reason, the others keep
+    the clean tokens, and every block the failed row owned alone is zeroed
+    in all of the target's four pools and the drafter's two."""
+    from repro_torch.serving import FaultPlan
+    mt, md, pt, pd = split_pair["torch"]
+    cfg = dict(max_batch=2, block_size=4, num_blocks=64, max_blocks_per_row=12,
+               gamma_max=4, prefill_buckets=(8, 16))
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, 512, P).astype(np.int32), new)
+            for P, new in [(6, 12), (9, 12), (5, 10)]]
+
+    def serve(faults=None, spy=False):
+        srv = PagedSpecServer(mt, md, pt, pd, SchedulerConfig(**cfg), gamma=2,
+                              placement=PL.lower(HETERO, CPU8), device="cpu",
+                              faults=faults,
+                              watchdog=RoundWatchdog(slow_factor=float("inf")))
+        zeroed = []
+        if spy:
+            real = srv._fail_row
+
+            def fail_row(b, req, cur):
+                alloc = srv.alloc
+                own = [int(x) for x in alloc.table[b, :int(alloc.n_alloc[b])]
+                       if alloc.refcnt[x] == 1 and int(x) not in alloc.cached]
+                real(b, req, cur)
+                pools = [p for c in (srv._state.tcache, srv._state.dcache)
+                         for n in ("k", "v") for p in c[n].parts]
+                zeroed.append((len(pools), all((p[:, own] == 0).all()
+                                               for p in pools)))
+            srv._fail_row = fail_row
+        for i, (p, new) in enumerate(reqs):
+            srv.submit(ServeRequest(i, p, new))
+        return srv, {r.rid: r.tokens for r in srv.run()}, zeroed
+    srv, got, zeroed = serve(FaultPlan(corrupt_rounds=frozenset({1, 2})), True)
+    _, clean, _ = serve()
+    failed = {r.rid: r.failed for r in srv.metrics.failed}
+    assert failed and all("corrupt token id" in why for why in failed.values())
+    assert zeroed and all(z == (12, True) for z in zeroed)
+    assert sorted(got) == sorted(set(range(3)) - set(failed))
+    for rid, toks in got.items():
+        np.testing.assert_array_equal(toks, clean[rid])
+    assert srv.alloc.audit()["live"] == 0
+
+
+@pytest.mark.parametrize("case", ["paged", "tree", "windowed_ring", "int8_weights"])
+def test_sharded_forwards_match_the_unsharded_ones(split_pair, case):
+    """The t4-split target against the whole one on the other cached
+    forwards: a paged pool made split by ``init_paged_cache(layout=)``
+    (prefill then a γ + 1 verify), a stacked tree-verify pass over it, a
+    windowed ring whose 40-token prefill takes the flash route (more
+    tokens than the ring's 32 slots) and then wraps, and int8 serving
+    weights (``quantize_for_serving``: ``w_q`` and ``scale`` split as the
+    spec gives them). fp32, within 1e-5 of the logits' scale."""
+    from repro_torch.core.tree import chain_tree
+    from repro_torch.quant.int8 import quantize_for_serving
+    mt, _, pt, _ = split_pair["torch"]
+    pm = PL.lower(HETERO, CPU8)
+    if case == "windowed_ring":
+        mt = build_model(mt.cfg.replace(sliding_window=16))
+    if case == "int8_weights":
+        pt = quantize_for_serving(pt)
+    sp = pm.target.put_params(mt, pt)
+    lay = pm.target.layout(mt)
+    toks = torch.from_numpy(_prompts(2, 48, seed=11)).long()
+    outs = []
+    for params, layout in ((pt, None), (sp, lay)):
+        got = []
+        if case == "windowed_ring":
+            cache = mt.init_cache(2, 64, device="cpu", layout=layout)
+            for a, b in ((0, 40), (40, 44), (44, 48)):
+                lg, cache, _ = mt.apply(params, toks[:, a:b], cache)
+                got.append(lg)
+        else:
+            cache = mt.init_paged_cache(2, 17, 8, 8, device="cpu", layout=layout)
+            cache["block_table"] = torch.arange(1, 17, dtype=torch.int32).reshape(2, 8)
+            lg, cache, _ = mt.apply(params, toks[:, :30], cache)
+            got.append(lg)
+            if case == "tree":
+                shape = chain_tree(2, 3)
+                span = toks[:, 30:30 + shape.span]
+                lg, cache, _ = mt.apply(params, span, cache,
+                                        tree=(shape.depths, shape.bits))
+            else:
+                lg, cache, _ = mt.apply(params, toks[:, 30:35], cache)
+            got.append(lg)
+        outs.append(torch.cat(got, 1))
+    whole, split = outs
+    tol = 1e-5 * float(whole.abs().max())
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("path", ["engine", "engine_overlap", "per_row",
+                                  "paged", "session"])
+def test_tensor_parallel_roles_never_run_unsplit(gold_pair, path,
+                                                 monkeypatch):
+    """Under HETERO every forward of either role on a placed path, the
+    prefill's included, takes the split params record: no forward runs a
+    tensor-parallel role's whole model, and the goldens' tokens come out."""
+    from repro_torch.parallel import tp
+    mt, md, pt, pd, _ = gold_pair
+    seen = []
+    for role, model in (("target", mt), ("drafter", md)):
+        real = model.apply
+
+        def spy(params, *a, _real=real, _role=role, **k):
+            seen.append((_role, isinstance(params, tp.TPParams)))
+            return _real(params, *a, **k)
+        monkeypatch.setattr(model, "apply", spy)
+    plan = dataclasses.replace(HETERO, overlap=path == "engine_overlap")
+    pm = PL.lower(plan, CPU8)
+    if path in ("engine", "engine_overlap"):
+        eng = SpecEngine(mt, md, EngineConfig(gamma=GAMMA, use_cache=True,
+                                              strategy="modular"),
+                         placement=pm)
+        toks = eng.generate(pt, pd, _prompts(2, 6, seed=0), MAX_NEW)[0]
+        want = GOLD["single_greedy_cached"]["tokens"]
+    elif path == "per_row":
+        eng = BatchedSpecEngine(mt, md, BatchedEngineConfig(gamma=GAMMA),
+                                placement=pm)
+        toks = eng.generate(pt, pd, _prompts(4, 6, seed=1), MAX_NEW)[0]
+        want = GOLD["per_row_greedy_ring"]["tokens"]
+    elif path == "paged":
+        srv = PagedSpecServer(mt, md, pt, pd, SchedulerConfig(max_batch=2),
+                              gamma=GAMMA, placement=pm, device="cpu")
+        srv.submit(ServeRequest(0, _prompts(1, 6, seed=0)[0], MAX_NEW))
+        toks = [r.tokens for r in srv.run()]
+        want = None
+    else:
+        sess_plan = dataclasses.replace(
+            api.Planner(api.DeploymentSpec(batch_size=1, prompt_lens=(6,),
+                                           max_new=8, cost_coefficient=0.2,
+                                           adaptive_gamma=False)).plan(),
+            placement=plan)
+        sess = api.Session(mt, md, pt, pd, sess_plan, device="cpu",
+                           placement=pm)
+        toks = sess.generate(_prompts(1, 6, seed=2))[0]
+        want = None
+    if want is not None:
+        got = np.asarray(toks)[:, :6 + MAX_NEW]
+        np.testing.assert_array_equal(got, np.asarray(want)[:, :6 + MAX_NEW])
+    assert {r for r, _ in seen} == {"target", "drafter"}
+    assert all(split for _, split in seen), seen
+
+
+def test_put_cache_takes_only_a_cache_made_split(gold_pair):
+    """A tensor-parallel role's cache is made split by its layout, never
+    split afterwards: ``put_cache`` refuses a whole cache, or one split by
+    another layout, and moves a split one's shared leaves (the index) to
+    the role's first device, its pieces untouched."""
+    mt, md, _, _, _ = gold_pair
+    pm = PL.lower(HETERO, CPU8)
+    with pytest.raises(PL.PlacementError, match="made split"):
+        pm.target.put_cache(mt, mt.init_cache(2, 16, device="cpu"), 2)
+    other = md.init_cache(2, 16, device="cpu", layout=pm.drafter.layout(md))
+    with pytest.raises(PL.PlacementError, match="layout of 4"):
+        pm.target.put_cache(mt, {**mt.init_cache(2, 16, device="cpu"),
+                                 "k": other["k"], "v": other["v"]}, 2)
+    ring = mt.init_cache(2, 16, device="cpu", layout=pm.target.layout(mt))
+    placed = pm.target.put_cache(mt, ring, 2)
+    assert placed["k"] is ring["k"] and placed["v"] is ring["v"]
+    assert placed["index"].device == pm.target.device
+    # a role left whole takes a whole cache, as before
+    whole = md.init_cache(2, 16, device="cpu")
+    assert pm.drafter.put_cache(None, whole, 2)["k"] is whole["k"]
+
+
+def test_a_split_is_a_snapshot_of_its_params(gold_pair):
+    """Every piece of a split is a copy (on a shared device too, where a
+    slice or a replicated leaf could have been a view): an in-place
+    update of the source after ``put_params`` does not reach the split,
+    and the same record gets the same split back."""
+    mt, _, pt, _, _ = gold_pair
+    pm = PL.lower(HETERO, CPU8)
+    src = {k: v for k, v in pt.items()}
+    src["embed"] = {k: v.clone() for k, v in pt["embed"].items()}
+    sp = pm.target.put_params(mt, src)
+    storages = {t.untyped_storage().data_ptr()
+                for _, t in _shard_leaves(src)}
+    for path, leaf in _shard_leaves(sp):
+        for piece in leaf.parts:
+            assert piece.untyped_storage().data_ptr() not in storages, path
+    before = [p.clone() for p in sp["embed"]["table"].parts]
+    src["embed"]["table"].add_(1.0)
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, sp["embed"]["table"].parts))
+    assert pm.target.put_params(mt, src) is sp
